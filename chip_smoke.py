@@ -3,22 +3,39 @@
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
-Drives the port's serving path (``cli.serve.build_predict_fn --arch 67
---fused`` behind ``serving.BatchingEngine``) at the full width of
-FCDenseNet67 (3,461,220 parameters, 120x160 frames) on random weights made
-from a seed, and holds every kernel of that path against its plain PyTorch
-version.  Phases:
+Drives the port's two main paths at the full width of FCDenseNet67
+(3,461,220 parameters, 120x160 frames) on random weights made from a
+seed, and holds every kernel of those paths against its plain PyTorch
+version: serving (``cli.serve.build_predict_fn --arch 67 --fused`` behind
+``serving.BatchingEngine``, kernel K4) and training (``cli.train.main
+--trainType sim --arch 67 --pallas_train``, kernels K1, K2, K3a, K3b).
+Phases:
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: builds the kernels from ``csrc/`` with nvcc;
-3. kernel against plain: all 11 dense blocks at their real widths (B=8,
+2. build: builds both kernel sources from ``csrc/`` with nvcc, at once;
+3. K4 against plain: all 11 dense blocks at their real widths (B=8,
    120x160), in float32 (TF32 off) and in bfloat16;
 4. serve: 4 client threads x 8 requests of 1-16 frames through the engine
    (max_batch=64); checks every reply, the kernels' launch counts, and
    pixel agreement with the plain module on the card;
-5. timing: CUDA events around a B=64 fused forward and around each
+5. K4 timing: CUDA events around a B=64 fused forward and around each
    kernel's launches, beside the plain versions, the cuDNN yardsticks and
-   the least time the card could take (bound).
+   the least time the card could take (bound);
+6. K1-K3b against plain: every call of one fused train step (B=4; all 60
+   consumer sites, 55 stages, 11 block inputs) in float32 and bfloat16,
+   with a channel of every dropout site dropped for the whole batch and
+   zero BN shifts, so z == 0 planes occur;
+7. gradients: plain autograd and ``fused_apply_train`` (both backward
+   routes) in float32 against the plain train forward plus autograd in
+   float64, whole model, B=4, with the bfloat16 fused step as a control;
+8. train: two epochs of ``cli.train.main --pallas_train -b 32`` on a
+   synthetic PNG tree written from the seed (96/32/32 frames); checks the
+   losses, the launch counts per step, that no plain version ran, serves
+   ``best_weights.pt`` and resumes at epoch 2;
+9. train timing: every kernel call of one B=32 train step against its
+   plain version (bfloat16), the B=32 step against the plain autograd
+   step, and each train kernel's time per step beside its plain version,
+   a cuDNN yardstick and its bound.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -33,10 +50,12 @@ import sys
 import tempfile
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 
 SEED = 0
+ARCH = "67"
 N_CLS = 4
 H, W = 120, 160
 CHECK_BATCH = 8
@@ -49,6 +68,32 @@ PEAK_BF16_OPS = 989e12
 PEAK_BYTES = 3.35e12
 REPLACES = "sim2real_lane_segment_tpu/models/tiramisu_pallas.py:701"
 SOURCE = "sim2real_lane_segment_tpu_torch/csrc/dense_block.cu"
+TRAIN_SOURCE = "sim2real_lane_segment_tpu_torch/csrc/train_block.cu"
+_TP = "sim2real_lane_segment_tpu/models/tiramisu_train_pallas.py"
+# wrapper name -> (summary name, the TPU kernel's pallas_call)
+TRAIN_KERNELS = {"consumer_fwd": ("k1_consumer_fwd", f"{_TP}:187"),
+                 "consumer_bwd": ("k2_consumer_bwd", f"{_TP}:328"),
+                 "stage": ("k3a_stage", f"{_TP}:759"),
+                 "final": ("k3b_final", f"{_TP}:854")}
+TRAIN_CHECK_BATCH = 4
+TRAIN_BATCH = 32
+TRAIN_SPLITS = (("train", 96), ("valid", 32), ("test", 32))
+# per launch of FCDenseNet67's fused train step: 55 dense + 5 TD forwards,
+# 5 TD backwards, 55 stages, 11 block inputs
+TRAIN_LAUNCHES_PER_STEP = {"consumer_fwd": 60, "consumer_bwd": 5,
+                           "stage": 55, "final": 11}
+# train kernels against plain, max|err| / max|ref| per output.  float32:
+# sums of up to 10^5 products in another order.  bfloat16: a rounded
+# output may land one bf16 step (2^-8) away, and a stage's rounded g_pre
+# feeds its own sums.
+TRAIN_REL_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+# whole-model gradients of the float32 routes against the plain step in
+# float64: per parameter max|err| <= GRAD_RTOL * max(max|ref|, 1e-2 * the
+# largest gradient).  Float32 rounding alone comes near 3e-3 on an H100:
+# plain autograd's first-conv weight gradient, a sum over 76,800 pixels
+# that largely cancels, after ~130 backward layers.  The bfloat16 fused
+# step, the control, reads about 1.6e-1 (PERF.md).  The limit sits between.
+GRAD_RTOL = 5e-3
 # float32: the kernel and the plain version sum the same float32 products
 # in another order.  bfloat16: one rounding of a different f32 sum may land
 # on the neighbouring bf16 value (relative step 2^-7), and later layers of
@@ -106,14 +151,15 @@ def seeded_state_dict(device) -> dict:
     import torch
     from torch import nn
 
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
     from sim2real_lane_segment_tpu_torch.core.dtypes import F32_POLICY
     from sim2real_lane_segment_tpu_torch.models.tiramisu import (
-        DenseLayer, TransitionDown, fcdensenet67)
+        DenseLayer, TransitionDown)
     from sim2real_lane_segment_tpu_torch.ops.augment import (AugmentConfig,
                                                              eval_batch)
 
     gen = torch.Generator().manual_seed(SEED)
-    model = fcdensenet67(N_CLS, F32_POLICY)
+    model = build_model(ARCH, N_CLS, F32_POLICY)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -147,9 +193,9 @@ def seeded_state_dict(device) -> dict:
 
 
 def make_model(sd, policy, device):
-    from sim2real_lane_segment_tpu_torch.models.tiramisu import fcdensenet67
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
 
-    model = fcdensenet67(N_CLS, policy)
+    model = build_model(ARCH, N_CLS, policy)
     model.load_state_dict(sd)
     return model.to(device).eval()
 
@@ -457,6 +503,504 @@ def timing_phase(sd, device, card, launches, errs):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# training path (K1, K2, K3a, K3b)
+# ---------------------------------------------------------------------------
+
+def train_masks(model, batch, device, seed):
+    """Dropout masks from ``seed``, with channel 0 of every site dropped
+    for the whole batch (so its output plane is exactly zero)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.models.tiramisu import drop_masks
+
+    masks = drop_masks(torch.Generator().manual_seed(seed), model, batch)
+    for m in masks:
+        m[:, 0] = 0.0
+    return [m.to(device) for m in masks]
+
+
+def train_batch(rng, n, device):
+    """(NCHW model input, int64 labels) for a train-mode forward."""
+    import torch
+
+    x = model_input(synthetic_frames(rng, n), device)
+    y = torch.from_numpy(rng.integers(0, N_CLS, (n, H, W))).to(device)
+    return x, y
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def _hold_site(label, outs, refs, tol, card) -> float:
+    """Print one call's kernel outputs against the plain ones and fail if
+    one differs by more than ``tol`` of its scale.  Returns the largest
+    max|err|."""
+    rels = [_rel(a, b) for a, b in zip(outs, refs)]
+    abss = [(a.float() - b.float()).abs().max().item()
+            for a, b in zip(outs, refs)]
+    print(f"  {label}: max|err|/max|ref| {max(rels):.2e} max|err| "
+          f"{max(abss):.2e}  [{card}]")
+    check(max(rels) <= tol, f"{label}: relative errors {rels} > {tol}")
+    return max(abss)
+
+
+def _as_list(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def compare_train_kernels(sd, device, dtype_name, card):
+    """Phase 6 for one dtype: one fused train step at B=4 through the plain
+    versions; at every call, the kernel runs on the same operands and is
+    held against the plain result.  Returns the largest max|err| per
+    kernel."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.core.dtypes import (DEFAULT_POLICY,
+                                                             F32_POLICY)
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+    from sim2real_lane_segment_tpu_torch.models.tiramisu_train_fused import \
+        fused_apply_train
+    from sim2real_lane_segment_tpu_torch.train.losses import \
+        weighted_cross_entropy
+
+    policy = F32_POLICY if dtype_name == "float32" else DEFAULT_POLICY
+    model = make_model(sd, policy, device)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.bias.zero_()  # dropped planes then give z == 0
+    rng = np.random.default_rng(SEED + 4)
+    x, y = train_batch(rng, TRAIN_CHECK_BATCH, device)
+    masks = train_masks(model, TRAIN_CHECK_BATCH, device, SEED + 5)
+    errs = {k: 0.0 for k in TRAIN_KERNELS}
+    sites = {k: 0 for k in TRAIN_KERNELS}
+    tol = TRAIN_REL_TOL[dtype_name]
+    kernel = {k: getattr(ktb, k) for k in TRAIN_KERNELS}
+    plain = {k: getattr(ktb, f"{k}_plain") for k in TRAIN_KERNELS}
+
+    def hold(name, outs, refs, shape):
+        sites[name] += 1
+        label = (f"{dtype_name} {TRAIN_KERNELS[name][0]:16s} site "
+                 f"{sites[name]:2d} {shape}")
+        errs[name] = max(errs[name], _hold_site(label, outs, refs, tol, card))
+
+    def consumer_fwd(x, scale, shift, weight, bias, mask, out=None):
+        k = kernel["consumer_fwd"](x, scale, shift, weight, bias, mask)
+        p = plain["consumer_fwd"](x, scale, shift, weight, bias, mask, out)
+        hold("consumer_fwd", [k], [p], tuple(weight.shape))
+        return p
+
+    def consumer_bwd(*args):
+        k = kernel["consumer_bwd"](*args)
+        p = plain["consumer_bwd"](*args)
+        hold("consumer_bwd", k, p, tuple(args[3].shape))
+        return p
+
+    def stage(*args):
+        k = kernel["stage"](*args)
+        p = plain["stage"](*args)
+        hold("stage", k, p, (tuple(args[9].shape), len(args[3])))
+        return p
+
+    def final(*args):
+        k = kernel["final"](*args)
+        p = plain["final"](*args)
+        hold("final", [k], [p], (tuple(args[2][0].shape), len(args[1])))
+        return p
+
+    with mock.patch.multiple(ktb, consumer_fwd=consumer_fwd,
+                             consumer_bwd=consumer_bwd, stage=stage,
+                             final=final):
+        out, _ = fused_apply_train(model, x, masks)
+        weighted_cross_entropy(out, y, N_CLS).backward()
+    torch.cuda.synchronize()
+    check(sites == {k: v for k, v in TRAIN_LAUNCHES_PER_STEP.items()},
+          f"{dtype_name}: compared sites {sites}, expected "
+          f"{TRAIN_LAUNCHES_PER_STEP}")
+    print(f"  {dtype_name} train kernels max|err|: {json.dumps(errs)}  "
+          f"[{card}]")
+    return errs
+
+
+def check_model_grads(sd, device, card):
+    """Phase 7: whole-model outputs, batch statistics and gradients, B=4,
+    against the plain train forward plus autograd in float64.  The float32
+    routes (plain autograd, ``fused_apply_train`` with the fused block sweep
+    and with the per-consumer route) are held to GRAD_RTOL; the bfloat16
+    fused step is the control reading that the limit must stay below."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.core.dtypes import (DEFAULT_POLICY,
+                                                             F32_POLICY,
+                                                             F64_POLICY)
+    from sim2real_lane_segment_tpu_torch.models.tiramisu_train_fused import \
+        fused_apply_train
+    from sim2real_lane_segment_tpu_torch.train.losses import \
+        weighted_cross_entropy
+
+    rng = np.random.default_rng(SEED + 6)
+    x, y = train_batch(rng, TRAIN_CHECK_BATCH, device)
+    routes = {
+        "float64 plain": (F64_POLICY, lambda m, mk: m(
+            x.double(), train=True, masks=mk)),
+        "plain autograd": (F32_POLICY, lambda m, mk: m(x, train=True,
+                                                       masks=mk)),
+        "fused block": (F32_POLICY, lambda m, mk: fused_apply_train(m, x, mk)),
+        "per consumer": (F32_POLICY, lambda m, mk: fused_apply_train(
+            m, x, mk, fused_block_bwd=False)),
+        "fused block bf16": (DEFAULT_POLICY, lambda m, mk: fused_apply_train(
+            m, x, mk))}
+    res = {}
+    for name, (policy, fwd) in routes.items():
+        model = make_model(sd, policy, device)
+        if policy is F64_POLICY:
+            model.double()
+        masks = train_masks(model, TRAIN_CHECK_BATCH, device, SEED + 7)
+        out, upd = fwd(model, masks)
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(weighted_cross_entropy(out, y, N_CLS),
+                                    list(params.values()))
+        res[name] = (out.detach(), upd, dict(zip(params, grads)))
+    torch.cuda.synchronize()
+    ref_out, ref_upd, ref_g = res["float64 plain"]
+    big = max(g.abs().max().item() for g in ref_g.values())
+
+    def grad_errs(gr, ref):
+        """Per parameter max|err| / max(max|ref|, 1e-2 * the largest
+        gradient), sorted."""
+        return sorted(((gr[k].double() - g.double()).abs().max().item()
+                       / max(g.abs().max().item(), 1e-2 * big), k)
+                      for k, g in ref.items())
+
+    worst = {}
+    for name in list(routes)[1:]:
+        out, upd, gr = res[name]
+        e_out = _rel(out, ref_out)
+        e_st = max(max(_rel(upd[k][s], ref_upd[k][s]) for s in ("mean",
+                                                              "var"))
+                   for k in ref_upd)
+        rel = grad_errs(gr, ref_g)
+        worst[name] = rel[-1][0]
+        print(f"grads: {name} vs float64 plain autograd (B="
+              f"{TRAIN_CHECK_BATCH}): output {e_out:.2e}, batch stats "
+              f"{e_st:.2e}, gradients over {len(ref_g)} parameters: median "
+              f"{rel[len(rel) // 2][0]:.2e}, worst "
+              f"{', '.join(f'{e:.2e} ({k})' for e, k in rel[-3:])}  "
+              f"[{card}]")
+        if name.endswith("bf16"):
+            continue
+        check(e_out <= 1e-3 and e_st <= 1e-3,
+              f"{name}: output {e_out} or batch stats {e_st} differ")
+        check(worst[name] <= GRAD_RTOL, f"{name}: gradient of {rel[-1][1]} "
+              f"differs from float64 by {worst[name]} of its scale")
+    e_fp = grad_errs(res["fused block"][2], res["plain autograd"][2])[-1]
+    e_routes = grad_errs(res["fused block"][2], res["per consumer"][2])[-1]
+    print(f"grads: fused block vs float32 plain autograd, worst {e_fp[0]:.2e} "
+          f"({e_fp[1]}); fused block vs per consumer, worst {e_routes[0]:.2e}"
+          f" ({e_routes[1]}); limit {GRAD_RTOL:.1e}, bf16 control "
+          f"{worst['fused block bf16']:.2e}  [{card}]")
+    check(e_routes[0] <= GRAD_RTOL, f"the two backward routes differ: "
+          f"{e_routes}")
+    check(worst["fused block bf16"] > GRAD_RTOL, "the gradient limit does "
+          "not separate float32 rounding from the bfloat16 control")
+
+
+def write_png_tree(root: str) -> None:
+    """A synthetic Duckietown-like PNG tree from SEED: BGR frames with a
+    right lane (class 1), a left lane (2) and, on every third frame, an
+    obstacle (3), written by the port's own PNG writer."""
+    from sim2real_lane_segment_tpu_torch.data.png import write_png
+
+    rng = np.random.default_rng(SEED)
+    for split, n in TRAIN_SPLITS:
+        for sub in ("input", "label"):
+            os.makedirs(os.path.join(root, split, sub), exist_ok=True)
+        frames = synthetic_frames(rng, n)
+        for i in range(n):
+            img, lab = frames[i].copy(), np.zeros((H, W), np.uint8)
+            xr, xl = int(rng.integers(95, 135)), int(rng.integers(20, 60))
+            img[60:, xr:xr + 8], lab[60:, xr:xr + 8] = (40, 210, 220), 1
+            img[60:, xl:xl + 6], lab[60:, xl:xl + 6] = (235, 235, 235), 2
+            if i % 3 == 0:
+                y0, x0 = int(rng.integers(20, 70)), int(rng.integers(60, 90))
+                img[y0:y0 + 20, x0:x0 + 24] = (30, 30, 200)
+                lab[y0:y0 + 20, x0:x0 + 24] = 3
+            write_png(os.path.join(root, split, "input", f"{i:06d}.png"), img)
+            write_png(os.path.join(root, split, "label", f"{i:06d}.png"), lab)
+
+
+def train_phase(card):
+    """Phase 8: the training CLI on the card.  Returns the kernels' launch
+    counts over the run and the number of train steps."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import train as train_cli
+    from sim2real_lane_segment_tpu_torch.cli.test import \
+        load_trainer_and_state
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+    from sim2real_lane_segment_tpu_torch.train.checkpoint import \
+        load_train_state
+
+    plain_calls = {k: 0 for k in TRAIN_KERNELS}
+
+    def counting(name):
+        fn = getattr(ktb, f"{name}_plain")
+
+        def wrapper(*a, **kw):
+            plain_calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "simData")
+        t0 = time.perf_counter()
+        write_png_tree(root)
+        print(f"train: wrote {sum(n for _, n in TRAIN_SPLITS)} PNG frames in "
+              f"{time.perf_counter() - t0:.1f} s")
+        args = ["--trainType", "sim", "--dataPath", root, "--arch", ARCH,
+                "--pallas_train", "--max_epochs", "2", "-b",
+                str(TRAIN_BATCH), "--default_root_dir", tmp, "--log_every",
+                "1", "--seed", str(SEED)]
+        with mock.patch.multiple(ktb, **{f"{k}_plain": counting(k)
+                                         for k in TRAIN_KERNELS}):
+            ktb.reset_launches()
+            t0 = time.perf_counter()
+            res = train_cli.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ktb.launches)
+        run = res["out_dir"]
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["train/tr_loss"] for r in rows if "train/tr_loss" in r]
+        steps = len(losses)
+        n_train = TRAIN_SPLITS[0][1]
+        check(steps == 2 * (n_train // TRAIN_BATCH),
+              f"{steps} train steps logged")
+        check(bool(np.isfinite(losses).all()), f"losses {losses}")
+        print(f"train: 2 epochs, {steps} steps of B={TRAIN_BATCH} in "
+              f"{wall:.1f} s (with validation, test and checkpoints); "
+              f"losses {[round(v, 4) for v in losses]}, best val_iou "
+              f"{res['best_iou']:.3f}  [{card}]")
+        expect = {k: v * steps for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+        print(f"train: kernel launches {json.dumps(launches)}, expected "
+              f"{json.dumps(expect)}; plain versions called "
+              f"{json.dumps(plain_calls)}")
+        check(launches == expect, "train launch counts differ")
+        check(not any(plain_calls.values()), "a plain version ran")
+
+        trainer = load_trainer_and_state(
+            "baseline", os.path.join(run, "best_weights.pt"),
+            num_cls=N_CLS, arch=ARCH, height=H, width=W)
+        frames = synthetic_frames(np.random.default_rng(SEED + 8), 8)
+        pred = trainer.predict_step_fused(frames).cpu().numpy()
+        check(pred.shape == (8, H, W) and pred.max() < N_CLS,
+              f"served {pred.shape}")
+        print(f"train: best_weights.pt served 8 frames through the fused "
+              f"forward, classes {np.bincount(pred.ravel(), minlength=4)}")
+
+        train_cli.main(args + ["--max_epochs", "3", "--resume"])
+        latest = load_train_state(os.path.join(
+            run, "checkpoints_latest", "latest.pt"))["epoch"]
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            n_logged = sum("train/tr_loss" in json.loads(line) for line in f)
+        check(latest == 2 and n_logged == steps + steps // 2,
+              f"resume: latest epoch {latest}, {n_logged} steps logged")
+        print(f"train: --resume continued at epoch 2 ({n_logged} steps "
+              f"logged in all)")
+    return launches, steps
+
+
+def _bn_act(x, scale, shift):
+    """T(relu(x*scale + shift)) in x's dtype: the kernels' conv operand."""
+    z = x.float() * scale[:, None, None] + shift[:, None, None]
+    return z.clamp(min=0).to(x.dtype)
+
+
+def _train_cost(name, args, out):
+    """(bytes, operations) that one call must move and do at least: every
+    input read once, every output written once."""
+    import torch
+
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    if name == "consumer_fwd":
+        x, scale, shift, weight, bias, mask = args[:6]
+        b, _, h, w = x.shape
+        c, taps, n = weight.shape
+        moved = (b * c * h * w * x.element_size() + nb(weight) + nb(scale)
+                 + nb(shift) + nb(bias) + nb(mask) + nb(out))
+        return moved, 2.0 * b * h * w * c * taps * n
+    if name == "consumer_bwd":
+        x, scale, shift, weight, mask, dy = args
+        b, _, h, w = x.shape
+        c, taps, n = weight.shape
+        moved = (b * c * h * w * x.element_size() + nb(weight) + nb(scale)
+                 + nb(shift) + nb(mask) + nb(dy) + sum(nb(t) for t in out))
+        return moved, 4.0 * b * h * w * c * taps * n
+    if name == "stage":
+        (x, y, ext, gps, wls, scale, shift, scs, shs, weight, mask) = args
+        b, _, h, w = x.shape
+        c, _, g = weight.shape
+        moved = (b * c * h * w * x.element_size() + nb(y) + nb(ext)
+                 + sum(nb(t) for t in list(gps) + list(wls) + list(scs)
+                       + list(shs)) + nb(scale) + nb(shift) + nb(weight)
+                 + nb(mask) + sum(nb(t) for t in out))
+        ops = (2.0 * b * h * w * 9 * g * g * len(gps)
+               + 4.0 * b * h * w * c * 9 * g)
+        return moved, ops
+    x, gps, wls, scs, shs = args
+    b, _, h, w = x.shape
+    c, _, g = wls[0].shape
+    moved = (b * c * h * w * x.element_size()
+             + sum(nb(t) for t in list(gps) + list(wls) + list(scs)
+                   + list(shs)) + nb(out))
+    return moved, 2.0 * b * h * w * c * 9 * g * len(gps)
+
+
+def _train_library(name, args):
+    """One cuDNN call on the already-activated operands, as a yardstick
+    (None for K3b: no single call computes it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+
+    if name == "final":
+        return None
+    if name == "stage":
+        x, scale, shift, weight, mask = args[0], args[5], args[6], args[9], \
+            args[10]
+        g = ktb.stage(*args)[0]
+    else:
+        x, scale, shift, weight, mask = args[:5] if name == "consumer_bwd" \
+            else (args[0], args[1], args[2], args[3], args[5])
+        g = None
+    c, taps, n = weight.shape
+    a = _bn_act(x[:, :c], scale, shift)
+    w4 = ktb.conv_weight(weight).to(x.dtype).contiguous()
+    pad = 1 if taps == 9 else 0
+    if name == "consumer_fwd":
+        return lambda: F.conv2d(a, w4, padding=pad)
+    if g is None:  # K2: the rounded g_pre
+        g = (args[5].float() * mask[:, :, None, None]).to(x.dtype)
+    return lambda: torch.ops.aten.convolution_backward(
+        g, a, w4, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
+        [True, True, False])
+
+
+def train_timing(sd, device, card, launches, errs):
+    """Phase 9: B=32.  Returns the kernels line entries of K1-K3b."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+    from sim2real_lane_segment_tpu_torch.train.supervised import \
+        SupervisedTrainer
+
+    rng = np.random.default_rng(SEED + 9)
+    images = synthetic_frames(rng, TRAIN_BATCH)
+    labels = rng.integers(0, N_CLS, (TRAIN_BATCH, H, W)).astype(np.uint8)
+    trainers = {}
+    for fused in (True, False):
+        model = build_model(ARCH, N_CLS)
+        model.load_state_dict(sd)
+        trainers[fused] = SupervisedTrainer(num_cls=N_CLS, model=model,
+                                            pallas_train=fused)
+    masks = train_masks(trainers[True].model, TRAIN_BATCH, device, SEED + 10)
+
+    def step(fused):
+        return lambda: trainers[fused].train_step(images, labels, 1e-3,
+                                                  masks=masks)
+
+    reps = 3
+    t = {True: [], False: []}
+    for fused in (False, True, True, False):  # in turns
+        t[fused].append(_time_ms(step(fused), reps))
+    fused_ms, plain_ms = (sum(t[True]) / 2, sum(t[False]) / 2)
+    print(f"timing: train step B={TRAIN_BATCH} --pallas_train "
+          f"{fused_ms:.3f} ms ({TRAIN_BATCH / fused_ms * 1e3:.1f} frames/s) "
+          f"{t[True]}; plain step (autograd through cuDNN) {plain_ms:.3f} ms "
+          f"({TRAIN_BATCH / plain_ms * 1e3:.1f} frames/s) {t[False]}  "
+          f"[{card}]")
+
+    calls = []
+    real = {k: getattr(ktb, k) for k in TRAIN_KERNELS}
+
+    def recording(name):
+        def wrapper(*a, **kw):
+            out = real[name](*a, **kw)
+            calls.append((name, a, kw, out))
+            return out
+        return wrapper
+
+    with mock.patch.multiple(ktb, **{k: recording(k)
+                                     for k in TRAIN_KERNELS}):
+        step(True)()
+    torch.cuda.synchronize()
+    e = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+             "ops": 0.0, "calls": 0, "err": 0.0} for k in TRAIN_KERNELS}
+    with torch.no_grad():
+        # every call of the B=32 step, kernel against plain on the same
+        # operands (as they stand after the step), before any timing
+        for name, a, kw, _ in calls:
+            kw = {k: v for k, v in kw.items() if k != "out"}
+            d = e[name]
+            d["calls"] += 1
+            label = (f"bfloat16 B={TRAIN_BATCH} {TRAIN_KERNELS[name][0]:16s} "
+                     f"site {d['calls']:2d}")
+            d["err"] = max(d["err"], _hold_site(
+                label, _as_list(real[name](*a, **kw)),
+                _as_list(getattr(ktb, f"{name}_plain")(*a, **kw)),
+                TRAIN_REL_TOL["bfloat16"], card))
+        torch.cuda.synchronize()
+        # K1 rewrites its block buffer in place
+        for name, a, kw, out in calls:
+            d = e[name]
+            moved, ops = _train_cost(name, a, out)
+            d["bytes"] += moved
+            d["ops"] += ops
+            d["ms"] += _time_ms(lambda: real[name](*a, **kw), 2)
+            d["plain_ms"] += _time_ms(
+                lambda: getattr(ktb, f"{name}_plain")(*a, **kw), 2)
+            lib = _train_library(name, a)
+            if lib is None:
+                d["library_ms"] = None
+            else:
+                d["library_ms"] += _time_ms(lib, 2)
+    kernels = []
+    for name, d in e.items():
+        check(d["calls"] == TRAIN_LAUNCHES_PER_STEP[name],
+              f"{name}: {d['calls']} calls in one step")
+        t_bytes = d["bytes"] / PEAK_BYTES * 1e3
+        t_ops = d["ops"] / PEAK_BF16_OPS * 1e3
+        label, replaces = TRAIN_KERNELS[name]
+        entry = {"name": label, "route": "cuda", "source": TRAIN_SOURCE,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": max(errs[name], d["err"]), "ms": d["ms"],
+                 "plain_ms": d["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": d["library_ms"]}
+        kernels.append(entry)
+        lib = ("n/a" if d["library_ms"] is None
+               else f"{d['library_ms']:.3f} ms")
+        print(f"timing: {label} per B={TRAIN_BATCH} train step "
+              f"({d['calls']} launches): kernel {d['ms']:.3f} ms, plain "
+              f"{d['plain_ms']:.3f} ms, cuDNN yardstick {lib}, bound "
+              f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}; "
+              f"{d['ops'] / 1e9:.1f} GFLOP, {d['bytes'] / 1e9:.3f} GB)  "
+              f"[{card}]")
+    total = sum(d["ms"] for d in e.values())
+    print(f"timing: train kernels {total:.3f} ms of the {fused_ms:.3f} ms "
+          f"step; their bound {sum(k['bound_ms'] for k in kernels):.3f} ms  "
+          f"[{card}]")
+    return kernels
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -477,14 +1021,18 @@ def main() -> None:
           f"{torch.version.cuda}")
     print(card, flush=True)
 
-    # phase 2: build
+    # phase 2: build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    build.load("dense_block")
-    print(f"build: dense_block in {time.perf_counter() - t0:.1f} s (nvcc "
-          f"{build.build_seconds.get('dense_block', 0.0):.1f} s)  [{card}]")
-    for line in build.build_log.get("dense_block", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    sources = ("dense_block", "train_block")
+    build.build(*sources)
+    for name in sources:
+        build.load(name)
+    print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {json.dumps(build.build_seconds)} s)  [{card}]")
+    for name in sources:
+        for line in build.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
 
     # phase 3: kernel against plain, every block at full width
     t0 = time.perf_counter()
@@ -500,7 +1048,26 @@ def main() -> None:
 
     # phase 5: timing
     kernels = timing_phase(sd, device, card, launches, errs["bfloat16"])
-    print(f"engine: {fps:.1f} frames/s end to end  [{card}]")
+    print(f"engine: {fps:.1f} frames/s end to end  [{card}]", flush=True)
+
+    # phase 6: train kernels against plain, every site of one step
+    t0 = time.perf_counter()
+    train_errs = {}
+    for dtype_name in ("float32", "bfloat16"):
+        train_errs[dtype_name] = compare_train_kernels(sd, device,
+                                                       dtype_name, card)
+    print(f"compare: train kernels done in {time.perf_counter() - t0:.1f} s"
+          f"  [{card}]", flush=True)
+
+    # phase 7: whole-model gradients against plain autograd
+    check_model_grads(sd, device, card)
+
+    # phase 8: train end to end (the training main path)
+    train_launches, _ = train_phase(card)
+
+    # phase 9: train timing
+    kernels += train_timing(sd, device, card, train_launches,
+                            train_errs["bfloat16"])
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,115 @@
+"""Training CLI, the reference ``train.py`` interface.
+
+Counterpart of the JAX package's ``cli/train.py`` for ``--trainType
+sim``:
+
+    python -m sim2real_lane_segment_tpu_torch.cli.train --trainType sim \\
+        --dataPath simData --arch 67 --pallas_train -b 32 --max_epochs 175
+
+``--pallas_train`` runs the FC-DenseNet train step through the fused
+consumer kernels (``models.tiramisu_train_fused``); without it the plain
+module trains with autograd.  Training runs on the card unless ``main``
+is given ``device="cpu"``.  Artifacts go to
+``<default_root_dir or results>/<model_name>``: ``metrics.jsonl``,
+``checkpoints/best.pt`` (best val_iou), ``checkpoints_latest/latest.pt``
+and ``best_weights.pt``.  Not yet ported, and raising: ``--trainType st`` and
+``mme``, ``--augment``, ``--fast_train``, ``--device_cache``, ``--dp``
+and ``--profile``.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+
+from . import common
+
+NOT_PORTED = ("augment", "fast_train", "device_cache", "profile")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--trainType", choices=["sim", "st", "mme"], required=True,
+                   help="Type of training method")
+    p.add_argument("--dataPath", type=str, required=True,
+                   help="Path of database root")
+    p.add_argument("--pretrained_path", type=str,
+                   help="MME training uses pretrained weights (not yet "
+                        "ported)")
+    p.add_argument("--model_name", type=str, default="baseline",
+                   help="Model identifier for logging and checkpoints.")
+    p.add_argument("--reproducible", action="store_true",
+                   help="Seed everything to 42 for a deterministic run.")
+    p.add_argument("--comet", action="store_true",
+                   help="Accepted for interface parity; logs locally.")
+    p.add_argument("--wandb", action="store_true",
+                   help="Accepted for interface parity; logs locally.")
+    p.add_argument("--max_epochs", type=int, default=175)
+    p.add_argument("--default_root_dir", type=str, default=None)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--arch", default="67",
+                   choices=["67", "67r", "57", "103", "tiny", "lite",
+                            "encdec"],
+                   help="FCDenseNet variant ('tiny' is a smoke-test config)")
+    p.add_argument("--resume", action="store_true",
+                   help="Resume from the run's checkpoint dirs if present")
+    p.add_argument("--log_every", type=int, default=50,
+                   help="Log train scalars every N global steps")
+    p.add_argument("--fast_train", action="store_true",
+                   help="segment-wise train forward (not yet ported)")
+    p.add_argument("--pallas_train", action="store_true",
+                   help="train FC-DenseNets through the fused consumer "
+                        "kernels (K1, K2, K3a, K3b)")
+    p.add_argument("--profile", action="store_true",
+                   help="profiler trace (not yet ported)")
+    p.add_argument("--dp", default="off",
+                   help="data parallelism (not yet ported; 'off' only)")
+    common.add_data_args(p)
+    common.add_model_args(p)
+    return p
+
+
+def main(args=None, device=None) -> dict:
+    """Train; ``device`` defaults to ``cuda`` and raises without a card."""
+    import torch
+
+    from ..data.modules import SimulatorDataModule
+    from ..train.loop import fit
+    from ..train.supervised import SupervisedTrainer
+    from .test import build_model
+
+    common.setup_logging()
+    args = build_parser().parse_args(args)
+    if args.trainType != "sim":
+        raise NotImplementedError(
+            f"--trainType {args.trainType} is not yet ported to PyTorch")
+    for flag in NOT_PORTED:
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag} is not yet ported to PyTorch")
+    if args.dp not in (None, "off"):
+        raise NotImplementedError("--dp is not yet ported to PyTorch")
+
+    seed = 42 if args.reproducible else args.seed
+    out_dir = os.path.join(args.default_root_dir or "results",
+                           args.model_name)
+    data = SimulatorDataModule(args.dataPath, batch_size=args.batch_size,
+                               seed=seed, load_into_memory=args.load2memory)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)  # the initial weights
+        model = build_model(args.arch, 4)
+    trainer = SupervisedTrainer(
+        num_cls=4, lr=args.learningRate, decay=args.decay,
+        lr_ratio=args.lrRatio, height=args.height, width=args.width,
+        gray=args.gray, model=model, pallas_train=args.pallas_train,
+        device=device)
+    data.setup()
+    _, best_iou, _ = fit(trainer, data, max_epochs=args.max_epochs,
+                         out_dir=out_dir, seed=seed,
+                         log_every=args.log_every, resume=args.resume)
+    logging.info("best val_iou %.4f; artifacts in %s", best_iou, out_dir)
+    return {"best_iou": best_iou, "out_dir": out_dir}
+
+
+if __name__ == "__main__":
+    main()

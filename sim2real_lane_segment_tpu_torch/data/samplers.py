@@ -1,0 +1,39 @@
+"""Deterministic, shard-aware epoch samplers.
+
+Counterpart of ``sim2real_lane_segment_tpu.data.samplers`` (the
+supervised ones): every sampler is a pure function of ``(seed, epoch)``
+giving the global index sequence, sliced per data-parallel shard.  The
+index arrays are bit-equal to the JAX package's (same numpy generator).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def _rng(seed: int, epoch: int) -> np.random.Generator:
+    return np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+
+
+def shuffle_epoch(n: int, seed: int, epoch: int) -> np.ndarray:
+    return _rng(seed, epoch).permutation(n)
+
+
+def shard(indices: np.ndarray, shard_id: int, num_shards: int,
+          batch_size: int) -> np.ndarray:
+    """One shard's slice of a global index sequence; drops the trailing
+    partial global batch so every shard sees the same batches."""
+    per_batch = batch_size * num_shards
+    n_batches = len(indices) // per_batch
+    usable = indices[: n_batches * per_batch].reshape(n_batches, num_shards,
+                                                      batch_size)
+    return usable[:, shard_id, :].reshape(-1)
+
+
+def batched(indices: np.ndarray, batch_size: int, drop_last: bool):
+    out = []
+    for i in range(0, len(indices), batch_size):
+        b = indices[i:i + batch_size]
+        if drop_last and len(b) < batch_size:
+            break
+        out.append(b)
+    return out

@@ -40,29 +40,44 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _build(name: str) -> Path:
+def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
-    if lib.is_file():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
-    build_log[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)  # atomic: another process never loads a partial file
-    return lib
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> None:
+    """Build the named sources that are not built yet: one nvcc each, all
+    started together.  Raises if any build fails."""
+    running = []
+    for name in names:
+        lib = _target(name)
+        if lib.is_file():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        running.append((name, lib, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, lib, tmp, t0, proc in running:
+        out, err = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        build_log[name] = out + err
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
+                          f"{err[-4000:]}")
+        else:
+            os.replace(tmp, lib)  # atomic: no process loads a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, built on first use."""
     with _lock:
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(_build(name)))
+            build(name)
+            _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]

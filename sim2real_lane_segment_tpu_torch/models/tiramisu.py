@@ -15,27 +15,75 @@ Architecture semantics (reference layers.py:5-86):
 
 Rounding follows the Flax modules: BatchNorm runs in float32, the conv
 operands and output are in the policy's compute dtype, and the bias is
-added in that dtype.  Only inference is ported: train mode (batch-stat
-BatchNorm, Dropout2d, gradient reversal) belongs to the training slice and
-raises ``NotImplementedError``.
+added in that dtype.
+
+Train mode (``model(x, train=True, masks=...)``) follows
+``model.apply(train=True, mutable=["batch_stats"])``: BatchNorm normalizes
+with the batch statistics (mean and the biased ``max(E[x^2] - mu^2, 0)``
+in f32 over N, H, W) and returns the running-statistics update ``0.9 * old
++ 0.1 * batch`` instead of writing it.  Dropout2d takes its masks as an
+operand (``drop_masks``), one ``[B, C]`` tensor per dropout site in the
+JAX site order (``dropout_sites``), already scaled by 1/(1-rate); the
+2x2 max-pool is an ``amax`` over the window, whose gradient splits evenly
+among tied maxima as the JAX train paths' does.  Gradient reversal (MME)
+is not ported yet.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
+from ..core.dtypes import DEFAULT_POLICY, DTypePolicy, at_least_f32
 
 EPS = 1e-5
 
 
-def _train_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "FCDenseNet train mode (batch-stat BatchNorm, Dropout2d, "
-        "gradient reversal) is not yet ported; only train=False runs")
+def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel batch mean and biased variance over (N, H, W), f32:
+    ``max(E[x^2] - mu^2, 0)``, Flax's train-mode formula."""
+    xf = at_least_f32(x)
+    mu = xf.mean((0, 2, 3))
+    return mu, torch.clamp((xf * xf).mean((0, 2, 3)) - mu * mu, min=0.0)
+
+
+def running_update(bn: nn.BatchNorm2d, mu: torch.Tensor,
+                   var: torch.Tensor) -> dict:
+    """The Flax momentum-0.9 update of the running statistics, with the
+    biased batch variance (``nn.BatchNorm2d`` would use the unbiased)."""
+    return {"mean": 0.9 * bn.running_mean + 0.1 * mu.detach(),
+            "var": 0.9 * bn.running_var + 0.1 * var.detach()}
+
+
+def bn_relu_train(bn: nn.BatchNorm2d, x: torch.Tensor, updates: dict,
+                  name: str) -> torch.Tensor:
+    """Batch-stat BatchNorm in float32, then ReLU; records the running
+    update under ``name``."""
+    mu, var = batch_stats(x)
+    updates[name] = running_update(bn, mu, var)
+    mul = torch.rsqrt(var + EPS) * bn.weight
+    y = (at_least_f32(x) - mu[:, None, None]) * mul[:, None, None]
+    return torch.relu(y + bn.bias[:, None, None])
+
+
+def dropout2d(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Channelwise dropout with a given [B, C] mask (0 or 1/(1-rate))."""
+    if mask is None:
+        return x
+    return x * mask.to(x.dtype)[:, :, None, None]
+
+
+def max_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max-pool, floor division.  ``amax`` over the window axes: the
+    values of ``F.max_pool2d``, with the gradient split evenly among
+    tied maxima (as the JAX train paths' reshape + max)."""
+    b, c, h, w = x.shape
+    ho, wo = h // 2, w // 2
+    y = x[:, :, :ho * 2, :wo * 2].reshape(b, c, ho, 2, wo, 2)
+    return y.amax(dim=(3, 5))
 
 
 def bn_relu(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
@@ -53,11 +101,17 @@ class DenseLayer(nn.Module):
         self.BatchNorm_0 = nn.BatchNorm2d(in_channels, eps=EPS)
         self.Conv_0 = nn.Conv2d(in_channels, growth_rate, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: dict | None = None,
+                name: str = "", mask: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        """``train``: the running-update dict of a train-mode forward."""
         cd = self.policy.compute_dtype
-        a = bn_relu(self.BatchNorm_0, x).to(cd)
-        return F.conv2d(a, self.Conv_0.weight.to(cd), self.Conv_0.bias.to(cd),
-                        padding=1)
+        a = (bn_relu(self.BatchNorm_0, x) if train is None else
+             bn_relu_train(self.BatchNorm_0, x, train,
+                           f"{name}.BatchNorm_0")).to(cd)
+        y = F.conv2d(a, self.Conv_0.weight.to(cd), self.Conv_0.bias.to(cd),
+                     padding=1)
+        return y if train is None else dropout2d(y, mask)
 
 
 class DenseBlock(nn.Module):
@@ -74,10 +128,13 @@ class DenseBlock(nn.Module):
     def layers(self) -> list[DenseLayer]:
         return [getattr(self, f"DenseLayer_{j}") for j in range(self.n_layers)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: dict | None = None,
+                name: str = "", masks=None) -> torch.Tensor:
+        """``masks``: an iterator over the layers' dropout masks."""
         new_features = []
-        for layer in self.layers():
-            out = layer(x)
+        for j, layer in enumerate(self.layers()):
+            out = (layer(x) if train is None else
+                   layer(x, train, f"{name}.DenseLayer_{j}", next(masks)))
             x = torch.cat([x, out.to(x.dtype)], dim=1)
             new_features.append(out)
         if self.upsample:
@@ -92,11 +149,19 @@ class TransitionDown(nn.Module):
         self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=EPS)
         self.Conv_0 = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: dict | None = None,
+                name: str = "", mask: torch.Tensor | None = None
+                ) -> torch.Tensor:
         cd = self.policy.compute_dtype
-        a = bn_relu(self.BatchNorm_0, x).to(cd)
+        if train is None:
+            a = bn_relu(self.BatchNorm_0, x).to(cd)
+        else:
+            a = bn_relu_train(self.BatchNorm_0, x, train,
+                              f"{name}.BatchNorm_0").to(cd)
         y = F.conv2d(a, self.Conv_0.weight.to(cd), self.Conv_0.bias.to(cd))
-        return F.max_pool2d(y, 2)  # floor division, as Flax's VALID pool
+        if train is None:
+            return F.max_pool2d(y, 2)  # floor division, as Flax's VALID pool
+        return max_pool2(dropout2d(y, mask))
 
 
 def center_crop(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -163,25 +228,38 @@ class FCDenseNetFeatureExtractor(nn.Module):
             prev = prev + skips[i] + g * n if last else g * n
         self.feature_channels = prev
 
-    def forward(self, x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
-        """x: (N, 3, H, W) float32 -> L2-normalized features, float32."""
-        if train:
-            raise _train_not_ported()
+    def forward(self, x: torch.Tensor, train: dict | None = None,
+                masks=None) -> torch.Tensor:
+        """x: (N, 3, H, W) float32 -> L2-normalized features, float32.
+
+        ``train``: a dict that collects the running-statistics updates of
+        a train-mode forward (None: eval mode); ``masks``: an iterator
+        over the dropout masks in site order."""
         cd = self.policy.compute_dtype
         fc = self.firstconv
         out = F.conv2d(x.to(cd), fc.weight.to(cd), fc.bias.to(cd), padding=1)
+
+        def run(name, *args):
+            mod = getattr(self, name)
+            if train is None:
+                return mod(*args)
+            key = f"featureExtractor.{name}"
+            if isinstance(mod, DenseBlock):
+                return mod(*args, train, key, masks)
+            return mod(*args, train, key, next(masks))
+
         skips = []
         for i in range(len(self.down_blocks)):
-            out = getattr(self, f"denseDown{i}")(out)
+            out = run(f"denseDown{i}", out)
             skips.append(out)
-            out = getattr(self, f"transDown{i}")(out)
-        out = self.bottleneck(out)
+            out = run(f"transDown{i}", out)
+        out = run("bottleneck", out)
         for i in range(len(self.up_blocks)):
             out = getattr(self, f"transUp{i}")(out, skips.pop())
-            out = getattr(self, f"denseUp{i}")(out)
+            out = run(f"denseUp{i}", out)
         # per-pixel L2 normalization (reference tiramisu.py:105,
         # F.normalize: x / max(||x||_2, 1e-12))
-        out = out.to(torch.float32)
+        out = at_least_f32(out)
         norm = torch.sqrt(torch.sum(out * out, dim=1, keepdim=True))
         return out / torch.clamp(norm, min=1e-12)
 
@@ -203,7 +281,7 @@ class FCDenseNetClassifier(nn.Module):
         c = self.finalConv
         x = F.conv2d(x.to(cd), c.weight.to(cd), c.bias.to(cd),
                      padding=self.kernel_size // 2)
-        x = x.to(torch.float32) / self.temperature
+        x = at_least_f32(x) / self.temperature
         if use_softmax:
             x = torch.softmax(x, dim=1)
         return x
@@ -213,7 +291,12 @@ class FCDenseNet(nn.Module):
     """Feature extractor + classifier, reference tiramisu.py:128-147.
 
     ``forward`` takes (N, 3, H, W) float32 and returns (N, n_classes, H, W)
-    float32 probabilities (or logits with ``use_softmax=False``).
+    float32 probabilities (or logits with ``use_softmax=False``).  With
+    ``train=True`` it returns ``(output, new_batch_stats)``: the
+    running-statistics update of every BatchNorm, keyed by its state-dict
+    prefix (``featureExtractor.denseDown0.DenseLayer_0.BatchNorm_0``), as
+    ``{"mean": ..., "var": ...}``.  ``masks`` are the dropout masks of
+    ``dropout_sites`` (None: no dropout).
     """
 
     def __init__(self, n_classes: int = 12,
@@ -221,9 +304,11 @@ class FCDenseNet(nn.Module):
                  up_blocks: Sequence[int] = (5, 5, 5, 5, 5),
                  bottleneck_layers: int = 5, growth_rate: int = 16,
                  out_chans_first_conv: int = 48, kernel_size: int = 1,
-                 policy: DTypePolicy = DEFAULT_POLICY):
+                 policy: DTypePolicy = DEFAULT_POLICY,
+                 dropout_rate: float = 0.2):
         super().__init__()
         self.n_classes = n_classes
+        self.dropout_rate = dropout_rate
         self.down_blocks = tuple(down_blocks)
         self.up_blocks = tuple(up_blocks)
         self.bottleneck_layers = bottleneck_layers
@@ -238,9 +323,59 @@ class FCDenseNet(nn.Module):
             kernel_size=kernel_size, policy=policy)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                use_softmax: bool = True) -> torch.Tensor:
-        x = self.featureExtractor(x, train=train)
-        return self.classifier(x, use_softmax=use_softmax)
+                use_softmax: bool = True, masks=None):
+        if not train:
+            return self.classifier(self.featureExtractor(x),
+                                   use_softmax=use_softmax)
+        updates: dict = {}
+        it = iter(masks) if masks is not None else itertools.repeat(None)
+        x = self.featureExtractor(x, updates, it)
+        return self.classifier(x, use_softmax=use_softmax), updates
+
+
+def dropout_sites(model: FCDenseNet) -> list[int]:
+    """Channels of each Dropout2d site, in the JAX site order: per down
+    block its layers then its TransitionDown, the bottleneck's layers, the
+    up blocks' layers."""
+    g = model.growth_rate
+    cur = model.featureExtractor.firstconv.out_channels
+    sites = []
+    for n in model.down_blocks:
+        sites += [g] * n
+        cur += g * n
+        sites.append(cur)
+    sites += [g] * model.bottleneck_layers
+    for n in model.up_blocks:
+        sites += [g] * n
+    return sites
+
+
+def drop_masks(generator: torch.Generator, model: FCDenseNet, batch: int,
+               device=None) -> list[torch.Tensor]:
+    """One f32 [batch, C] Dropout2d mask per site: keep with probability
+    1 - rate, kept channels scaled by 1/(1 - rate).  Drawn on the
+    generator's device, then moved to ``device``."""
+    rate = model.dropout_rate
+    out = []
+    for c in dropout_sites(model):
+        if rate == 0.0:
+            m = torch.ones(batch, c)
+        else:
+            keep = torch.rand(batch, c, generator=generator,
+                              device=generator.device) >= rate
+            m = keep.to(torch.float32) / (1.0 - rate)
+        out.append(m.to(device))
+    return out
+
+
+@torch.no_grad()
+def apply_batch_stats(model: nn.Module, updates: dict) -> None:
+    """Write a train-mode forward's running-statistics updates into the
+    model's BatchNorm buffers."""
+    for name, st in updates.items():
+        bn = model.get_submodule(name)
+        bn.running_mean.copy_(st["mean"])
+        bn.running_var.copy_(st["var"])
 
 
 # ---------------------------------------------------------------------------

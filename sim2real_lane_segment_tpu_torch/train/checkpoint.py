@@ -1,8 +1,11 @@
-"""Bare weights: a torch state dict (``.pt``), or Flax variables
-flattened to an ``.npz`` and routed through ``models.flax_import``.
+"""Checkpoints: bare weights and the train-state manager.
 
-Counterpart of ``save_weights``/``load_weights`` in the JAX package's
-``train/checkpoint.py``.  The Flax ``.msgpack`` format is not read; a
+Counterpart of the JAX package's ``train/checkpoint.py``.  Bare weights
+(``save_weights``/``load_weights``) are a torch state dict (``.pt``), or
+Flax variables flattened to an ``.npz`` and routed through
+``models.flax_import``; ``save_train_state``/``load_train_state`` keep the
+train state (model, optimizer, epoch, metrics) for the fit loop's best
+and latest checkpoints.  The Flax ``.msgpack`` format is not read; a
 Flax tree reaches the port as ``np.savez(path, **flatten_dict(variables,
 sep="/"))``.
 """
@@ -19,8 +22,7 @@ from ..models.flax_import import state_dict_from_flax
 
 def save_weights(path: str, model: nn.Module) -> None:
     """The model's state dict, the reference ``best_weights.pt`` analog."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save(model.state_dict(), path)
+    atomic_save(model.state_dict(), path)
 
 
 def load_weights(path: str, model: nn.Module) -> nn.Module:
@@ -34,3 +36,29 @@ def load_weights(path: str, model: nn.Module) -> nn.Module:
         raise ValueError(f"unknown weights format (want .pt or .npz): {path}")
     model.load_state_dict(sd)
     return model
+
+
+def atomic_save(obj, path: str) -> None:
+    """``torch.save`` to a temporary file, then rename over ``path``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_train_state(path: str, epoch: int, state: dict, *, metrics: dict,
+                     hparams: dict | None = None) -> None:
+    """One train checkpoint: ``state`` (``model`` and ``optimizer`` state
+    dicts) with its ``epoch``, ``metrics`` and ``hparams``, written
+    atomically over ``path``.  The fit loop keeps two, the best by
+    ``val_iou`` and the latest epoch (the JAX package's two orbax
+    channels)."""
+    atomic_save({"epoch": int(epoch),
+                 "metrics": {k: float(v) for k, v in metrics.items()},
+                 "hparams": hparams or {}, **state}, path)
+
+
+def load_train_state(path: str) -> dict:
+    """A checkpoint written by ``save_train_state``; FileNotFoundError when
+    there is none."""
+    return torch.load(path, map_location="cpu", weights_only=True)

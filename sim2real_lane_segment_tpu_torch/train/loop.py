@@ -1,0 +1,131 @@
+"""Fit, validate and test loop with best-checkpoint tracking.
+
+Counterpart of ``sim2real_lane_segment_tpu.train.loop``: per-epoch
+validation (loss, acc, dice, iou), the best-``val_iou`` state in
+``checkpoints/best.pt`` and the end-of-epoch state in
+``checkpoints_latest/latest.pt``, the test pass on the best state at the
+end, and ``best_weights.pt``.
+Scalars go to ``metrics.jsonl``.  ``resume`` continues a run from its own
+checkpoints.  Each epoch draws its dropout masks from a
+``torch.Generator`` seeded from ``(seed, epoch)``, so a resumed run
+repeats the randomness of an uninterrupted one.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from ..data.prefetch import background_batches
+from ..ops.metrics import summarize_weighted
+from .checkpoint import atomic_save, load_train_state, save_train_state
+
+log = logging.getLogger(__name__)
+
+
+class MetricLogger:
+    """Appends ``{"step": ..., **scalars}`` lines to ``metrics.jsonl``."""
+
+    def __init__(self, out_dir: str):
+        os.makedirs(out_dir, exist_ok=True)
+        self.history_path = os.path.join(out_dir, "metrics.jsonl")
+
+    def log(self, step: int, scalars: dict) -> None:
+        scalars = {k: float(v) for k, v in scalars.items()}
+        with open(self.history_path, "a") as f:
+            f.write(json.dumps({"step": step, **scalars}) + "\n")
+
+
+def run_eval(eval_step: Callable, batches: Iterable) -> dict:
+    outs = [{k: float(v) for k, v in eval_step(x, y).items()}
+            for x, y in batches]
+    if not outs:
+        return {"loss": 0.0, "acc": 0.0, "dice": 0.0, "iou": 0.0}
+    return summarize_weighted(outs)
+
+
+def epoch_generator(seed: int, epoch: int) -> torch.Generator:
+    """The dropout generator of one epoch, a pure function of its seeds."""
+    s = np.random.SeedSequence([seed, epoch]).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(s))
+
+
+def _last_logged_step(history_path: str) -> int:
+    try:
+        with open(history_path) as f:
+            return max((json.loads(line).get("step", 0) for line in f
+                        if line.strip()), default=0)
+    except OSError:
+        return 0
+
+
+def fit(trainer, data, *, max_epochs: int, out_dir: str, seed: int = 42,
+        log_every: int = 50, resume: bool = False) -> tuple:
+    """Train ``trainer`` on ``data`` with per-epoch validation.
+
+    Returns (best state dict, best val_iou, logger); the trainer holds the
+    best state when this returns.
+    """
+    logger = MetricLogger(out_dir)
+    best_path = os.path.join(out_dir, "checkpoints", "best.pt")
+    latest_path = os.path.join(out_dir, "checkpoints_latest", "latest.pt")
+    best_iou, best_state = -1.0, trainer.state_dict()
+    start_epoch, global_step = 0, 0
+    if resume:
+        try:
+            ck = load_train_state(best_path)
+            best_iou = ck["metrics"]["val_iou"]
+            best_state = {"model": ck["model"], "optimizer": ck["optimizer"]}
+            trainer.load_state_dict(best_state)
+            start_epoch = ck["epoch"] + 1
+        except FileNotFoundError:
+            pass
+        try:
+            ck = load_train_state(latest_path)
+            if ck["epoch"] + 1 > start_epoch:
+                trainer.load_state_dict(ck)
+                start_epoch = ck["epoch"] + 1
+        except FileNotFoundError:
+            pass
+        global_step = _last_logged_step(logger.history_path)
+        if start_epoch:
+            log.info("resumed %s at epoch %d (best val_iou %.3f, step %d)",
+                     out_dir, start_epoch, best_iou, global_step)
+
+    hparams = {"lr": trainer.lr, "decay": trainer.decay,
+               "lrRatio": trainer.lr_ratio, "num_cls": trainer.num_cls}
+    for epoch in range(start_epoch, max_epochs):
+        t0 = time.time()
+        gen = epoch_generator(seed, epoch)
+        n_steps = 0
+        for batch in background_batches(lambda e=epoch: data.train_batches(e)):
+            logs = trainer.default_step_fn(batch, gen, epoch)
+            n_steps += 1
+            global_step += 1
+            if global_step % log_every == 0:
+                logger.log(global_step, {f"train/{k}": v
+                                         for k, v in logs.items()})
+        val = run_eval(trainer.eval_step, data.val_batches())
+        logger.log(global_step, {f"val/{k}": v for k, v in val.items()})
+        log.info("epoch %d: %d steps in %.1fs, val_iou=%.3f val_acc=%.2f",
+                 epoch, n_steps, time.time() - t0, val["iou"], val["acc"])
+        state = trainer.state_dict()
+        save_train_state(latest_path, epoch, state, metrics=val)
+        if val["iou"] > best_iou:
+            best_iou, best_state = val["iou"], state
+            save_train_state(best_path, epoch, state,
+                             metrics={"val_iou": val["iou"]},
+                             hparams=hparams)
+
+    trainer.load_state_dict(best_state)
+    test = run_eval(trainer.eval_step, data.test_batches())
+    logger.log(global_step, {f"test/{k}": v for k, v in test.items()})
+    log.info("test: %s", test)
+    # reference train.py:73-75 saves best_weights.pt beside the checkpoint
+    atomic_save(best_state["model"], os.path.join(out_dir, "best_weights.pt"))
+    return best_state, best_iou, logger

@@ -1,0 +1,51 @@
+"""AdamW in the order of the JAX package's ``optax`` chain, with the
+learning rate given per step.
+
+Counterpart of ``sim2real_lane_segment_tpu.train.optim.adamw`` plus
+``apply_updates``: ``scale_by_adam`` (bias-corrected moments, ``u =
+m_hat / (sqrt(v_hat) + eps)``), then ``add_decayed_weights`` (``u += wd *
+p``), then ``p -= lr * u``.  The learning rate is an argument of ``step``
+rather than part of the optimizer, so a schedule never rebuilds it.
+Weight decay applies to every parameter, as in the JAX chain.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+class AdamW:
+    def __init__(self, params: Sequence[torch.Tensor], weight_decay: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = list(params)
+        self.weight_decay = weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor], lr: float) -> None:
+        """One update of every parameter in place from ``grads``."""
+        self.count += 1
+        c1 = 1.0 - self.b1 ** self.count
+        c2 = 1.0 - self.b2 ** self.count
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
+            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            u = u + self.weight_decay * p
+            p.sub_(lr * u)
+
+    def state_dict(self) -> dict:
+        """The step count and both moments, copied to the CPU."""
+        return {"count": self.count,
+                "mu": [t.to("cpu", copy=True) for t in self.mu],
+                "nu": [t.to("cpu", copy=True) for t in self.nu]}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copies the moments in place, onto the parameters' device."""
+        self.count = int(state["count"])
+        for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+            dst.copy_(src)

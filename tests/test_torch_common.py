@@ -64,3 +64,43 @@ def nhwc_to_nchw(x: np.ndarray) -> torch.Tensor:
 
 def nchw_to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+# ---------------------------------------------------------------------------
+# train-path helpers: the JAX kernels' channel-major layout and masks
+# ---------------------------------------------------------------------------
+
+def to_cm(x: np.ndarray):
+    """NCHW numpy -> the JAX train kernels' [B, C, Ppad] (zero-padded)."""
+    from sim2real_lane_segment_tpu.models.tiramisu_train_pallas import _to_cm
+    _, _, h, w = x.shape
+    return _to_cm(jax.numpy.asarray(np.transpose(x, (0, 2, 3, 1))), h, w)
+
+
+def from_cm(y, h: int, w: int) -> np.ndarray:
+    """[B, C, Ppad] -> NCHW numpy."""
+    from sim2real_lane_segment_tpu.models.tiramisu_train_pallas import \
+        _from_cm
+    return np.transpose(np.asarray(_from_cm(y, h, w)), (0, 3, 1, 2))
+
+
+def wf_rows(w: np.ndarray) -> np.ndarray:
+    """The port's [c, taps, n] weight -> the JAX kn2row [taps*n, c]."""
+    c, taps, n = w.shape
+    return np.ascontiguousarray(np.transpose(w, (1, 2, 0)).reshape(taps * n,
+                                                                   c))
+
+
+def jax_drop_masks(key, sites, rate: float, batch: int) -> list:
+    """The JAX train path's own Dropout2d masks, as [B, C] torch tensors."""
+    from sim2real_lane_segment_tpu.models.tiramisu_train_pallas import \
+        _drop_mask
+    return [torch.from_numpy(np.array(_drop_mask(key, s, rate, batch, c))[
+        ..., 0]) for s, c in enumerate(sites)]
+
+
+def torch_grad_like(flax_path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    """A Flax parameter (or its gradient) -> (state-dict key, torch layout)."""
+    from sim2real_lane_segment_tpu_torch.models.flax_import import _torch_key
+    key, convert = _torch_key(flax_path)
+    return key, (convert(arr) if convert is not None else arr)

@@ -104,3 +104,121 @@ def test_wrapper_rejects_bad_operands(cuda):
         kdb.dense_layer(feat, bad)
     with pytest.raises(ValueError):  # f64 is not a kernel dtype
         kdb.dense_layer(feat.double(), layers[0])
+
+
+# ---------------------------------------------------------------------------
+# K1, K2, K3a, K3b (kernels/train_block.py)
+# ---------------------------------------------------------------------------
+
+from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb  # noqa: E402
+
+# (B, H, W, c, g): ragged against the 16x16 tiles and 16-channel groups
+TRAIN_CASES = [(2, 15, 20, 40, 16), (3, 7, 33, 24, 4)]
+
+
+def _rel_err(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+# f32: summation order only.  bf16: outputs rounded to bf16 may land one
+# step (2^-8 relative) apart; f32 sums over bf16 operands differ in order.
+TRAIN_REL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+
+
+def _train_operands(case, dtype, device, seed, taps=9, n=None):
+    b, h, w, c, g = case
+    n = g if n is None else n
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(device)
+
+    x = r(b, c, h, w).to(dtype)
+    x[:, 1] = 0                      # z == 0 on a whole plane
+    scale = (torch.rand(c, generator=gen) + 0.5).to(device)
+    shift = r(c, s=0.3)
+    shift[1] = 0
+    weight = r(c, taps, n, s=0.3).to(dtype)
+    bias = r(n, s=0.1)
+    mask = ((torch.rand(b, n, generator=gen) > 0.3).float() / 0.8).to(device)
+    mask[:, 0] = 0                   # dropped for the whole batch
+    return x, scale, shift, weight, bias, mask
+
+
+def _close_all(outs, refs, dtype, what):
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        err = _rel_err(a, b)
+        assert err <= TRAIN_REL[dtype], f"{what} output {i}: {err}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("taps", [9, 1])
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_consumer_kernels_match_plain(cuda, case, taps, dtype):
+    b, h, w, c, g = case
+    n = g if taps == 9 else c
+    x, scale, shift, weight, bias, mask = _train_operands(
+        case, dtype, cuda, 3, taps, n)
+    dy = torch.randn(b, n, h, w, device=cuda).to(dtype)
+    ktb.reset_launches()
+    y = ktb.consumer_fwd(x, scale, shift, weight, bias, mask)
+    outs = ktb.consumer_bwd(x, scale, shift, weight, mask, dy)
+    torch.cuda.synchronize()
+    assert ktb.launches["consumer_fwd"] == 1
+    assert ktb.launches["consumer_bwd"] == 1
+    _close_all([y], [ktb.consumer_fwd_plain(x, scale, shift, weight, bias,
+                                            mask)], dtype, "K1")
+    _close_all(outs, ktb.consumer_bwd_plain(x, scale, shift, weight, mask,
+                                            dy), dtype, "K2")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_later", [0, 2])
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
+    b, h, w, c, g = case
+    x, scale, shift, weight, _, mask = _train_operands(case, dtype, cuda, 4)
+    # a feature buffer: the layer reads [0, c) and its output sits after
+    buf = torch.randn(b, c + g, h, w, device=cuda).to(dtype)
+    buf[:, :c] = x
+    buf[:, c + 2] = 0
+    y = buf[:, c:]
+    ext = torch.randn(b, g, h, w, device=cuda)
+    gps = [torch.randn(b, g, h, w, device=cuda).to(dtype)
+           for _ in range(n_later)]
+    wls = [(torch.randn(g, 9, g, device=cuda) * 0.3).to(dtype)
+           for _ in range(n_later)]
+    scs = [torch.rand(g, device=cuda) + 0.5 for _ in range(n_later)]
+    shs = [torch.randn(g, device=cuda) * 0.3 for _ in range(n_later)]
+    for sh in shs:
+        sh[2] = 0
+    args = (buf, y, ext, gps, wls, scale, shift, scs, shs, weight, mask)
+    outs = ktb.stage(*args)
+    torch.cuda.synchronize()
+    _close_all(outs, ktb.stage_plain(*args), dtype, "K3a")
+
+    n = 3
+    gps = [torch.randn(b, g, h, w, device=cuda).to(dtype) for _ in range(n)]
+    wls = [(torch.randn(c, 9, g, device=cuda) * 0.3).to(dtype)
+           for _ in range(n)]
+    scs = [torch.rand(c, device=cuda) + 0.5 for _ in range(n)]
+    shs = [torch.randn(c, device=cuda) * 0.3 for _ in range(n)]
+    for sh in shs:
+        sh[1] = 0
+    out = ktb.final(buf, gps, wls, scs, shs)
+    torch.cuda.synchronize()
+    _close_all([out], [ktb.final_plain(buf, gps, wls, scs, shs)], dtype,
+               "K3b")
+
+
+@pytest.mark.gpu
+def test_train_wrappers_reject_bad_operands(cuda):
+    x, scale, shift, weight, bias, mask = _train_operands(
+        TRAIN_CASES[0], torch.float32, cuda, 5)
+    with pytest.raises(ValueError):
+        ktb.consumer_fwd(x, scale.cpu(), shift, weight, bias, mask)
+    with pytest.raises(ValueError):  # channels are not contiguous planes
+        ktb.consumer_fwd(x.transpose(2, 3), scale, shift, weight, bias, mask)

@@ -163,6 +163,10 @@ def test_wide_classifier_takes_plain_tail():
 
 
 def test_train_mode_not_ported():
+    """Train mode is ported now: it returns the output and the running
+    statistics update of every BatchNorm instead of raising."""
     model = fcdensenet57(4)
-    with pytest.raises(NotImplementedError, match="train"):
-        model(torch.zeros(1, 3, 16, 16), train=True)
+    out, updates = model(torch.rand(2, 3, 32, 32), train=True)
+    assert out.shape == (2, 4, 32, 32)
+    assert len(updates) == sum(isinstance(m, torch.nn.BatchNorm2d)
+                               for m in model.modules())

@@ -1,0 +1,172 @@
+"""Plain versions of K1, K2, K3a and K3b (``kernels/train_block.py``)
+against the JAX Pallas kernels they replace, run in interpret mode on the
+CPU: ``_consumer_fwd``, ``_consumer_bwd_call``, ``_stage_call`` and
+``_final_call`` of ``models/tiramisu_train_pallas.py``.
+
+Float32, segments (8, 4, 4), growth 4, batch 2, at 8x16 and the odd 5x7.
+The operands carry dropped channels and a z == 0 plane (a zero input
+channel with zero shift), where the ReLU subgradient is 0.5.  atol 1e-5:
+the two sides sum the same float32 products in another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from test_torch_common import from_cm, to_cm, wf_rows
+
+from sim2real_lane_segment_tpu.models.tiramisu_train_pallas import (
+    _Cfg, _consumer_bwd_call, _consumer_fwd, _final_call, _FinalCfg,
+    _stage_call, _StageCfg)
+from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+
+SEGS = (8, 4, 4)
+G = 4
+B = 2
+SIZES = [(8, 16), (5, 7)]
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _operands(rng, c, n, h, w, taps):
+    x = (rng.normal(size=(B, c, h, w)) * 0.7).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    shift = rng.normal(0, 0.3, c).astype(np.float32)
+    x[:, 1] = 0.0   # z == 0 on the whole plane
+    shift[1] = 0.0
+    weight = rng.normal(0, 0.3, (c, taps, n)).astype(np.float32)
+    bias = rng.normal(0, 0.1, n).astype(np.float32)
+    mask = (rng.random((B, n)) > 0.3).astype(np.float32) / 0.8
+    mask[0, 0] = 0.0
+    mask[1, 0] = 0.0  # a channel dropped for the whole batch
+    return x, scale, shift, weight, bias, mask
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _jax_segs(x):
+    cm = to_cm(x)
+    out, lo = [], 0
+    for c in SEGS:
+        out.append(cm[:, lo:lo + c])
+        lo += c
+    return tuple(out)
+
+
+def _close(a, b, **kw):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), **(kw or TOL))
+
+
+@pytest.mark.parametrize("taps", [9, 1])
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_consumer_fwd_and_bwd_match_jax(size, taps):
+    h, w = size
+    rng = np.random.default_rng(10 + taps)
+    c = sum(SEGS)
+    n = G if taps == 9 else c
+    x, scale, shift, weight, bias, mask = _operands(rng, c, n, h, w, taps)
+    dy = rng.normal(size=(B, n, h, w)).astype(np.float32)
+    cfg = _Cfg(h, w, SEGS, taps, n, "float32", True)
+    segs = _jax_segs(x)
+
+    y_ref = _consumer_fwd(cfg, segs, scale[:, None], shift[:, None],
+                          wf_rows(weight), bias[:, None], mask[..., None])
+    y = ktb.consumer_fwd(_t(x), _t(scale), _t(shift), _t(weight), _t(bias),
+                         _t(mask))
+    _close(y, from_cm(y_ref, h, w))
+
+    dseg_r, dsc_r, dsh_r, dwf_r, db_r = _consumer_bwd_call(
+        cfg, segs, scale[:, None], shift[:, None], wf_rows(weight),
+        mask[..., None], to_cm(dy))
+    dseg, dsc, dsh, dw, db = ktb.consumer_bwd(
+        _t(x), _t(scale), _t(shift), _t(weight), _t(mask), _t(dy))
+    _close(dseg, from_cm(dseg_r, h, w))
+    _close(dsc, np.asarray(dsc_r)[:, 0])
+    _close(dsh, np.asarray(dsh_r)[:, 0])
+    _close(wf_rows(dw.numpy()), dwf_r)
+    _close(db, np.asarray(db_r)[:, 0])
+    # the z == 0 plane takes half the cotangent, not none of it
+    assert np.abs(dsh.numpy()[1]) > 0
+
+
+def _later(rng, n_later, h, w, y):
+    """Per later layer: stored g_pre, the y rows of its weight and its BN
+    scale/shift on them (one with a z == 0 plane on a zero y channel)."""
+    gps, wls, scs, shs = [], [], [], []
+    for _ in range(n_later):
+        gps.append(rng.normal(size=(B, G, h, w)).astype(np.float32))
+        wls.append(rng.normal(0, 0.3, (G, 9, G)).astype(np.float32))
+        scs.append(rng.uniform(0.5, 1.5, G).astype(np.float32))
+        sh = rng.normal(0, 0.3, G).astype(np.float32)
+        sh[2] = 0.0
+        shs.append(sh)
+    y[:, 2] = 0.0
+    return gps, wls, scs, shs
+
+
+@pytest.mark.parametrize("n_later", [0, 2])
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_stage_matches_jax(size, n_later):
+    h, w = size
+    rng = np.random.default_rng(20 + n_later)
+    c = sum(SEGS)
+    x, scale, shift, weight, _, mask = _operands(rng, c, G, h, w, 9)
+    y = rng.normal(size=(B, G, h, w)).astype(np.float32)
+    ext = rng.normal(size=(B, G, h, w)).astype(np.float32)
+    gps, wls, scs, shs = _later(rng, n_later, h, w, y)
+
+    cfg = _StageCfg(h, w, SEGS, G, n_later, "float32", True)
+    gp_r, dwf_r, dsc_r, dsh_r, db_r = _stage_call(
+        cfg, _jax_segs(x), to_cm(y), to_cm(ext), [to_cm(g) for g in gps],
+        wf_rows(weight), [wf_rows(wl) for wl in wls], scale[:, None],
+        shift[:, None], [s[:, None] for s in scs], [s[:, None] for s in shs],
+        mask[..., None])
+    gp, dw, dsc, dsh, db = ktb.stage(
+        _t(x), _t(y), _t(ext), [_t(g) for g in gps], [_t(wl) for wl in wls],
+        _t(scale), _t(shift), [_t(s) for s in scs], [_t(s) for s in shs],
+        _t(weight), _t(mask))
+    _close(gp, from_cm(gp_r, h, w))
+    _close(wf_rows(dw.numpy()), dwf_r)
+    _close(dsc, np.asarray(dsc_r)[:, 0])
+    _close(dsh, np.asarray(dsh_r)[:, 0])
+    _close(db, np.asarray(db_r)[:, 0])
+
+
+@pytest.mark.parametrize("size", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_final_matches_jax(size):
+    h, w = size
+    rng = np.random.default_rng(30)
+    c = sum(SEGS)
+    x, *_ = _operands(rng, c, G, h, w, 9)
+    n = 3
+    gps = [rng.normal(size=(B, G, h, w)).astype(np.float32)
+           for _ in range(n)]
+    wls = [rng.normal(0, 0.3, (c, 9, G)).astype(np.float32)
+           for _ in range(n)]
+    scs = [rng.uniform(0.5, 1.5, c).astype(np.float32) for _ in range(n)]
+    shs = [rng.normal(0, 0.3, c).astype(np.float32) for _ in range(n)]
+    for sh in shs:
+        sh[1] = 0.0  # x[:, 1] is zero: z == 0 for every layer
+    cfg = _FinalCfg(h, w, SEGS, G, n, "float32", True)
+    ref = _final_call(cfg, _jax_segs(x), [to_cm(g) for g in gps],
+                      [wf_rows(wl) for wl in wls],
+                      [s[:, None] for s in scs], [s[:, None] for s in shs])
+    out = ktb.final(_t(x), [_t(g) for g in gps], [_t(wl) for wl in wls],
+                    [_t(s) for s in scs], [_t(s) for s in shs])
+    _close(out, from_cm(ref, h, w))
+
+
+def test_wrappers_count_no_launch_on_cpu():
+    """CPU tensors take the plain versions: no kernel launch is counted."""
+    ktb.reset_launches()
+    rng = np.random.default_rng(0)
+    x, scale, shift, weight, bias, mask = _operands(rng, 16, G, 5, 7, 9)
+    ktb.consumer_fwd(_t(x), _t(scale), _t(shift), _t(weight), _t(bias),
+                     _t(mask))
+    assert all(v == 0 for v in ktb.launches.values())
+
+
+def test_wgrad_splits_fill_the_card_and_stay_in_range():
+    assert ktb.wgrad_splits(592, 16, 32, 120, 160) == 28
+    assert ktb.wgrad_splits(48, 16, 1, 3, 5) == 1   # one item only
+    assert ktb.n_tiles(120, 160) == 80
