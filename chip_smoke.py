@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
-Drives the port's two main paths at the full width of FCDenseNet67
-(3,461,220 parameters, 120x160 frames) on random weights made from a
-seed, and holds every kernel of those paths against its plain PyTorch
-version: serving (``cli.serve.build_predict_fn --arch 67 --fused`` behind
+Drives the port's main paths and holds every kernel of those paths
+against its plain PyTorch version: FCDenseNet67 at full width (3,461,220
+parameters, 120x160 frames, random weights made from a seed) serving
+(``cli.serve.build_predict_fn --arch 67 --fused`` behind
 ``serving.BatchingEngine``, kernel K4) and training (``cli.train.main
---trainType sim --arch 67 --pallas_train``, kernels K1, K2, K3a, K3b).
+--trainType sim --arch 67 --pallas_train``, kernels K1, K2, K3a, K3b);
+LaneNetLite serving from the committed student
+(``artifacts/lanenet_lite_sim.msgpack``, ``--arch lite [--int8
+[--fused]]``, kernel K6); and label extraction
+(``ops.labelgen.process_classes_batch`` on CUDA tensors, kernel K5).
 Phases:
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: builds both kernel sources from ``csrc/`` with nvcc, at once;
+2. build: builds the four kernel sources from ``csrc/`` with nvcc, at once;
 3. K4 against plain: all 11 dense blocks at their real widths (B=8,
    120x160), in float32 (TF32 off) and in bfloat16;
 4. serve: 4 client threads x 8 requests of 1-16 frames through the engine
@@ -35,7 +39,19 @@ Phases:
 9. train timing: every kernel call of one B=32 train step against its
    plain version (bfloat16), the B=32 step against the plain autograd
    step, and each train kernel's time per step beside its plain version,
-   a cuDNN yardstick and its bound.
+   a cuDNN yardstick and its bound;
+10. K6 against plain: the student's int8 body at full width (B=8),
+    calibrated as ``cli.serve --int8`` does; every conv site's int8 codes
+    equal, logits within the f32 head's reordering;
+11. serve LaneNetLite: float, ``--int8`` and ``--int8 --fused`` behind the
+    engine (4 clients x 8 requests of 1-16 frames); checks every reply,
+    K6's launches (1/12/1 per batch), that its plain version never ran,
+    and fused vs plain int8 pixel agreement (>= 99.9%);
+12. K5 against plain: ``process_classes_batch`` on B=32 seeded pairs at
+    480x640 and 120x160 in both channel orders, bit-exact;
+13. timing: K6 per B=64 forward and K5 per B=32 480x640 batch beside their
+    plain versions and bounds, and the whole LaneNetLite forwards (int8
+    through K6, plain int8, float bf16) at B=64.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -75,6 +91,24 @@ TRAIN_KERNELS = {"consumer_fwd": ("k1_consumer_fwd", f"{_TP}:187"),
                  "consumer_bwd": ("k2_consumer_bwd", f"{_TP}:328"),
                  "stage": ("k3a_stage", f"{_TP}:759"),
                  "final": ("k3b_final", f"{_TP}:854")}
+# LaneNetLite serving (K6) and label extraction (K5)
+LITE_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "artifacts", "lanenet_lite_sim.msgpack")
+LITE_MODES = {"float": [], "int8": ["--int8"],
+              "int8_fused": ["--int8", "--fused"]}
+# K6 logits: every step but the f32 head is bit-exact; the head sums 128
+# products in another order (the JAX kernel's own gate)
+INT8_LOGIT_TOL = dict(rtol=1e-5, atol=1e-4)
+MIN_INT8_AGREEMENT = 0.999    # served masks: K6 vs the plain int8 path
+LABEL_BATCH = 32
+LABEL_SIZES = ((480, 640), (120, 160))
+PEAK_INT8_OPS = 1979e12       # dense int8 tensor cores
+PEAK_F32_OPS = 67e12          # float32 outside the tensor cores
+_CSRC = "sim2real_lane_segment_tpu_torch/csrc"
+K6_SOURCE = f"{_CSRC}/int8_body.cu"
+K6_REPLACES = "sim2real_lane_segment_tpu/models/lanenet_pallas.py:260"
+K5_SOURCE = f"{_CSRC}/labelgen.cu"
+K5_REPLACES = "sim2real_lane_segment_tpu/ops/labelgen_pallas.py:107"
 TRAIN_CHECK_BATCH = 4
 TRAIN_BATCH = 32
 TRAIN_SPLITS = (("train", 96), ("valid", 32), ("test", 32))
@@ -313,6 +347,55 @@ def compare_blocks(sd, device, dtype_name, card):
     return errs
 
 
+def client_requests(rng) -> list:
+    """4 clients x 8 requests of 1-16 synthetic frames."""
+    return [[synthetic_frames(rng, int(rng.integers(1, 17)))
+             for _ in range(8)] for _ in range(4)]
+
+
+def drive_engine(predict_fn, requests):
+    """The predictor behind ``BatchingEngine`` (max_batch 64), one client
+    thread per request list.  Checks that every request was answered and
+    every frame served; returns (replies, engine stats, wall seconds)."""
+    from sim2real_lane_segment_tpu_torch.serving import BatchingEngine
+
+    replies = [[None] * len(reqs) for reqs in requests]
+    errors = []
+
+    def client(i):
+        try:
+            for j, frames in enumerate(requests[i]):
+                replies[i][j] = engine.predict(frames, timeout=300)
+        except Exception as e:  # reported below; the phase then fails
+            errors.append(repr(e))
+
+    engine = BatchingEngine(predict_fn, height=H, width=W, max_batch=64,
+                            max_wait_ms=4.0)
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        engine.close()
+    check(not errors, f"engine requests failed: {errors}")
+    check(not any(t.is_alive() for t in threads), "client threads hung")
+    stats = engine.stats
+    n_frames = sum(f.shape[0] for reqs in requests for f in reqs)
+    check(stats["frames"] == n_frames,
+          f"engine served {stats['frames']} of {n_frames} frames")
+    for reqs, outs in zip(requests, replies):
+        for frames, out in zip(reqs, outs):
+            check(isinstance(out, np.ndarray) and out.dtype == np.uint8
+                  and out.shape == frames.shape[:3] and out.max() < N_CLS,
+                  f"bad reply {type(out)} {getattr(out, 'shape', None)}")
+    return replies, stats, wall
+
+
 def serve_phase(sd, device, card):
     """Phase 4: the CLI predictor behind the engine, driven by 4 client
     threads.  Returns (launches, frames/s, batches)."""
@@ -322,7 +405,6 @@ def serve_phase(sd, device, card):
     from sim2real_lane_segment_tpu_torch.cli.test import \
         load_trainer_and_state
     from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
-    from sim2real_lane_segment_tpu_torch.serving import BatchingEngine
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "fcdensenet67_seeded.pt")
@@ -335,40 +417,11 @@ def serve_phase(sd, device, card):
                                        arch="67", height=H, width=W)
     check((h, w) == (H, W), f"predictor size {(h, w)}")
 
-    rng = np.random.default_rng(SEED + 2)
-    requests = [[synthetic_frames(rng, int(rng.integers(1, 17)))
-                 for _ in range(8)] for _ in range(4)]
-    replies = [[None] * 8 for _ in range(4)]
-    errors = []
-
-    def client(i):
-        try:
-            for j, frames in enumerate(requests[i]):
-                replies[i][j] = engine.predict(frames, timeout=300)
-        except Exception as e:  # reported below; the phase then fails
-            errors.append(repr(e))
-
+    requests = client_requests(np.random.default_rng(SEED + 2))
     kdb.reset_launches()
-    engine = BatchingEngine(predict_fn, height=H, width=W, max_batch=64,
-                            max_wait_ms=4.0)
-    try:
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
-    finally:
-        engine.close()
+    replies, stats, wall = drive_engine(predict_fn, requests)
     launches = dict(kdb.launches)
-    check(not errors, f"engine requests failed: {errors}")
-    check(not any(t.is_alive() for t in threads), "client threads hung")
-    stats = engine.stats
     n_frames = sum(f.shape[0] for reqs in requests for f in reqs)
-    check(stats["frames"] == n_frames,
-          f"engine served {stats['frames']} of {n_frames} frames")
     batches = stats["batches"]
     expect = {"dense_layer": 55 * batches, "transition": 5 * batches,
               "classifier": batches}
@@ -384,9 +437,6 @@ def serve_phase(sd, device, card):
     same = total = 0
     for reqs, outs in zip(requests, replies):
         for frames, out in zip(reqs, outs):
-            check(isinstance(out, np.ndarray) and out.dtype == np.uint8
-                  and out.shape == frames.shape[:3],
-                  f"bad reply {type(out)} {getattr(out, 'shape', None)}")
             ref = plain.predict_step(frames).cpu().numpy()
             same += int((ref == out).sum())
             total += out.size
@@ -1001,6 +1051,274 @@ def train_timing(sd, device, card, launches, errs):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# LaneNetLite serving (K6) and label extraction (K5)
+# ---------------------------------------------------------------------------
+
+def lite_args(*flags):
+    from sim2real_lane_segment_tpu_torch.cli import serve
+
+    return serve.parse_args(["--checkpointPath", LITE_CKPT, "--height",
+                             str(H), "--width", str(W), *flags])
+
+
+def lite_quantized(device):
+    """The committed student on the card and its int8 network, calibrated
+    as ``cli.serve --int8`` calibrates without --calib_dir."""
+    from sim2real_lane_segment_tpu_torch.cli import serve
+    from sim2real_lane_segment_tpu_torch.cli.test import \
+        load_trainer_and_state
+    from sim2real_lane_segment_tpu_torch.models.lanenet_int8 import \
+        quantize_lanenet
+
+    trainer = load_trainer_and_state("baseline", LITE_CKPT, arch="lite",
+                                     height=H, width=W)
+    calib = model_input(serve.calibration_frames(lite_args("--int8")),
+                        device).permute(0, 2, 3, 1)
+    return trainer, quantize_lanenet(trainer.model, calib)
+
+
+def stem_rows(qn, frames, device):
+    """uint8 frames -> (K6's input: f32 stem output [B, h*w, C], h, w)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.models import lanenet_fused
+
+    with torch.no_grad():
+        return lanenet_fused.stem_rows(
+            qn, model_input(frames, device).permute(0, 2, 3, 1))
+
+
+def compare_int8_body(qn, device, card) -> float:
+    """Phase 10: K6 against its plain version at full width, B=8, on the
+    committed student's sites: every conv site's input codes equal, logits
+    within the head's f32 reordering.  Returns the logits' max|err|."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.kernels import int8_body as kib
+    from sim2real_lane_segment_tpu_torch.models.lanenet_fused import \
+        fold_body
+
+    body = fold_body(qn)
+    x, hh, ww = stem_rows(qn, synthetic_frames(
+        np.random.default_rng(SEED + 11), CHECK_BATCH), device)
+    codes, codes_plain = {}, {}
+    with torch.no_grad():
+        out = kib.int8_body(x, body, hh, ww, record=codes)
+        ref = kib.int8_body_plain(x, body, hh, ww, record=codes_plain)
+    torch.cuda.synchronize()
+    check(list(codes) == list(codes_plain) and len(codes) == 10,
+          f"compared sites {list(codes)}")
+    for name, q in codes.items():
+        diff = int((q != codes_plain[name]).sum())
+        print(f"  K6 site {name:18s} codes {tuple(q.shape)}: {diff} differ, "
+              f"mean code {q.float().mean().item():+.2f}  [{card}]")
+        check(diff == 0, f"K6 {name}: {diff} int8 codes differ from plain")
+    err = (out - ref).abs().max().item()
+    print(f"  K6 logits [B={CHECK_BATCH}, {hh * ww}, {out.shape[2]}] max|err| "
+          f"{err:.3e} (max|ref| {ref.abs().max().item():.3e}), argmax "
+          f"agreement {(out.argmax(2) == ref.argmax(2)).float().mean():.6f}"
+          f"  [{card}]")
+    torch.testing.assert_close(out, ref, **INT8_LOGIT_TOL,
+                               msg="K6 logits differ from plain")
+    return err
+
+
+def lite_serve_phase(card):
+    """Phase 11: ``cli.serve --arch lite`` float, ``--int8`` and ``--int8
+    --fused`` behind the engine, each on the same requests, once to warm
+    up and once counted and timed.  Returns K6's launch counts in the
+    fused run and the frames/s per mode."""
+    from sim2real_lane_segment_tpu_torch.cli import serve
+    from sim2real_lane_segment_tpu_torch.kernels import int8_body as kib
+
+    requests = client_requests(np.random.default_rng(SEED + 12))
+    n_frames = sum(f.shape[0] for reqs in requests for f in reqs)
+    plain_calls = []
+    real_plain = kib.int8_body_plain
+
+    def counting(*a, **kw):
+        plain_calls.append(1)
+        return real_plain(*a, **kw)
+
+    masks, fps, launches = {}, {}, {}
+    for mode, flags in LITE_MODES.items():
+        predict_fn, _, _ = serve.build_predict_fn(lite_args(*flags))
+        drive_engine(predict_fn, requests)  # warm-up: first-call costs
+        with mock.patch.object(kib, "int8_body_plain", counting):
+            kib.reset_launches()
+            replies, stats, wall = drive_engine(predict_fn, requests)
+            launches[mode] = dict(kib.launches)
+        masks[mode] = np.concatenate([o for outs in replies for o in outs])
+        fps[mode] = n_frames / wall
+        print(f"serve lite {mode:10s}: {n_frames} frames in 32 requests, "
+              f"{stats['batches']} batches, wall {wall:.3f} s, "
+              f"{fps[mode]:.1f} frames/s; K6 launches "
+              f"{json.dumps(launches[mode])}  [{card}]")
+        if mode == "int8_fused":
+            b = stats["batches"]
+            expect = {"quant": b, "conv": 12 * b, "head": b}
+            check(launches[mode] == expect,
+                  f"K6 launches {launches[mode]}, expected {expect} "
+                  f"(1/12/1 per batch)")
+        else:
+            check(not any(launches[mode].values()),
+                  f"{mode}: K6 launched off its path")
+    check(not plain_calls, f"K6's plain version ran {len(plain_calls)} times")
+    agree = {k: float((masks[a] == masks[b]).mean()) for k, (a, b) in {
+        "int8_fused_vs_int8": ("int8_fused", "int8"),
+        "int8_vs_float": ("int8", "float"),
+        "int8_fused_vs_float": ("int8_fused", "float")}.items()}
+    print(f"serve lite: pixel agreement over {masks['float'].size} pixels "
+          f"{json.dumps(agree)}; classes (float) "
+          f"{np.bincount(masks['float'].ravel(), minlength=N_CLS).tolist()}"
+          f"  [{card}]")
+    check(agree["int8_fused_vs_int8"] >= MIN_INT8_AGREEMENT,
+          f"fused vs plain int8 agreement {agree['int8_fused_vs_int8']}")
+    return launches["int8_fused"], fps
+
+
+def label_pairs(rng, n, h, w):
+    """Seeded uint8 (orig, annot) pairs: noise frames, and annotated
+    regions whose channel deltas fire each rule alone and mixed, with
+    sparse noise in the annotation."""
+    orig = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    delta = np.zeros((n, h, w, 3), np.int16)
+    kinds = np.array([(0, 60, 0), (60, 0, 0), (0, 0, 60), (-60, 0, 0),
+                      (0, -60, 0), (60, 60, -60), (0, 60, -60)], np.int16)
+    for i in range(n):
+        for _ in range(12):
+            y0, x0 = rng.integers(0, h), rng.integers(0, w)
+            dy, dx = rng.integers(2, h // 3 + 2), rng.integers(2, w // 3 + 2)
+            delta[i, y0:y0 + dy, x0:x0 + dx] += kinds[rng.integers(len(kinds))]
+    noise = rng.random((n, h, w, 3), dtype=np.float32) < 0.02
+    delta += (noise * rng.integers(-30, 31, (n, h, w, 3))).astype(np.int16)
+    annot = np.clip(orig + delta, 0, 255).astype(np.uint8)
+    return orig, annot
+
+
+def labelgen_phase(device, card):
+    """Phase 12: ``ops.labelgen.process_classes_batch`` on the card (K5) at
+    B=32, 480x640 and 120x160, both channel orders, bit-exact against the
+    plain version.  Returns (K5 launches in the run, the pairs at
+    480x640)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.kernels import labelgen as klg
+    from sim2real_lane_segment_tpu_torch.ops.labelgen import \
+        process_classes_batch
+
+    rng = np.random.default_rng(SEED + 13)
+    pairs = {hw: tuple(torch.from_numpy(a).to(device)
+                       for a in label_pairs(rng, LABEL_BATCH, *hw))
+             for hw in LABEL_SIZES}
+    outs = {}
+    klg.reset_launches()
+    for hw, (orig, annot) in pairs.items():
+        for order in ("bgr", "rgb"):
+            outs[hw, order] = process_classes_batch(orig, annot, order)
+    torch.cuda.synchronize()
+    launches = dict(klg.launches)
+    check(launches == {"labelgen": 2 * len(LABEL_SIZES)},
+          f"K5 launches {launches}")
+    for (hw, order), out in outs.items():
+        ref = klg.process_classes_plain(*pairs[hw], order)
+        diff = int((out != ref).sum())
+        print(f"  K5 B={LABEL_BATCH} {hw[0]}x{hw[1]} {order}: {diff} of "
+              f"{ref.numel()} pixels differ; classes "
+              f"{torch.bincount(ref.flatten().long(), minlength=4).tolist()}"
+              f"  [{card}]")
+        check(diff == 0, f"K5 {hw} {order}: {diff} pixels differ from plain")
+    return launches["labelgen"], pairs[LABEL_SIZES[0]]
+
+
+def _body_cost(body, b, p) -> tuple[float, float, float]:
+    """(bytes, int8 ops, f32 head ops) one K6 body call must move and do:
+    the f32 stem rows in, the logits out, every weight once."""
+    int8_ops = 0.0
+    weights = 0
+    for specs in body.blocks:
+        for s in specs:
+            if s is None:
+                continue
+            int8_ops += 2.0 * b * p * s.w_rows.numel()
+            weights += s.w_rows.numel() + 12 * s.w_rows.shape[1]
+    c, n = body.head_w.shape
+    first = body.blocks[0][0]
+    c_in = first.w_rows.shape[0] // first.taps
+    moved = b * p * (c_in + n) * 4 + weights + 4 * (c * n + n)
+    return moved, int8_ops, 2.0 * b * p * c * n
+
+
+def lite_timing(trainer, qn, pairs, device, card, k6_launches, k6_err,
+                k5_launches):
+    """Phase 13: K6 per B=64 forward and K5 per B=32 480x640 batch, beside
+    their plain versions and bounds; the whole int8-fused, int8-plain and
+    float forwards at B=64.  Returns the kernels line entries of K5, K6."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.kernels import int8_body as kib
+    from sim2real_lane_segment_tpu_torch.kernels import labelgen as klg
+    from sim2real_lane_segment_tpu_torch.models.lanenet_fused import (
+        fold_body, fused_int8_serve)
+    from sim2real_lane_segment_tpu_torch.models.lanenet_int8 import \
+        int8_apply
+    from sim2real_lane_segment_tpu_torch.ops.augment import (AugmentConfig,
+                                                             eval_batch)
+
+    body = fold_body(qn)
+    frames = synthetic_frames(np.random.default_rng(SEED + 14), TIME_BATCH)
+    x, hh, ww = stem_rows(qn, frames, device)
+    frames_dev = torch.from_numpy(frames).to(device)
+    with torch.no_grad():
+        k6_ms = _time_ms(lambda: kib.int8_body(x, body, hh, ww))
+        k6_plain = _time_ms(lambda: kib.int8_body_plain(x, body, hh, ww))
+        xn = model_input(frames, device)
+        cudnn_fwd = _time_ms(lambda: trainer.model(xn, use_softmax=False))
+        cfg = AugmentConfig(height=H, width=W)
+        whole = {
+            "int8_fused": _time_ms(lambda: fused_int8_serve(qn, frames_dev)),
+            "int8_plain": _time_ms(lambda: torch.argmax(int8_apply(
+                qn, eval_batch(frames_dev, None, cfg, with_labels=False)[0]),
+                dim=-1)),
+            "float_bf16": _time_ms(lambda: trainer.predict_step(frames_dev))}
+    moved, ops8, ops32 = _body_cost(body, TIME_BATCH, hh * ww)
+    t_bytes = moved / PEAK_BYTES * 1e3
+    t_ops = (ops8 / PEAK_INT8_OPS + ops32 / PEAK_F32_OPS) * 1e3
+    k6 = {"name": "k6_int8_body", "route": "cuda", "source": K6_SOURCE,
+          "replaces": K6_REPLACES, "launches": sum(k6_launches.values()),
+          "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
+          "bound_ms": max(t_bytes, t_ops),
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+          "library_ms": None}
+    print(f"timing: k6_int8_body per B={TIME_BATCH} forward (14 launches): "
+          f"kernel {k6_ms:.3f} ms, plain (float64 sums) {k6_plain:.3f} ms, "
+          f"library n/a (yardstick: the whole float LaneNetLite forward "
+          f"through cuDNN in bf16 {cudnn_fwd:.3f} ms), bound "
+          f"{k6['bound_ms']:.4f} ms ({k6['bound_by']}; "
+          f"{ops8 / 1e9:.1f} G int8 ops, {moved / 1e6:.2f} MB), "
+          f"{ops8 / k6_ms / 1e9:.1f} TOP/s  [{card}]")
+    print(f"timing: lite frames -> masks at B={TIME_BATCH}: "
+          + ", ".join(f"{k} {v:.3f} ms ({TIME_BATCH / v * 1e3:.1f} frames/s)"
+                      for k, v in whole.items()) + f"  [{card}]")
+
+    orig, annot = pairs
+    k5_ms = _time_ms(lambda: klg.process_classes(orig, annot))
+    k5_plain = _time_ms(lambda: klg.process_classes_plain(orig, annot))
+    px = orig.shape[0] * orig.shape[1] * orig.shape[2]
+    k5_bound = 7.0 * px / PEAK_BYTES * 1e3
+    k5 = {"name": "k5_labelgen", "route": "cuda", "source": K5_SOURCE,
+          "replaces": K5_REPLACES, "launches": k5_launches,
+          "max_abs_err": 0.0, "ms": k5_ms, "plain_ms": k5_plain,
+          "bound_ms": k5_bound, "bound_by": "bytes", "library_ms": None}
+    print(f"timing: k5_labelgen per B={orig.shape[0]} {orig.shape[1]}x"
+          f"{orig.shape[2]} batch: kernel {k5_ms:.3f} ms, plain "
+          f"{k5_plain:.3f} ms, library n/a, bound {k5_bound:.4f} ms (bytes; "
+          f"{7 * px / 1e6:.1f} MB)  [{card}]")
+    return [k5, k6]
+
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -1023,7 +1341,7 @@ def main() -> None:
 
     # phase 2: build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    sources = ("dense_block", "train_block")
+    sources = ("dense_block", "train_block", "int8_body", "labelgen")
     build.build(*sources)
     for name in sources:
         build.load(name)
@@ -1068,6 +1386,26 @@ def main() -> None:
     # phase 9: train timing
     kernels += train_timing(sd, device, card, train_launches,
                             train_errs["bfloat16"])
+
+    # phase 10: K6 against plain at full width, the committed student
+    t0 = time.perf_counter()
+    lite_trainer, qn = lite_quantized(device)
+    k6_err = compare_int8_body(qn, device, card)
+    print(f"compare: K6 done in {time.perf_counter() - t0:.1f} s  [{card}]",
+          flush=True)
+
+    # phase 11: serve LaneNetLite: float, int8, int8 through K6
+    k6_launches, lite_fps = lite_serve_phase(card)
+
+    # phase 12: label extraction through K5
+    k5_launches, big_pairs = labelgen_phase(device, card)
+
+    # phase 13: LaneNetLite and label timing
+    kernels += lite_timing(lite_trainer, qn, big_pairs, device, card,
+                           k6_launches, k6_err, k5_launches)
+    print("engine lite: " + ", ".join(f"{k} {v:.1f} frames/s"
+                                      for k, v in lite_fps.items())
+          + f" end to end  [{card}]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,37 +4,92 @@ Serves a segmentation model behind the batch-aggregating ZMQ front end
 (``serving.py``), with the flags of the JAX package's ``cli/serve.py``:
 
     python -m sim2real_lane_segment_tpu_torch.cli.serve \\
-        --checkpointPath weights.pt --arch 67 --fused --port 8903
+        --checkpointPath artifacts/lanenet_lite_sim.msgpack --port 8903
 
-``--fused`` runs the FC-DenseNet archs through the fused dense-block
-kernels (``models.tiramisu_fused``); without it the plain module runs.
-Weights are a ``.pt`` state dict or an ``.npz`` of flattened Flax
-variables.  ``--int8`` (the PTQ LaneNetLite path) is not yet ported.
+``--arch lite`` (the default) serves LaneNetLite; ``--int8`` serves it
+quantized to int8 (``models.lanenet_int8``), and ``--int8 --fused``
+through kernel K6 (``models.lanenet_fused``), calibrated on the PNGs of
+``--calib_dir`` or, without it, on 16 frames of
+``np.random.default_rng(0)`` noise as the JAX CLI does.  ``--fused``
+alone runs the FC-DenseNet archs through the fused dense-block kernels
+(``models.tiramisu_fused``); LaneNetLite has no fused float forward and
+runs its plain module.  Weights are a ``.pt`` state dict, a Flax
+``.msgpack`` file or an ``.npz`` of flattened Flax variables.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import logging
+
+import numpy as np
+import torch
 
 from . import common
 
 log = logging.getLogger(__name__)
 
 
+def calibration_frames(args) -> np.ndarray:
+    """uint8 (n, height, width, 3) frames for the int8 activation scales:
+    the first 64 PNGs of ``--calib_dir`` (BGR, already at the model's
+    size), or 16 frames of seeded noise."""
+    if not args.calib_dir:
+        log.warning("no --calib_dir: calibrating int8 on synthetic noise")
+        return np.random.default_rng(0).integers(
+            0, 255, (16, args.height, args.width, 3), dtype=np.uint8)
+    from ..data.png import read_png
+
+    paths = sorted(glob.glob(f"{args.calib_dir}/*.png"))[:64]
+    if not paths:
+        raise FileNotFoundError(f"no PNG in --calib_dir {args.calib_dir}")
+    frames = [read_png(p) for p in paths]
+    for p, f in zip(paths, frames):
+        # the JAX CLI resizes with cv2's LANCZOS4, which the port lacks
+        if f.shape != (args.height, args.width, 3):
+            raise ValueError(f"{p}: {f.shape[:2]} frame, calibration needs "
+                             f"{args.height}x{args.width} BGR PNGs")
+    log.info("calibrating int8 scales on %d frames from %s", len(paths),
+             args.calib_dir)
+    return np.stack(frames)
+
+
 def build_predict_fn(args, device=None):
     """Returns (predict_fn, height, width): uint8 NHW3 numpy -> uint8 NHW
     numpy.  ``device`` defaults to ``cuda`` and raises without a card."""
-    if args.int8:
-        raise NotImplementedError("--int8 serving is not yet ported to "
-                                  "PyTorch")
     from .test import load_trainer_and_state
 
     trainer = load_trainer_and_state(
         args.module_type, args.checkpointPath, num_cls=args.num_cls,
         arch=args.arch, height=args.height, width=args.width, device=device)
-    predict = (trainer.predict_step_fused if getattr(args, "fused", False)
-               else trainer.predict_step)
-    # .cpu() waits for the device: the engine gets host numpy
+    if not args.int8:
+        predict = (trainer.predict_step_fused if getattr(args, "fused", False)
+                   else trainer.predict_step)
+        # .cpu() waits for the device: the engine gets host numpy
+        return (lambda frames: predict(frames).cpu().numpy(),
+                args.height, args.width)
+
+    if args.arch != "lite":
+        raise SystemExit("--int8 requires --arch lite (models/lanenet_int8)")
+    from ..models.lanenet_fused import fused_int8_serve
+    from ..models.lanenet_int8 import int8_apply, quantize_lanenet
+    from ..ops.augment import eval_batch
+
+    def normalized(frames):  # NHWC, as the JAX int8 functions take
+        return eval_batch(trainer._to_device(frames), None, trainer.cfg,
+                          with_labels=False)[0]
+
+    qn = quantize_lanenet(trainer.model, normalized(calibration_frames(args)))
+    if getattr(args, "fused", False):
+        def predict(frames):
+            return fused_int8_serve(qn, trainer._to_device(frames),
+                                    cfg=trainer.cfg)
+    else:
+        @torch.inference_mode()
+        def predict(frames):
+            return torch.argmax(int8_apply(qn, normalized(frames)),
+                                dim=-1).to(torch.uint8)
+
     return (lambda frames: predict(frames).cpu().numpy(),
             args.height, args.width)
 
@@ -42,7 +97,8 @@ def build_predict_fn(args, device=None):
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpointPath", required=True,
-                   help=".pt state dict or .npz of flattened Flax variables")
+                   help=".pt state dict, Flax .msgpack weights, or .npz of "
+                        "flattened Flax variables")
     p.add_argument("--module_type", default="baseline",
                    choices=["baseline", "sandt", "hm", "CycleGAN", "mme"])
     p.add_argument("--arch", default="lite",
@@ -52,11 +108,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--height", type=int, default=120)
     p.add_argument("--fused", action="store_true",
                    help="serve FC-DenseNet archs through the fused "
-                        "dense-block kernels")
+                        "dense-block kernels, and --int8 through kernel K6")
     p.add_argument("--int8", action="store_true",
-                   help="serve the PTQ int8 path (not yet ported)")
+                   help="serve the PTQ int8 path (lite arch only)")
     p.add_argument("--calib_dir", default=None,
-                   help="PNG dir for int8 activation calibration")
+                   help="dir of BGR PNGs at --height x --width for int8 "
+                        "activation calibration")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8903)
     p.add_argument("--max_batch", type=int, default=64)

@@ -2,19 +2,21 @@
 CLIs.
 
 Counterpart of ``build_model`` and ``load_trainer_and_state`` in the JAX
-package's ``cli/test.py``.  The FC-DenseNet archs (67, 57, 103, tiny) are
-ported; ``67r``, ``lite``, ``encdec`` and the ``mme`` module type are not
-yet, and raise.  The evaluation ``main`` belongs to a later slice.
+package's ``cli/test.py``.  The FC-DenseNet archs (67, 57, 103, tiny) and
+LaneNetLite (``lite``) are ported; ``67r``, ``encdec`` and the ``mme``
+module type are not yet, and raise.  The evaluation ``main`` belongs to a
+later slice.
 """
 from __future__ import annotations
 
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 
-PORTED_ARCHES = ("67", "57", "103", "tiny")
+PORTED_ARCHES = ("67", "57", "103", "tiny", "lite")
 
 
 def build_model(arch: str, num_cls: int,
                 policy: DTypePolicy = DEFAULT_POLICY):
+    from ..models.lanenet_lite import LaneNetLite
     from ..models.tiramisu import (FCDenseNet, fcdensenet57, fcdensenet67,
                                    fcdensenet103)
     if arch not in PORTED_ARCHES:
@@ -24,6 +26,7 @@ def build_model(arch: str, num_cls: int,
     return {"67": lambda: fcdensenet67(num_cls, policy),
             "57": lambda: fcdensenet57(num_cls, policy=policy),
             "103": lambda: fcdensenet103(num_cls, policy),
+            "lite": lambda: LaneNetLite(n_classes=num_cls, policy=policy),
             "tiny": lambda: FCDenseNet(
                 n_classes=num_cls, down_blocks=(2, 2), up_blocks=(2, 2),
                 bottleneck_layers=2, growth_rate=4,
@@ -35,8 +38,8 @@ def load_trainer_and_state(module_type: str, checkpoint_path: str,
                            height: int = 120, width: int = 160,
                            device=None, policy: DTypePolicy = DEFAULT_POLICY):
     """A ``SupervisedTrainer`` on ``device`` (default ``cuda``) holding the
-    weights at ``checkpoint_path`` (``.pt`` or ``.npz``).  The model holds
-    the weights, so the trainer is the whole state."""
+    weights at ``checkpoint_path`` (``.pt``, ``.msgpack`` or ``.npz``).  The
+    model holds the weights, so the trainer is the whole state."""
     from ..train.checkpoint import load_weights
     from ..train.supervised import SupervisedTrainer
 

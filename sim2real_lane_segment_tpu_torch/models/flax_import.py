@@ -6,7 +6,10 @@ paths, e.g. ``params/featureExtractor/denseDown0/DenseLayer_0/Conv_0/
 kernel`` or ``batch_stats/.../BatchNorm_0/mean`` (what
 ``flax.traverse_util.flatten_dict(variables, sep="/")`` gives, saved with
 ``np.savez``).  The port's modules carry the Flax names, so a path maps to
-a state-dict key by joining the module path with ``.``.
+a state-dict key by joining the module path with ``.``: FC-DenseNet's, and
+LaneNetLite's (``params/featureExtractor/ResBlock_2/Conv_1/kernel``, a
+bias-free 1x1 shortcut, or ``params/classifier/head/kernel`` and
+``.../bias``, the 1x1 class head).
 
 Layouts:
 - Conv kernel HWIO -> torch OIHW.

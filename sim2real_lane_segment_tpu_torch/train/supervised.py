@@ -14,6 +14,8 @@ state on its device, so the steps take batches alone:
 - ``eval_step``: the plain module in eval mode, unweighted cross entropy
   and the batch metrics.
 - ``predict_step``/``predict_step_fused``: uint8 frames to class maps.
+  The trainer also holds a LaneNetLite (``--arch lite``) for the predict
+  and eval steps; its train mode is not ported yet.
 
 Dropout masks are drawn from an explicit ``torch.Generator``
 (``models.tiramisu.drop_masks``) or given as operands.
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ..core.runtime import resolve_device
@@ -48,7 +51,7 @@ class SupervisedTrainer:
                  height: int = 120, width: int = 160, gray: bool = False,
                  augment: bool = False,
                  policy: DTypePolicy = DEFAULT_POLICY,
-                 model: FCDenseNet | None = None, pallas_train: bool = False,
+                 model: nn.Module | None = None, pallas_train: bool = False,
                  device=None):
         if augment:
             raise NotImplementedError(
@@ -110,6 +113,10 @@ class SupervisedTrainer:
         """One AdamW step on a uint8 batch.  ``masks``: the Dropout2d masks
         in site order; drawn from ``generator`` when not given.  Returns
         ``{"tr_loss", "tr_acc"}`` as 0-d tensors on the device."""
+        if not isinstance(self.model, FCDenseNet):
+            raise NotImplementedError(
+                f"training {type(self.model).__name__} is not yet ported to "
+                f"PyTorch")
         x, y = self._batch(images, labels)
         if masks is None:
             if generator is None:
@@ -157,7 +164,13 @@ class SupervisedTrainer:
     def predict_step_fused(self, images) -> torch.Tensor:
         """``predict_step`` through the fused dense-block forward
         (``models.tiramisu_fused``).  The kernel operands are folded from
-        the model's weights at the first call after a weight change."""
+        the model's weights at the first call after a weight change.
+
+        Models without a fused forward (LaneNetLite) run ``predict_step``,
+        as the JAX ``predict_step_fused`` does: no kernel stands behind
+        ``--arch lite --fused`` without ``--int8``, in either package."""
+        if not isinstance(self.model, FCDenseNet):
+            return self.predict_step(images)
         if self._folded is None:
             self._folded = fold_model(self.model)
         out = fused_apply(self.model, self._input(images), self._folded,

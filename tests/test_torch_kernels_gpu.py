@@ -1,4 +1,5 @@
-"""K4 CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels (K4, K1-K3b, K6, K5) against their plain
+PyTorch versions, on a card.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -7,8 +8,9 @@ package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_kernels_gpu.py
 
-Shapes cross the kernel's 16x16 pixel tiles, its 16-channel input
-stages and its 16-channel output groups with ragged remainders.
+Shapes cross the kernels' tiles with ragged remainders: K4's 16x16
+pixel tiles and 16-channel groups, K6's 64-pixel rows and 64-channel
+output groups, K5's 32x32 tiles (and images smaller than their halo).
 """
 import numpy as np
 import pytest
@@ -222,3 +224,125 @@ def test_train_wrappers_reject_bad_operands(cuda):
         ktb.consumer_fwd(x, scale.cpu(), shift, weight, bias, mask)
     with pytest.raises(ValueError):  # channels are not contiguous planes
         ktb.consumer_fwd(x.transpose(2, 3), scale, shift, weight, bias, mask)
+
+
+# ---------------------------------------------------------------------------
+# K6 (kernels/int8_body.py) and K5 (kernels/labelgen.py)
+# ---------------------------------------------------------------------------
+
+from sim2real_lane_segment_tpu_torch.core.dtypes import F32_POLICY  # noqa: E402
+from sim2real_lane_segment_tpu_torch.kernels import int8_body as kib  # noqa: E402
+from sim2real_lane_segment_tpu_torch.kernels import labelgen as klg  # noqa: E402
+from sim2real_lane_segment_tpu_torch.models.lanenet_fused import (  # noqa: E402
+    fold_body, stem_rows)
+from sim2real_lane_segment_tpu_torch.models.lanenet_int8 import \
+    quantize_lanenet  # noqa: E402
+from sim2real_lane_segment_tpu_torch.models.lanenet_lite import \
+    LaneNetLite  # noqa: E402
+
+# (stem, body, H, W): a small net, and the full widths at 120x160 (30x40
+# rows: 19 tiles of 64 pixels, the last ragged; 96 outputs: 64 + 32)
+LITE_CASES = [((8, 16), ((16, 1), (16, 2), (32, 4)), 26, 34),
+              ((32, 64), ((64, 1), (64, 1), (96, 2), (96, 4), (128, 1)),
+               120, 160)]
+
+
+def _random_lite(stem, body, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    model = LaneNetLite(4, stem=stem, body=body, policy=F32_POLICY)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * (2.0 / fan_in) ** 0.5)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(m.running_mean.shape,
+                                                 generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape,
+                                               generator=gen) + 0.5)
+    return model.to(device).eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LITE_CASES)
+def test_int8_body_matches_plain(cuda, case):
+    """Every conv site's input codes equal; logits within the head's f32
+    reordering (rtol 1e-5, atol 1e-4, as the JAX kernel's own gate)."""
+    stem, body, h, w = case
+    model = _random_lite(stem, body, cuda, 6)
+    gen = torch.Generator().manual_seed(7)
+    calib = torch.randn(4, h, w, 3, generator=gen).to(cuda)
+    qn = quantize_lanenet(model, calib)
+    rows, hh, ww = stem_rows(qn, torch.randn(3, h, w, 3, generator=gen).to(
+        cuda))
+    folded = fold_body(qn)
+    kib.reset_launches()
+    codes, codes_plain = {}, {}
+    out = kib.int8_body(rows, folded, hh, ww, record=codes)
+    ref = kib.int8_body_plain(rows, folded, hh, ww, record=codes_plain)
+    torch.cuda.synchronize()
+    n_short = sum(s is not None for _, _, s in folded.blocks)
+    assert kib.launches == {"quant": 1, "conv": 2 * len(body) + n_short,
+                            "head": 1}
+    assert codes.keys() == codes_plain.keys() and len(codes) == 2 * len(body)
+    for name, q in codes.items():
+        assert q.dtype == torch.int8
+        assert torch.equal(q, codes_plain[name]), name
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_int8_body_rejects_bad_operands(cuda):
+    stem, body, h, w = LITE_CASES[0]
+    qn = quantize_lanenet(_random_lite(stem, body, cuda, 8),
+                          torch.randn(2, h, w, 3, device=cuda))
+    bd = fold_body(qn)
+    x = torch.randn(2, (h // 4 + 1) * (w // 4 + 1), 16, device=cuda)
+    with pytest.raises(ValueError):  # f64 is not the kernel's dtype
+        kib.int8_body(x.double(), bd, h // 4 + 1, w // 4 + 1)
+    with pytest.raises(ValueError):  # rows do not match h*w
+        kib.int8_body(x, bd, h // 4, w // 4)
+
+
+def _label_pairs(n, h, w, seed):
+    """Seeded uint8 frame pairs with regions of every class rule, noise,
+    and runs thinner than the 5x5 window."""
+    rng = np.random.default_rng(seed)
+    orig = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    delta = np.zeros((n, h, w, 3), np.int64)
+    # per-channel deltas that make each rule fire alone or together
+    kinds = np.array([(0, 60, 0), (60, 0, 0), (0, 0, 60), (-60, 0, 0),
+                      (0, -60, 0), (60, 60, -60), (0, 60, -60)])
+    for _ in range(10):
+        y0, x0 = rng.integers(0, h), rng.integers(0, w)
+        dy, dx = rng.integers(1, h // 3 + 2), rng.integers(1, w // 3 + 2)
+        delta[:, y0:y0 + dy, x0:x0 + dx] += kinds[rng.integers(len(kinds))]
+    noise = rng.random(orig.shape) < 0.03
+    delta += noise * rng.integers(-30, 31, orig.shape)
+    annot = np.clip(orig.astype(np.int64) + delta, 0, 255).astype(np.uint8)
+    return torch.from_numpy(orig), torch.from_numpy(annot)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["bgr", "rgb"])
+@pytest.mark.parametrize("shape", [(3, 120, 160), (2, 100, 70), (4, 5, 7),
+                                   (1, 33, 65)])
+def test_labelgen_matches_plain(cuda, shape, order):
+    """Bit-exact: tiles ragged against the 32x32 blocks, images smaller
+    than one block's 8-pixel halo."""
+    orig, annot = _label_pairs(*shape, seed=sum(shape))
+    ref = klg.process_classes_plain(orig, annot, order)
+    klg.reset_launches()
+    out = klg.process_classes(orig.to(cuda), annot.to(cuda), order)
+    torch.cuda.synchronize()
+    assert klg.launches["labelgen"] == 1
+    assert out.dtype == torch.uint8 and out.shape == ref.shape
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(klg.process_classes_plain(orig.to(cuda),
+                                                 annot.to(cuda), order).cpu(),
+                       ref)
+    if shape[1] >= 100:
+        assert len(torch.unique(ref)) == 4

@@ -1,7 +1,9 @@
 """The port's serving path on the CPU: ``BatchingEngine`` behaviours
 (mirroring tests/test_serving.py), the CLI predictor, the fused predict
-step against the JAX one on the same ``.npz`` weights, weight files, and
-entry points that must refuse to run without a card."""
+step against the JAX one on the same ``.npz`` weights, weight files,
+LaneNetLite served from the committed student in every mode, and entry
+points that must refuse to run without a card."""
+import os
 import threading
 import time
 
@@ -79,7 +81,7 @@ def test_weights_round_trip(tmp_path, trainer):
     for k, v in trainer.model.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
     with pytest.raises(ValueError, match="format"):
-        load_weights(str(tmp_path / "w.msgpack"), model)
+        load_weights(str(tmp_path / "w.ckpt"), model)
 
 
 def _args(path, *extra):
@@ -235,19 +237,118 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch, weights):
         load_trainer_and_state("baseline", weights[0], arch="tiny")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_serve.build_predict_fn(_args(weights[0], "--fused"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port_serve.build_predict_fn(_lite_args("--int8", "--fused"))
 
 
-@pytest.mark.parametrize("what", ["lite", "67r", "encdec", "mme", "int8"])
+@pytest.mark.parametrize("what", ["67r", "encdec", "mme"])
 def test_not_yet_ported_raises(weights, what):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         if what == "mme":
             load_trainer_and_state("mme", weights[0], arch="tiny",
                                    device="cpu")
-        elif what == "int8":
-            port_serve.build_predict_fn(_args(weights[0], "--int8"),
-                                        device="cpu")
         else:
             build_model(what, 4)
+
+
+# -- LaneNetLite: the default arch, float, int8 and int8 through K6 ----------
+
+ART = os.path.join(os.path.dirname(__file__), "..", "artifacts",
+                   "lanenet_lite_sim.msgpack")
+LITE_MODES = {"float": [], "float_fused": ["--fused"], "int8": ["--int8"],
+              "int8_fused": ["--int8", "--fused"]}
+
+
+def _lite_args(*extra, h=48, w=64):
+    return port_serve.parse_args(["--checkpointPath", ART, "--height", str(h),
+                                  "--width", str(w), *extra])
+
+
+@pytest.mark.parametrize("mode", list(LITE_MODES))
+def test_lite_predict_fn_serves_committed_student(mode):
+    """Every LaneNetLite mode answers host uint8 masks behind the engine,
+    each request as the predictor gives it alone."""
+    predict, h, w = port_serve.build_predict_fn(
+        _lite_args(*LITE_MODES[mode]), device="cpu")
+    assert (h, w) == (48, 64)
+    frames = rand_frames(5, seed=30, h=h, w=w)
+    masks = predict(frames)
+    assert isinstance(masks, np.ndarray) and masks.dtype == np.uint8
+    assert masks.shape == (5, h, w) and masks.max() < 4
+    eng = BatchingEngine(predict, height=h, width=w, max_batch=8,
+                         max_wait_ms=5.0)
+    try:
+        np.testing.assert_array_equal(eng.predict(frames[:3], timeout=60),
+                                      predict(frames[:3]))
+    finally:
+        eng.close()
+
+
+def test_lite_is_the_default_arch_at_full_size():
+    """``cli.serve --checkpointPath <student>`` with no other flag."""
+    args = port_serve.parse_args(["--checkpointPath", ART])
+    assert (args.arch, args.int8, args.fused) == ("lite", False, False)
+    predict, h, w = port_serve.build_predict_fn(args, device="cpu")
+    assert predict(rand_frames(1, seed=31, h=h, w=w)).shape == (1, 120, 160)
+
+
+def test_lite_fused_without_int8_is_the_plain_module():
+    """No kernel stands behind ``--arch lite --fused`` alone (as in JAX):
+    ``predict_step_fused`` is ``predict_step``."""
+    tr = load_trainer_and_state("baseline", ART, arch="lite", height=48,
+                                width=64, device="cpu", policy=F32_POLICY)
+    frames = rand_frames(2, seed=32, h=48, w=64)
+    assert torch.equal(tr.predict_step_fused(frames), tr.predict_step(frames))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tr.train_step(frames, np.zeros((2, 48, 64), np.uint8), 1e-3)
+
+
+def test_lite_predict_matches_jax_trainer():
+    """The committed student through both trainers' ``predict_step``, in
+    float32: at least 99.9% of pixels agree (the x4 upsample and the convs
+    sum in another order, which can flip a near tie)."""
+    from sim2real_lane_segment_tpu.core.dtypes import F32_POLICY as JAX_F32
+    from sim2real_lane_segment_tpu.models.lanenet_lite import LaneNetLite
+    from sim2real_lane_segment_tpu.train import checkpoint as jax_ckpt
+
+    jt = JaxTrainer(model=LaneNetLite(n_classes=4, policy=JAX_F32), height=48,
+                    width=64, augment=False)
+    state = jax_ckpt.load_weights(ART, jt.init_state(jax.random.key(0)))
+    tr = load_trainer_and_state("baseline", ART, arch="lite", height=48,
+                                width=64, device="cpu", policy=F32_POLICY)
+    frames = rand_frames(3, seed=33, h=96, w=128)
+    ref = np.asarray(jt.predict_step(state, frames))
+    out = tr.predict_step(frames).numpy()
+    assert out.shape == ref.shape == (3, 48, 64)
+    assert (out == ref).mean() >= 0.999
+
+
+def test_calib_dir_reads_pngs_at_the_model_size(tmp_path):
+    from sim2real_lane_segment_tpu_torch.data.png import write_png
+
+    good = tmp_path / "good"
+    good.mkdir()
+    for i in range(3):
+        write_png(str(good / f"{i:03d}.png"), rand_frames(1, seed=40 + i)[0])
+    predict, _, _ = port_serve.build_predict_fn(
+        _lite_args("--int8", "--calib_dir", str(good), h=H, w=W),
+        device="cpu")
+    assert predict(rand_frames(2, seed=43)).shape == (2, H, W)
+    write_png(str(good / "zz.png"), rand_frames(1, seed=44, h=H + 2)[0])
+    with pytest.raises(ValueError, match="calibration needs"):
+        port_serve.build_predict_fn(
+            _lite_args("--int8", "--calib_dir", str(good), h=H, w=W),
+            device="cpu")
+    with pytest.raises(FileNotFoundError):
+        port_serve.build_predict_fn(
+            _lite_args("--int8", "--calib_dir", str(tmp_path / "none")),
+            device="cpu")
+
+
+def test_int8_requires_lite(weights):
+    with pytest.raises(SystemExit, match="--arch lite"):
+        port_serve.build_predict_fn(_args(weights[0], "--int8"),
+                                    device="cpu")
 
 
 def test_serve_flags_match_jax_cli():
