@@ -17,6 +17,9 @@ Phases:
 
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: builds the four kernel sources from ``csrc/`` with nvcc, at once;
+   prints ptxas's registers and spills per kernel and counts the
+   tensor-core instructions (HGMMA, HMMA) of the bf16 TransitionDown
+   kernels;
 3. K4 against plain: all 11 dense blocks at their real widths (B=8,
    120x160), in float32 (TF32 off) and in bfloat16;
 4. serve: 4 client threads x 8 requests of 1-16 frames through the engine
@@ -61,6 +64,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -141,6 +145,12 @@ MIN_ARGMAX_AGREEMENT = 0.99   # fused bf16 logits: kernel vs plain
 MIN_PIXEL_AGREEMENT = 0.98    # served masks: fused kernels vs plain module
 
 
+# the bf16 TransitionDown kernels on the tensor cores: the forward's two
+# and K2's dgrad (wgmma), K2's wgrad (mma.sync)
+MMA_KERNELS = ("td_fwd_small_kernel", "td_fwd_mma_kernel",
+               "bwd1x1_dgrad_mma_kernel", "bwd1x1_wgrad_mma_kernel")
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -158,6 +168,56 @@ def card_label() -> str:
         timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def _entry_name(mangled: str) -> str:
+    """The plain name of a kernel in one of this repo's anonymous
+    namespaces: the second length-prefixed name after ``_ZN``."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    return rest[m.end():m.end() + int(m.group(1))] if m else mangled
+
+
+def ptxas_report(log: str) -> list:
+    """[(kernel, "registers ...; spills ...")] from an nvcc -Xptxas -v log,
+    one entry per compiled __global__ (template instances in order)."""
+    out, name, parts = [], None, []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            if name:
+                out.append((name, "; ".join(parts)))
+            name, parts = _entry_name(line.split("'")[1]), []
+        elif name and ("spill" in line or "registers" in line):
+            parts.append(line.split(":", 1)[-1].strip())
+    if name:
+        out.append((name, "; ".join(parts)))
+    return out
+
+
+def tensor_core_instructions(build):
+    """Tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in
+    each tensor-core kernel's SASS (cuobjdump beside nvcc), or None
+    without cuobjdump."""
+    from pathlib import Path
+
+    tool = Path(build.find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    counts = {}
+    for src in ("dense_block", "train_block"):
+        sass = subprocess.run([str(tool), "-sass", str(build._target(src))],
+                              capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
+        name = None
+        for line in sass.stdout.splitlines():
+            if "Function :" in line:
+                name = _entry_name(line.split("Function :", 1)[1].strip())
+            elif name in MMA_KERNELS and ("HMMA" in line or "HGMMA" in line):
+                counts[name] = counts.get(name, 0) + 1
+    return {k: counts.get(k, 0) for k in MMA_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -1348,9 +1408,18 @@ def main() -> None:
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {json.dumps(build.build_seconds)} s)  [{card}]")
     for name in sources:
-        for line in build.build_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for entry, info in ptxas_report(build.build_log.get(name, "")):
+            tag = " [tensor cores]" if entry in MMA_KERNELS else ""
+            print(f"  {name}: {entry}{tag}: {info}")
+    hmma = tensor_core_instructions(build)
+    if hmma is None:
+        print("build: cuobjdump not found beside nvcc; tensor-core "
+              "instructions not checked")
+    else:
+        print(f"build: tensor-core instructions (HMMA, HGMMA) per kernel "
+              f"{json.dumps(hmma)}  [{card}]")
+        check(all(hmma.values()), "a tensor-core kernel holds no HMMA or "
+              "HGMMA instruction")
 
     # phase 3: kernel against plain, every block at full width
     t0 = time.perf_counter()

@@ -1,0 +1,439 @@
+// Shared device code for the bf16 1x1 (TransitionDown) kernels on Hopper:
+// BN + ReLU staging of NCHW channel rows into bf16 shared-memory tiles,
+// wgmma (m64n128k16) on tiles in shared memory, and a 64x32 warp tile of
+// mma.sync m16n8k16 products fed by ldmatrix; bf16 in, f32 sums.
+//
+// Used by td_fwd_small_kernel and td_fwd_mma_kernel (csrc/dense_block.cu)
+// and by bwd1x1_dgrad_mma_kernel (wgmma) and bwd1x1_wgrad_mma_kernel
+// (mma.sync) in csrc/train_block.cu.
+//
+// Row-major shared-memory tiles for ldmatrix have a row stride (ld) of a
+// multiple of 64 elements plus 8: a row then starts 16 bytes further along
+// the 128-byte bank window than the previous one, so the eight 16-byte rows
+// of one ldmatrix 8x8 matrix fall in different banks.
+//
+// mma.sync.m16n8k16 fragments (g = lane / 4, t = lane % 4):
+//   A (16 x 16, m x k): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//                       a3 (g+8, 2t+8..)
+//   B (16 x 8,  k x n): b0 (2t..2t+1, g), b1 (2t+8.., g)
+//   D (16 x 8,  m x n): d0, d1 (g, 2t..2t+1), d2, d3 (g+8, 2t..2t+1)
+// ldmatrix.x4 gives each lane row g, columns 2t..2t+1 of four 8x8 matrices
+// whose rows lanes 8j..8j+7 address; .trans gives the transposed matrix.
+// An operand stored with its k dimension contiguous is read without .trans,
+// one stored with m (A) or n (B) contiguous is read with .trans.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace s2r_mma {
+
+typedef unsigned short u16;  // bf16 bits
+typedef long long ll;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float bf(u16 v) {
+  return __bfloat162float(__ushort_as_bfloat16(v));
+}
+
+__device__ __forceinline__ u16 to_bf(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// two f32 values rounded to bf16 (nearest even) in one word, lo in the low
+// half; the relu form clamps negative results to 0 (the same values as
+// rounding relu's output)
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ uint32_t pack_bf16x2_relu(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ float lo_f(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_f(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// T(relu(x * scale + shift)) on 8 packed bf16 values: separate multiply
+// and add (no fma contraction), as the plain PyTorch versions compute it
+__device__ __forceinline__ uint4 bn_relu8(uint4 x, float s, float h) {
+  uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    w[q] = pack_bf16x2_relu(__fadd_rn(__fmul_rn(lo_f(w[q]), s), h),
+                            __fadd_rn(__fmul_rn(hi_f(w[q]), s), h));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16-byte global -> shared copy; src_bytes 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 4-byte global -> shared copy; src_bytes 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// acc[mt][nt][.] += A[am0 + 16 mt .., ak0 .. ak0+16) x B[bk0 .. +16, bn0 + 8 nt ..]
+// for one warp: a 64 (m) x 32 (n) tile, one k step of 16.
+//   A_T = false: A stored [m][k] (k contiguous); true: stored [k][m].
+//   B_T = false: B stored [n][k] (k contiguous); true: stored [k][n].
+// a, b: shared-memory byte addresses of the tiles; lda, ldb: row strides
+// in elements.  acc[mt][nt][e] is D at m = am0 + 16 mt + g + 8 (e / 2),
+// n = bn0 + 8 nt + 2t + e % 2.
+template <bool A_T, bool B_T>
+__device__ __forceinline__ void warp_mma_k16(float (&acc)[4][4][4], uint32_t a, int lda,
+                                             int am0, int ak0, uint32_t b, int ldb,
+                                             int bn0, int bk0) {
+  const int lane = threadIdx.x % 32;
+  const int r8 = lane % 8;
+  const int j0 = (lane >> 3) & 1;
+  const int j1 = lane >> 4;
+  uint32_t af[4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    if (A_T) {
+      const int row = ak0 + r8 + 8 * j1;
+      const int col = am0 + 16 * mt + 8 * j0;
+      ldsm_x4_t(af[mt], a + 2u * (uint32_t)(row * lda + col));
+    } else {
+      const int row = am0 + 16 * mt + r8 + 8 * j0;
+      const int col = ak0 + 8 * j1;
+      ldsm_x4(af[mt], a + 2u * (uint32_t)(row * lda + col));
+    }
+  }
+  uint32_t bfr[2][4];
+#pragma unroll
+  for (int np = 0; np < 2; ++np) {
+    if (B_T) {
+      const int row = bk0 + r8 + 8 * j0;
+      const int col = bn0 + 16 * np + 8 * j1;
+      ldsm_x4_t(bfr[np], b + 2u * (uint32_t)(row * ldb + col));
+    } else {
+      const int row = bn0 + 16 * np + r8 + 8 * j1;
+      const int col = bk0 + 8 * j0;
+      ldsm_x4(bfr[np], b + 2u * (uint32_t)(row * ldb + col));
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mma_16816(acc[mt][nt], af[mt], bfr[nt / 2][2 * (nt % 2)],
+                bfr[nt / 2][2 * (nt % 2) + 1]);
+}
+
+template <int M>
+__device__ __forceinline__ void zero_acc(float (&acc)[4][4][M]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < M; ++e) acc[i][j][e] = 0.f;
+}
+
+// A [rows][128] bf16 tile whose 16-byte chunks are XOR-swizzled by row
+// (chunk j of row r at r * 128 + ((j ^ (r & 7)) * 8)): an epilogue's pair
+// writes (eight rows, four lanes) and a row's 16-byte reads are both free
+// of bank conflicts.
+__device__ __forceinline__ int swz_off(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ (row & 7)) << 3) | (col & 7));
+}
+
+// How copy_rows_async moves a channel row: 16-byte cp.async (hw % 8 == 0
+// and the rows 16-byte aligned), 4-byte cp.async (hw even, rows 4-byte
+// aligned) or plain loads and stores (odd hw).
+enum RowCopy { kCopy16 = 0, kCopy4 = 1, kCopySync = 2 };
+
+__host__ __forceinline__ int row_copy_mode(int hw, ll bstride, const void* base) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  if (hw % 8 == 0 && bstride % 8 == 0 && (a & 15) == 0) return kCopy16;
+  if (hw % 2 == 0 && bstride % 2 == 0 && (a & 3) == 0) return kCopy4;
+  return kCopySync;
+}
+
+// Copies channel rows [0, rows) of x (row r at x + r * hw; rows >= nvalid
+// are zero) over pixels [p0, p0 + COLS) into dst[r][c] (row stride ld),
+// zeros past hw, by `mode` (RowCopy).  The caller commits and waits.
+template <int COLS, int THREADS>
+__device__ __forceinline__ void copy_rows_async(u16* dst, int ld, int rows, const u16* x,
+                                                int hw, int nvalid, int p0, int mode) {
+  constexpr int VPR = COLS / 8;
+  for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
+    const int r = i / VPR;
+    const int c = (i % VPR) * 8;
+    const int p = p0 + c;
+    u16* d = dst + r * ld + c;
+    const u16* src = x + (ll)r * hw + p;
+    const bool row_ok = r < nvalid;
+    if (mode == kCopy16) {
+      const bool ok = row_ok && p < hw;
+      cp_async16(d, ok ? src : x, ok ? 16 : 0);
+    } else if (mode == kCopy4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = row_ok && p + 2 * q < hw;
+        cp_async4(d + 2 * q, ok ? src + 2 * q : x, ok ? 4 : 0);
+      }
+    } else {
+      __align__(16) u16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = (row_ok && p + e < hw) ? src[e] : (u16)0;
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// Raw bf16 bits of pixels p .. p+7 of one channel row (zeros past hw).
+// vec: the row and p are 16-byte aligned.
+__device__ __forceinline__ uint4 load_px8(const u16* row, int p, int hw, bool vec) {
+  if (vec && p + 8 <= hw) return __ldg(reinterpret_cast<const uint4*>(row + p));
+  __align__(16) u16 v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = p + e < hw ? row[p + e] : (u16)0;
+  return *reinterpret_cast<const uint4*>(v);
+}
+
+// Stages channel rows [0, rows) of x (row r at x + r * hw; rows >= nvalid
+// are zero) over pixels [p0, p0 + COLS) into dst[r][c] (row stride ld):
+// BN = true: T(relu(x * scale[r] + shift[r])); false: x as it is.  Pixels
+// at or past hw read as zero (with BN, as T(relu(shift))).  Eight 16-byte
+// loads per thread are in flight before any is used.  vec: hw % 8 == 0
+// and x 16-byte aligned.
+template <bool BN, int COLS, int THREADS>
+__device__ __forceinline__ void stage_rows(u16* dst, int ld, int rows, const u16* x,
+                                           int hw, int nvalid, int p0,
+                                           const float* scale, const float* shift,
+                                           bool vec) {
+  constexpr int VPR = COLS / 8;
+  const int total = rows * VPR;
+  constexpr int LOADS = 8;
+  for (int i0 = threadIdx.x; i0 < total; i0 += LOADS * THREADS) {
+    uint4 raw[LOADS];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int i = i0 + u * THREADS;
+      const int r = i / VPR;
+      raw[u] = make_uint4(0, 0, 0, 0);
+      if (i < total && r < nvalid)
+        raw[u] = load_px8(x + (ll)r * hw, p0 + (i % VPR) * 8, hw, vec);
+    }
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i >= total) break;
+      const int r = i / VPR;
+      const int c = (i % VPR) * 8;
+      *reinterpret_cast<uint4*>(dst + r * ld + c) =
+          BN && r < nvalid ? bn_relu8(raw[u], scale[r], shift[r]) : raw[u];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a) on operands in shared memory, no swizzle.
+//
+// Tiles live in "core" order: a tile of R rows whose contiguous dimension
+// is cut into c8 chunks of 8 elements (16 bytes) keeps chunk (row, j) at
+// byte ((row / 8) * c8 + j) * 128 + (row % 8) * 16, so each 8 x 8 core
+// matrix is 128 contiguous bytes.  With the rows along K (an MN-major
+// operand: its M or N dimension is the contiguous one) the descriptor's
+// stride byte offset (between cores along M/N) is 128 and its leading
+// byte offset (between cores along K) is c8 * 128; with the rows along M
+// or N (K-major) they swap.  Writers map eight neighbouring threads to the
+// eight rows of one core, so their 16-byte stores hit distinct banks.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int core_off(int row, int j, int c8) {
+  return ((row >> 3) * c8 + j) * 64 + (row & 7) * 8;  // in elements
+}
+
+// the i-th 16-byte chunk of a ROWS x (8 * C8) tile in writer order
+template <int C8>
+__device__ __forceinline__ void core_chunk(int i, int& row, int& j) {
+  row = (i / (8 * C8)) * 8 + (i & 7);
+  j = (i >> 3) % C8;
+}
+
+// layout: 0 = no swizzle (core order), 1 = 128-byte swizzle (sw128_off)
+__device__ __forceinline__ uint64_t gmma_desc(const void* smem, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes, int layout = 0) {
+  const uint64_t addr = smem_u32(smem);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
+         ((uint64_t)(sbo_bytes >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+// An MN-major operand of 128 columns (pixels) in the 128-byte swizzled
+// layout: 1024-byte atoms of 8 K-rows x 64 columns, atom (row / 8, col /
+// 64) at ((row / 8) * 2 + col / 64) * 1024 bytes, 16-byte chunk c of an
+// atom row at (c ^ row % 8) * 16.  Descriptor: leading byte offset 1024
+// (the next 64 columns), stride byte offset 2048 (the next 8 rows); the
+// tile must start 1024-byte aligned.  Sixteen threads writing one row's
+// chunks hit distinct banks.
+__device__ __forceinline__ int sw128_off(int row, int col) {  // in elements
+  return ((row >> 3) * 2 + (col >> 6)) * 512 + (row & 7) * 64 +
+         ((((col >> 3) & 7) ^ (row & 7)) << 3) + (col & 7);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// generic-proxy writes to shared memory (st.shared, cp.async) made visible
+// to the async proxy that wgmma reads through; then a barrier
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], bf16 in, f32 sums, both operands
+// in shared memory; TA / TB = 1: the operand is MN-major.  scale_d = 0
+// overwrites D.  For lane (g = lane / 4, t = lane % 4) of warp w of the
+// warpgroup, d[4i + e] is row 16w + g + 8 (e / 2), column 8i + 2t + e % 2.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The ROWS x (8 * C8) tile at (r0, c0) of a row-major [R][Cg] bf16 matrix
+// into a core-order tile, zeros outside; cp.async when vec (Cg % 8 == 0,
+// g 16-byte aligned), else plain loads and stores.
+template <int ROWS, int C8, int THREADS>
+__device__ __forceinline__ void load_tile_core(u16* s, const u16* g, int R, int Cg,
+                                               int r0, int c0, bool vec) {
+  for (int i = threadIdx.x; i < ROWS * C8; i += THREADS) {
+    int r, j;
+    core_chunk<C8>(i, r, j);
+    const int gr = r0 + r;
+    const int gc = c0 + 8 * j;
+    u16* d = s + core_off(r, j, C8);
+    if (vec) {
+      const bool ok = gr < R && gc < Cg;
+      cp_async16(d, ok ? g + (ll)gr * Cg + gc : g, ok ? 16 : 0);
+    } else {
+      __align__(16) u16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (gr < R && gc + e < Cg) ? g[(ll)gr * Cg + gc + e] : (u16)0;
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// Register staging of an x tile of 128 pixels into a 128-byte swizzled
+// tile (sw128_off).  Chunk i is row i / 16, pixels 8 (i % 16) .. +7: a
+// warp reads two whole 256-byte rows.  load_chunks fetches a thread's
+// chunks i0, i0 + THREADS, ... (LOADS of them, all in flight);
+// store_chunks_bn writes them as T(relu(x * scale[row] + shift[row])),
+// zeros for rows >= nvalid.
+template <int THREADS, int LOADS>
+__device__ __forceinline__ void load_chunks(uint4 (&raw)[LOADS], int i0, int total,
+                                            const u16* x, int hw, int nvalid, int p0,
+                                            bool vec) {
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const int i = i0 + u * THREADS;
+    const int r = i / 16;
+    raw[u] = make_uint4(0, 0, 0, 0);
+    if (i < total && r < nvalid)
+      raw[u] = load_px8(x + (ll)r * hw, p0 + 8 * (i % 16), hw, vec);
+  }
+}
+
+template <int THREADS, int LOADS>
+__device__ __forceinline__ void store_chunks_bn(const uint4 (&raw)[LOADS], int i0,
+                                                int total, u16* dst, int nvalid,
+                                                const float* scale, const float* shift) {
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const int i = i0 + u * THREADS;
+    if (i >= total) break;
+    const int r = i / 16;
+    *reinterpret_cast<uint4*>(dst + sw128_off(r, 8 * (i % 16))) =
+        r < nvalid ? bn_relu8(raw[u], scale[r], shift[r]) : make_uint4(0, 0, 0, 0);
+  }
+}
+
+
+}  // namespace s2r_mma

@@ -30,20 +30,28 @@
 // the work, and a second pass (reduce_rows_kernel) adds them in a fixed
 // order: results do not depend on scheduling, and no atomics are used.
 //
-// What bounds it: the dense layers of FCDenseNet67 at 120x160 are 13.7
-// GFLOP per frame forward and twice that backward.  A layer launch moves
-// c_j + 16 channels for 144 operations per input value, so with the f32
-// CUDA cores (67 TFLOP/s) these kernels are bound by FMA issue, not bytes.
+// What bounds K1, K3a, K3b and K2's float32 and 3x3 forms: the dense
+// layers of FCDenseNet67 at 120x160 are 13.7 GFLOP per frame forward and
+// twice that backward.  A layer launch moves c_j + 16 channels for 144
+// operations per input value, so with the f32 CUDA cores (67 TFLOP/s)
+// these kernels are bound by FMA issue, not bytes.
 //
-// What the design does about it: this is the simple, correct first kernel.
-// Each block stages 16 channels of a 16x16 pixel tile (plus a one-pixel
-// halo) in shared memory with BN, ReLU and rounding applied once per staged
-// value, and reuses each staged value for 16 outputs and 9 taps from
-// shared memory; sums stay in registers.  wgmma, TMA and keeping the
-// block's buffer on chip are later work.
+// What their design does about it: this is the simple, correct first
+// kernel.  Each block stages 16 channels of a 16x16 pixel tile (plus a
+// one-pixel halo) in shared memory with BN, ReLU and rounding applied once
+// per staged value, and reuses each staged value for 16 outputs and 9 taps
+// from shared memory; sums stay in registers.  wgmma, TMA and keeping the
+// block's buffer on chip are later work.  The float32 1x1 backward stays
+// on this code as the parity control (TF32 would not hold it to 1e-4).
+//
+// K2 in bfloat16 with one tap (the TransitionDown backward, the only K2 of
+// the fused train step) runs on the tensor cores instead:
+// bwd1x1_dgrad_mma_kernel and bwd1x1_wgrad_mma_kernel, noted below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "bnrelu_mma.cuh"
 
 namespace {
 
@@ -480,7 +488,33 @@ reduce_rows_kernel(const float* __restrict__ part, int P, ll M,
   }
 }
 
+// out[m] = sum_r part[m * P + r]: one warp per column, lanes over strided
+// rows and then a fixed-order tree (deterministic); for the tall partial
+// sums of the tensor-core K2 (thousands of tiles, few columns)
+__global__ void __launch_bounds__(THREADS)
+reduce_cols_kernel(const float* __restrict__ part, int P, int M,
+                   float* __restrict__ out) {
+  const int m = blockIdx.x * WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (m >= M) return;
+  const float* src = part + (ll)m * P;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  int r = lane;
+  for (; r + 96 < P; r += 128) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[u] += src[r + 32 * u];
+  }
+  for (; r < P; r += 32) s[0] += src[r];
+  const float v = warp_sum((s[0] + s[1]) + (s[2] + s[3]));
+  if (lane == 0) out[m] = v;
+}
+
 int n_tiles(int H, int W) { return ((H + TH - 1) / TH) * ((W + TW - 1) / TW); }
+
+cudaError_t reduce_cols(const float* part, int P, int M, float* out, cudaStream_t s) {
+  reduce_cols_kernel<<<(M + WARPS - 1) / WARPS, THREADS, 0, s>>>(part, P, M, out);
+  return cudaGetLastError();
+}
 
 cudaError_t reduce_rows(const float* part, int P, ll M, float* out, cudaStream_t s) {
   const unsigned blocks = (unsigned)((M + 31) / 32);
@@ -569,6 +603,357 @@ cudaError_t bwd(const void* X, ll x_bstride, int B, int K, int H, int W,
                             dseg, dscale, dshift, dw, part_ss, part_w, S, s);
 }
 
+// ---------------------------------------------------------------------------
+// K2, bfloat16, one tap, on the tensor cores.
+//
+// Replaces, for the TransitionDown's bf16 backward, the TPU kernel K2
+// (sim2real_lane_segment_tpu/models/tiramisu_train_pallas.py _bwd_kernel,
+// pallas_call at :328).  Per image, with G = T(dy * mask) [N x pixels]:
+//   dA = W . G                   [C x N] . [N x pixels]  (dgrad)
+//   dW = sum over images of a . G^T, a = T(relu(x*scale + shift))  (wgrad)
+// What bounds it on an H100: bytes.  It does about C operations per bf16
+// byte moved, below the ~295 at which the bf16 tensor cores become the
+// limit: per B=32 FCDenseNet67 step its five launches must move 0.76 GB
+// (0.23 ms at 3.35 TB/s) for 87 GFLOP (0.09 ms at 989 TFLOP/s).
+//
+// What the design does about it:
+// - bwd1x1_dgrad_mma_kernel: a block owns 128 consecutive pixels of one
+//   image and one 128-channel chunk of x (the chunks of a tile are
+//   neighbouring blocks).  It stages G = T(dy * mask) for all N outputs
+//   as a 128-byte-swizzled tile (the first chunk's block also writes G to
+//   gbuf for the wgrad pass and per-tile sums of dy * mask for dbias),
+//   streams 64-column slices of W through a two-deep cp.async ring and
+//   multiplies with wgmma (m64n128k16, bf16 in, f32 sums; two warpgroups
+//   of 64 channels): D[k, p] = W[k, n] G[n, p], W K-major, G MN-major.
+//   The epilogue reads the x tile into shared memory with coalesced
+//   loads, writes dseg = T(dz * scale) back the same way, and per-tile
+//   sums of dz * x and dz.
+// - bwd1x1_wgrad_mma_kernel: a block owns a 128 x 128 tile of dW and a
+//   contiguous range of 128-pixel slices (split S ways to fill the 132
+//   SMs); it stages a (BN + ReLU applied while staging) and G for each
+//   slice and contracts over pixels: D[k, n] = a[k, p] G[n, p]^T.
+// - Every batch sum is a per-tile or per-split partial added by
+//   reduce_rows in a fixed order: deterministic, no atomics.
+// x is read twice and G makes one round trip through device memory:
+// about twice the bound's bytes when C = N.
+// ---------------------------------------------------------------------------
+namespace mma = s2r_mma;
+
+constexpr int B1_TP = 128;               // pixels per dgrad block
+constexpr int B1_KM = 128;               // x channels per dgrad chunk
+constexpr int B1_NS = 64;                // outputs per weight slice
+constexpr int B1_SLICE = B1_KM * B1_NS;
+constexpr int B1_PS = 128;               // pixels per wgrad slice
+constexpr int B1_LDP = B1_PS + 8;
+constexpr int B1_STAGES = 2;             // weight slices in flight
+constexpr int B1_THREADS = 256;          // two warpgroups
+constexpr int B1_LOADS = 8;              // dy chunks a thread has in flight
+constexpr int B1_MAX_N = 624;            // G's tile fits in shared memory
+constexpr int B1_SMEM_MAX = 232448;      // an H100 block's shared-memory limit
+
+size_t b1_dgrad_smem(int N) {  // with room to align G's tile to 1024 bytes
+  const size_t np = (size_t)(N + 15) / 16 * 16;
+  return 2 * (np * B1_TP + B1_STAGES * B1_SLICE) + 4 * (B1_KM * 2) + 1024;
+}
+
+__global__ void __launch_bounds__(B1_THREADS, 2)
+bwd1x1_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int hw,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ shift,
+                        const mma::u16* __restrict__ wt,
+                        const float* __restrict__ mask, int N,
+                        const mma::u16* __restrict__ dy, mma::u16* gbuf,
+                        mma::u16* dseg, float* __restrict__ part_gp,
+                        float* __restrict__ part_ds, float* __restrict__ part_dh,
+                        int vec_dy, int vec_w, int vec_x, int vec_dseg) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int np = (N + 15) / 16 * 16;
+  mma::u16* sG = reinterpret_cast<mma::u16*>(           // G: [np][128], sw128
+      smem + ((1024 - (mma::smem_u32(smem) & 1023)) & 1023));
+  mma::u16* sW = sG + np * B1_TP;                      // [STAGES][KM][64], core order
+  float* red = reinterpret_cast<float*>(sW + B1_STAGES * B1_SLICE);  // [KM][2]
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int wg = tid / 128;                            // x channels 64 wg .. +63
+  const int nch = (C + B1_KM - 1) / B1_KM;
+  const int tile = blockIdx.x / nch;
+  const int k0 = (blockIdx.x % nch) * B1_KM;           // this block's x channels
+  const bool first = k0 == 0;                          // writes G and dbias sums
+  const int b = blockIdx.y;
+  const ll row = (ll)b * (gridDim.x / nch) + tile;  // this tile's partial sums
+  const ll P = (ll)(gridDim.x / nch) * gridDim.y;      // at part[m * P + row]
+  const int p0 = tile * B1_TP;
+  const int nks = (np + B1_NS - 1) / B1_NS;
+
+  auto load_slice = [&](int ks) {
+    if (ks < nks)
+      mma::load_tile_core<B1_KM, B1_NS / 8, B1_THREADS>(
+          sW + (ks % B1_STAGES) * B1_SLICE, wt, C, N, k0, ks * B1_NS, vec_w);
+    mma::cp_async_commit();  // an empty group past the last slice
+  };
+  load_slice(0);
+
+  // G = T(dy * mask) for all N outputs of the tile into sG (a warp reads
+  // two whole 256-byte rows); the first chunk's block also writes G to
+  // gbuf and the tile's sums of dy * mask (unrounded) for dbias
+  {
+    const mma::u16* dyb = dy + (ll)b * N * hw;
+    mma::u16* gb = gbuf + (ll)b * N * hw;
+    const int total = np * 16;  // a multiple of the block size
+    for (int i0 = tid; i0 < total; i0 += B1_LOADS * B1_THREADS) {
+      uint4 raw[B1_LOADS];
+      mma::load_chunks<B1_THREADS, B1_LOADS>(raw, i0, total, dyb, hw, N, p0, vec_dy);
+#pragma unroll
+      for (int u = 0; u < B1_LOADS; ++u) {
+        const int i = i0 + u * B1_THREADS;
+        if (i >= total) break;  // uniform across the block
+        const int n = i / 16;
+        const int c = (i % 16) * 8;
+        const float m = n < N ? mask[b * N + n] : 0.f;
+        const uint32_t w[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
+        uint32_t o[4];
+        float sum = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int p = p0 + c + 2 * q;
+          const float f0 = p < hw ? __fmul_rn(mma::lo_f(w[q]), m) : 0.f;
+          const float f1 = p + 1 < hw ? __fmul_rn(mma::hi_f(w[q]), m) : 0.f;
+          o[q] = mma::pack_bf16x2(f0, f1);
+          sum += f0;
+          sum += f1;
+        }
+        const uint4 v = make_uint4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<uint4*>(sG + mma::sw128_off(n, c)) = v;
+        if (first && n < N) {
+          mma::u16* dst = gb + (ll)n * hw + p0 + c;
+          if (vec_dy && p0 + c + 8 <= hw) {
+            *reinterpret_cast<uint4*>(dst) = v;
+          } else {
+            const mma::u16* e8 = reinterpret_cast<const mma::u16*>(&v);
+            for (int e = 0; e < 8 && p0 + c + e < hw; ++e) dst[e] = e8[e];
+          }
+        }
+        // the 16 lanes of one output row: fixed-order tree
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (first && lane % 16 == 0 && n < N) part_gp[n * P + row] = sum;
+      }
+    }
+  }
+
+  // D[k, p] = W[k, n] G[n, p]: W K-major (rows k), G MN-major (pixels)
+  const bool live = k0 + 64 * wg < C;                  // warpgroup-uniform
+  float d[64];
+  for (int ks = 0; ks < nks; ++ks) {
+    load_slice(ks + 1);
+    mma::cp_async_wait<1>();
+    mma::fence_async_smem();
+    __syncthreads();
+    if (live) {
+      const mma::u16* ws = sW + (ks % B1_STAGES) * B1_SLICE;
+      const int kk_end = min(B1_NS, np - ks * B1_NS);
+      mma::wgmma_fence();
+      for (int kk = 0; kk < kk_end; kk += 16) {
+        const uint64_t da = mma::gmma_desc(
+            ws + mma::core_off(64 * wg, kk / 8, B1_NS / 8), 128, B1_NS / 8 * 128);
+        const uint64_t db = mma::gmma_desc(sG + mma::sw128_off(ks * B1_NS + kk, 0),
+                                           1024, 2048, 1);
+        mma::wgmma_m64n128k16<0, 1>(d, da, db, ks > 0 || kk > 0);
+      }
+      mma::wgmma_commit();
+      mma::wgmma_wait0();
+    }
+    __syncthreads();  // a later load overwrites this slice's buffer
+  }
+
+  // epilogue, through a [KM][128] swizzled tile in the weight ring's
+  // space: x in with coalesced loads, dseg = T(dz * scale) out in its
+  // place, dz = dA * relu'(z); per-tile sums of dz * x and dz
+  mma::u16* sX = sW;
+  const int total = B1_KM * 16;
+  const mma::u16* xb = X + b * x_bstride + (ll)k0 * hw;
+  for (int i0 = tid; i0 < total; i0 += B1_LOADS * B1_THREADS) {
+    uint4 raw[B1_LOADS];
+    mma::load_chunks<B1_THREADS, B1_LOADS>(raw, i0, total, xb, hw, C - k0, p0, vec_x);
+#pragma unroll
+    for (int u = 0; u < B1_LOADS; ++u) {
+      const int i = i0 + u * B1_THREADS;
+      if (i < total)
+        *reinterpret_cast<uint4*>(sX + mma::swz_off(i / 16, (i % 16) * 8)) = raw[u];
+    }
+  }
+  __syncthreads();
+  const int g = lane / 4;
+  const int t = lane % 4;
+  if (live) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kl = 64 * wg + 16 * ((tid / 32) % 4) + g + 8 * h;
+      const int k = min(k0 + kl, C - 1);  // rows past C are not stored
+      const float sc = scale[k];
+      const float sf = shift[k];
+      float sd = 0.f, sh = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int pl = 8 * i + 2 * t;
+        uint32_t* cell = reinterpret_cast<uint32_t*>(sX + mma::swz_off(kl, pl));
+        const uint32_t x2 = *cell;
+        const float xf[2] = {mma::lo_f(x2), mma::hi_f(x2)};
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dz = (p0 + pl + e < hw)
+              ? __fmul_rn(d[4 * i + 2 * h + e], relu_d(affine(xf[e], sc, sf)))
+              : 0.f;
+          o[e] = __fmul_rn(dz, sc);
+          sd += __fmul_rn(dz, xf[e]);
+          sh += dz;
+        }
+        *cell = mma::pack_bf16x2(o[0], o[1]);
+      }
+      sd += __shfl_xor_sync(0xffffffffu, sd, 1);
+      sh += __shfl_xor_sync(0xffffffffu, sh, 1);
+      sd += __shfl_xor_sync(0xffffffffu, sd, 2);
+      sh += __shfl_xor_sync(0xffffffffu, sh, 2);
+      if (t == 0) {  // one warp owns the whole row
+        red[kl * 2] = sd;
+        red[kl * 2 + 1] = sh;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < B1_KM && k0 + tid < C) {
+    part_ds[(k0 + tid) * P + row] = red[tid * 2];
+    part_dh[(k0 + tid) * P + row] = red[tid * 2 + 1];
+  }
+  const int rows = min(B1_KM, C - k0);
+  mma::u16* db = dseg + ((ll)b * C + k0) * hw;
+  for (int i = tid; i < rows * 16; i += B1_THREADS) {
+    const int r = i / 16;
+    const int c = (i % 16) * 8;
+    const int p = p0 + c;
+    const mma::u16* src = sX + mma::swz_off(r, c);
+    mma::u16* dst = db + (ll)r * hw + p;
+    if (vec_dseg && p + 8 <= hw) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && p + e < hw; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(B1_THREADS, 2)
+bwd1x1_wgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int hw,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ shift,
+                        const mma::u16* __restrict__ G, int N, int S,
+                        float* __restrict__ part, int vec_x, int vec_g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mma::u16* sA = reinterpret_cast<mma::u16*>(smem);   // [KM][LDP]
+  mma::u16* sG = sA + B1_KM * B1_LDP;                  // [KM][LDP]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int k0 = blockIdx.x * B1_KM;
+  const int n0 = blockIdx.y * B1_KM;
+  const int split = blockIdx.z;
+  const int ptiles = (hw + B1_PS - 1) / B1_PS;
+  const int items = B * ptiles;
+  const int per = (items + S - 1) / S;
+  const int i_begin = min(items, split * per);
+  const int i_end = min(items, i_begin + per);
+  const int am0 = (warp / 4) * 64;   // x channels
+  const int bn0 = (warp % 4) * 32;   // outputs
+  const bool live = k0 + am0 < C && n0 + bn0 < N;
+  const uint32_t a_sm = mma::smem_u32(sA);
+  const uint32_t g_sm = mma::smem_u32(sG);
+  float acc[4][4][4];
+  mma::zero_acc(acc);
+  for (int it = i_begin; it < i_end; ++it) {
+    const int b = it / ptiles;
+    const int pp = (it % ptiles) * B1_PS;
+    mma::stage_rows<true, B1_PS, B1_THREADS>(sA, B1_LDP, B1_KM,
+                                             X + b * x_bstride + (ll)k0 * hw, hw,
+                                             C - k0, pp, scale + k0, shift + k0,
+                                             vec_x);
+    mma::stage_rows<false, B1_PS, B1_THREADS>(sG, B1_LDP, B1_KM,
+                                              G + ((ll)b * N + n0) * hw, hw,
+                                              N - n0, pp, nullptr, nullptr, vec_g);
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < B1_PS; kk += 16)
+        mma::warp_mma_k16<false, false>(acc, a_sm, B1_LDP, am0, kk, g_sm, B1_LDP,
+                                        bn0, kk);
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + am0 + 16 * mt + g + 8 * h;
+      if (k >= C) continue;
+      float* dst = part + ((ll)split * C + k) * N;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = n0 + bn0 + 8 * nt + 2 * t;
+        if (n < N) dst[n] = acc[mt][nt][2 * h];
+        if (n + 1 < N) dst[n + 1] = acc[mt][nt][2 * h + 1];
+      }
+    }
+}
+
+// K2 for bf16 and one tap.  Scratch: part_gp [N][P], part_ss [2][C][P]
+// (column-major: reduce_cols), part_w [S][C * N], with P = B * ceil(H*W /
+// 128); gbuf [B, N, H, W].
+cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
+                       const float* scale, const float* shift, const void* wt,
+                       const float* mask, int N, const void* dy, void* dseg,
+                       float* dscale, float* dshift, float* dw, float* dbias,
+                       void* gbuf, float* part_gp, float* part_ss, float* part_w,
+                       int S, cudaStream_t s) {
+  const int hw = H * W;
+  const int tiles = (hw + B1_TP - 1) / B1_TP;
+  const int P = B * tiles;
+  static bool ready = false;  // the shared-memory limits, set once
+  if (!ready) {
+    S2R_TRY(cudaFuncSetAttribute(bwd1x1_dgrad_mma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, B1_SMEM_MAX));
+    S2R_TRY(cudaFuncSetAttribute(bwd1x1_wgrad_mma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, B1_SMEM_MAX));
+    ready = true;
+  }
+  const size_t smem = b1_dgrad_smem(N);
+  const int vec_dy = hw % 8 == 0 && mma::aligned16(dy) && mma::aligned16(gbuf);
+  const int vec_w = N % 8 == 0 && mma::aligned16(wt);
+  const int vec_x = hw % 8 == 0 && x_bstride % 8 == 0 && mma::aligned16(X);
+  const int vec_dseg = hw % 8 == 0 && mma::aligned16(dseg);
+  float* part_ds = part_ss;
+  float* part_dh = part_ss + (ll)P * C;
+  const int nch = (C + B1_KM - 1) / B1_KM;
+  bwd1x1_dgrad_mma_kernel<<<dim3(tiles * nch, B), B1_THREADS, smem, s>>>(
+      static_cast<const mma::u16*>(X), x_bstride, C, hw, scale, shift,
+      static_cast<const mma::u16*>(wt), mask, N, static_cast<const mma::u16*>(dy),
+      static_cast<mma::u16*>(gbuf), static_cast<mma::u16*>(dseg), part_gp, part_ds,
+      part_dh, vec_dy, vec_w, vec_x, vec_dseg);
+  S2R_TRY(cudaGetLastError());
+  const int vec_g = hw % 8 == 0 && mma::aligned16(gbuf);
+  const dim3 grid((C + B1_KM - 1) / B1_KM, (N + B1_KM - 1) / B1_KM, S);
+  const int wsmem = 2 * 2 * B1_KM * B1_LDP;
+  bwd1x1_wgrad_mma_kernel<<<grid, B1_THREADS, wsmem, s>>>(
+      static_cast<const mma::u16*>(X), x_bstride, C, B, hw, scale, shift,
+      static_cast<const mma::u16*>(gbuf), N, S, part_w, vec_x, vec_g);
+  S2R_TRY(cudaGetLastError());
+  S2R_TRY(reduce_cols(part_gp, P, N, dbias, s));
+  S2R_TRY(reduce_cols(part_ds, P, C, dscale, s));
+  S2R_TRY(reduce_cols(part_dh, P, C, dshift, s));
+  return reduce_rows(part_w, S, (ll)C * N, dw, s);
+}
+
 Layers make_layers(int n, const void* const* gps, const void* const* ws,
                    const float* const* scs, const float* const* shs) {
   Layers L = {};
@@ -604,7 +989,9 @@ cudaError_t stage(const void* X, ll x_bstride, int B, int K, int H, int W,
 // (gbuf, part_*) is allocated by the caller:
 //   part_gp  [B * N] floats (bwd) or [B * tiles * G] (stage)
 //   part_ss  [2 * B * tiles * K]   part_w [S * K * taps * N]
-// with tiles = ceil(H/16) * ceil(W/16).
+// with tiles = ceil(H/16) * ceil(W/16), except for bfloat16 bwd with one
+// tap and N <= 624 (bwd1x1_mma): part_gp [B * t1 * N], part_ss
+// [2 * B * t1 * K], part_w [S * K * N] with t1 = ceil(H*W / 128).
 
 extern "C" int s2r_train_fwd(int dtype, int taps, const void* X, ll x_bstride,
                              int B, int K, int H, int W, const float* scale,
@@ -642,6 +1029,10 @@ extern "C" int s2r_train_bwd(int dtype, int taps, const void* X, ll x_bstride,
   if (dtype == 0 && taps == 9) return S2R_BWD(float, 9);
   if (dtype == 0 && taps == 1) return S2R_BWD(float, 1);
   if (dtype == 1 && taps == 9) return S2R_BWD(__nv_bfloat16, 9);
+  if (dtype == 1 && taps == 1 && N <= B1_MAX_N)
+    return bwd1x1_mma(X, x_bstride, B, K, H, W, scale, shift, wt, mask, N, dy,
+                      dseg, dscale, dshift, dw, dbias, gbuf, part_gp, part_ss,
+                      part_w, S, s);
   if (dtype == 1 && taps == 1) return S2R_BWD(__nv_bfloat16, 1);
 #undef S2R_BWD
   return cudaErrorInvalidValue;

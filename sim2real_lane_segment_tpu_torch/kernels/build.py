@@ -4,11 +4,13 @@ The sources under ``csrc/`` have a plain C interface, so one ``nvcc
 -shared`` call per source builds them in seconds; nothing includes
 PyTorch's headers.  The build runs at first use, into ``build/
 torch_kernels/`` beside the package (listed in ``.gitignore``), keyed by
-a hash of the source and the flags so an edited source rebuilds.  nvcc is
+a hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source or header rebuilds.  nvcc is
 found from ``CUDA_HOME`` or ``PATH``.  A failed build raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,8 +43,12 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library path for ``csrc/<name>.cu``, keyed by the source, every
+    shared header under ``csrc/`` and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -81,3 +87,14 @@ def load(name: str) -> ctypes.CDLL:
             build(name)
             _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]
+
+
+def on_device(device):
+    """The device context for a launch on ``device`` (a CUDA
+    ``torch.device``): none when it is the current device already, which
+    saves a few microseconds a launch."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

@@ -14,8 +14,9 @@ into the first channels (the virtual concat) and runs three entry points:
 - ``classifier``: per-pixel L2 norm in f32, ``F/norm`` rounded, 1x1 conv
   to 8 (padded) rows in f32, ``(. + b) * (1/temperature)``, f32 logits.
 
-Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
-its kernel; a failed build or launch raises.  ``launches`` counts kernel
+A bfloat16 ``transition`` runs on the tensor cores; the other entries and
+float32 on the CUDA cores.  Each wrapper takes a CPU tensor to its plain
+version and a CUDA tensor to its kernel; a failed build or launch raises.  ``launches`` counts kernel
 launches per entry point (CUDA tensors only).
 """
 from __future__ import annotations
@@ -147,25 +148,26 @@ def _check_feat(feat: torch.Tensor) -> None:
 
 
 def _check_operand(t: torch.Tensor, feat: torch.Tensor, dtype, shape,
-                   name: str) -> None:
-    _require(t.device == feat.device and t.dtype == dtype
-             and tuple(t.shape) == tuple(shape) and t.is_contiguous(),
-             f"{name}: expected contiguous {dtype} {tuple(shape)} on "
-             f"{feat.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+                   what: str, name: str) -> None:
+    if not (t.device == feat.device and t.dtype == dtype
+            and t.shape == shape and t.is_contiguous()):
+        raise ValueError(
+            f"{what} {name}: expected contiguous {dtype} {tuple(shape)} on "
+            f"{feat.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _conv(feat, scale, shift, weight, bias, taps, out, round_first, what):
     b, c_total, h, w = feat.shape
     k, n = weight.shape[0], weight.shape[-1]
-    _check_operand(scale, feat, torch.float32, (k,), f"{what} scale")
-    _check_operand(shift, feat, torch.float32, (k,), f"{what} shift")
+    _check_operand(scale, feat, torch.float32, (k,), what, "scale")
+    _check_operand(shift, feat, torch.float32, (k,), what, "shift")
     _check_operand(weight, feat, feat.dtype, (k, taps, n) if taps > 1
-                   else (k, n), f"{what} weight")
-    _check_operand(bias, feat, torch.float32, (n,), f"{what} bias")
+                   else (k, n), what, "weight")
+    _check_operand(bias, feat, torch.float32, (n,), what, "bias")
     _require(k <= c_total, f"{what}: reads {k} of {c_total} channels")
     lib = _lib()
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream(feat.device).cuda_stream
+    with build.on_device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.s2r_conv_bnrelu(
             _DTYPE_CODE[feat.dtype], taps, feat.data_ptr(), c_total * h * w,
             b, k, h, w, scale.data_ptr(), shift.data_ptr(), weight.data_ptr(),
@@ -208,12 +210,12 @@ def classifier(feat: torch.Tensor, cls: FoldedClassifier) -> torch.Tensor:
         return classifier_plain(feat, cls)
     _check_feat(feat)
     b, c, h, w = feat.shape
-    _check_operand(cls.weight, feat, feat.dtype, (8, c), "classifier weight")
-    _check_operand(cls.bias, feat, torch.float32, (8,), "classifier bias")
+    _check_operand(cls.weight, feat, feat.dtype, (8, c), "classifier", "weight")
+    _check_operand(cls.bias, feat, torch.float32, (8,), "classifier", "bias")
     out = torch.empty(b, 8, h, w, dtype=torch.float32, device=feat.device)
     lib = _lib()
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream(feat.device).cuda_stream
+    with build.on_device(feat.device):
+        stream = torch.cuda.current_stream().cuda_stream
         err = lib.s2r_classifier(
             _DTYPE_CODE[feat.dtype], feat.data_ptr(), c * h * w, b, c, h * w,
             cls.weight.data_ptr(), cls.bias.data_ptr(), cls.inv_temp,

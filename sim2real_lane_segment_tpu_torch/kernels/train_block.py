@@ -24,6 +24,8 @@ BN ``scale``/``shift`` and ``bias`` f32, dropout ``mask`` f32 ``[B, n]``
   scale_l)`` over all of the block's layers.
 
 ``relu'(z) = (z > 0) + 0.5 (z == 0)``: the tie rule of ``jnp.maximum``.
+K2 in bfloat16 with one tap (the TransitionDown) runs on the tensor cores
+(``takes_mma_bwd``); every other entry and dtype on the CUDA cores.
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; a failed build or launch raises.  ``launches`` counts wrapper
 calls that launched a kernel (CUDA tensors only).
@@ -201,10 +203,11 @@ def _check_view(t: torch.Tensor, channels: int, name: str) -> None:
 
 def _check_operand(t: torch.Tensor, ref: torch.Tensor, dtype, shape,
                    name: str) -> None:
-    _require(t.device == ref.device and t.dtype == dtype
-             and tuple(t.shape) == tuple(shape) and t.is_contiguous(),
-             f"{name}: expected contiguous {dtype} {tuple(shape)} on "
-             f"{ref.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not (t.device == ref.device and t.dtype == dtype
+            and t.shape == shape and t.is_contiguous()):
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {tuple(shape)} on "
+            f"{ref.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def n_tiles(h: int, w: int) -> int:
@@ -218,8 +221,29 @@ def wgrad_splits(c: int, n: int, b: int, h: int, w: int) -> int:
     return max(1, min(b * n_tiles(h, w), math.ceil(1024 / groups), 64))
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+# K2 in bf16 with one tap runs on the tensor cores (bwd1x1_mma in
+# csrc/train_block.cu): 128-pixel tiles, 128x128 weight-cotangent tiles,
+# up to 624 outputs
+MMA_TILE, MMA_MAX_N = 128, 624
+
+
+def takes_mma_bwd(dtype: torch.dtype, taps: int, n: int) -> bool:
+    """Whether ``consumer_bwd`` launches the tensor-core 1x1 backward (the
+    C side dispatches by the same rule)."""
+    return dtype == torch.bfloat16 and taps == 1 and n <= MMA_MAX_N
+
+
+def mma_wgrad_splits(c: int, n: int, b: int, h: int, w: int) -> int:
+    """Pixel-range splits of the tensor-core weight cotangent: two blocks
+    per SM of an H100 (264), at most one split per 128-pixel slice."""
+    tiles = math.ceil(c / MMA_TILE) * math.ceil(n / MMA_TILE)
+    items = b * math.ceil(h * w / MMA_TILE)
+    return max(1, min(items, math.ceil(264 / tiles)))
+
+
+def _stream() -> int:
+    """The current stream, inside ``build.on_device`` of the operands."""
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _empty(shape, dtype, like):
@@ -258,12 +282,12 @@ def consumer_fwd(x: torch.Tensor, scale, shift, weight, bias, mask,
     _require(out.dtype == x.dtype and tuple(out.shape) == (b, n, h, w),
              "consumer output shape or dtype")
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with build.on_device(x.device):
         err = lib.s2r_train_fwd(
             _DTYPE_CODE[x.dtype], taps, x.data_ptr(), x.stride(0), b, c, h,
             w, scale.data_ptr(), shift.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), mask.data_ptr(), n, out.data_ptr(),
-            out.stride(0), _stream(x))
+            out.stride(0), _stream())
     _check(lib, err, "consumer_fwd")
     launches["consumer_fwd"] += 1
     return out
@@ -285,20 +309,29 @@ def consumer_bwd(x: torch.Tensor, scale, shift, weight, mask, dy):
     _require(taps in (1, 9), f"taps {taps} is not 1 or 9")
     f32 = torch.float32
     dseg = _empty((b, c, h, w), x.dtype, x)
-    dscale, dshift = _empty((c,), f32, x), _empty((c,), f32, x)
-    dw, dbias = _empty((c, taps, n), f32, x), _empty((n,), f32, x)
     gbuf = _empty((b, n, h, w), x.dtype, x)
-    part_gp = _empty((b * n,), f32, x)
-    part_ss, part_w, splits = _scratch(b, c, taps, n, h, w, x)
+    # the four f32 results share one allocation and the partial sums
+    # another: each torch.empty costs microseconds of host time per step
+    res = _empty((2 * c + c * taps * n + n,), f32, x)
+    dscale, dshift, dw, dbias = res.split((c, c, c * taps * n, n))
+    dw = dw.view(c, taps, n)
+    if takes_mma_bwd(x.dtype, taps, n):
+        rows = b * math.ceil(h * w / MMA_TILE)
+        splits = mma_wgrad_splits(c, n, b, h, w)
+        sizes = (rows * n, 2 * rows * c, splits * c * n)
+    else:
+        splits = wgrad_splits(c, n, b, h, w)
+        sizes = (b * n, 2 * b * n_tiles(h, w) * c, splits * c * taps * n)
+    part_gp, part_ss, part_w = _empty((sum(sizes),), f32, x).split(sizes)
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with build.on_device(x.device):
         err = lib.s2r_train_bwd(
             _DTYPE_CODE[x.dtype], taps, x.data_ptr(), x.stride(0), b, c, h,
             w, scale.data_ptr(), shift.data_ptr(), weight.data_ptr(),
             mask.data_ptr(), n, dy.data_ptr(), dseg.data_ptr(),
             dscale.data_ptr(), dshift.data_ptr(), dw.data_ptr(),
             dbias.data_ptr(), gbuf.data_ptr(), part_gp.data_ptr(),
-            part_ss.data_ptr(), part_w.data_ptr(), splits, _stream(x))
+            part_ss.data_ptr(), part_w.data_ptr(), splits, _stream())
     _check(lib, err, "consumer_bwd")
     launches["consumer_bwd"] += 1
     return dseg, dscale, dshift, dw, dbias
@@ -349,7 +382,7 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
     part_gp = _empty((b * n_tiles(h, w) * g,), f32, x)
     part_ss, part_w, splits = _scratch(b, c, 9, g, h, w, x)
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with build.on_device(x.device):
         err = lib.s2r_train_stage(
             _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), b, c, h, w,
             y.data_ptr(), y.stride(0), g, ext.data_ptr(), len(gps),
@@ -359,7 +392,7 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
             scale.data_ptr(), shift.data_ptr(), mask.data_ptr(),
             gp.data_ptr(), dw.data_ptr(), dscale.data_ptr(),
             dshift.data_ptr(), dbias.data_ptr(), part_gp.data_ptr(),
-            part_ss.data_ptr(), part_w.data_ptr(), splits, _stream(x))
+            part_ss.data_ptr(), part_w.data_ptr(), splits, _stream())
     _check(lib, err, "stage")
     launches["stage"] += 1
     return gp, dw, dscale, dshift, dbias
@@ -378,13 +411,13 @@ def final(x: torch.Tensor, gps: Sequence[torch.Tensor],
     _check_later(x, gps, w_slices, sc_slices, sh_slices, c, g)
     dseg = _empty((b, c, h, w), x.dtype, x)
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with build.on_device(x.device):
         err = lib.s2r_train_final(
             _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), b, c, h, w, g,
             len(gps), ctypes.cast(_ptrs(gps), _PP),
             ctypes.cast(_ptrs(w_slices), _PP),
             ctypes.cast(_ptrs(sc_slices), _PP),
-            ctypes.cast(_ptrs(sh_slices), _PP), dseg.data_ptr(), _stream(x))
+            ctypes.cast(_ptrs(sh_slices), _PP), dseg.data_ptr(), _stream())
     _check(lib, err, "final")
     launches["final"] += 1
     return dseg

@@ -9,8 +9,10 @@ package, so it also runs where only PyTorch is installed:
         tests/test_torch_kernels_gpu.py
 
 Shapes cross the kernels' tiles with ragged remainders: K4's 16x16
-pixel tiles and 16-channel groups, K6's 64-pixel rows and 64-channel
-output groups, K5's 32x32 tiles (and images smaller than their halo).
+pixel tiles and 16-channel groups, the bf16 TransitionDown kernels'
+128-pixel tiles and 16-channel tensor-core steps (forward and K2), K6's
+64-pixel rows and 64-channel output groups, K5's 32x32 tiles (and images
+smaller than their halo).
 """
 import numpy as np
 import pytest
@@ -18,8 +20,12 @@ import torch
 
 from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
 
-# (B, H, W, c_in, growth, n_layers)
-CASES = [(2, 12, 16, 8, 4, 2), (3, 15, 20, 40, 16, 3), (1, 7, 33, 24, 12, 2)]
+# (B, H, W, c_in, growth, n_layers); the last four give TransitionDown
+# widths C = N = 128 and 208 on 15x20 and 7x10 (pixel counts not a
+# multiple of the tensor-core kernel's 128-pixel tile or of 8)
+CASES = [(2, 12, 16, 8, 4, 2), (3, 15, 20, 40, 16, 3), (1, 7, 33, 24, 12, 2),
+         (2, 15, 20, 96, 16, 2), (2, 7, 10, 96, 16, 2),
+         (2, 15, 20, 176, 16, 2), (2, 7, 10, 176, 16, 2)]
 # f32: summation order only.  bf16: a different f32 sum may round to the
 # neighbouring bf16 value (relative step 2^-7), and a later layer sees it.
 TOLS = {torch.float32: dict(atol=1e-5, rtol=1e-5),
@@ -116,6 +122,12 @@ from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb  # noqa: 
 
 # (B, H, W, c, g): ragged against the 16x16 tiles and 16-channel groups
 TRAIN_CASES = [(2, 15, 20, 40, 16), (3, 7, 33, 24, 4)]
+# TransitionDown widths (taps 1, n = c) on the tensor-core K2's ragged
+# pixel tiles
+TD_TRAIN_CASES = [(2, 15, 20, 128, 16), (2, 7, 10, 128, 16),
+                  (2, 15, 20, 208, 16), (2, 7, 10, 208, 16)]
+CONSUMER_CASES = ([(case, taps) for case in TRAIN_CASES for taps in (9, 1)]
+                  + [(case, 1) for case in TD_TRAIN_CASES])
 
 
 def _rel_err(a, b):
@@ -156,8 +168,7 @@ def _close_all(outs, refs, dtype, what):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("taps", [9, 1])
-@pytest.mark.parametrize("case", TRAIN_CASES)
+@pytest.mark.parametrize("case,taps", CONSUMER_CASES)
 def test_consumer_kernels_match_plain(cuda, case, taps, dtype):
     b, h, w, c, g = case
     n = g if taps == 9 else c

@@ -170,3 +170,21 @@ def test_wgrad_splits_fill_the_card_and_stay_in_range():
     assert ktb.wgrad_splits(592, 16, 32, 120, 160) == 28
     assert ktb.wgrad_splits(48, 16, 1, 3, 5) == 1   # one item only
     assert ktb.n_tiles(120, 160) == 80
+
+
+@pytest.mark.parametrize("dtype,taps,n,expect", [
+    (torch.bfloat16, 1, 128, True), (torch.bfloat16, 1, 624, True),
+    (torch.bfloat16, 1, 640, False), (torch.bfloat16, 9, 16, False),
+    (torch.float32, 1, 128, False)])
+def test_tensor_core_bwd_dispatch(dtype, taps, n, expect):
+    """bf16 1x1 backwards up to 624 outputs take the tensor-core K2 (the C
+    side dispatches by the same rule and sizes its scratch by it)."""
+    assert ktb.takes_mma_bwd(dtype, taps, n) is expect
+
+
+def test_tensor_core_wgrad_splits_fill_the_card():
+    # the first TransitionDown at B=32: one 128x128 tile, 4,800 slices
+    assert ktb.mma_wgrad_splits(128, 128, 32, 120, 160) == 264
+    # the last: 16 tiles of the 448x448 cotangent, 32 slices
+    assert ktb.mma_wgrad_splits(448, 448, 32, 7, 10) == 17
+    assert ktb.mma_wgrad_splits(16, 16, 1, 8, 8) == 1   # one slice only
