@@ -18,8 +18,8 @@ Phases:
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: builds the four kernel sources from ``csrc/`` with nvcc, at once;
    prints ptxas's registers and spills per kernel and counts the
-   tensor-core instructions (HGMMA, HMMA) of the bf16 TransitionDown
-   kernels;
+   tensor-core instructions (HGMMA, HMMA) of the bf16 TransitionDown, K1,
+   K3a and K3b kernels;
 3. K4 against plain: all 11 dense blocks at their real widths (B=8,
    120x160), in float32 (TF32 off) and in bfloat16;
 4. serve: 4 client threads x 8 requests of 1-16 frames through the engine
@@ -31,7 +31,8 @@ Phases:
 6. K1-K3b against plain: every call of one fused train step (B=4; all 60
    consumer sites, 55 stages, 11 block inputs) in float32 and bfloat16,
    with a channel of every dropout site dropped for the whole batch and
-   zero BN shifts, so z == 0 planes occur;
+   zero BN shifts, so z == 0 planes occur; every bfloat16 site must take
+   the tensor-core route, no float32 one;
 7. gradients: plain autograd and ``fused_apply_train`` (both backward
    routes) in float32 against the plain train forward plus autograd in
    float64, whole model, B=4, with the bfloat16 fused step as a control;
@@ -40,9 +41,10 @@ Phases:
    losses, the launch counts per step, that no plain version ran, serves
    ``best_weights.pt`` and resumes at epoch 2;
 9. train timing: every kernel call of one B=32 train step against its
-   plain version (bfloat16), the B=32 step against the plain autograd
-   step, and each train kernel's time per step beside its plain version,
-   a cuDNN yardstick and its bound;
+   plain version (bfloat16; K3a twice, bit-equal), the B=32 step against
+   the plain autograd step, and each train kernel's time per step beside
+   its plain version, a cuDNN yardstick and its bound (K1 also split into
+   its 3x3 and 1x1 launches); fails if K3a or K1 exceeds MAX_STEP_MS;
 10. K6 against plain: the student's int8 body at full width (B=8),
     calibrated as ``cli.serve --int8`` does; every conv site's int8 codes
     equal, logits within the f32 head's reordering;
@@ -145,10 +147,21 @@ MIN_ARGMAX_AGREEMENT = 0.99   # fused bf16 logits: kernel vs plain
 MIN_PIXEL_AGREEMENT = 0.98    # served masks: fused kernels vs plain module
 
 
-# the bf16 TransitionDown kernels on the tensor cores: the forward's two
-# and K2's dgrad (wgmma), K2's wgrad (mma.sync)
+# the bf16 kernels on the tensor cores: the TransitionDown forward's two
+# (serving, and K1 with one tap) and K2's dgrad (wgmma), K2's wgrad, K1's
+# 3x3 forward, K3a's two kernels and K3b (mma.sync)
 MMA_KERNELS = ("td_fwd_small_kernel", "td_fwd_mma_kernel",
-               "bwd1x1_dgrad_mma_kernel", "bwd1x1_wgrad_mma_kernel")
+               "bwd1x1_dgrad_mma_kernel", "bwd1x1_wgrad_mma_kernel",
+               "fwd3x3_mma_kernel", "sum_dgrad_mma_kernel",
+               "stage_own_mma_kernel")
+# launches per bf16 train step that must take the tensor-core route: every
+# K1, K2, K3a and K3b site of FCDenseNet67
+TRAIN_MMA_PER_STEP = {"consumer_fwd": 60, "consumer_bwd": 5, "stage": 55,
+                      "final": 11}
+# per B=32 step, ms: half of what the CUDA-core kernels took (93.574 and
+# 41.201 on an H100 at 700 W), a guard that the tensor-core kernels are
+# the code that ran, not a target
+MAX_STEP_MS = {"stage": 47.0, "consumer_fwd": 21.0}
 
 
 def fail(msg: str) -> None:
@@ -721,12 +734,19 @@ def compare_train_kernels(sd, device, dtype_name, card):
         hold("final", [k], [p], (tuple(args[2][0].shape), len(args[1])))
         return p
 
+    ktb.reset_launches()
     with mock.patch.multiple(ktb, consumer_fwd=consumer_fwd,
                              consumer_bwd=consumer_bwd, stage=stage,
                              final=final):
         out, _ = fused_apply_train(model, x, masks)
         weighted_cross_entropy(out, y, N_CLS).backward()
     torch.cuda.synchronize()
+    expect = {k: v * (dtype_name == "bfloat16")
+              for k, v in TRAIN_MMA_PER_STEP.items()}
+    print(f"  {dtype_name} sites on the tensor-core route "
+          f"{json.dumps(ktb.mma_launches)}, expected {json.dumps(expect)}")
+    check(ktb.mma_launches == expect,
+          f"{dtype_name}: tensor-core route taken at {ktb.mma_launches}")
     check(sites == {k: v for k, v in TRAIN_LAUNCHES_PER_STEP.items()},
           f"{dtype_name}: compared sites {sites}, expected "
           f"{TRAIN_LAUNCHES_PER_STEP}")
@@ -882,6 +902,7 @@ def train_phase(card):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(ktb.launches)
+            mma_launches = dict(ktb.mma_launches)
         run = res["out_dir"]
         with open(os.path.join(run, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
@@ -900,6 +921,11 @@ def train_phase(card):
               f"{json.dumps(expect)}; plain versions called "
               f"{json.dumps(plain_calls)}")
         check(launches == expect, "train launch counts differ")
+        expect = {k: v * steps for k, v in TRAIN_MMA_PER_STEP.items()}
+        print(f"train: of these on the tensor-core route "
+              f"{json.dumps(mma_launches)}, expected {json.dumps(expect)}")
+        check(mma_launches == expect,
+              "a train kernel launch left the tensor-core route")
         check(not any(plain_calls.values()), "a plain version ran")
 
         trainer = load_trainer_and_state(
@@ -1048,10 +1074,12 @@ def train_timing(sd, device, card, launches, errs):
             return out
         return wrapper
 
+    ktb.reset_launches()
     with mock.patch.multiple(ktb, **{k: recording(k)
                                      for k in TRAIN_KERNELS}):
         step(True)()
     torch.cuda.synchronize()
+    k1_split = {9: [0, 0.0, 0.0], 1: [0, 0.0, 0.0]}  # taps: calls, ms, cuDNN
     e = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
              "ops": 0.0, "calls": 0, "err": 0.0} for k in TRAIN_KERNELS}
     with torch.no_grad():
@@ -1063,25 +1091,44 @@ def train_timing(sd, device, card, launches, errs):
             d["calls"] += 1
             label = (f"bfloat16 B={TRAIN_BATCH} {TRAIN_KERNELS[name][0]:16s} "
                      f"site {d['calls']:2d}")
+            outs = _as_list(real[name](*a, **kw))
             d["err"] = max(d["err"], _hold_site(
-                label, _as_list(real[name](*a, **kw)),
+                label, outs,
                 _as_list(getattr(ktb, f"{name}_plain")(*a, **kw)),
                 TRAIN_REL_TOL["bfloat16"], card))
+            if name == "stage":  # fixed-order sums: a second run, same bits
+                check(all(torch.equal(o, p) for o, p in zip(
+                    outs, real[name](*a, **kw))),
+                    f"{label}: two runs differ (a sum in no fixed order)")
         torch.cuda.synchronize()
+        expect = {k: 2 * v for k, v in TRAIN_MMA_PER_STEP.items()}
+        expect["stage"] += TRAIN_MMA_PER_STEP["stage"]
+        print(f"  bfloat16 B={TRAIN_BATCH} launches on the tensor-core route "
+              f"(the step, then each site again; K3a twice) "
+              f"{json.dumps(ktb.mma_launches)}, expected {json.dumps(expect)}")
+        check(ktb.mma_launches == expect,
+              "a B=32 train kernel site left the tensor-core route")
         # K1 rewrites its block buffer in place
         for name, a, kw, out in calls:
             d = e[name]
             moved, ops = _train_cost(name, a, out)
             d["bytes"] += moved
             d["ops"] += ops
-            d["ms"] += _time_ms(lambda: real[name](*a, **kw), 2)
+            ms = _time_ms(lambda: real[name](*a, **kw), 2)
+            d["ms"] += ms
             d["plain_ms"] += _time_ms(
                 lambda: getattr(ktb, f"{name}_plain")(*a, **kw), 2)
             lib = _train_library(name, a)
             if lib is None:
                 d["library_ms"] = None
             else:
-                d["library_ms"] += _time_ms(lib, 2)
+                lib_ms = _time_ms(lib, 2)
+                d["library_ms"] += lib_ms
+                if name == "consumer_fwd":
+                    cell = k1_split[a[3].shape[1]]
+                    cell[0] += 1
+                    cell[1] += ms
+                    cell[2] += lib_ms
     kernels = []
     for name, d in e.items():
         check(d["calls"] == TRAIN_LAUNCHES_PER_STEP[name],
@@ -1104,6 +1151,14 @@ def train_timing(sd, device, card, launches, errs):
               f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}; "
               f"{d['ops'] / 1e9:.1f} GFLOP, {d['bytes'] / 1e9:.3f} GB)  "
               f"[{card}]")
+    print("timing: k1_consumer_fwd split: " + "; ".join(
+        f"{'3x3' if taps == 9 else '1x1'} {n} launches {ms:.3f} ms (cuDNN "
+        f"yardstick {lib:.3f} ms)" for taps, (n, ms, lib) in k1_split.items())
+        + f"  [{card}]")
+    for name, limit in MAX_STEP_MS.items():
+        check(e[name]["ms"] <= limit,
+              f"{TRAIN_KERNELS[name][0]} took {e[name]['ms']:.3f} ms per "
+              f"B={TRAIN_BATCH} step, above {limit} ms")
     total = sum(d["ms"] for d in e.values())
     print(f"timing: train kernels {total:.3f} ms of the {fused_ms:.3f} ms "
           f"step; their bound {sum(k['bound_ms'] for k in kernels):.3f} ms  "

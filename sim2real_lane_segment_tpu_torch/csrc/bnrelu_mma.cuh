@@ -1,10 +1,12 @@
-// Shared device code for the bf16 1x1 (TransitionDown) kernels on Hopper:
-// BN + ReLU staging of NCHW channel rows into bf16 shared-memory tiles,
-// wgmma (m64n128k16) on tiles in shared memory, and a 64x32 warp tile of
-// mma.sync m16n8k16 products fed by ldmatrix; bf16 in, f32 sums.
+// Shared device code for the bf16 tensor-core kernels on Hopper: BN + ReLU
+// staging of NCHW channel rows into bf16 shared-memory tiles, wgmma
+// (m64n128k16) on tiles in shared memory, a 64x32 warp tile of mma.sync
+// m16n8k16 products fed by ldmatrix (bf16 in, f32 sums), and, at the end,
+// the [pixel][channel] staging and tap addressing of the 3x3 dense layers.
 //
-// Used by td_fwd_small_kernel and td_fwd_mma_kernel (csrc/dense_block.cu)
-// and by bwd1x1_dgrad_mma_kernel (wgmma) and bwd1x1_wgrad_mma_kernel
+// Used by td_fwd_small_kernel and td_fwd_mma_kernel (csrc/td_fwd_mma.cuh),
+// by bwd1x1_dgrad_mma_kernel (wgmma) and bwd1x1_wgrad_mma_kernel (mma.sync)
+// and by fwd3x3_mma_kernel, sum_dgrad_mma_kernel and stage_own_mma_kernel
 // (mma.sync) in csrc/train_block.cu.
 //
 // Row-major shared-memory tiles for ldmatrix have a row stride (ld) of a
@@ -435,5 +437,204 @@ __device__ __forceinline__ void store_chunks_bn(const uint4 (&raw)[LOADS], int i
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// 3x3 dense layers on mma.sync: shared staging and tap addressing.
+//
+// A block owns a C3_TH x C3_TW tile of output pixels of one image and
+// keeps its operands in shared memory as [halo pixel][channel] tiles: the
+// (C3_TH + 2) x (C3_TW + 2) pixels around the tile, row-major, each pixel
+// one row of channels (ld elements apart; ld = channels + 8, so a row is a
+// multiple of 16 bytes and eight consecutive rows start in distinct
+// 16-byte bank slots).  A tap is then a shift by whole rows: every
+// ldmatrix row address stays 16-byte aligned whatever the tap, which a
+// pixel-contiguous tile cannot give (one pixel is 2 bytes).  The tile is
+// staged once with its halo (px_load, px_store below: the NCHW planes are
+// transposed in registers) and read by all nine taps.
+//
+// Warp w of C3_WARPS owns the tile's pixel rows w, w + C3_WARPS, ...: one
+// row of 16 pixels is one m16 (or, in the weight cotangent, one k16) step.
+// Weights [rows][9][16] (tap = ky * 3 + kx, 16 outputs) are copied as they
+// lie in device memory, one 288-byte row per channel, into rows C3_WLD
+// elements apart (304 bytes: conflict-free for ldmatrix).
+// ---------------------------------------------------------------------------
+
+constexpr int C3_TH = 12;
+constexpr int C3_TW = 16;
+constexpr int C3_HW = C3_TW + 2;           // halo tile width
+constexpr int C3_HPX = (C3_TH + 2) * C3_HW;  // halo pixels: 252
+constexpr int C3_WARPS = 6;
+constexpr int C3_THREADS = 32 * C3_WARPS;
+constexpr int C3_N = 16;                   // outputs of a dense layer
+constexpr int C3_WROW = 9 * C3_N;          // one channel's weights
+constexpr int C3_WLD = C3_WROW + 8;
+
+__host__ __device__ __forceinline__ int c3_tiles_x(int W) {
+  return (W + C3_TW - 1) / C3_TW;
+}
+__host__ __device__ __forceinline__ int c3_tiles(int H, int W) {
+  return ((H + C3_TH - 1) / C3_TH) * c3_tiles_x(W);
+}
+
+// halo index of output pixel (y, x) of the tile read through tap (ky, kx)
+// of a correlation (the forward and the weight cotangent) ...
+__device__ __forceinline__ int c3_tap(int y, int x, int ky, int kx) {
+  return (y + ky) * C3_HW + x + kx;
+}
+// ... and of the transposed correlation (the input cotangent)
+__device__ __forceinline__ int c3_tap_t(int y, int x, int ky, int kx) {
+  return (y + 2 - ky) * C3_HW + x + 2 - kx;
+}
+
+// Staging of channels [0, 8 * groups) of an image's plane stack x (channel
+// c at x + c * hw) over the halo tile at (ty0, tx0) into dst[halo pixel]
+// [channel] (ld elements a row).  An item is one aligned pixel pair of a
+// halo row (C3_PAIRS of them cover the 18 pixels, from tx0 - 2 on) and
+// eight channels: one 4-byte load per channel where the planes allow it
+// (`pair`: W even and x 4-byte aligned), two 2-byte loads otherwise, and
+// one 16-byte shared-memory store per pixel.  Lanes run along a row's
+// pairs.  px_load puts a thread's items first + threadIdx.x + r * THREADS
+// (r < ROUNDS) in flight; px_store writes them: BN = true as T(relu(x *
+// scale[c] + shift[c])), else x as it is; RAW = true also keeps x itself in
+// raw (same layout).  Pixels outside the image and channels >= nvalid are
+// zero in both: the conv's zero padding applies to the activation, not to
+// x.  Between the two calls a kernel can do other work.
+constexpr int C3_PAIRS = C3_HW / 2 + 1;
+constexpr int C3_ITEMS = (C3_TH + 2) * C3_PAIRS;  // per 8-channel group
+
+__host__ __forceinline__ bool c3_pair_loads(int W, ll bstride, const void* base) {
+  return W % 2 == 0 && bstride % 2 == 0 && (reinterpret_cast<uintptr_t>(base) & 3) == 0;
+}
+
+struct C3Item {
+  int cg, hy, j;
+  bool okA, okB;  // the pair's pixels lie in the image
+  __device__ __forceinline__ C3Item(int i, int total, int H, int W, int ty0, int tx0) {
+    cg = i / C3_ITEMS;
+    const int p = i - cg * C3_ITEMS;
+    hy = p / C3_PAIRS;
+    j = p - hy * C3_PAIRS;
+    const int gy = ty0 - 1 + hy;
+    const int gx = tx0 - 2 + 2 * j;
+    const bool row = i < total && gy >= 0 && gy < H;
+    okA = row && gx >= 0 && gx < W;
+    okB = row && gx + 1 >= 0 && gx + 1 < W;
+  }
+};
+
+template <int ROUNDS, int THREADS>
+__device__ __forceinline__ void px_load(uint32_t (&raw)[ROUNDS][8], int first, int total,
+                                        const u16* x, int hw, int H, int W, int ty0,
+                                        int tx0, int nvalid, bool pair) {
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const C3Item it(first + threadIdx.x + r * THREADS, total, H, W, ty0, tx0);
+    const u16* src = x + (ll)(8 * it.cg) * hw + (ty0 - 1 + it.hy) * W + tx0 - 2 + 2 * it.j;
+    if (pair) {  // okA and okB agree: W is even and the pair starts on an even column
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        raw[r][e] = (it.okA && 8 * it.cg + e < nvalid)
+                        ? __ldg(reinterpret_cast<const uint32_t*>(src + (ll)e * hw)) : 0u;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool ch = 8 * it.cg + e < nvalid;
+        const uint32_t a = (it.okA && ch) ? __ldg(src + (ll)e * hw) : 0u;
+        const uint32_t b = (it.okB && ch) ? __ldg(src + (ll)e * hw + 1) : 0u;
+        raw[r][e] = a | (b << 16);
+      }
+    }
+  }
+}
+
+// one pixel's eight channels from eight channel pairs: SEL 0x5410 takes the
+// low halves (the pair's first pixel), 0x7632 the high halves
+template <uint32_t SEL>
+__device__ __forceinline__ uint4 c3_gather(const uint32_t (&v)[8]) {
+  return make_uint4(__byte_perm(v[0], v[1], SEL), __byte_perm(v[2], v[3], SEL),
+                    __byte_perm(v[4], v[5], SEL), __byte_perm(v[6], v[7], SEL));
+}
+
+template <bool BN, bool RAW, int ROUNDS, int THREADS>
+__device__ __forceinline__ void px_store(const uint32_t (&raw)[ROUNDS][8], int first,
+                                         int total, u16* dst, u16* rawdst, int ld, int H,
+                                         int W, int ty0, int tx0, int nvalid,
+                                         const float* scale, const float* shift) {
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int i = first + threadIdx.x + r * THREADS;
+    if (i >= total) break;
+    const C3Item it(i, total, H, W, ty0, tx0);
+    const int pa = (it.hy * C3_HW + 2 * it.j - 1) * ld + 8 * it.cg;  // first pixel
+    const bool stA = it.j >= 1;             // halo columns 2j - 1 and 2j: the
+    const bool stB = it.j < C3_PAIRS - 1;   // outermost two are not the halo's
+    uint32_t v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = raw[r][e];
+    if (RAW) {
+      if (stA) *reinterpret_cast<uint4*>(rawdst + pa) = c3_gather<0x5410>(v);
+      if (stB) *reinterpret_cast<uint4*>(rawdst + pa + ld) = c3_gather<0x7632>(v);
+    }
+    if (BN) {
+      // a is 0 outside the image and past the last channel, not relu(shift)
+      const uint32_t keep = (it.okA ? 0x0000ffffu : 0u) | (it.okB ? 0xffff0000u : 0u);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = min(8 * it.cg + e, nvalid - 1);
+        const float sc = __ldg(scale + c);
+        const float sh = __ldg(shift + c);
+        v[e] = pack_bf16x2_relu(__fadd_rn(__fmul_rn(lo_f(v[e]), sc), sh),
+                                __fadd_rn(__fmul_rn(hi_f(v[e]), sc), sh)) &
+               (8 * it.cg + e < nvalid ? keep : 0u);
+      }
+    }
+    if (stA) *reinterpret_cast<uint4*>(dst + pa) = c3_gather<0x5410>(v);
+    if (stB) *reinterpret_cast<uint4*>(dst + pa + ld) = c3_gather<0x7632>(v);
+  }
+}
+
+// px_load and px_store back to back over all of the tile's items, ROUNDS
+// rounds (16 or 24 loads a thread) in flight at a time
+template <bool BN, bool RAW, int ROUNDS, int THREADS>
+__device__ __forceinline__ void stage_px_tile(u16* dst, u16* rawdst, int ld, int groups,
+                                              const u16* x, int hw, int H, int W,
+                                              int ty0, int tx0, int nvalid,
+                                              const float* scale, const float* shift,
+                                              bool pair) {
+  const int total = groups * C3_ITEMS;
+  for (int first = 0; first < total; first += ROUNDS * THREADS) {
+    uint32_t raw[ROUNDS][8];
+    px_load<ROUNDS, THREADS>(raw, first, total, x, hw, H, W, ty0, tx0, nvalid, pair);
+    px_store<BN, RAW, ROUNDS, THREADS>(raw, first, total, dst, rawdst, ld, H, W, ty0, tx0,
+                                       nvalid, scale, shift);
+  }
+}
+
+// Copies weight rows [r0, r0 + rows) of a [R][9][16] bf16 matrix (16-byte
+// aligned) into dst rows C3_WLD apart with cp.async; rows >= R are zero.
+// The caller commits and waits.
+template <int THREADS>
+__device__ __forceinline__ void load_w3_rows(u16* dst, const u16* wt, int R, int r0,
+                                             int rows) {
+  constexpr int PIECES = C3_WROW / 8;  // 18 16-byte pieces a row
+  for (int i = threadIdx.x; i < rows * PIECES; i += THREADS) {
+    const int r = i / PIECES;
+    const int j = i - r * PIECES;
+    const bool ok = r0 + r < R;
+    cp_async16(dst + r * C3_WLD + 8 * j, ok ? wt + (ll)(r0 + r) * C3_WROW + 8 * j : wt,
+               ok ? 16 : 0);
+  }
+}
+
+// A lane's ldmatrix.x4 coordinates: it addresses row r8 of matrix j0 + 2 j1
+// (j0, j1: the matrix's two bits), and holds row g, columns 2t and 2t + 1
+// of every matrix.  Following the layouts at the head of this file, an
+// operand with k contiguous puts (j0, j1) on (row, column) blocks of 8 for
+// A and on (column, row) for B; read with .trans, the other way round.
+struct C3Lane {
+  int r8, j0, j1, g, t;
+  __device__ __forceinline__ explicit C3Lane(int lane)
+      : r8(lane % 8), j0((lane >> 3) & 1), j1(lane >> 4), g(lane / 4), t(lane % 4) {}
+};
 
 }  // namespace s2r_mma

@@ -30,7 +30,7 @@
 // the work, and a second pass (reduce_rows_kernel) adds them in a fixed
 // order: results do not depend on scheduling, and no atomics are used.
 //
-// What bounds K1, K3a, K3b and K2's float32 and 3x3 forms: the dense
+// What bounds the CUDA-core kernels (float32, K2 with 3x3): the dense
 // layers of FCDenseNet67 at 120x160 are 13.7 GFLOP per frame forward and
 // twice that backward.  A layer launch moves c_j + 16 channels for 144
 // operations per input value, so with the f32 CUDA cores (67 TFLOP/s)
@@ -46,12 +46,20 @@
 //
 // K2 in bfloat16 with one tap (the TransitionDown backward, the only K2 of
 // the fused train step) runs on the tensor cores instead:
-// bwd1x1_dgrad_mma_kernel and bwd1x1_wgrad_mma_kernel, noted below.
+// bwd1x1_dgrad_mma_kernel and bwd1x1_wgrad_mma_kernel, noted below.  So do
+// K1, K3a and K3b in bfloat16 with 16 outputs (every dense layer of
+// FCDenseNet67): fwd3x3_mma_kernel, sum_dgrad_mma_kernel and
+// stage_own_mma_kernel, noted below, and K1 with one tap, through the
+// TransitionDown product of td_fwd_mma.cuh.  The kernels above them stay
+// for float32 and for the shapes the tensor-core kernels do not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "bnrelu_mma.cuh"
+#include "td_fwd_mma.cuh"
 
 namespace {
 
@@ -469,13 +477,13 @@ wgrad_kernel(const T* X, ll x_bstride, int C, int B, int H, int W,
 
 // out[m] = sum_r part[r][m] over P rows, in a fixed order.  A block owns 32
 // columns; its 8 warps take every 8th row and are then added in order.
-__global__ void __launch_bounds__(THREADS)
-reduce_rows_kernel(const float* __restrict__ part, int P, ll M,
-                   float* __restrict__ out) {
+__device__ __forceinline__ void reduce_rows_body(const float* __restrict__ part, int P,
+                                                 ll M, float* __restrict__ out,
+                                                 int block) {
   __shared__ float red[WARPS][32];
   const int lane = threadIdx.x % 32;
   const int rg = threadIdx.x / 32;
-  const ll col = (ll)blockIdx.x * 32 + lane;
+  const ll col = (ll)block * 32 + lane;
   float s = 0.f;
   if (col < M)
     for (int r = rg; r < P; r += WARPS) s += part[(ll)r * M + col];
@@ -488,13 +496,19 @@ reduce_rows_kernel(const float* __restrict__ part, int P, ll M,
   }
 }
 
-// out[m] = sum_r part[m * P + r]: one warp per column, lanes over strided
-// rows and then a fixed-order tree (deterministic); for the tall partial
-// sums of the tensor-core K2 (thousands of tiles, few columns)
 __global__ void __launch_bounds__(THREADS)
-reduce_cols_kernel(const float* __restrict__ part, int P, int M,
+reduce_rows_kernel(const float* __restrict__ part, int P, ll M,
                    float* __restrict__ out) {
-  const int m = blockIdx.x * WARPS + threadIdx.x / 32;
+  reduce_rows_body(part, P, M, out, blockIdx.x);
+}
+
+// out[m] = sum_r part[m * P + r]: one warp per column, lanes over strided
+// rows and then a fixed-order tree (deterministic); for tall partial sums
+// (thousands of tiles, few columns)
+__device__ __forceinline__ void reduce_cols_body(const float* __restrict__ part, int P,
+                                                 int M, float* __restrict__ out,
+                                                 int block) {
+  const int m = block * WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (m >= M) return;
   const float* src = part + (ll)m * P;
@@ -507,6 +521,12 @@ reduce_cols_kernel(const float* __restrict__ part, int P, int M,
   for (; r < P; r += 32) s[0] += src[r];
   const float v = warp_sum((s[0] + s[1]) + (s[2] + s[3]));
   if (lane == 0) out[m] = v;
+}
+
+__global__ void __launch_bounds__(THREADS)
+reduce_cols_kernel(const float* __restrict__ part, int P, int M,
+                   float* __restrict__ out) {
+  reduce_cols_body(part, P, M, out, blockIdx.x);
 }
 
 int n_tiles(int H, int W) { return ((H + TH - 1) / TH) * ((W + TW - 1) / TW); }
@@ -954,6 +974,617 @@ cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
   return reduce_rows(part_w, S, (ll)C * N, dw, s);
 }
 
+// ---------------------------------------------------------------------------
+// K1 (3x3), K3a and K3b, bfloat16, 16 outputs, on the tensor cores.
+//
+// Replace, for the bf16 dense layers (growth 16), the TPU kernels K1
+// (tiramisu_train_pallas.py _fwd_kernel, pallas_call at :187), K3a
+// (_stage_kernel, pallas_call at :759) and K3b (_final_kernel, :854).
+//
+// What bounds them on an H100: a layer launch does 144 multiply-adds per
+// input value against 16 outputs, so per byte it is below the ~295
+// operations at which the tensor cores become the limit: by the roofline
+// they are bound by bytes (the B=32 step's 55 forwards must move 3.8 GB,
+// 1.1 ms at 3.35 TB/s, for 438 GFLOP).  The CUDA-core kernels they replace
+// were far from that: bound by f32 FMA issue and shared-memory loads.
+// With 16 outputs no tensor-core instruction reaches the card's peak (a
+// wgmma of 64 x 16 leaves most of its width idle), so the design aims at
+// the cuDNN call, not the bound.
+//
+// Which instruction and why: mma.sync m16n8k16 (bf16 in, f32 sums) fed by
+// ldmatrix.  The nine taps shift the activation by whole pixels; with the
+// operands staged as [pixel][channel] tiles (bnrelu_mma.cuh) a shift is a
+// row offset, every ldmatrix row stays 16-byte aligned, and one staged
+// tile (one-pixel halo) serves all nine taps.  wgmma would need the same
+// layout through descriptors and gains nothing at N = 16.
+//
+// - fwd3x3_mma_kernel (K1): a block owns a 12 x 16 pixel tile of one image
+//   and all 16 outputs; it walks the input channels in chunks of 32 through
+//   two buffers (BN + ReLU + rounding once per staged value; the next
+//   chunk's x is in flight in registers while this one is multiplied;
+//   weights by cp.async as they lie in memory), D[pixel, o] += a[pixel + tap, k] W[k,
+//   tap, o], and writes T((D + bias) * mask) in place.
+// - sum_dgrad_mma_kernel (K3a's rebuild of dy_j, and K3b): per layer l,
+//   dA_l[q, k] = sum_{t,o} G_l[q - off_t, o] W_l[k, t, o] on 16 channels k
+//   at a time (the G tiles are staged as stored, no conversion, once per
+//   block and up to five layers at once), then in f32 tot += dA_l relu'(z_l)
+//   scale_l.  K3a: the 16 channels of y_j; g_pre = (ext + tot) * mask is
+//   stored rounded, with its per-tile sums for dbias.  K3b: the block's
+//   c_in input channels in groups of 16 inside the block (weight rows
+//   stream through two cp.async buffers), T(tot) stored.
+// - stage_own_mma_kernel (K3a, own layer): a block owns a chunk of up to 64
+//   input channels and a range of (image, tile) items; the chunk's weights
+//   stay in shared memory.  Per item it stages x once with its halo (raw
+//   and as a = T(relu(BN(x)))) and the G tile, and computes both products
+//   from them: the input cotangent dA[q, k] (same product as above; its
+//   epilogue takes relu'(z) and sums dz x and dz, nothing is stored) and
+//   the weight cotangent dW[k, t, o] += a[q + off_t, k] G[q, o] (pixels
+//   contracted, 16 pixels a step), whose sums stay in registers across
+//   the block's items.  g_pre must be complete before this kernel reads
+//   its halo: that is the launch boundary between the two kernels.
+// - Sums over the batch are per-block partials (one row per split, in item
+//   order) and per-tile partials for dbias, added by stage_reduce_kernel
+//   in a fixed order: deterministic, no atomics; one reduce launch a stage.
+// The 3x5 bottleneck and the other small planes leave most of a 12 x 16
+// tile idle (one image a tile, no packing): they hold 2% of the work.
+// ---------------------------------------------------------------------------
+constexpr int TD_MAX_K = 768;  // K1 with one tap: the x tile of td_fwd_mma.cuh fits
+constexpr int C3_MT = mma::C3_TH / mma::C3_WARPS;     // pixel rows per warp
+constexpr int F3_KC = 32;                             // channels per forward chunk
+constexpr int F3_LD = F3_KC + 8;
+constexpr int F3_SA = mma::C3_HPX * F3_LD;            // one a buffer, elements
+constexpr int F3_SW = F3_KC * mma::C3_WLD;            // one weight buffer
+constexpr int F3_SMEM = 2 * 2 * (F3_SA + F3_SW);      // bytes
+constexpr int GP_L = 5;                               // layers staged at once
+constexpr int GP_LD = mma::C3_N + 8;
+constexpr int GP_SG = mma::C3_HPX * GP_LD;
+constexpr int GP_SW = mma::C3_N * mma::C3_WLD;
+constexpr int GP_SMEM = 2 * GP_L * (GP_SG + 2 * GP_SW) + 4 * mma::C3_WARPS * mma::C3_N;
+
+int gp_smem(int ns) {  // for ns layers staged at once
+  return 2 * ns * (GP_SG + 2 * GP_SW) + 4 * mma::C3_WARPS * mma::C3_N;
+}
+constexpr int OW_KC = 64;                             // channels per own-layer chunk
+constexpr int OW_LD = OW_KC + 8;
+constexpr int OW_SX = mma::C3_HPX * OW_LD;
+constexpr int OW_SW = OW_KC * mma::C3_WLD;
+constexpr int OW_UPW = (OW_KC / 16) * 3 / mma::C3_WARPS;  // (16 channels, ky) units per warp
+constexpr int OW_SMEM = 2 * (2 * OW_SX + GP_SG + OW_SW) + 4 * mma::C3_WARPS * OW_KC * 2;
+
+// the own-layer kernel's channel chunks: 16-channel units per chunk
+int ow_units(int C) {
+  const int n16 = (C + 15) / 16;
+  const int chunks = (n16 + OW_KC / 16 - 1) / (OW_KC / 16);
+  return (n16 + chunks - 1) / chunks;
+}
+
+__global__ void __launch_bounds__(mma::C3_THREADS, 3)
+fwd3x3_mma_kernel(const mma::u16* X, ll x_bstride, int K, int H, int W,
+                  const float* __restrict__ scale, const float* __restrict__ shift,
+                  const mma::u16* __restrict__ wt, const float* __restrict__ bias,
+                  const float* __restrict__ mask, mma::u16* out, ll out_bstride,
+                  int pair) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mma::u16* sA = reinterpret_cast<mma::u16*>(smem);   // [2][halo px][F3_LD]
+  mma::u16* sW = sA + 2 * F3_SA;                       // [2][F3_KC][C3_WLD]
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const mma::C3Lane ln(tid % 32);
+  const int tiles_x = mma::c3_tiles_x(W);
+  const int ty0 = (blockIdx.x / tiles_x) * mma::C3_TH;
+  const int tx0 = (blockIdx.x % tiles_x) * mma::C3_TW;
+  const int b = blockIdx.y;
+  const int hw = H * W;
+  const mma::u16* xb = X + b * x_bstride;
+  const int nchunks = (K + F3_KC - 1) / F3_KC;
+
+  // a chunk's x is loaded into registers while the chunk before it is
+  // multiplied, and stored (BN + ReLU + rounding applied) after
+  constexpr int TOTAL = F3_KC / 8 * mma::C3_ITEMS;
+  constexpr int ROUNDS = (TOTAL + mma::C3_THREADS - 1) / mma::C3_THREADS;
+  uint32_t raw[ROUNDS][8];
+  auto load = [&](int c) {
+    const int k0 = c * F3_KC;
+    mma::load_w3_rows<mma::C3_THREADS>(sW + (c & 1) * F3_SW, wt, K, k0, F3_KC);
+    mma::cp_async_commit();
+    mma::px_load<ROUNDS, mma::C3_THREADS>(raw, 0, TOTAL, xb + (ll)k0 * hw, hw, H, W, ty0,
+                                          tx0, K - k0, pair);
+  };
+  auto store = [&](int c) {
+    const int k0 = c * F3_KC;
+    mma::px_store<true, false, ROUNDS, mma::C3_THREADS>(
+        raw, 0, TOTAL, sA + (c & 1) * F3_SA, nullptr, F3_LD, H, W, ty0, tx0, K - k0,
+        scale + k0, shift + k0);
+  };
+
+  float acc[C3_MT][2][4];
+#pragma unroll
+  for (int m = 0; m < C3_MT; ++m)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
+
+  load(0);
+  for (int c = 0; c < nchunks; ++c) {
+    store(c);
+    mma::cp_async_wait<0>();
+    __syncthreads();  // chunk c is staged; the other buffers are free
+    if (c + 1 < nchunks) load(c + 1);
+    const uint32_t a_sm = mma::smem_u32(sA + (c & 1) * F3_SA);
+    const uint32_t w_sm = mma::smem_u32(sW + (c & 1) * F3_SW);
+#pragma unroll
+    for (int kk = 0; kk < F3_KC; kk += 16) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        uint32_t bq[4];  // W[k, t, o]: stored [k][o]
+        mma::ldsm_x4_t(bq, w_sm + 2u * (uint32_t)((kk + ln.r8 + 8 * ln.j0) * mma::C3_WLD +
+                                                  t * mma::C3_N + 8 * ln.j1));
+#pragma unroll
+        for (int m = 0; m < C3_MT; ++m) {
+          const int y = warp + m * mma::C3_WARPS;
+          uint32_t af[4];  // a[pixel + tap, k]: stored [pixel][k]
+          mma::ldsm_x4(af, a_sm + 2u * (uint32_t)(mma::c3_tap(y, ln.r8 + 8 * ln.j0, t / 3, t % 3) *
+                                                      F3_LD + kk + 8 * ln.j1));
+          mma::mma_16816(acc[m][0], af, bq[0], bq[1]);
+          mma::mma_16816(acc[m][1], af, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  mma::u16* ob = out + b * out_bstride;
+#pragma unroll
+  for (int m = 0; m < C3_MT; ++m) {
+    const int gy = ty0 + warp + m * mma::C3_WARPS;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int gx = tx0 + ln.g + 8 * (e / 2);
+        const int n = 8 * nt + 2 * ln.t + (e & 1);
+        if (gy < H && gx < W)
+          ob[(ll)n * hw + gy * W + gx] = mma::to_bf(
+              __fmul_rn(__fadd_rn(acc[m][nt][e], bias[n]), mask[b * mma::C3_N + n]));
+      }
+  }
+}
+
+// K3a's rebuild of dy_j (C = 16, ext and mask given, groups = 1) and K3b
+// (C = c_in, neither): out = T((ext + sum_l dA_l relu'(z_l) scale_l) * mask)
+// over channels [0, C) of X.  A block owns a pixel tile of one image and
+// `groups` consecutive 16-channel groups from blockIdx.z * groups on.  The
+// layers' G tiles are staged once per block, ns = min(nl, GP_L) at a time;
+// each group's weight rows stream through two buffers.  More layers than
+// GP_L need groups = 1 (the sums then stay in registers across the rounds).
+__global__ void __launch_bounds__(mma::C3_THREADS, 2)
+sum_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int H, int W,
+                     const float* __restrict__ ext, int nl, Layers L,
+                     const float* __restrict__ mask, mma::u16* out,
+                     float* __restrict__ part_gp, int groups, int ns, int pair) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mma::u16* sG = reinterpret_cast<mma::u16*>(smem);   // [ns][halo px][GP_LD]
+  mma::u16* sW = sG + ns * GP_SG;                      // [2][ns][16][C3_WLD]
+  float* red = reinterpret_cast<float*>(sW + 2 * ns * GP_SW);  // [warps][16]
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const mma::C3Lane ln(tid % 32);
+  const int tiles_x = mma::c3_tiles_x(W);
+  const int ty0 = (blockIdx.x / tiles_x) * mma::C3_TH;
+  const int tx0 = (blockIdx.x % tiles_x) * mma::C3_TW;
+  const int b = blockIdx.y;
+  const int hw = H * W;
+  const ll P = (ll)gridDim.x * gridDim.y;
+  const ll row = (ll)b * gridDim.x + blockIdx.x;
+  const int ncg = (C + mma::C3_N - 1) / mma::C3_N;
+  const int cg_begin = blockIdx.z * groups;
+  const int cg_end = min(ncg, cg_begin + groups);
+
+  // this lane's accumulator positions: pixel (row y of warp, g + 8 (e / 2)),
+  // channel 16 cg + 8 nt + 2 t + e % 2
+  float tot[C3_MT][2][4];
+  float xv[C3_MT][2][4];
+
+  for (int l0 = 0; l0 < nl || l0 == 0; l0 += GP_L) {
+    const int n_here = min(GP_L, nl - l0);
+    auto load_w = [&](int cg, int buf) {
+      for (int i = 0; i < n_here; ++i)
+        mma::load_w3_rows<mma::C3_THREADS>(sW + (buf * ns + i) * GP_SW,
+                                           static_cast<const mma::u16*>(L.w[l0 + i]), C,
+                                           cg * mma::C3_N, mma::C3_N);
+      mma::cp_async_commit();
+    };
+    load_w(cg_begin, 0);
+    for (int i = 0; i < n_here; ++i)
+      mma::stage_px_tile<false, false, 2, mma::C3_THREADS>(
+          sG + i * GP_SG, nullptr, GP_LD, mma::C3_N / 8,
+          static_cast<const mma::u16*>(L.g[l0 + i]) + (ll)b * mma::C3_N * hw, hw, H, W,
+          ty0, tx0, mma::C3_N, nullptr, nullptr, pair);
+    for (int cg = cg_begin; cg < cg_end; ++cg) {
+      const int buf = (cg - cg_begin) & 1;
+      const int c0 = cg * mma::C3_N;
+      if (l0 == 0) {
+#pragma unroll
+        for (int m = 0; m < C3_MT; ++m) {
+          const int gy = ty0 + warp + m * mma::C3_WARPS;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int gx = tx0 + ln.g + 8 * (e / 2);
+              const int n = c0 + 8 * nt + 2 * ln.t + (e & 1);
+              const bool in = gy < H && gx < W && n < C;
+              const ll pix = (ll)n * hw + gy * W + gx;
+              xv[m][nt][e] = in ? mma::bf(X[b * x_bstride + pix]) : 0.f;
+              tot[m][nt][e] = (in && ext != nullptr) ? ext[(ll)b * C * hw + pix] : 0.f;
+            }
+        }
+      }
+      mma::cp_async_wait<0>();
+      __syncthreads();  // this group's weights (and the G tiles) are staged
+      if (cg + 1 < cg_end) load_w(cg + 1, buf ^ 1);
+      for (int i = 0; i < n_here; ++i) {
+        const uint32_t g_sm = mma::smem_u32(sG + i * GP_SG);
+        const uint32_t w_sm = mma::smem_u32(sW + (buf * ns + i) * GP_SW);
+        float acc[C3_MT][2][4];
+#pragma unroll
+        for (int m = 0; m < C3_MT; ++m)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          uint32_t bq[4];  // W_l[k, t, o]: stored [k][o], o is the depth
+          mma::ldsm_x4(bq, w_sm + 2u * (uint32_t)((ln.r8 + 8 * ln.j1) * mma::C3_WLD +
+                                                  t * mma::C3_N + 8 * ln.j0));
+#pragma unroll
+          for (int m = 0; m < C3_MT; ++m) {
+            const int y = warp + m * mma::C3_WARPS;
+            uint32_t af[4];  // G_l[q - off_t, o]: stored [pixel][o]
+            mma::ldsm_x4(af, g_sm + 2u * (uint32_t)(mma::c3_tap_t(y, ln.r8 + 8 * ln.j0, t / 3,
+                                                                  t % 3) * GP_LD + 8 * ln.j1));
+            mma::mma_16816(acc[m][0], af, bq[0], bq[1]);
+            mma::mma_16816(acc[m][1], af, bq[2], bq[3]);
+          }
+        }
+        const float* sc = L.sc[l0 + i];
+        const float* sh = L.sh[l0 + i];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int n = min(c0 + 8 * nt + 2 * ln.t + j, C - 1);
+            const float scv = sc[n];
+            const float shv = sh[n];
+#pragma unroll
+            for (int m = 0; m < C3_MT; ++m)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int e = 2 * h + j;
+                const float z = affine(xv[m][nt][e], scv, shv);
+                tot[m][nt][e] = __fadd_rn(
+                    tot[m][nt][e], __fmul_rn(__fmul_rn(acc[m][nt][e], relu_d(z)), scv));
+              }
+          }
+      }
+      if (l0 + GP_L < nl) continue;  // more layers to come (groups == 1)
+
+      // out = T(tot * mask); per-tile sums of the unrounded product
+      float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int m = 0; m < C3_MT; ++m) {
+        const int gy = ty0 + warp + m * mma::C3_WARPS;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int gx = tx0 + ln.g + 8 * (e / 2);
+            const int n = c0 + 8 * nt + 2 * ln.t + (e & 1);
+            if (gy < H && gx < W && n < C) {
+              const float v = mask != nullptr ? __fmul_rn(tot[m][nt][e], mask[b * C + n])
+                                              : tot[m][nt][e];
+              out[((ll)b * C + n) * hw + gy * W + gx] = mma::to_bf(v);
+              s[nt][e & 1] += v;
+            }
+          }
+      }
+      if (part_gp != nullptr) {  // block-uniform
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float v = s[nt][j];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (ln.g == 0) red[warp * mma::C3_N + 8 * nt + 2 * ln.t + j] = v;
+          }
+        __syncthreads();
+        if (tid < mma::C3_N && c0 + tid < C) {
+          float v = 0.f;
+          for (int w = 0; w < mma::C3_WARPS; ++w) v += red[w * mma::C3_N + tid];
+          part_gp[(c0 + tid) * P + row] = v;
+        }
+      }
+    }
+    __syncthreads();  // the next round overwrites the tiles
+  }
+}
+
+__global__ void __launch_bounds__(mma::C3_THREADS, 2)
+stage_own_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int H, int W,
+                     const float* __restrict__ scale, const float* __restrict__ shift,
+                     const mma::u16* __restrict__ wt, const mma::u16* __restrict__ G,
+                     int nu, int S, float* __restrict__ part, int pair_x, int pair_g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mma::u16* sX = reinterpret_cast<mma::u16*>(smem);   // x:  [halo px][OW_LD]
+  mma::u16* sA = sX + OW_SX;                           // a:  [halo px][OW_LD]
+  mma::u16* sG = sA + OW_SX;                           // G:  [halo px][GP_LD]
+  mma::u16* sW = sG + GP_SG;                           // W:  [OW_KC][C3_WLD]
+  float* red = reinterpret_cast<float*>(sW + OW_SW);   // [warps][OW_KC][2]
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const mma::C3Lane ln(tid % 32);
+  const int k0 = blockIdx.x * nu * 16;
+  const int split = blockIdx.y;
+  const int hw = H * W;
+  const int tiles_x = mma::c3_tiles_x(W);
+  const int tiles = mma::c3_tiles(H, W);
+  const int items = B * tiles;
+  const int per = (items + S - 1) / S;
+  const int i_begin = min(items, split * per);
+  const int i_end = min(items, i_begin + per);
+  const ll MW = (ll)C * (mma::C3_WROW + 2);            // a partial row: dW, dscale, dshift
+
+  mma::load_w3_rows<mma::C3_THREADS>(sW, wt, C, k0, nu * 16);
+  mma::cp_async_commit();
+  for (int i = tid; i < mma::C3_WARPS * OW_KC * 2; i += mma::C3_THREADS) red[i] = 0.f;
+
+  float accw[OW_UPW][3][2][4];  // dW of this warp's (16 channels, ky) units
+#pragma unroll
+  for (int q = 0; q < OW_UPW; ++q)
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accw[q][kx][nt][e] = 0.f;
+
+  const uint32_t a_sm = mma::smem_u32(sA);
+  const uint32_t g_sm = mma::smem_u32(sG);
+  const uint32_t w_sm = mma::smem_u32(sW);
+  for (int item = i_begin; item < i_end; ++item) {
+    const int b = item / tiles;
+    const int tile = item - b * tiles;
+    const int ty0 = (tile / tiles_x) * mma::C3_TH;
+    const int tx0 = (tile % tiles_x) * mma::C3_TW;
+    mma::stage_px_tile<true, true, 3, mma::C3_THREADS>(
+        sA, sX, OW_LD, 2 * nu, X + b * x_bstride + (ll)k0 * hw, hw, H, W, ty0, tx0,
+        C - k0, scale + k0, shift + k0, pair_x);
+    mma::stage_px_tile<false, false, 2, mma::C3_THREADS>(
+        sG, nullptr, GP_LD, mma::C3_N / 8, G + (ll)b * mma::C3_N * hw, hw, H, W, ty0, tx0,
+        mma::C3_N, nullptr, nullptr, pair_g);
+    mma::cp_async_wait<0>();
+    __syncthreads();
+
+    // input cotangent: dA[q, k] = sum_{t,o} G[q - off_t, o] W[k, t, o];
+    // dz = dA relu'(z); sums of dz x and dz per channel
+    for (int u = 0; u < nu; ++u) {
+      float scv[2][2], shv[2][2];
+      bool live[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = k0 + 16 * u + 8 * nt + 2 * ln.t + j;
+          live[nt][j] = k < C;
+          scv[nt][j] = scale[min(k, C - 1)];
+          shv[nt][j] = shift[min(k, C - 1)];
+        }
+      float sd[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      float sz[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int m = 0; m < C3_MT; ++m) {
+        const int y = warp + m * mma::C3_WARPS;
+        float acc[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          uint32_t bq[4], af[4];
+          mma::ldsm_x4(bq, w_sm + 2u * (uint32_t)((16 * u + ln.r8 + 8 * ln.j1) * mma::C3_WLD +
+                                                  t * mma::C3_N + 8 * ln.j0));
+          mma::ldsm_x4(af, g_sm + 2u * (uint32_t)(mma::c3_tap_t(y, ln.r8 + 8 * ln.j0, t / 3, t % 3) *
+                                                      GP_LD + 8 * ln.j1));
+          mma::mma_16816(acc[0], af, bq[0], bq[1]);
+          mma::mma_16816(acc[1], af, bq[2], bq[3]);
+        }
+        const int gy = ty0 + y;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int px = ln.g + 8 * (e / 2);
+            const int j = e & 1;
+            const int ch = 16 * u + 8 * nt + 2 * ln.t + j;
+            const float xf = mma::bf(sX[((y + 1) * mma::C3_HW + px + 1) * OW_LD + ch]);
+            const bool in = gy < H && tx0 + px < W && live[nt][j];
+            const float dz =
+                in ? __fmul_rn(acc[nt][e], relu_d(affine(xf, scv[nt][j], shv[nt][j]))) : 0.f;
+            sd[nt][j] += __fmul_rn(dz, xf);
+            sz[nt][j] += dz;
+          }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v = sd[nt][j];
+          float z = sz[nt][j];
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            v += __shfl_xor_sync(0xffffffffu, v, off);
+            z += __shfl_xor_sync(0xffffffffu, z, off);
+          }
+          if (ln.g == 0) {  // this lane's own slots: a running sum over the items
+            float* r = red + (warp * OW_KC + 16 * u + 8 * nt + 2 * ln.t + j) * 2;
+            r[0] += v;
+            r[1] += z;
+          }
+        }
+    }
+
+    // weight cotangent: dW[k, t, o] += sum_q a[q + off_t, k] G[q, o], one
+    // row of 16 pixels a step
+#pragma unroll
+    for (int q = 0; q < OW_UPW; ++q) {
+      const int idx = warp + q * mma::C3_WARPS;  // (16-channel unit, ky)
+      if (idx < 3 * nu) {                        // warp-uniform
+        const int mt = idx / 3;
+        const int ky = idx % 3;
+        for (int y = 0; y < mma::C3_TH; ++y) {
+          uint32_t bq[4];  // G[q, o]: stored [pixel][o], pixels are the depth
+          mma::ldsm_x4_t(bq, g_sm + 2u * (uint32_t)(mma::c3_tap(y, ln.r8 + 8 * ln.j0, 1, 1) *
+                                                        GP_LD + 8 * ln.j1));
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx) {
+            uint32_t af[4];  // a[q + off_t, k]: stored [pixel][k]
+            mma::ldsm_x4_t(af, a_sm + 2u * (uint32_t)(mma::c3_tap(y, ln.r8 + 8 * ln.j1, ky, kx) *
+                                                          OW_LD + 16 * mt + 8 * ln.j0));
+            mma::mma_16816(accw[q][kx][0], af, bq[0], bq[1]);
+            mma::mma_16816(accw[q][kx][1], af, bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next item overwrites the tiles
+  }
+
+  float* prow = part + (ll)split * MW;
+#pragma unroll
+  for (int q = 0; q < OW_UPW; ++q) {
+    const int idx = warp + q * mma::C3_WARPS;
+    if (idx >= 3 * nu) continue;
+    const int mt = idx / 3;
+    const int ky = idx % 3;
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = k0 + 16 * mt + ln.g + 8 * (e / 2);
+          const int o = 8 * nt + 2 * ln.t + (e & 1);
+          if (k < C) prow[((ll)k * 9 + ky * 3 + kx) * mma::C3_N + o] = accw[q][kx][nt][e];
+        }
+  }
+  __syncthreads();  // red is complete (and zeroed, for a block without items)
+  if (tid < nu * 16 && k0 + tid < C) {
+    float v = 0.f, z = 0.f;
+    for (int w = 0; w < mma::C3_WARPS; ++w) {
+      v += red[(w * OW_KC + tid) * 2];
+      z += red[(w * OW_KC + tid) * 2 + 1];
+    }
+    prow[(ll)C * mma::C3_WROW + k0 + tid] = v;
+    prow[(ll)C * mma::C3_WROW + C + k0 + tid] = z;
+  }
+}
+
+// One launch for a stage's sums: out[m] = sum_s part[s][m] for m < M (dW,
+// dscale, dshift), and out[M + n] = sum_r part_gp[n * P + r] (dbias).
+__global__ void __launch_bounds__(THREADS)
+stage_reduce_kernel(const float* __restrict__ part, int S, ll M,
+                    const float* __restrict__ part_gp, int P, int row_blocks,
+                    float* __restrict__ out) {
+  if ((int)blockIdx.x < row_blocks)
+    reduce_rows_body(part, S, M, out, blockIdx.x);
+  else
+    reduce_cols_body(part_gp, P, mma::C3_N, out + M, blockIdx.x - row_blocks);
+}
+
+cudaError_t mma3x3_setup() {
+  static bool ready = false;  // the shared-memory limits, set once
+  if (ready) return cudaSuccess;
+  S2R_TRY(cudaFuncSetAttribute(fwd3x3_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, F3_SMEM));
+  S2R_TRY(cudaFuncSetAttribute(sum_dgrad_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, GP_SMEM));
+  S2R_TRY(cudaFuncSetAttribute(stage_own_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, OW_SMEM));
+  ready = true;
+  return cudaSuccess;
+}
+
+// K1, bf16, 3x3, 16 outputs
+cudaError_t fwd3x3_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
+                       const float* scale, const float* shift, const void* wt,
+                       const float* bias, const float* mask, void* out,
+                       ll out_bstride, cudaStream_t s) {
+  if (!mma::aligned16(wt)) return cudaErrorMisalignedAddress;
+  S2R_TRY(mma3x3_setup());
+  fwd3x3_mma_kernel<<<dim3(mma::c3_tiles(H, W), B), mma::C3_THREADS, F3_SMEM, s>>>(
+      static_cast<const mma::u16*>(X), x_bstride, K, H, W, scale, shift,
+      static_cast<const mma::u16*>(wt), bias, mask, static_cast<mma::u16*>(out),
+      out_bstride, mma::c3_pair_loads(W, x_bstride, X));
+  return cudaGetLastError();
+}
+
+// the summed input cotangent over channels [0, C) of X (K3a's rebuild, K3b)
+cudaError_t sum_dgrad_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
+                          const float* ext, int nl, const Layers& L,
+                          const float* mask, void* out, float* part_gp,
+                          cudaStream_t s) {
+  for (int l = 0; l < nl; ++l)
+    if (!mma::aligned16(L.w[l])) return cudaErrorMisalignedAddress;
+  S2R_TRY(mma3x3_setup());
+  const int tiles = mma::c3_tiles(H, W);
+  const int ncg = (C + mma::C3_N - 1) / mma::C3_N;
+  // enough blocks for two per SM of an H100 (264), as few as that allows:
+  // every block stages the G tiles again
+  int zb = 1;
+  if (nl > GP_L) zb = ncg;
+  else if (B * tiles < 264) zb = std::min(ncg, (264 + B * tiles - 1) / (B * tiles));
+  const int groups = (ncg + zb - 1) / zb;
+  zb = (ncg + groups - 1) / groups;
+  const int ns = std::max(1, std::min(nl, GP_L));
+  bool pair = true;  // every layer's G is a contiguous [B, 16, H, W]
+  for (int l = 0; l < nl; ++l) pair = pair && mma::c3_pair_loads(W, 0, L.g[l]);
+  sum_dgrad_mma_kernel<<<dim3(tiles, B, zb), mma::C3_THREADS, gp_smem(ns), s>>>(
+      static_cast<const mma::u16*>(X), x_bstride, C, H, W, ext, nl, L, mask,
+      static_cast<mma::u16*>(out), part_gp, groups, ns, pair);
+  return cudaGetLastError();
+}
+
+// K3a, bf16, 16 outputs.  res: [K * 144 dW | K dscale | K dshift | 16 dbias];
+// scratch part_gp [16][B * tiles] (tiles of 12 x 16 pixels), part_w [S][K * 146].
+cudaError_t stage_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
+                      const void* Y, ll y_bstride, const float* ext, int nl,
+                      const Layers& L, const void* wt, const float* scale,
+                      const float* shift, const float* mask, void* gp_out,
+                      float* res, float* part_gp, float* part_w, int S,
+                      cudaStream_t s) {
+  if (!mma::aligned16(wt) || S < 1) return cudaErrorMisalignedAddress;
+  const int tiles = mma::c3_tiles(H, W);
+  S2R_TRY(sum_dgrad_mma(Y, y_bstride, B, mma::C3_N, H, W, ext, nl, L, mask, gp_out,
+                        part_gp, s));
+  const int nu = ow_units(K);
+  const int chunks = (K + 16 * nu - 1) / (16 * nu);
+  stage_own_mma_kernel<<<dim3(chunks, S), mma::C3_THREADS, OW_SMEM, s>>>(
+      static_cast<const mma::u16*>(X), x_bstride, K, B, H, W, scale, shift,
+      static_cast<const mma::u16*>(wt), static_cast<const mma::u16*>(gp_out), nu, S,
+      part_w, mma::c3_pair_loads(W, x_bstride, X), mma::c3_pair_loads(W, 0, gp_out));
+  S2R_TRY(cudaGetLastError());
+  const ll M = (ll)K * (mma::C3_WROW + 2);
+  const int row_blocks = (int)((M + 31) / 32);
+  const int col_blocks = (mma::C3_N + WARPS - 1) / WARPS;
+  stage_reduce_kernel<<<row_blocks + col_blocks, THREADS, 0, s>>>(
+      part_w, S, M, part_gp, B * tiles, row_blocks, res);
+  return cudaGetLastError();
+}
+
 Layers make_layers(int n, const void* const* gps, const void* const* ws,
                    const float* const* scs, const float* const* shs) {
   Layers L = {};
@@ -989,6 +1620,14 @@ cudaError_t stage(const void* X, ll x_bstride, int B, int K, int H, int W,
 // (gbuf, part_*) is allocated by the caller:
 //   part_gp  [B * N] floats (bwd) or [B * tiles * G] (stage)
 //   part_ss  [2 * B * tiles * K]   part_w [S * K * taps * N]
+// Dispatch (mirrored by takes_mma_fwd, takes_mma_bwd and takes_mma_stage in
+// kernels/train_block.py): bfloat16 fwd with 9 taps and N = 16, or one tap
+// and K <= 768, and bfloat16 stage and final with G = 16 run on the tensor
+// cores.
+// That stage wants dw, dscale, dshift, dbias contiguous in this order,
+// part_gp [16 * B * t3] and part_w [S * K * 146] with t3 = ceil(H/12) *
+// ceil(W/16), and leaves part_ss unused.  Everything else runs the
+// CUDA-core kernels,
 // with tiles = ceil(H/16) * ceil(W/16), except for bfloat16 bwd with one
 // tap and N <= 624 (bwd1x1_mma): part_gp [B * t1 * N], part_ss
 // [2 * B * t1 * K], part_w [S * K * N] with t1 = ceil(H*W / 128).
@@ -1005,9 +1644,15 @@ extern "C" int s2r_train_fwd(int dtype, int taps, const void* X, ll x_bstride,
   if (dtype == 0 && taps == 1)
     return fwd<float, 1>(X, x_bstride, B, K, H, W, scale, shift, wt, bias, mask, N,
                          out, out_bstride, s);
+  if (dtype == 1 && taps == 9 && N == mma::C3_N)
+    return fwd3x3_mma(X, x_bstride, B, K, H, W, scale, shift, wt, bias, mask, out,
+                      out_bstride, s);
   if (dtype == 1 && taps == 9)
     return fwd<__nv_bfloat16, 9>(X, x_bstride, B, K, H, W, scale, shift, wt, bias,
                                  mask, N, out, out_bstride, s);
+  if (dtype == 1 && taps == 1 && K <= TD_MAX_K)
+    return s2r_td::launch_td_mma(X, x_bstride, B, K, H, W, scale, shift, wt, bias, N,
+                                 out, out_bstride, 0, mask, s);
   if (dtype == 1 && taps == 1)
     return fwd<__nv_bfloat16, 1>(X, x_bstride, B, K, H, W, scale, shift, wt, bias,
                                  mask, N, out, out_bstride, s);
@@ -1057,6 +1702,14 @@ extern "C" int s2r_train_stage(int dtype, const void* X, ll x_bstride, int B,
     return stage<float>(X, x_bstride, B, K, H, W, Y, y_bstride, G, ext, nl, L, wt,
                         scale, shift, mask, gp_out, dw, dscale, dshift, dbias,
                         part_gp, part_ss, part_w, S, s);
+  if (dtype == 1 && G == mma::C3_N) {
+    // one result buffer: dW, dscale, dshift, dbias in this order
+    if (dscale != dw + (ll)K * mma::C3_WROW || dshift != dscale + K ||
+        dbias != dshift + K)
+      return cudaErrorInvalidValue;
+    return stage_mma(X, x_bstride, B, K, H, W, Y, y_bstride, ext, nl, L, wt, scale,
+                     shift, mask, gp_out, dw, part_gp, part_w, S, s);
+  }
   if (dtype == 1)
     return stage<__nv_bfloat16>(X, x_bstride, B, K, H, W, Y, y_bstride, G, ext, nl,
                                 L, wt, scale, shift, mask, gp_out, dw, dscale,
@@ -1077,6 +1730,9 @@ extern "C" int s2r_train_final(int dtype, const void* X, ll x_bstride, int B,
   if (dtype == 0)
     return launch_dgrad<float, 9, true>(X, x_bstride, B, K, H, W, G, nl, L,
                                         nullptr, nullptr, dseg, nullptr, nullptr, s);
+  if (dtype == 1 && G == mma::C3_N)
+    return sum_dgrad_mma(X, x_bstride, B, K, H, W, nullptr, nl, L, nullptr, dseg,
+                         nullptr, s);
   if (dtype == 1)
     return launch_dgrad<__nv_bfloat16, 9, true>(X, x_bstride, B, K, H, W, G, nl, L,
                                                 nullptr, nullptr, dseg, nullptr,

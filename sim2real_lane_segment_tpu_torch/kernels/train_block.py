@@ -24,11 +24,14 @@ BN ``scale``/``shift`` and ``bias`` f32, dropout ``mask`` f32 ``[B, n]``
   scale_l)`` over all of the block's layers.
 
 ``relu'(z) = (z > 0) + 0.5 (z == 0)``: the tie rule of ``jnp.maximum``.
-K2 in bfloat16 with one tap (the TransitionDown) runs on the tensor cores
-(``takes_mma_bwd``); every other entry and dtype on the CUDA cores.
+In bfloat16, K1 (3x3 with 16 outputs, or one tap), K2 with one tap, and
+K3a and K3b with 16 outputs run on the tensor cores (``takes_mma_fwd``,
+``takes_mma_bwd``, ``takes_mma_stage``): every site of FCDenseNet67.
+Float32 and the other shapes run on the CUDA cores.
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; a failed build or launch raises.  ``launches`` counts wrapper
-calls that launched a kernel (CUDA tensors only).
+calls that launched a kernel (CUDA tensors only), ``mma_launches`` those
+of them that took the tensor-core route.
 """
 from __future__ import annotations
 
@@ -48,9 +51,13 @@ TILE = 16        # the kernels' pixel tile and channel group
 MAX_LAYERS = 16  # layers one stage or final launch may read
 
 
+mma_launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0, "final": 0}
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, mma_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +248,49 @@ def mma_wgrad_splits(c: int, n: int, b: int, h: int, w: int) -> int:
     return max(1, min(items, math.ceil(264 / tiles)))
 
 
+# K1, K3a and K3b in bf16 run on the tensor cores (fwd3x3_mma_kernel,
+# sum_dgrad_mma_kernel, stage_own_mma_kernel in csrc/train_block.cu; K1
+# with one tap through csrc/td_fwd_mma.cuh): 12x16 pixel tiles, 16 outputs
+# (FC-DenseNet's growth rate), own-layer chunks of up to 64 channels
+MMA3_TILE_H, MMA3_TILE_W, MMA3_N, MMA3_CHUNK = 12, 16, 16, 64
+MMA_FWD1_MAX_C = 768   # one tap: the x tile must fit in shared memory
+
+
+def takes_mma_fwd(dtype: torch.dtype, taps: int, c: int, n: int) -> bool:
+    """Whether ``consumer_fwd`` launches a tensor-core kernel (the C side
+    dispatches by the same rule)."""
+    if dtype != torch.bfloat16:
+        return False
+    return n == MMA3_N if taps == 9 else c <= MMA_FWD1_MAX_C
+
+
+def takes_mma_stage(dtype: torch.dtype, g: int) -> bool:
+    """Whether ``stage`` and ``final`` launch the tensor-core kernels (the
+    C side dispatches by the same rule)."""
+    return dtype == torch.bfloat16 and g == MMA3_N
+
+
+def mma3_tiles(h: int, w: int) -> int:
+    return math.ceil(h / MMA3_TILE_H) * math.ceil(w / MMA3_TILE_W)
+
+
+def mma_stage_chunks(c: int) -> tuple[int, int]:
+    """(chunks, 16-channel units per chunk) of the own-layer kernel: as few
+    chunks of at most 64 channels as cover ``c``, evenly sized."""
+    n16 = math.ceil(c / 16)
+    chunks = math.ceil(n16 / (MMA3_CHUNK // 16))
+    units = math.ceil(n16 / chunks)
+    return math.ceil(n16 / units), units
+
+
+def mma_stage_splits(c: int, b: int, h: int, w: int) -> int:
+    """Item-range splits of the own-layer kernel: two blocks per SM of an
+    H100 (264) over its channel chunks, at most one split per (image,
+    tile) item."""
+    chunks, _ = mma_stage_chunks(c)
+    return max(1, min(b * mma3_tiles(h, w), 264 // chunks))
+
+
 def _stream() -> int:
     """The current stream, inside ``build.on_device`` of the operands."""
     return torch.cuda.current_stream().cuda_stream
@@ -248,13 +298,6 @@ def _stream() -> int:
 
 def _empty(shape, dtype, like):
     return torch.empty(shape, dtype=dtype, device=like.device)
-
-
-def _scratch(b, c, taps, n, h, w, like):
-    """(part_ss, part_w, S) for one layer's dscale/dshift and dW sums."""
-    s = wgrad_splits(c, n, b, h, w)
-    return (_empty((2 * b * n_tiles(h, w) * c,), torch.float32, like),
-            _empty((s * c * taps * n,), torch.float32, like), s)
 
 
 def _ptrs(ts: Sequence[torch.Tensor]):
@@ -290,6 +333,7 @@ def consumer_fwd(x: torch.Tensor, scale, shift, weight, bias, mask,
             out.stride(0), _stream())
     _check(lib, err, "consumer_fwd")
     launches["consumer_fwd"] += 1
+    mma_launches["consumer_fwd"] += takes_mma_fwd(x.dtype, taps, c, n)
     return out
 
 
@@ -334,6 +378,7 @@ def consumer_bwd(x: torch.Tensor, scale, shift, weight, mask, dy):
             part_ss.data_ptr(), part_w.data_ptr(), splits, _stream())
     _check(lib, err, "consumer_bwd")
     launches["consumer_bwd"] += 1
+    mma_launches["consumer_bwd"] += takes_mma_bwd(x.dtype, taps, n)
     return dseg, dscale, dshift, dw, dbias
 
 
@@ -376,11 +421,21 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
     _check_later(x, gps, w_slices, sc_slices, sh_slices, g, g)
     f32 = torch.float32
     gp = _empty((b, g, h, w), x.dtype, x)
-    dw = _empty((c, 9, g), f32, x)
-    dscale, dshift, dbias = (_empty((c,), f32, x), _empty((c,), f32, x),
-                             _empty((g,), f32, x))
-    part_gp = _empty((b * n_tiles(h, w) * g,), f32, x)
-    part_ss, part_w, splits = _scratch(b, c, 9, g, h, w, x)
+    # the four f32 results share one allocation (dW, dscale, dshift, dbias
+    # in the order the tensor-core reduce writes them) and the partial sums
+    # another: each torch.empty costs microseconds of host time per stage
+    dw, dscale, dshift, dbias = _empty((c * 9 * g + 2 * c + g,), f32,
+                                       x).split((c * 9 * g, c, c, g))
+    dw = dw.view(c, 9, g)
+    mma = takes_mma_stage(x.dtype, g)
+    if mma:
+        splits = mma_stage_splits(c, b, h, w)
+        sizes = (g * b * mma3_tiles(h, w), 0, splits * c * (9 * g + 2))
+    else:
+        splits = wgrad_splits(c, g, b, h, w)
+        sizes = (b * n_tiles(h, w) * g, 2 * b * n_tiles(h, w) * c,
+                 splits * c * 9 * g)
+    part_gp, part_ss, part_w = _empty((sum(sizes),), f32, x).split(sizes)
     lib = _lib()
     with build.on_device(x.device):
         err = lib.s2r_train_stage(
@@ -395,6 +450,7 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
             part_ss.data_ptr(), part_w.data_ptr(), splits, _stream())
     _check(lib, err, "stage")
     launches["stage"] += 1
+    mma_launches["stage"] += mma
     return gp, dw, dscale, dshift, dbias
 
 
@@ -420,4 +476,5 @@ def final(x: torch.Tensor, gps: Sequence[torch.Tensor],
             ctypes.cast(_ptrs(sh_slices), _PP), dseg.data_ptr(), _stream())
     _check(lib, err, "final")
     launches["final"] += 1
+    mma_launches["final"] += takes_mma_stage(x.dtype, g)
     return dseg

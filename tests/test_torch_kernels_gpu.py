@@ -120,8 +120,13 @@ def test_wrapper_rejects_bad_operands(cuda):
 
 from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb  # noqa: E402
 
-# (B, H, W, c, g): ragged against the 16x16 tiles and 16-channel groups
-TRAIN_CASES = [(2, 15, 20, 40, 16), (3, 7, 33, 24, 4)]
+# (B, H, W, c, g): ragged against the 16x16 tiles and 16-channel groups.
+# The g = 4 case must take the CUDA-core route in both dtypes; the g = 16
+# ones take the tensor-core K1 and K3a in bf16: FCDenseNet67 widths (48,
+# 88, 592: one to ten own-layer chunks, ragged against 32 and 64) on the
+# small planes, which cross the 12x16 pixel tile with ragged remainders.
+TRAIN_CASES = [(2, 15, 20, 40, 16), (3, 7, 33, 24, 4), (2, 15, 20, 48, 16),
+               (2, 7, 10, 88, 16), (3, 3, 5, 592, 16), (1, 26, 35, 88, 16)]
 # TransitionDown widths (taps 1, n = c) on the tensor-core K2's ragged
 # pixel tiles
 TD_TRAIN_CASES = [(2, 15, 20, 128, 16), (2, 7, 10, 128, 16),
@@ -181,6 +186,8 @@ def test_consumer_kernels_match_plain(cuda, case, taps, dtype):
     torch.cuda.synchronize()
     assert ktb.launches["consumer_fwd"] == 1
     assert ktb.launches["consumer_bwd"] == 1
+    assert ktb.mma_launches["consumer_fwd"] == int(
+        dtype == torch.bfloat16 and (taps == 1 or n == 16))
     _close_all([y], [ktb.consumer_fwd_plain(x, scale, shift, weight, bias,
                                             mask)], dtype, "K1")
     _close_all(outs, ktb.consumer_bwd_plain(x, scale, shift, weight, mask,
@@ -189,7 +196,7 @@ def test_consumer_kernels_match_plain(cuda, case, taps, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_later", [0, 2])
+@pytest.mark.parametrize("n_later", [0, 2, 4, 5])
 @pytest.mark.parametrize("case", TRAIN_CASES)
 def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
     b, h, w, c, g = case
@@ -209,11 +216,17 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
     for sh in shs:
         sh[2] = 0
     args = (buf, y, ext, gps, wls, scale, shift, scs, shs, weight, mask)
+    ktb.reset_launches()
     outs = ktb.stage(*args)
     torch.cuda.synchronize()
+    assert ktb.mma_launches["stage"] == int(dtype == torch.bfloat16
+                                            and g == 16)
     _close_all(outs, ktb.stage_plain(*args), dtype, "K3a")
+    again = ktb.stage(*args)  # fixed-order sums: the same bits
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
 
-    n = 3
+    n = 3 + n_later  # up to eight layers: more than are staged at once
     gps = [torch.randn(b, g, h, w, device=cuda).to(dtype) for _ in range(n)]
     wls = [(torch.randn(c, 9, g, device=cuda) * 0.3).to(dtype)
            for _ in range(n)]
@@ -221,10 +234,32 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
     shs = [torch.randn(c, device=cuda) * 0.3 for _ in range(n)]
     for sh in shs:
         sh[1] = 0
+    ktb.reset_launches()
     out = ktb.final(buf, gps, wls, scs, shs)
     torch.cuda.synchronize()
+    assert ktb.mma_launches["final"] == int(dtype == torch.bfloat16
+                                            and g == 16)
     _close_all([out], [ktb.final_plain(buf, gps, wls, scs, shs)], dtype,
                "K3b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [TRAIN_CASES[0], TRAIN_CASES[3]])
+def test_consumer_fwd_writes_in_place(cuda, case, dtype):
+    """K1 as the dense block calls it: the input is channels [0, c) of a
+    wider buffer and the output its channels [c, c + g)."""
+    b, h, w, c, g = case
+    x, scale, shift, weight, bias, mask = _train_operands(case, dtype, cuda, 6)
+    buf = torch.full((b, c + g + 8, h, w), 7.0, device=cuda).to(dtype)
+    buf[:, :c] = x
+    ref = ktb.consumer_fwd_plain(buf, scale, shift, weight, bias, mask)
+    out = ktb.consumer_fwd(buf, scale, shift, weight, bias, mask,
+                           out=buf[:, c:c + g])
+    torch.cuda.synchronize()
+    assert out.data_ptr() == buf[:, c:].data_ptr()
+    _close_all([buf[:, c:c + g]], [ref], dtype, "K1 in place")
+    assert torch.equal(buf[:, :c], x) and bool((buf[:, c + g:] == 7).all())
 
 
 @pytest.mark.gpu

@@ -188,3 +188,125 @@ def test_tensor_core_wgrad_splits_fill_the_card():
     # the last: 16 tiles of the 448x448 cotangent, 32 slices
     assert ktb.mma_wgrad_splits(448, 448, 32, 7, 10) == 17
     assert ktb.mma_wgrad_splits(16, 16, 1, 8, 8) == 1   # one slice only
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core K1 and K3a: dispatch rules, chunks, splits and scratch
+# ---------------------------------------------------------------------------
+
+def _fcdensenet67_sites():
+    """(c_j, H, W) of the 55 dense layers and (c, H, W) of the 5
+    TransitionDowns of FCDenseNet67 on 120x160 frames."""
+    res = [(120, 160), (60, 80), (30, 40), (15, 20), (7, 10)]
+    dense, td, c, skips = [], [], 48, []
+    for h, w in res:
+        dense += [(c + 16 * j, h, w) for j in range(5)]
+        c += 80
+        skips.append(c)
+        td.append((c, h, w))
+    dense += [(c + 16 * j, 3, 5) for j in range(5)]
+    for (h, w), skip in zip(reversed(res), reversed(skips)):
+        dense += [(80 + skip + 16 * j, h, w) for j in range(5)]
+    return dense, td
+
+
+DENSE_SITES, TD_SITES = _fcdensenet67_sites()
+
+
+def test_fcdensenet67_site_list():
+    assert len(DENSE_SITES) == 55 and len(TD_SITES) == 5
+    assert DENSE_SITES[0] == (48, 120, 160) and DENSE_SITES[-1] == (272, 120,
+                                                                    160)
+    assert max(c for c, _, _ in DENSE_SITES) == 592
+    assert [c for c, _, _ in TD_SITES] == [128, 208, 288, 368, 448]
+
+
+@pytest.mark.parametrize("site", DENSE_SITES + TD_SITES,
+                         ids=lambda s: "c%d_%dx%d" % s)
+def test_every_fcdensenet67_site_takes_the_tensor_cores(site):
+    """All 55 + 5 K1 sites and all 55 K3a sites in bfloat16; none in
+    float32 (the parity control stays on the CUDA cores)."""
+    c, h, w = site
+    taps, n = (9, 16) if site in DENSE_SITES else (1, c)
+    assert ktb.takes_mma_fwd(torch.bfloat16, taps, c, n)
+    assert not ktb.takes_mma_fwd(torch.float32, taps, c, n)
+    if taps == 9:
+        assert ktb.takes_mma_stage(torch.bfloat16, n)
+        assert not ktb.takes_mma_stage(torch.float32, n)
+        chunks, units = ktb.mma_stage_chunks(c)
+        assert 1 <= units <= 4 and (chunks - 1) * units * 16 < c
+        assert chunks * units * 16 >= c
+        splits = ktb.mma_stage_splits(c, 32, h, w)
+        items = 32 * ktb.mma3_tiles(h, w)
+        assert 1 <= splits <= items
+        # the grid fills the 132 SMs (two blocks each) unless the plane
+        # has fewer items than that
+        assert chunks * splits <= 264
+        assert chunks * splits >= min(132, chunks * items)
+
+
+@pytest.mark.parametrize("dtype,taps,c,n,expect", [
+    (torch.bfloat16, 9, 48, 16, True), (torch.bfloat16, 9, 24, 4, False),
+    (torch.bfloat16, 9, 48, 12, False), (torch.bfloat16, 9, 48, 32, False),
+    (torch.bfloat16, 1, 768, 768, True), (torch.bfloat16, 1, 784, 16, False),
+    (torch.float32, 9, 48, 16, False), (torch.float32, 1, 128, 128, False)])
+def test_tensor_core_fwd_dispatch(dtype, taps, c, n, expect):
+    assert ktb.takes_mma_fwd(dtype, taps, c, n) is expect
+
+
+@pytest.mark.parametrize("dtype,g,expect", [
+    (torch.bfloat16, 16, True), (torch.bfloat16, 4, False),
+    (torch.bfloat16, 12, False), (torch.bfloat16, 32, False),
+    (torch.float32, 16, False)])
+def test_tensor_core_stage_dispatch(dtype, g, expect):
+    assert ktb.takes_mma_stage(dtype, g) is expect
+
+
+@pytest.mark.parametrize("c,expect", [(16, (1, 1)), (48, (1, 3)),
+                                      (64, (1, 4)), (80, (2, 3)),
+                                      (272, (5, 4)), (592, (10, 4)),
+                                      (40, (1, 3))])
+def test_own_layer_chunks(c, expect):
+    assert ktb.mma_stage_chunks(c) == expect
+
+
+def test_own_layer_splits_and_tiles():
+    assert ktb.mma3_tiles(120, 160) == 100 and ktb.mma3_tiles(3, 5) == 1
+    assert ktb.mma3_tiles(15, 20) == 4
+    assert ktb.mma_stage_splits(48, 32, 120, 160) == 264
+    assert ktb.mma_stage_splits(592, 32, 7, 10) == 26
+    assert ktb.mma_stage_splits(512, 32, 3, 5) == 32   # one item a split
+    assert ktb.mma_stage_splits(48, 1, 3, 5) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_later", [0, 3])
+def test_stage_results_keep_shapes_and_dtypes_on_cpu(n_later, dtype):
+    rng = np.random.default_rng(40 + n_later)
+    c, g, h, w = 24, 16, 5, 7
+    x, scale, shift, weight, _, mask = _operands(rng, c, g, h, w, 9)
+    y = rng.normal(size=(B, g, h, w)).astype(np.float32)
+    ext = rng.normal(size=(B, g, h, w)).astype(np.float32)
+    gps = [rng.normal(size=(B, g, h, w)).astype(np.float32)
+           for _ in range(n_later)]
+    wls = [rng.normal(0, 0.3, (g, 9, g)).astype(np.float32)
+           for _ in range(n_later)]
+    scs = [rng.uniform(0.5, 1.5, g).astype(np.float32)
+           for _ in range(n_later)]
+    shs = [rng.normal(0, 0.3, g).astype(np.float32) for _ in range(n_later)]
+
+    def d(a):
+        return _t(a).to(dtype)
+
+    ktb.reset_launches()
+    gp, dw, dsc, dsh, db = ktb.stage(
+        d(x), d(y), _t(ext), [d(v) for v in gps], [d(v) for v in wls],
+        _t(scale), _t(shift), [_t(v) for v in scs], [_t(v) for v in shs],
+        d(weight), _t(mask))
+    assert gp.shape == (B, g, h, w) and gp.dtype == dtype
+    assert dw.shape == (c, 9, g) and dw.dtype == torch.float32
+    assert dsc.shape == dsh.shape == (c,) and db.shape == (g,)
+    assert dsc.dtype == dsh.dtype == db.dtype == torch.float32
+    assert all(torch.isfinite(t.float()).all() for t in (gp, dw, dsc, dsh, db))
+    assert not any(ktb.launches.values())
+    assert not any(ktb.mma_launches.values())
