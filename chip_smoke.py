@@ -18,16 +18,23 @@ Phases:
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: builds the four kernel sources from ``csrc/`` with nvcc, at once;
    prints ptxas's registers and spills per kernel and counts the
-   tensor-core instructions (HGMMA, HMMA) of the bf16 TransitionDown, K1,
-   K3a and K3b kernels;
+   tensor-core instructions of the tensor-core kernels (HGMMA, HMMA: the
+   bf16 dense layer, TransitionDown, K1, K2, K3a and K3b; IMMA: K6's conv);
 3. K4 against plain: all 11 dense blocks at their real widths (B=8,
-   120x160), in float32 (TF32 off) and in bfloat16;
+   120x160), in float32 (TF32 off) and in bfloat16; every bfloat16 dense
+   layer must take the tensor-core route, no float32 one (the routes as
+   the C library reports them with each launch);
 4. serve: 4 client threads x 8 requests of 1-16 frames through the engine
-   (max_batch=64); checks every reply, the kernels' launch counts, and
-   pixel agreement with the plain module on the card;
-5. K4 timing: CUDA events around a B=64 fused forward and around each
-   kernel's launches, beside the plain versions, the cuDNN yardsticks and
-   the least time the card could take (bound);
+   (max_batch=64); checks every reply, the kernels' launch counts (every
+   dense layer on the tensor cores), and pixel agreement with the plain
+   module on the card;
+5. K4 timing: the bfloat16 dense layers of all 11 blocks at B=64 against
+   plain again (the block chain and each layer alone, at phase 3's
+   tolerances), where the small planes split their channel loop; CUDA
+   events around a B=64 fused forward and around each kernel's launches,
+   beside the plain versions, the cuDNN yardsticks and the least time the
+   card could take (bound); the dense layer per resolution with the splits
+   the launches reported; fails if it exceeds MAX_FWD_MS;
 6. K1-K3b against plain: every call of one fused train step (B=4; all 60
    consumer sites, 55 stages, 11 block inputs) in float32 and bfloat16,
    with a channel of every dropout site dropped for the whole batch and
@@ -45,18 +52,21 @@ Phases:
    the plain autograd step, and each train kernel's time per step beside
    its plain version, a cuDNN yardstick and its bound (K1 also split into
    its 3x3 and 1x1 launches); fails if K3a or K1 exceeds MAX_STEP_MS;
-10. K6 against plain: the student's int8 body at full width (B=8),
-    calibrated as ``cli.serve --int8`` does; every conv site's int8 codes
-    equal, logits within the f32 head's reordering;
+10. K6 against plain: the student's int8 body at full width, B=8 and
+    B=64 (more (image, tile) items than persistent blocks), calibrated as
+    ``cli.serve --int8`` does; every conv site's int8 codes equal, logits
+    within the f32 head's reordering, all 12 conv sites on the int8 tensor
+    cores;
 11. serve LaneNetLite: float, ``--int8`` and ``--int8 --fused`` behind the
     engine (4 clients x 8 requests of 1-16 frames); checks every reply,
-    K6's launches (1/12/1 per batch), that its plain version never ran,
-    and fused vs plain int8 pixel agreement (>= 99.9%);
+    K6's launches (1/12/1 per batch, the 12 on the tensor cores), that its
+    plain version never ran, and fused vs plain int8 pixel agreement
+    (>= 99.9%);
 12. K5 against plain: ``process_classes_batch`` on B=32 seeded pairs at
     480x640 and 120x160 in both channel orders, bit-exact;
-13. timing: K6 per B=64 forward and K5 per B=32 480x640 batch beside their
-    plain versions and bounds, and the whole LaneNetLite forwards (int8
-    through K6, plain int8, float bf16) at B=64.
+13. timing: K6 per B=64 forward (fails above MAX_FWD_MS) and K5 per B=32
+    480x640 batch beside their plain versions and bounds, and the whole
+    LaneNetLite forwards (int8 through K6, plain int8, float bf16) at B=64.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -148,12 +158,18 @@ MIN_PIXEL_AGREEMENT = 0.98    # served masks: fused kernels vs plain module
 
 
 # the bf16 kernels on the tensor cores: the TransitionDown forward's two
-# (serving, and K1 with one tap) and K2's dgrad (wgmma), K2's wgrad, K1's
-# 3x3 forward, K3a's two kernels and K3b (mma.sync)
+# (serving, and K1 with one tap) and K2's dgrad (wgmma), K2's wgrad, the
+# 3x3 dense layer of serving and of K1, K3a's two kernels and K3b
+# (mma.sync); and K6's int8 conv (IMMA)
 MMA_KERNELS = ("td_fwd_small_kernel", "td_fwd_mma_kernel",
                "bwd1x1_dgrad_mma_kernel", "bwd1x1_wgrad_mma_kernel",
-               "fwd3x3_mma_kernel", "sum_dgrad_mma_kernel",
-               "stage_own_mma_kernel")
+               "dense3x3_mma_kernel", "fwd3x3_mma_kernel",
+               "sum_dgrad_mma_kernel", "stage_own_mma_kernel")
+IMMA_KERNELS = ("conv_i8_mma_kernel",)
+# dense layers of one FCDenseNet67 forward, all bf16 growth 16; conv sites
+# of the full-width LaneNetLite body, all on the int8 tensor cores
+DENSE_LAYERS = 55
+K6_CONVS = 12
 # launches per bf16 train step that must take the tensor-core route: every
 # K1, K2, K3a and K3b site of FCDenseNet67
 TRAIN_MMA_PER_STEP = {"consumer_fwd": 60, "consumer_bwd": 5, "stage": 55,
@@ -162,6 +178,9 @@ TRAIN_MMA_PER_STEP = {"consumer_fwd": 60, "consumer_bwd": 5, "stage": 55,
 # 41.201 on an H100 at 700 W), a guard that the tensor-core kernels are
 # the code that ran, not a target
 MAX_STEP_MS = {"stage": 47.0, "consumer_fwd": 21.0}
+# per B=64 forward, ms: half of what the CUDA-core kernels took (53.9 and
+# 2.997 on an H100 at 700 W), the same kind of guard
+MAX_FWD_MS = {"k4_dense_layer": 27.0, "k6_int8_body": 1.5}
 
 
 def fail(msg: str) -> None:
@@ -211,16 +230,16 @@ def ptxas_report(log: str) -> list:
 
 
 def tensor_core_instructions(build):
-    """Tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma) in
-    each tensor-core kernel's SASS (cuobjdump beside nvcc), or None
-    without cuobjdump."""
+    """Tensor-core instructions (HMMA for bf16 mma.sync, HGMMA for wgmma,
+    IMMA for int8 mma.sync) in each tensor-core kernel's SASS (cuobjdump
+    beside nvcc), or None without cuobjdump."""
     from pathlib import Path
 
     tool = Path(build.find_nvcc()).with_name("cuobjdump")
     if not tool.is_file():
         return None
     counts = {}
-    for src in ("dense_block", "train_block"):
+    for src in ("dense_block", "train_block", "int8_body"):
         sass = subprocess.run([str(tool), "-sass", str(build._target(src))],
                               capture_output=True, text=True, timeout=300)
         check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr[-500:]}")
@@ -228,9 +247,10 @@ def tensor_core_instructions(build):
         for line in sass.stdout.splitlines():
             if "Function :" in line:
                 name = _entry_name(line.split("Function :", 1)[1].strip())
-            elif name in MMA_KERNELS and ("HMMA" in line or "HGMMA" in line):
+            elif ((name in MMA_KERNELS and ("HMMA" in line or "HGMMA" in line))
+                  or (name in IMMA_KERNELS and "IMMA" in line)):
                 counts[name] = counts.get(name, 0) + 1
-    return {k: counts.get(k, 0) for k in MMA_KERNELS}
+    return {k: counts.get(k, 0) for k in MMA_KERNELS + IMMA_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +380,7 @@ def compare_blocks(sd, device, dtype_name, card):
     calls = capture_blocks(model, model_input(frames, device), folded)
     check(len(calls) == 11, f"expected 11 dense blocks, saw {len(calls)}")
     errs = {"dense_layer": 0.0, "transition": 0.0, "classifier": 0.0}
+    kdb.reset_launches()
     for name, segs, layers, kw in calls:
         out = kdb.dense_block(segs, layers, **kw)
         ref = kdb.dense_block_plain(segs, layers, **kw)
@@ -417,6 +438,15 @@ def compare_blocks(sd, device, dtype_name, card):
     torch.cuda.synchronize()
     print(f"  {dtype_name} isolated entry points max|err|: "
           f"{json.dumps(errs)}  [{card}]")
+    # each layer twice: in the block chain and on its own
+    expect = 2 * DENSE_LAYERS * (dtype_name == "bfloat16")
+    print(f"  {dtype_name} dense layers on the tensor-core route "
+          f"{kdb.mma_launches['dense_layer']} of "
+          f"{kdb.launches['dense_layer']}, expected {expect}")
+    check(kdb.launches["dense_layer"] == 2 * DENSE_LAYERS
+          and kdb.mma_launches["dense_layer"] == expect,
+          f"{dtype_name}: dense layers {kdb.launches['dense_layer']}, on the "
+          f"tensor cores {kdb.mma_launches['dense_layer']}")
     return errs
 
 
@@ -494,6 +524,7 @@ def serve_phase(sd, device, card):
     kdb.reset_launches()
     replies, stats, wall = drive_engine(predict_fn, requests)
     launches = dict(kdb.launches)
+    mma = kdb.mma_launches["dense_layer"]
     n_frames = sum(f.shape[0] for reqs in requests for f in reqs)
     batches = stats["batches"]
     expect = {"dense_layer": 55 * batches, "transition": 5 * batches,
@@ -504,6 +535,10 @@ def serve_phase(sd, device, card):
     print(f"serve: kernel launches {json.dumps(launches)}, expected "
           f"{json.dumps(expect)} (55/5/1 per batch)")
     check(launches == expect, "launch counts differ from 55/5/1 per batch")
+    print(f"serve: dense layers on the tensor-core route {mma}, expected "
+          f"{DENSE_LAYERS * batches}")
+    check(mma == DENSE_LAYERS * batches,
+          "a served dense layer left the tensor-core route")
     check(all(v > 0 for v in launches.values()),
           "a kernel of the path was never launched")
 
@@ -561,11 +596,39 @@ def timing_phase(sd, device, card, launches, errs):
     it = 2  # bf16
     t = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
              "ops": 0.0} for k in ("dense_layer", "transition", "classifier")}
+    # (h, w) -> [layers, kernel ms, cuDNN ms, GFLOP, c_j seen, splits taken]
+    planes = {}
+    chain_err = 0.0
     for name, segs, layers, kw in calls:
         feat = kdb.dense_block_plain(segs, layers, c_lo=0)
         b, _, h, w = feat.shape
         hw = h * w
         acts = []
+        plane = planes.setdefault((h, w), [0, 0.0, 0.0, 0.0, [], set()])
+        # the dense layers against plain at B=64, where the small planes
+        # split their channel loop: the block chain and each layer alone
+        kdb.reset_launches()
+        out = kdb.dense_block(segs, layers, c_lo=0)
+        torch.testing.assert_close(out.float(), feat.float(), **TOL["bfloat16"],
+                                   msg=f"B={TIME_BATCH} {name} features")
+        chain_err = max(chain_err, (out.float() - feat.float()).abs().max()
+                        .item())
+        del out
+        for lay in layers:
+            k, _, g = lay.weight.shape
+            buf = feat.clone()
+            kdb.dense_layer(buf, lay)
+            a, r = buf[:, k:k + g].float(), feat[:, k:k + g].float()
+            torch.testing.assert_close(a, r, **ISOLATED_TOL["bfloat16"],
+                                       msg=f"B={TIME_BATCH} {name} layer at "
+                                       f"c={k}")
+            errs["dense_layer"] = max(errs["dense_layer"],
+                                      (a - r).abs().max().item())
+            del buf
+        check(kdb.mma_launches["dense_layer"] == 2 * len(layers),
+              f"B={TIME_BATCH} {name}: {kdb.mma_launches['dense_layer']} of "
+              f"{2 * len(layers)} dense layers on the tensor cores")
+        plane[5].update(kdb.mma_splits)
         for lay in layers:
             k, _, g = lay.weight.shape
             acts.append((kdb.bn_relu_plain(feat, lay.scale, lay.shift),
@@ -574,13 +637,19 @@ def timing_phase(sd, device, card, launches, errs):
             t["dense_layer"]["bytes"] += (b * hw * (k + g) * it
                                           + k * 9 * g * it + 8 * k + 4 * g)
             t["dense_layer"]["ops"] += 2.0 * b * hw * k * 9 * g
+            plane[0] += 1
+            plane[3] += 2.0 * b * hw * k * 9 * g / 1e9
+            plane[4].append(k)
         d = t["dense_layer"]
-        d["ms"] += _time_ms(lambda: [kdb.dense_layer(feat, lay)
-                                     for lay in layers])
+        ms = _time_ms(lambda: [kdb.dense_layer(feat, lay) for lay in layers])
+        lib_ms = _time_ms(lambda: [F.conv2d(a, wo, padding=1)
+                                   for a, wo in acts])
+        d["ms"] += ms
         d["plain_ms"] += _time_ms(lambda: [kdb.dense_layer_plain(feat, lay)
                                            for lay in layers])
-        d["library_ms"] += _time_ms(lambda: [F.conv2d(a, wo, padding=1)
-                                             for a, wo in acts])
+        d["library_ms"] += lib_ms
+        plane[1] += ms
+        plane[2] += lib_ms
         td, cls = kw.get("td"), kw.get("cls")
         if td is not None:
             c, n = td.weight.shape
@@ -600,6 +669,20 @@ def timing_phase(sd, device, card, launches, errs):
             e["ms"] += _time_ms(lambda: kdb.classifier(feat, cls))
             e["plain_ms"] += _time_ms(lambda: kdb.classifier_plain(feat, cls))
             e["library_ms"] = None  # no single PyTorch call computes it
+    print(f"timing: k4_dense_layer per resolution, B={TIME_BATCH} (CUDA "
+          f"events; cuDNN conv on the activated operands)  [{card}]")
+    for (h, w), (n, ms, lib_ms, gflop, cs, splits) in planes.items():
+        print(f"  {h:3d}x{w:<3d} {n:2d} layers, c_j {min(cs)}-{max(cs)}, "
+              f"split {sorted(splits)}, {gflop:8.1f} GFLOP: kernel "
+              f"{ms:8.3f} ms, cuDNN {lib_ms:8.3f} ms, {gflop / ms:6.1f} "
+              f"TFLOP/s")
+    split = sorted(set().union(*(p[5] for p in planes.values())))
+    print(f"timing: B={TIME_BATCH} dense layers against plain, splits "
+          f"{split} as the launches reported: block chains max|err| "
+          f"{chain_err:.3e}, each layer alone max|err| "
+          f"{errs['dense_layer']:.3e} (phase 3 and here)  [{card}]")
+    check(max(split) > 1, f"no B={TIME_BATCH} dense layer split its "
+          f"channel loop: {split}")
     kernels = []
     for name, e in t.items():
         t_bytes = e["bytes"] / PEAK_BYTES * 1e3
@@ -623,6 +706,10 @@ def timing_phase(sd, device, card, launches, errs):
     print(f"timing: kernels' work {gflop:.3f} GFLOP per frame; their bound "
           f"for one B={TIME_BATCH} forward "
           f"{sum(k['bound_ms'] for k in kernels):.3f} ms  [{card}]")
+    limit = MAX_FWD_MS["k4_dense_layer"]
+    check(t["dense_layer"]["ms"] <= limit,
+          f"k4_dense_layer took {t['dense_layer']['ms']:.3f} ms per "
+          f"B={TIME_BATCH} forward, above {limit} ms")
     return kernels
 
 
@@ -1205,9 +1292,12 @@ def stem_rows(qn, frames, device):
 
 
 def compare_int8_body(qn, device, card) -> float:
-    """Phase 10: K6 against its plain version at full width, B=8, on the
-    committed student's sites: every conv site's input codes equal, logits
-    within the head's f32 reordering.  Returns the logits' max|err|."""
+    """Phase 10: K6 against its plain version at full width on the
+    committed student's sites, at B=8 (on an H100 no more (image, tile)
+    items than persistent blocks) and at B=64 (each block walks several,
+    staging the next in its other halo buffer): every conv site's codes equal,
+    logits within the head's f32 reordering.  Returns the logits' largest
+    max|err|."""
     import torch
 
     from sim2real_lane_segment_tpu_torch.kernels import int8_body as kib
@@ -1215,28 +1305,46 @@ def compare_int8_body(qn, device, card) -> float:
         fold_body
 
     body = fold_body(qn)
-    x, hh, ww = stem_rows(qn, synthetic_frames(
-        np.random.default_rng(SEED + 11), CHECK_BATCH), device)
-    codes, codes_plain = {}, {}
-    with torch.no_grad():
-        out = kib.int8_body(x, body, hh, ww, record=codes)
-        ref = kib.int8_body_plain(x, body, hh, ww, record=codes_plain)
-    torch.cuda.synchronize()
-    check(list(codes) == list(codes_plain) and len(codes) == 10,
-          f"compared sites {list(codes)}")
-    for name, q in codes.items():
-        diff = int((q != codes_plain[name]).sum())
-        print(f"  K6 site {name:18s} codes {tuple(q.shape)}: {diff} differ, "
-              f"mean code {q.float().mean().item():+.2f}  [{card}]")
-        check(diff == 0, f"K6 {name}: {diff} int8 codes differ from plain")
-    err = (out - ref).abs().max().item()
-    print(f"  K6 logits [B={CHECK_BATCH}, {hh * ww}, {out.shape[2]}] max|err| "
-          f"{err:.3e} (max|ref| {ref.abs().max().item():.3e}), argmax "
-          f"agreement {(out.argmax(2) == ref.argmax(2)).float().mean():.6f}"
-          f"  [{card}]")
-    torch.testing.assert_close(out, ref, **INT8_LOGIT_TOL,
-                               msg="K6 logits differ from plain")
-    return err
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    worst = 0.0
+    for b in (CHECK_BATCH, TIME_BATCH):
+        x, hh, ww = stem_rows(qn, synthetic_frames(
+            np.random.default_rng(SEED + 11), b), device)
+        codes, codes_plain = {}, {}
+        kib.reset_launches()
+        with torch.no_grad():
+            out = kib.int8_body(x, body, hh, ww, record=codes)
+            ref = kib.int8_body_plain(x, body, hh, ww, record=codes_plain)
+        torch.cuda.synchronize()
+        check(list(codes) == list(codes_plain) and len(codes) == 10,
+              f"compared sites {list(codes)}")
+        th, tw = kib.IMMA_TILE
+        items = b * -(-hh // th) * -(-ww // tw)
+        print(f"  K6 B={b}: conv launches {kib.launches['conv']}, on the int8 "
+              f"tensor cores {kib.mma_launches['conv']} (by halo buffers "
+              f"{json.dumps(kib.imma_buffers)}), expected {K6_CONVS}; "
+              f"{items} (image, tile) items a launch over {sms} SMs")
+        check(kib.launches["conv"] == K6_CONVS
+              and kib.mma_launches["conv"] == K6_CONVS,
+              f"B={b}: a full-width K6 conv site left the int8 tensor-core "
+              f"route")
+        for name, q in codes.items():
+            diff = int((q != codes_plain[name]).sum())
+            print(f"  K6 B={b} site {name:18s} codes {tuple(q.shape)}: {diff} "
+                  f"differ, mean code {q.float().mean().item():+.2f}  [{card}]")
+            check(diff == 0, f"K6 B={b} {name}: {diff} int8 codes differ "
+                  f"from plain")
+        err = (out - ref).abs().max().item()
+        print(f"  K6 logits [B={b}, {hh * ww}, {out.shape[2]}] max|err| "
+              f"{err:.3e} (max|ref| {ref.abs().max().item():.3e}), argmax "
+              f"agreement {(out.argmax(2) == ref.argmax(2)).float().mean():.6f}"
+              f"  [{card}]")
+        torch.testing.assert_close(out, ref, **INT8_LOGIT_TOL,
+                                   msg=f"B={b}: K6 logits differ from plain")
+        worst = max(worst, err)
+    check(TIME_BATCH * -(-hh // th) * -(-ww // tw) > sms,
+          f"B={TIME_BATCH} gives no more K6 items than SMs")
+    return worst
 
 
 def lite_serve_phase(card):
@@ -1264,6 +1372,7 @@ def lite_serve_phase(card):
             kib.reset_launches()
             replies, stats, wall = drive_engine(predict_fn, requests)
             launches[mode] = dict(kib.launches)
+            mma = kib.mma_launches["conv"]
         masks[mode] = np.concatenate([o for outs in replies for o in outs])
         fps[mode] = n_frames / wall
         print(f"serve lite {mode:10s}: {n_frames} frames in 32 requests, "
@@ -1272,10 +1381,12 @@ def lite_serve_phase(card):
               f"{json.dumps(launches[mode])}  [{card}]")
         if mode == "int8_fused":
             b = stats["batches"]
-            expect = {"quant": b, "conv": 12 * b, "head": b}
+            expect = {"quant": b, "conv": K6_CONVS * b, "head": b}
             check(launches[mode] == expect,
                   f"K6 launches {launches[mode]}, expected {expect} "
                   f"(1/12/1 per batch)")
+            check(mma == K6_CONVS * b, f"K6 conv launches on the int8 tensor "
+                  f"cores {mma}, expected {K6_CONVS * b}")
         else:
             check(not any(launches[mode].values()),
                   f"{mode}: K6 launched off its path")
@@ -1416,6 +1527,9 @@ def lite_timing(trainer, qn, pairs, device, card, k6_launches, k6_err,
     print(f"timing: lite frames -> masks at B={TIME_BATCH}: "
           + ", ".join(f"{k} {v:.3f} ms ({TIME_BATCH / v * 1e3:.1f} frames/s)"
                       for k, v in whole.items()) + f"  [{card}]")
+    check(k6_ms <= MAX_FWD_MS["k6_int8_body"],
+          f"k6_int8_body took {k6_ms:.3f} ms per B={TIME_BATCH} forward, "
+          f"above {MAX_FWD_MS['k6_int8_body']} ms")
 
     orig, annot = pairs
     k5_ms = _time_ms(lambda: klg.process_classes(orig, annot))
@@ -1464,17 +1578,19 @@ def main() -> None:
           f"(nvcc {json.dumps(build.build_seconds)} s)  [{card}]")
     for name in sources:
         for entry, info in ptxas_report(build.build_log.get(name, "")):
-            tag = " [tensor cores]" if entry in MMA_KERNELS else ""
+            tag = (" [tensor cores]" if entry in MMA_KERNELS + IMMA_KERNELS
+                   else "")
             print(f"  {name}: {entry}{tag}: {info}")
     hmma = tensor_core_instructions(build)
     if hmma is None:
         print("build: cuobjdump not found beside nvcc; tensor-core "
               "instructions not checked")
     else:
-        print(f"build: tensor-core instructions (HMMA, HGMMA) per kernel "
-              f"{json.dumps(hmma)}  [{card}]")
-        check(all(hmma.values()), "a tensor-core kernel holds no HMMA or "
-              "HGMMA instruction")
+        print(f"build: tensor-core instructions (HMMA, HGMMA; IMMA for "
+              f"{', '.join(IMMA_KERNELS)}) per kernel {json.dumps(hmma)}  "
+              f"[{card}]")
+        check(all(hmma.values()), "a tensor-core kernel holds no HMMA, "
+              "HGMMA or IMMA instruction")
 
     # phase 3: kernel against plain, every block at full width
     t0 = time.perf_counter()

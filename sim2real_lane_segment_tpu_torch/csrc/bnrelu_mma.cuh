@@ -5,9 +5,11 @@
 // the [pixel][channel] staging and tap addressing of the 3x3 dense layers.
 //
 // Used by td_fwd_small_kernel and td_fwd_mma_kernel (csrc/td_fwd_mma.cuh),
-// by bwd1x1_dgrad_mma_kernel (wgmma) and bwd1x1_wgrad_mma_kernel (mma.sync)
-// and by fwd3x3_mma_kernel, sum_dgrad_mma_kernel and stage_own_mma_kernel
-// (mma.sync) in csrc/train_block.cu.
+// by the 3x3 dense-layer forward of csrc/dense3x3_mma.cuh (serving's
+// dense3x3_mma_kernel and K1's fwd3x3_mma_kernel), by
+// bwd1x1_dgrad_mma_kernel (wgmma) and bwd1x1_wgrad_mma_kernel (mma.sync)
+// and by sum_dgrad_mma_kernel and stage_own_mma_kernel (mma.sync) in
+// csrc/train_block.cu.
 //
 // Row-major shared-memory tiles for ldmatrix have a row stride (ld) of a
 // multiple of 64 elements plus 8: a row then starts 16 bytes further along
@@ -465,6 +467,7 @@ constexpr int C3_HW = C3_TW + 2;           // halo tile width
 constexpr int C3_HPX = (C3_TH + 2) * C3_HW;  // halo pixels: 252
 constexpr int C3_WARPS = 6;
 constexpr int C3_THREADS = 32 * C3_WARPS;
+constexpr int C3_MT = C3_TH / C3_WARPS;    // pixel rows per warp
 constexpr int C3_N = 16;                   // outputs of a dense layer
 constexpr int C3_WROW = 9 * C3_N;          // one channel's weights
 constexpr int C3_WLD = C3_WROW + 8;

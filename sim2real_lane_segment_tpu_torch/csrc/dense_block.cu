@@ -16,32 +16,33 @@
 // epilogue takes the per-pixel L2 norm of F in f32, rounds F/norm to T,
 // and writes (Wc . F/norm + b) * (1/T_softmax) as f32 logits, 8 rows.
 //
-// Dense layers, the classifier and the float32 TransitionDown
-// (conv_bnrelu_kernel, classifier_kernel).  What bounds them: at
-// FCDenseNet67, 120x160, the 55 dense layers are 13.7 GFLOP per frame.
-// One layer launch reads c_j channels and writes 16, so it does 144
+// The bf16 dense layers with growth 16 (every FCDenseNet67 and
+// FCDenseNet103 site) run on the tensor cores: dense3x3_mma_kernel, the
+// shared 3x3 forward body of dense3x3_mma.cuh (mma.sync m16n8k16 over
+// [halo pixel][channel] tiles, a 12 x 16 pixel tile and 32-channel chunks,
+// the channel loop split across a thread-block cluster at small planes)
+// with serving's epilogue T(D + bias); its note is in that header.  The
+// bf16 TransitionDown (td_fwd_small_kernel, td_fwd_mma_kernel) runs on the
+// tensor cores too; the kernels and their note are in td_fwd_mma.cuh,
+// which the training forward shares.
+//
+// The CUDA-core kernels below (conv_bnrelu_kernel, classifier_kernel)
+// serve float32, the parity control (TF32 would not hold the TransitionDown
+// to 1e-5), other growth rates (FCDenseNet57's 12) and the classifier.
+// What bounds them: at FCDenseNet67, 120x160, the 55 dense layers are 13.7
+// GFLOP per frame; one layer launch reads c_j channels and writes 16, 144
 // operations per bf16 byte moved, below the H100's ~295 bf16 tensor-core
-// operations per byte of device memory: launched per layer, a tensor-core
-// version would be bound by bytes, and a whole block with its buffer kept
-// on chip by operations.  These kernels compute on the CUDA cores in f32
-// (67 TFLOP/s peak, not 989), so they are bound by their FMA issue rate.
-// The float32 TransitionDown stays here as the parity control: TF32 would
-// not hold it to 1e-5.
-//
-// What their design does about it: it is the simple, correct first kernel.
-// Each block owns a 16x16 pixel tile and 16 output channels of one image;
-// it stages 16 input channels at a time (with a one-pixel halo) into
-// shared memory, applying BN, ReLU, rounding and the image mask once per
-// staged value, so the nine taps and sixteen outputs reuse each staged
-// value 144 times from shared memory.  Each thread keeps its pixel's 16
-// f32 sums in registers.  The feature buffer stays in device memory
-// between layers (a layer reads channels [0, c_j) and writes the disjoint
-// range [c_j, c_j+g) of the same buffer).  wgmma, TMA and keeping the
-// buffer on chip across layers are later work.
-//
-// The bf16 TransitionDown (td_fwd_small_kernel, td_fwd_mma_kernel) runs on
-// the tensor cores; the kernels and their note are in td_fwd_mma.cuh, which
-// the training forward shares.
+// operations per byte: a tensor-core layer launch is bound by bytes.  These
+// kernels compute on the CUDA cores in f32 (67 TFLOP/s peak, not 989), so
+// they are bound by their FMA issue rate.  Their design is the simple,
+// correct first kernel: each block owns a 16x16 pixel tile and 16 output
+// channels of one image; it stages 16 input channels at a time (with a
+// one-pixel halo) into shared memory, applying BN, ReLU, rounding and the
+// image mask once per staged value, so the nine taps and sixteen outputs
+// reuse each staged value 144 times from shared memory.  Each thread keeps
+// its pixel's 16 f32 sums in registers.  The feature buffer stays in
+// device memory between layers (a layer reads channels [0, c_j) and writes
+// the disjoint range [c_j, c_j+g) of the same buffer).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +50,7 @@
 #include <algorithm>
 
 #include "bnrelu_mma.cuh"
+#include "dense3x3_mma.cuh"
 #include "td_fwd_mma.cuh"
 
 namespace {
@@ -216,6 +218,32 @@ cudaError_t launch_conv(const void* in, long long in_bstride, int B, int K,
   return cudaGetLastError();
 }
 
+// The bf16 dense layer with growth 16: the shared body, serving's epilogue
+__global__ void __launch_bounds__(s2r_mma::C3_THREADS, 3)
+dense3x3_mma_kernel(const s2r_mma::u16* X, long long x_bstride, int K, int H, int W,
+                    const float* __restrict__ scale, const float* __restrict__ shift,
+                    const s2r_mma::u16* __restrict__ wt, const float* __restrict__ bias,
+                    const float* __restrict__ mask, s2r_mma::u16* out,
+                    long long out_bstride, int pair) {
+  s2r_d3::fwd3x3_body<false>(X, x_bstride, K, H, W, scale, shift, wt, bias, mask, out,
+                             out_bstride, pair);
+}
+
+cudaError_t launch_dense_mma(const void* in, long long in_bstride, int B, int K, int H,
+                             int W, const float* scale, const float* shift,
+                             const void* wt, const float* bias, void* out,
+                             long long out_bstride, int* splits, cudaStream_t stream) {
+  static bool ready = false;  // the shared-memory limit, set once
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dense3x3_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  return s2r_d3::launch_fwd3x3(dense3x3_mma_kernel, in, in_bstride, B, K, H, W, scale,
+                               shift, wt, bias, nullptr, out, out_bstride, stream, splits);
+}
+
 template <typename T>
 cudaError_t launch_classifier(const void* in, long long in_bstride, int B,
                               int C, long long hw, const void* wc,
@@ -235,31 +263,43 @@ cudaError_t launch_classifier(const void* in, long long in_bstride, int B,
 // Plain C interface, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // taps: 9 (dense layer) or 1 (TransitionDown).  Each returns the
 // cudaError_t of its launch (0 on success); an unknown dtype or tap count
-// returns cudaErrorInvalidValue.  A bfloat16 TransitionDown runs on the
-// tensor cores (td_fwd_mma_kernel) when its x tile fits in shared memory
-// (C <= 768: every FCDenseNet57/67/103 site), a float32 one and a wider
-// bfloat16 one on the CUDA cores.
+// returns cudaErrorInvalidValue.  Dispatch (takes_mma_dense in
+// kernels/dense_block.py states it for the CPU tests): a bfloat16 dense
+// layer with 16 outputs runs on the tensor cores (dense3x3_mma_kernel; its
+// weight must be 16-byte aligned, else cudaErrorMisalignedAddress), a
+// bfloat16 TransitionDown too (td_fwd_mma_kernel) when its x tile fits in
+// shared memory (C <= 768: every FCDenseNet57/67/103 site); float32, other
+// growth rates and a wider TransitionDown on the CUDA cores.  *route
+// receives the route taken: 0 for the CUDA cores, 1 for the tensor-core
+// TransitionDown, and for the tensor-core dense layer the blocks S >= 1
+// that split its channel loop.
 extern "C" int s2r_conv_bnrelu(int dtype, int taps, const void* in,
                                long long in_bstride, int B, int K, int H,
                                int W, const float* scale, const float* shift,
                                const void* wt, const float* bias, int N,
                                void* out, long long out_bstride,
-                               int round_first, void* stream) {
+                               int round_first, int* route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *route = 0;
   if (dtype == 0 && taps == 9)
     return launch_conv<float, 9>(in, in_bstride, B, K, H, W, scale, shift, wt,
                                  bias, N, out, out_bstride, round_first, s);
   if (dtype == 0 && taps == 1)
     return launch_conv<float, 1>(in, in_bstride, B, K, H, W, scale, shift, wt,
                                  bias, N, out, out_bstride, round_first, s);
+  if (dtype == 1 && taps == 9 && N == s2r_mma::C3_N)
+    return launch_dense_mma(in, in_bstride, B, K, H, W, scale, shift, wt, bias, out,
+                            out_bstride, route, s);
   if (dtype == 1 && taps == 9)
     return launch_conv<__nv_bfloat16, 9>(in, in_bstride, B, K, H, W, scale,
                                          shift, wt, bias, N, out, out_bstride,
                                          round_first, s);
-  if (dtype == 1 && taps == 1 && s2r_td::td_smem(K, N) <= s2r_td::TD_SMEM_MAX)
+  if (dtype == 1 && taps == 1 && s2r_td::td_smem(K, N) <= s2r_td::TD_SMEM_MAX) {
+    *route = 1;
     return s2r_td::launch_td_mma(in, in_bstride, B, K, H, W, scale, shift, wt,
                                  bias, N, out, out_bstride, round_first, nullptr,
                                  s);
+  }
   if (dtype == 1 && taps == 1)
     return launch_conv<__nv_bfloat16, 1>(in, in_bstride, B, K, H, W, scale,
                                          shift, wt, bias, N, out, out_bstride,
@@ -279,6 +319,15 @@ extern "C" int s2r_classifier(int dtype, const void* in, long long in_bstride,
     return launch_classifier<__nv_bfloat16>(in, in_bstride, B, C, hw, wc, cb,
                                             inv_temp, out, s);
   return cudaErrorInvalidValue;
+}
+
+// The tensor-core dense layer's split of its channel loop at this shape
+// on the current device (kernels/dense_block.dense_splits states the rule
+// for the CPU tests); -1 if the device cannot be read.
+extern "C" int s2r_dense_splits(int B, int H, int W, int K) {
+  int sms = 0;
+  if (s2r_d3::device_sms(&sms) != cudaSuccess) return -1;
+  return s2r_d3::dense_splits(B, H, W, K, sms);
 }
 
 extern "C" const char* s2r_error_string(int err) {

@@ -59,6 +59,7 @@
 #include <algorithm>
 
 #include "bnrelu_mma.cuh"
+#include "dense3x3_mma.cuh"
 #include "td_fwd_mma.cuh"
 
 namespace {
@@ -998,12 +999,11 @@ cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
 // tile (one-pixel halo) serves all nine taps.  wgmma would need the same
 // layout through descriptors and gains nothing at N = 16.
 //
-// - fwd3x3_mma_kernel (K1): a block owns a 12 x 16 pixel tile of one image
-//   and all 16 outputs; it walks the input channels in chunks of 32 through
-//   two buffers (BN + ReLU + rounding once per staged value; the next
-//   chunk's x is in flight in registers while this one is multiplied;
-//   weights by cp.async as they lie in memory), D[pixel, o] += a[pixel + tap, k] W[k,
-//   tap, o], and writes T((D + bias) * mask) in place.
+// - fwd3x3_mma_kernel (K1): the 3x3 forward body of dense3x3_mma.cuh,
+//   which serving's dense3x3_mma_kernel shares: a 12 x 16 pixel tile of
+//   one image and all 16 outputs, 32-channel chunks through two buffers,
+//   the channel loop split across a thread-block cluster at small planes;
+//   it writes T((D + bias) * mask) in place.
 // - sum_dgrad_mma_kernel (K3a's rebuild of dy_j, and K3b): per layer l,
 //   dA_l[q, k] = sum_{t,o} G_l[q - off_t, o] W_l[k, t, o] on 16 channels k
 //   at a time (the G tiles are staged as stored, no conversion, once per
@@ -1026,15 +1026,11 @@ cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
 //   order) and per-tile partials for dbias, added by stage_reduce_kernel
 //   in a fixed order: deterministic, no atomics; one reduce launch a stage.
 // The 3x5 bottleneck and the other small planes leave most of a 12 x 16
-// tile idle (one image a tile, no packing): they hold 2% of the work.
+// tile idle (one image a tile, no packing): they hold 2% of the work.  Of
+// these kernels only the forward splits its channel loop there.
 // ---------------------------------------------------------------------------
 constexpr int TD_MAX_K = 768;  // K1 with one tap: the x tile of td_fwd_mma.cuh fits
-constexpr int C3_MT = mma::C3_TH / mma::C3_WARPS;     // pixel rows per warp
-constexpr int F3_KC = 32;                             // channels per forward chunk
-constexpr int F3_LD = F3_KC + 8;
-constexpr int F3_SA = mma::C3_HPX * F3_LD;            // one a buffer, elements
-constexpr int F3_SW = F3_KC * mma::C3_WLD;            // one weight buffer
-constexpr int F3_SMEM = 2 * 2 * (F3_SA + F3_SW);      // bytes
+using mma::C3_MT;
 constexpr int GP_L = 5;                               // layers staged at once
 constexpr int GP_LD = mma::C3_N + 8;
 constexpr int GP_SG = mma::C3_HPX * GP_LD;
@@ -1058,96 +1054,15 @@ int ow_units(int C) {
   return (n16 + chunks - 1) / chunks;
 }
 
+// K1's 3x3 forward: the shared body of dense3x3_mma.cuh with the mask
 __global__ void __launch_bounds__(mma::C3_THREADS, 3)
 fwd3x3_mma_kernel(const mma::u16* X, ll x_bstride, int K, int H, int W,
                   const float* __restrict__ scale, const float* __restrict__ shift,
                   const mma::u16* __restrict__ wt, const float* __restrict__ bias,
                   const float* __restrict__ mask, mma::u16* out, ll out_bstride,
                   int pair) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  mma::u16* sA = reinterpret_cast<mma::u16*>(smem);   // [2][halo px][F3_LD]
-  mma::u16* sW = sA + 2 * F3_SA;                       // [2][F3_KC][C3_WLD]
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const mma::C3Lane ln(tid % 32);
-  const int tiles_x = mma::c3_tiles_x(W);
-  const int ty0 = (blockIdx.x / tiles_x) * mma::C3_TH;
-  const int tx0 = (blockIdx.x % tiles_x) * mma::C3_TW;
-  const int b = blockIdx.y;
-  const int hw = H * W;
-  const mma::u16* xb = X + b * x_bstride;
-  const int nchunks = (K + F3_KC - 1) / F3_KC;
-
-  // a chunk's x is loaded into registers while the chunk before it is
-  // multiplied, and stored (BN + ReLU + rounding applied) after
-  constexpr int TOTAL = F3_KC / 8 * mma::C3_ITEMS;
-  constexpr int ROUNDS = (TOTAL + mma::C3_THREADS - 1) / mma::C3_THREADS;
-  uint32_t raw[ROUNDS][8];
-  auto load = [&](int c) {
-    const int k0 = c * F3_KC;
-    mma::load_w3_rows<mma::C3_THREADS>(sW + (c & 1) * F3_SW, wt, K, k0, F3_KC);
-    mma::cp_async_commit();
-    mma::px_load<ROUNDS, mma::C3_THREADS>(raw, 0, TOTAL, xb + (ll)k0 * hw, hw, H, W, ty0,
-                                          tx0, K - k0, pair);
-  };
-  auto store = [&](int c) {
-    const int k0 = c * F3_KC;
-    mma::px_store<true, false, ROUNDS, mma::C3_THREADS>(
-        raw, 0, TOTAL, sA + (c & 1) * F3_SA, nullptr, F3_LD, H, W, ty0, tx0, K - k0,
-        scale + k0, shift + k0);
-  };
-
-  float acc[C3_MT][2][4];
-#pragma unroll
-  for (int m = 0; m < C3_MT; ++m)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
-
-  load(0);
-  for (int c = 0; c < nchunks; ++c) {
-    store(c);
-    mma::cp_async_wait<0>();
-    __syncthreads();  // chunk c is staged; the other buffers are free
-    if (c + 1 < nchunks) load(c + 1);
-    const uint32_t a_sm = mma::smem_u32(sA + (c & 1) * F3_SA);
-    const uint32_t w_sm = mma::smem_u32(sW + (c & 1) * F3_SW);
-#pragma unroll
-    for (int kk = 0; kk < F3_KC; kk += 16) {
-#pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        uint32_t bq[4];  // W[k, t, o]: stored [k][o]
-        mma::ldsm_x4_t(bq, w_sm + 2u * (uint32_t)((kk + ln.r8 + 8 * ln.j0) * mma::C3_WLD +
-                                                  t * mma::C3_N + 8 * ln.j1));
-#pragma unroll
-        for (int m = 0; m < C3_MT; ++m) {
-          const int y = warp + m * mma::C3_WARPS;
-          uint32_t af[4];  // a[pixel + tap, k]: stored [pixel][k]
-          mma::ldsm_x4(af, a_sm + 2u * (uint32_t)(mma::c3_tap(y, ln.r8 + 8 * ln.j0, t / 3, t % 3) *
-                                                      F3_LD + kk + 8 * ln.j1));
-          mma::mma_16816(acc[m][0], af, bq[0], bq[1]);
-          mma::mma_16816(acc[m][1], af, bq[2], bq[3]);
-        }
-      }
-    }
-  }
-
-  mma::u16* ob = out + b * out_bstride;
-#pragma unroll
-  for (int m = 0; m < C3_MT; ++m) {
-    const int gy = ty0 + warp + m * mma::C3_WARPS;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int gx = tx0 + ln.g + 8 * (e / 2);
-        const int n = 8 * nt + 2 * ln.t + (e & 1);
-        if (gy < H && gx < W)
-          ob[(ll)n * hw + gy * W + gx] = mma::to_bf(
-              __fmul_rn(__fadd_rn(acc[m][nt][e], bias[n]), mask[b * mma::C3_N + n]));
-      }
-  }
+  s2r_d3::fwd3x3_body<true>(X, x_bstride, K, H, W, scale, shift, wt, bias, mask, out,
+                            out_bstride, pair);
 }
 
 // K3a's rebuild of dy_j (C = 16, ext and mask given, groups = 1) and K3b
@@ -1509,7 +1424,7 @@ cudaError_t mma3x3_setup() {
   static bool ready = false;  // the shared-memory limits, set once
   if (ready) return cudaSuccess;
   S2R_TRY(cudaFuncSetAttribute(fwd3x3_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, F3_SMEM));
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM));
   S2R_TRY(cudaFuncSetAttribute(sum_dgrad_mma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, GP_SMEM));
   S2R_TRY(cudaFuncSetAttribute(stage_own_mma_kernel,
@@ -1523,13 +1438,9 @@ cudaError_t fwd3x3_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
                        const float* scale, const float* shift, const void* wt,
                        const float* bias, const float* mask, void* out,
                        ll out_bstride, cudaStream_t s) {
-  if (!mma::aligned16(wt)) return cudaErrorMisalignedAddress;
   S2R_TRY(mma3x3_setup());
-  fwd3x3_mma_kernel<<<dim3(mma::c3_tiles(H, W), B), mma::C3_THREADS, F3_SMEM, s>>>(
-      static_cast<const mma::u16*>(X), x_bstride, K, H, W, scale, shift,
-      static_cast<const mma::u16*>(wt), bias, mask, static_cast<mma::u16*>(out),
-      out_bstride, mma::c3_pair_loads(W, x_bstride, X));
-  return cudaGetLastError();
+  return s2r_d3::launch_fwd3x3(fwd3x3_mma_kernel, X, x_bstride, B, K, H, W, scale, shift,
+                               wt, bias, mask, out, out_bstride, s);
 }
 
 // the summed input cotangent over channels [0, C) of X (K3a's rebuild, K3b)

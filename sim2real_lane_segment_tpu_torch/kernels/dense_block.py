@@ -14,10 +14,19 @@ into the first channels (the virtual concat) and runs three entry points:
 - ``classifier``: per-pixel L2 norm in f32, ``F/norm`` rounded, 1x1 conv
   to 8 (padded) rows in f32, ``(. + b) * (1/temperature)``, f32 logits.
 
-A bfloat16 ``transition`` runs on the tensor cores; the other entries and
-float32 on the CUDA cores.  Each wrapper takes a CPU tensor to its plain
-version and a CUDA tensor to its kernel; a failed build or launch raises.  ``launches`` counts kernel
-launches per entry point (CUDA tensors only).
+A bfloat16 ``dense_layer`` with growth 16 (``takes_mma_dense``: every
+FCDenseNet67 and FCDenseNet103 site) and a bfloat16 ``transition`` run on
+the tensor cores; float32, other growth rates and the classifier on the
+CUDA cores.  At small planes the tensor-core dense layer splits its
+channel loop across a cluster of ``dense_splits`` blocks.  The C library
+chooses the route and the split and reports both with each launch;
+``takes_mma_dense`` and ``dense_splits`` state its rules for the CPU
+tests.  Each wrapper takes a CPU tensor to its plain version and a CUDA
+tensor to its kernel; a failed build or launch raises.  ``launches``
+counts kernel launches per entry point (CUDA tensors only),
+``mma_launches`` the dense-layer launches that the C library reports on
+the tensor cores, and ``mma_splits`` those by the blocks that split their
+channel loop.
 """
 from __future__ import annotations
 
@@ -31,11 +40,41 @@ import torch.nn.functional as F
 from . import build
 
 launches = {"dense_layer": 0, "transition": 0, "classifier": 0}
+mma_launches = {"dense_layer": 0}
+mma_splits: dict[int, int] = {}
+
+# the tensor-core dense layer (csrc/dense3x3_mma.cuh): growth, pixel tile,
+# channels per chunk, most blocks in a split and the blocks per SM it aims at
+MMA_GROWTH = 16
+MMA_TILE = (12, 16)
+MMA_CHUNK = 32
+MAX_SPLITS = 8
+BLOCKS_PER_SM = 2
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, mma_launches):
+        for k in counts:
+            counts[k] = 0
+    mma_splits.clear()
+
+
+def takes_mma_dense(dtype: torch.dtype, g: int) -> bool:
+    """Whether ``dense_layer`` takes the tensor-core kernel: the C
+    library's rule, stated for the CPU tests."""
+    return dtype == torch.bfloat16 and g == MMA_GROWTH
+
+
+def dense_splits(b: int, h: int, w: int, c: int, sms: int) -> int:
+    """The blocks (one cluster) that split the tensor-core dense layer's
+    channel loop for a [b, c, h, w] input on a card of ``sms`` SMs: the
+    least number that gives BLOCKS_PER_SM blocks per SM, at most MAX_SPLITS
+    and at most one per 32-channel chunk (the C library's rule, stated for
+    the CPU tests)."""
+    th, tw = MMA_TILE
+    blocks = b * -(-h // th) * -(-w // tw)
+    chunks = -(-c // MMA_CHUNK)
+    return max(1, min(-(-BLOCKS_PER_SM * sms // blocks), MAX_SPLITS, chunks))
 
 
 class FoldedLayer(NamedTuple):
@@ -118,11 +157,14 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built once)."""
     lib = build.load("dense_block")
     lib.s2r_conv_bnrelu.argtypes = [_I, _I, _P, _L, _I, _I, _I, _I, _P, _P,
-                                    _P, _P, _I, _P, _L, _I, _P]
+                                    _P, _P, _I, _P, _L, _I,
+                                    ctypes.POINTER(_I), _P]
     lib.s2r_conv_bnrelu.restype = _I
     lib.s2r_classifier.argtypes = [_I, _P, _L, _I, _I, _L, _P, _P,
                                    ctypes.c_float, _P, _P]
     lib.s2r_classifier.restype = _I
+    lib.s2r_dense_splits.argtypes = [_I, _I, _I, _I]
+    lib.s2r_dense_splits.restype = _I
     lib.s2r_error_string.argtypes = [_I]
     lib.s2r_error_string.restype = ctypes.c_char_p
     return lib
@@ -156,7 +198,10 @@ def _check_operand(t: torch.Tensor, feat: torch.Tensor, dtype, shape,
             f"{feat.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _conv(feat, scale, shift, weight, bias, taps, out, round_first, what):
+def _conv(feat, scale, shift, weight, bias, taps, out, round_first,
+          what) -> int:
+    """One launch; returns the route the C library took (``s2r_conv_bnrelu``:
+    0 on the CUDA cores)."""
     b, c_total, h, w = feat.shape
     k, n = weight.shape[0], weight.shape[-1]
     _check_operand(scale, feat, torch.float32, (k,), what, "scale")
@@ -166,15 +211,17 @@ def _conv(feat, scale, shift, weight, bias, taps, out, round_first, what):
     _check_operand(bias, feat, torch.float32, (n,), what, "bias")
     _require(k <= c_total, f"{what}: reads {k} of {c_total} channels")
     lib = _lib()
+    route = _I(0)
     with build.on_device(feat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.s2r_conv_bnrelu(
             _DTYPE_CODE[feat.dtype], taps, feat.data_ptr(), c_total * h * w,
             b, k, h, w, scale.data_ptr(), shift.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), n, out.data_ptr(), out.stride(0), round_first,
-            stream)
+            ctypes.byref(route), stream)
     _check(lib, err, what)
     launches[what] += 1
+    return route.value
 
 
 def dense_layer(feat: torch.Tensor, layer: FoldedLayer) -> None:
@@ -187,8 +234,11 @@ def dense_layer(feat: torch.Tensor, layer: FoldedLayer) -> None:
     _require(k + g <= feat.shape[1],
              f"dense layer writes channels [{k}, {k + g}) of {feat.shape[1]}")
     out = feat[:, k:]  # the kernel writes channels [0, g) of this view
-    _conv(feat, layer.scale, layer.shift, layer.weight, layer.bias, 9, out,
-          0, "dense_layer")
+    splits = _conv(feat, layer.scale, layer.shift, layer.weight, layer.bias,
+                   9, out, 0, "dense_layer")
+    if splits > 0:  # the tensor-core kernel, its channel loop in `splits`
+        mma_launches["dense_layer"] += 1
+        mma_splits[splits] = mma_splits.get(splits, 0) + 1
 
 
 def transition(feat: torch.Tensor, td: FoldedTransition) -> torch.Tensor:

@@ -20,13 +20,20 @@ int8 ``q`` that stands for ``act_scale * (q + zp)``:
 - after the last block, the f32 head ``h @ W + b``.
 
 ``int8_body`` runs each conv as one launch with its epilogue fused (and
-the quantize and head launches); ``int8_body_plain`` computes the same
-with PyTorch ops, the int sums exactly in float64 (every partial sum of
-int8 products stays far below 2^53).  Every step but the head is
-bit-exact between the two; the head sums 128 f32 products in another
-order.  ``int8_body`` takes a CPU tensor to its plain version and a CUDA
-tensor to the kernels; a failed build or launch raises.  ``launches``
-counts kernel launches per entry (CUDA tensors only).
+the quantize and head launches): on the int8 tensor cores (IMMA) where
+``takes_imma`` holds (every site of the full-width student), else on the
+CUDA cores (``__dp4a``); ``int8_body_plain`` computes the same with
+PyTorch ops, the int sums exactly in float64 (every partial sum of int8
+products stays far below 2^53).  Every step but the head is bit-exact
+between the two; the head sums 128 f32 products in another order.
+``int8_body`` takes a CPU tensor to its plain version and a CUDA tensor to
+the kernels; a failed build or launch raises.  The C library chooses each
+conv's route and reports it with the launch; ``takes_imma`` and
+``imma_tiles`` state its rule for the CPU tests.  ``launches`` counts
+kernel launches per entry (CUDA tensors only), ``mma_launches`` the conv
+launches that the C library reports on the tensor cores, and
+``imma_buffers`` those by the halo tiles (1 or 2) they kept in shared
+memory.
 """
 from __future__ import annotations
 
@@ -40,11 +47,42 @@ import torch.nn.functional as F
 from . import build
 
 launches = {"quant": 0, "conv": 0, "head": 0}
+mma_launches = {"conv": 0}
+imma_buffers = {1: 0, 2: 0}
+
+# the int8 tensor-core conv (csrc/int8_body.cu): output pixel tile,
+# outputs per block, a block's shared memory on sm_90 (227 KB opt-in)
+IMMA_TILE = (16, 8)
+IMMA_NB = 128
+SMEM_MAX = 232448
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, mma_launches, imma_buffers):
+        for k in counts:
+            counts[k] = 0
+
+
+def imma_tiles(cin: int, cout: int, taps: int, dilation: int) -> int:
+    """Halo tiles the int8 tensor-core kernel keeps in shared memory beside
+    every tap's weights (and three f32 constants per output): 2 (the next
+    tile in flight during the products), 1, or 0 where not even one fits
+    (the C library's ``im_tiles``, stated for the CPU tests)."""
+    lda = cin + 16
+    rows = 32 * -(-min(cout, IMMA_NB) // 32)
+    h = dilation if taps == 9 else 0
+    weights = taps * rows * lda + 3 * 4 * IMMA_NB
+    tile = (IMMA_TILE[0] + 2 * h) * (IMMA_TILE[1] + 2 * h) * lda
+    return (2 if weights + 2 * tile <= SMEM_MAX
+            else 1 if weights + tile <= SMEM_MAX else 0)
+
+
+def takes_imma(cin: int, cout: int, taps: int, dilation: int) -> bool:
+    """Whether a conv site takes the int8 tensor-core kernel (the C
+    library's rule, stated for the CPU tests): whole 32-byte k steps, whole
+    8-output tiles, and its weights and a halo tile fit in shared memory."""
+    return (cin % 32 == 0 and cout % 8 == 0
+            and imma_tiles(cin, cout, taps, dilation) > 0)
 
 
 class ConvSpec(NamedTuple):
@@ -52,13 +90,16 @@ class ConvSpec(NamedTuple):
 
     ``w_rows`` int8 [taps*cin, cout] (row ``tap*cin + ci``, tap =
     ky*3+kx); ``w_words`` int32 [taps*cin/4, cout], four consecutive rows
-    per word (little-endian); ``zpsum`` = zp * colsum, ``deq`` = act_scale
-    * w_scale and ``bias``, f32 [cout]; ``act_scale`` the f32 scale of the
+    per word (little-endian), for the CUDA-core kernel; ``w_cols`` int8
+    [taps*cout, cin] (row ``tap*cout + o``), for the tensor cores;
+    ``zpsum`` = zp * colsum, ``deq`` = act_scale * w_scale and ``bias``,
+    f32 [cout]; ``act_scale`` the f32 scale of the
     conv's input codes as a 0-d tensor on the device and ``act`` as a
     Python float (the same value)."""
     name: str
     w_rows: torch.Tensor
     w_words: torch.Tensor
+    w_cols: torch.Tensor
     zpsum: torch.Tensor
     deq: torch.Tensor
     bias: torch.Tensor
@@ -89,6 +130,8 @@ def conv_spec(name: str, site: dict) -> ConvSpec:
     return ConvSpec(
         name=name, w_rows=w_rows,
         w_words=words.view(torch.int32).reshape(-1, cout),
+        w_cols=site["w_q"].permute(0, 1, 3, 2).reshape(kh * kw * cout, cin)
+        .contiguous(),
         zpsum=site["zp"] * site["w_colsum"],
         deq=site["act_scale"] * site["w_scale"], bias=site["bias"],
         act_scale=site["act_scale"], act=float(site["act_scale"]),
@@ -177,9 +220,12 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built once)."""
     lib = build.load("int8_body")
     lib.s2r_i8_quant.argtypes = [_P, _L, _F, _F, _P, _P]
-    lib.s2r_i8_conv.argtypes = [_I, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P,
-                                _P, _P, _I, _P, _P, _P, _F, _F, _P]
+    lib.s2r_i8_conv.argtypes = [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                                _P, _P, _P, _I, _P, _P, _P, _F, _F,
+                                ctypes.POINTER(_I), _P]
     lib.s2r_i8_head.argtypes = [_P, _L, _I, _P, _P, _I, _P, _P]
+    lib.s2r_i8_imma_tiles.argtypes = [_I, _I, _I, _I]
+    lib.s2r_i8_imma_tiles.restype = _I
     for fn in (lib.s2r_i8_quant, lib.s2r_i8_conv, lib.s2r_i8_head):
         fn.restype = _I
     lib.s2r_i8_error_string.argtypes = [_I]
@@ -207,10 +253,11 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _check_spec(spec: ConvSpec, dev: torch.device) -> None:
-    cout = spec.w_rows.shape[1]
+    rows, cout = spec.w_rows.shape
     for name, t, dtype, shape in (
-            ("w_words", spec.w_words, torch.int32,
-             (spec.w_rows.shape[0] // 4, cout)),
+            ("w_words", spec.w_words, torch.int32, (rows // 4, cout)),
+            ("w_cols", spec.w_cols, torch.int8,
+             (spec.taps * cout, rows // spec.taps)),
             ("zpsum", spec.zpsum, torch.float32, (cout,)),
             ("deq", spec.deq, torch.float32, (cout,)),
             ("bias", spec.bias, torch.float32, (cout,))):
@@ -246,14 +293,20 @@ def _conv(q: torch.Tensor, spec: ConvSpec, h: int, w: int, *,
     qo = torch.empty(b, h * w, cout, dtype=torch.int8,
                      device=q.device) if nxt is not None else None
     lib = _lib()
+    route = _I(0)  # the halo tiles of the tensor-core kernel, 0: CUDA cores
     err = lib.s2r_i8_conv(
         spec.taps, q.data_ptr(), b, h, w, cin, spec.dilation, spec.zp,
-        spec.w_words.data_ptr(), cout, spec.zpsum.data_ptr(),
+        spec.w_words.data_ptr(), spec.w_cols.data_ptr(), cout,
+        spec.zpsum.data_ptr(),
         spec.deq.data_ptr(), spec.bias.data_ptr(), int(spec.relu), _ptr(res),
         _ptr(y), _ptr(qo), nxt.act if nxt is not None else 1.0,
-        float(nxt.zp) if nxt is not None else 0.0, _stream(q))
+        float(nxt.zp) if nxt is not None else 0.0, ctypes.byref(route),
+        _stream(q))
     _check(lib, err, spec.name)
     launches["conv"] += 1
+    if route.value > 0:
+        mma_launches["conv"] += 1
+        imma_buffers[route.value] += 1
     return y, qo
 
 

@@ -23,8 +23,8 @@ from sim2real_lane_segment_tpu.models.tiramisu_pallas import (
     _fold_block_params, _fold_transition, fused_dense_block_cm)
 from sim2real_lane_segment_tpu_torch.core.dtypes import F32_POLICY
 from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
-from sim2real_lane_segment_tpu_torch.models.tiramisu import (DenseBlock,
-                                                             TransitionDown)
+from sim2real_lane_segment_tpu_torch.models.tiramisu import (
+    DenseBlock, TransitionDown, fcdensenet57, fcdensenet67, fcdensenet103)
 from sim2real_lane_segment_tpu_torch.models.tiramisu_fused import (
     fold_block_params, fold_transition)
 
@@ -144,3 +144,70 @@ def test_cpu_wrappers_take_the_plain_versions(block):
                                              cls=block["cls"]))
     assert kdb.launches == {"dense_layer": 0, "transition": 0,
                             "classifier": 0}
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core dense layer's dispatch rule and channel-loop split
+# ---------------------------------------------------------------------------
+
+ARCHS = {"57": fcdensenet57, "67": fcdensenet67, "103": fcdensenet103}
+N_SITES = {"57": 44, "67": 55, "103": 91}
+H100_SMS = 132  # an H100 SXM
+
+
+def _dense_sites(arch, h=120, w=160):
+    """(plane, c_j, growth) of every dense layer of the arch's forward on
+    h x w frames, in forward order."""
+    fe = ARCHS[arch](4).featureExtractor
+    n = len(fe.down_blocks)
+    planes = []
+    for _ in range(n):
+        planes.append((h, w))
+        h, w = h // 2, w // 2
+    blocks = ([(f"denseDown{i}", planes[i]) for i in range(n)]
+              + [("bottleneck", (h, w))]
+              + [(f"denseUp{i}", planes[n - 1 - i]) for i in range(n)])
+    return [(plane, lay.Conv_0.in_channels, lay.Conv_0.out_channels)
+            for name, plane in blocks for lay in getattr(fe, name).layers()]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_takes_mma_dense_at_every_site(arch, dtype):
+    """bf16 growth 16 (FCDenseNet67 and 103) takes the tensor cores at
+    every site; float32 (the parity control) and growth 12 (57) never."""
+    sites = _dense_sites(arch)
+    assert len(sites) == N_SITES[arch]
+    want = dtype == torch.bfloat16 and arch != "57"
+    assert all(kdb.takes_mma_dense(dtype, g) == want for _, _, g in sites)
+
+
+@pytest.mark.parametrize("b", [1, 8, 32, 64])
+@pytest.mark.parametrize("arch", ["67", "103"])
+def test_dense_splits_fill_the_card(arch, b):
+    """The split is the least that gives two blocks per SM, within one
+    portable cluster and at least one 32-channel chunk per block."""
+    th, tw = kdb.MMA_TILE
+    fill = kdb.BLOCKS_PER_SM * H100_SMS
+    for (h, w), c, _ in _dense_sites(arch):
+        s = kdb.dense_splits(b, h, w, c, H100_SMS)
+        blocks = b * -(-h // th) * -(-w // tw)
+        cap = min(kdb.MAX_SPLITS, -(-c // kdb.MMA_CHUNK))
+        assert 1 <= s <= cap
+        assert s == cap or s * blocks >= fill
+        assert s == 1 or (s - 1) * blocks < fill
+
+
+def test_dense_splits_of_a_b64_forward():
+    """FCDenseNet67 at B=64 on an H100 SXM: the three large planes run
+    unsplit, the small ones split their channel loop; a card with fewer
+    SMs splits less."""
+    got, fewer = {}, {}
+    for plane, c, _ in _dense_sites("67"):
+        got.setdefault(plane, set()).add(
+            kdb.dense_splits(64, *plane, c, H100_SMS))
+        fewer.setdefault(plane, set()).add(kdb.dense_splits(64, *plane, c, 114))
+    assert got == {(120, 160): {1}, (60, 80): {1}, (30, 40): {1},
+                   (15, 20): {2}, (7, 10): {5}, (3, 5): {5}}
+    assert fewer == {(120, 160): {1}, (60, 80): {1}, (30, 40): {1},
+                     (15, 20): {1}, (7, 10): {4}, (3, 5): {4}}

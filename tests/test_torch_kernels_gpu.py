@@ -8,11 +8,14 @@ package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_kernels_gpu.py
 
-Shapes cross the kernels' tiles with ragged remainders: K4's 16x16
-pixel tiles and 16-channel groups, the bf16 TransitionDown kernels'
+Shapes cross the kernels' tiles with ragged remainders: K4's CUDA-core
+16x16 pixel tiles and 16-channel groups, the bf16 tensor-core dense
+layer's 12x16 pixel tiles, 32-channel chunks and channel-loop splits of
+1-8 blocks (K4 and K1 share it), the bf16 TransitionDown kernels'
 128-pixel tiles and 16-channel tensor-core steps (forward and K2), K6's
-64-pixel rows and 64-channel output groups, K5's 32x32 tiles (and images
-smaller than their halo).
+int8 tensor-core 16x8 pixel tiles (halo 1, 2 and 4), 32-channel k steps
+and 128-output slices, its CUDA-core 64-pixel rows and 64-channel output
+groups, K5's 32x32 tiles (and images smaller than their halo).
 """
 import numpy as np
 import pytest
@@ -87,6 +90,8 @@ def test_kernels_match_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     assert kdb.launches == {"dense_layer": n, "transition": 2,
                             "classifier": 1}
+    assert kdb.mma_launches == {
+        "dense_layer": n * kdb.takes_mma_dense(dtype, case[4])}
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
     torch.testing.assert_close(td_k.float(), ref_td.float(), **TOLS[dtype])
     torch.testing.assert_close(logits, kdb.classifier_plain(feat, cls),
@@ -94,13 +99,62 @@ def test_kernels_match_plain(cuda, case, dtype):
 
 
 @pytest.mark.gpu
-def test_new_features_and_segments(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_new_features_and_segments(cuda, dtype):
     """c_lo = c_in (up-path blocks) over two input segments."""
-    x, layers, _, _ = _operands(CASES[1], torch.float32, cuda, seed=1)
+    x, layers, _, _ = _operands(CASES[1], dtype, cuda, seed=1)
     segs = [x[:, :16].contiguous(), x[:, 16:].contiguous()]
+    kdb.reset_launches()
     out = kdb.dense_block(segs, layers, c_lo=x.shape[1])
     ref = kdb.dense_block_plain([x], layers, c_lo=x.shape[1])
-    torch.testing.assert_close(out, ref, **TOLS[torch.float32])
+    assert kdb.mma_launches == {
+        "dense_layer": len(layers) * (dtype == torch.bfloat16)}
+    torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
+
+
+# (B, H, W, c_j) for the bf16 tensor-core dense layer: the small planes
+# (3x5, 7x10, 15x20) and an odd 26x35, c_j ragged against the 32-channel
+# chunk (40, 88) and the widest FCDenseNet67 site (592), batches that are
+# no multiple of anything, and splits of 2, 3, 5 and 8 blocks
+MMA_DENSE_CASES = [(3, 3, 5, 592), (5, 7, 10, 88), (3, 15, 20, 40),
+                   (1, 26, 35, 88), (64, 3, 5, 592), (64, 7, 10, 448),
+                   (7, 15, 20, 592), (2, 120, 160, 48)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MMA_DENSE_CASES)
+def test_mma_dense_layer_matches_plain(cuda, case):
+    """One layer on the tensor cores against the plain version, in a
+    buffer wider than the layer writes; the other channels keep their
+    bits, a second run gives the same bits (the split's sums are added in
+    a fixed order), and the C library reports the split ``dense_splits``
+    gives for this card."""
+    b, h, w, c = case
+    gen = torch.Generator().manual_seed(c + h)
+    feat = torch.randn(b, c + 16 + 8, h, w, generator=gen).to(
+        cuda, torch.bfloat16)
+    lay = kdb.FoldedLayer(
+        (torch.rand(c, generator=gen) + 0.5).to(cuda),
+        (torch.randn(c, generator=gen) * 0.3).to(cuda),
+        (torch.randn(c, 9, 16, generator=gen) * (2 / (9 * c)) ** 0.5).to(
+            cuda, torch.bfloat16),
+        (torch.randn(16, generator=gen) * 0.1).to(cuda))
+    kdb.reset_launches()
+    out, again, ref = feat.clone(), feat.clone(), feat.clone()
+    kdb.dense_layer(out, lay)
+    kdb.dense_layer(again, lay)
+    kdb.dense_layer_plain(ref, lay)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = kdb.dense_splits(b, h, w, c, sms)
+    assert kdb.mma_launches == {"dense_layer": 2}
+    assert kdb.mma_splits == {splits: 2}
+    assert kdb._lib().s2r_dense_splits(b, h, w, c) == splits
+    assert torch.equal(out, again)
+    assert torch.equal(out[:, :c], feat[:, :c])
+    assert torch.equal(out[:, c + 16:], feat[:, c + 16:])
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOLS[torch.bfloat16])
 
 
 @pytest.mark.gpu
@@ -333,11 +387,90 @@ def test_int8_body_matches_plain(cuda, case):
     n_short = sum(s is not None for _, _, s in folded.blocks)
     assert kib.launches == {"quant": 1, "conv": 2 * len(body) + n_short,
                             "head": 1}
+    specs = [s for blk in folded.blocks for s in blk if s is not None]
+    assert kib.mma_launches == {"conv": sum(kib.takes_imma(
+        s.w_rows.shape[0] // s.taps, s.w_rows.shape[1], s.taps, s.dilation)
+        for s in specs)}
     assert codes.keys() == codes_plain.keys() and len(codes) == 2 * len(body)
     for name, q in codes.items():
         assert q.dtype == torch.int8
         assert torch.equal(q, codes_plain[name]), name
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+
+
+# (taps, dilation, cin, cout, zp, H, W) of one conv site: the int8
+# tensor cores at dilations 1, 2 and 4, cin 32-128, both zero points,
+# planes ragged against the 16x8 pixel tile, one and two halo tiles in
+# shared memory, the 1x1 shortcut, 136 outputs (two 128-output slices);
+# and on the CUDA cores a 16-channel site and one whose weights do not fit
+IMMA_CASES = [(9, 1, 32, 32, 128, 13, 19), (9, 2, 64, 96, 128, 30, 40),
+              (9, 4, 96, 96, 0, 30, 40), (9, 4, 128, 128, 128, 17, 9),
+              (1, 1, 64, 96, 128, 30, 40), (9, 1, 128, 64, 0, 5, 3),
+              (9, 2, 32, 136, 128, 11, 12), (9, 1, 128, 128, 0, 30, 40),
+              (9, 1, 16, 32, 128, 13, 19), (9, 1, 256, 96, 128, 7, 9)]
+
+
+# (B, taps, dilation, cin, cout, zp, H, W): more (image, tile) items than
+# the card has persistent blocks, so each block walks several and stages
+# the next in the other halo buffer (2 tiles: 64 -> 64 at 30x40) or
+# restages its one buffer (1 tile: 128 -> 128 at dilation 4)
+IMMA_PERSISTENT_CASES = [(16, 9, 1, 64, 64, 128, 30, 40),
+                         (64, 9, 4, 128, 128, 128, 17, 9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", IMMA_CASES)
+def test_int8_conv_site_matches_plain(cuda, case):
+    """One conv launch with the residual, f32 output and requant: the f32
+    outputs and the next codes bit-equal to the plain version."""
+    _check_conv_site(cuda, 3, *case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", IMMA_PERSISTENT_CASES)
+def test_int8_conv_site_persistent_blocks(cuda, case):
+    """As above where every block walks several items: bit-equal, on the
+    tensor cores with the halo buffers ``imma_tiles`` gives."""
+    b, taps, dil, cin, cout, zp, h, w = case
+    th, tw = kib.IMMA_TILE
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert b * -(-h // th) * -(-w // tw) > sms
+    _check_conv_site(cuda, b, taps, dil, cin, cout, zp, h, w)
+    tiles = kib.imma_tiles(cin, cout, taps, dil)
+    assert kib.imma_buffers == {1: int(tiles == 1), 2: int(tiles == 2)}
+
+
+def _check_conv_site(cuda, b, taps, dil, cin, cout, zp, h, w):
+    rng = np.random.default_rng(cin + cout + dil)
+    k = 3 if taps == 9 else 1
+    w_q = rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)
+    site = dict(
+        w_q=torch.from_numpy(w_q).to(cuda),
+        w_scale=torch.from_numpy(rng.uniform(1e-3, 1e-2, cout).astype(
+            np.float32)).to(cuda),
+        w_colsum=torch.from_numpy(w_q.astype(np.int64).sum((0, 1, 2)).astype(
+            np.float32)).to(cuda),
+        bias=torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)).to(
+            cuda),
+        act_scale=torch.tensor(np.float32(0.02), device=cuda), zp=zp,
+        dilation=dil, relu=taps == 9)
+    spec = kib.conv_spec("site", site)
+    nxt = spec._replace(act_scale=torch.tensor(np.float32(0.03), device=cuda),
+                        act=float(np.float32(0.03)), zp=128)
+    q = torch.from_numpy(rng.integers(-128, 128, (b, h * w, cin)).astype(
+        np.int8)).to(cuda)
+    res = torch.from_numpy(rng.normal(0, 1, (b, h * w, cout)).astype(
+        np.float32)).to(cuda)
+    kib.reset_launches()
+    y, codes = kib._conv(q, spec, h, w, res=res, out_f=True, nxt=nxt)
+    torch.cuda.synchronize()
+    y_ref = torch.clamp(kib._conv_plain(q, spec, h, w) + res, min=0.0)
+    assert kib.mma_launches == {"conv": int(kib.takes_imma(cin, cout, taps,
+                                                           dil))}
+    assert kib._lib().s2r_i8_imma_tiles(taps, dil, cin, cout) == \
+        kib.imma_tiles(cin, cout, taps, dil)
+    assert torch.equal(y, y_ref)
+    assert torch.equal(codes, kib.quantize_plain(y_ref, nxt.act_scale, 128))
 
 
 @pytest.mark.gpu

@@ -264,3 +264,64 @@ def test_serve_int8_predict_fn_matches_jax(student_jax, fused):
         ref = np.asarray(jnp.argmax(J8.int8_apply(jq, x), -1))
     assert out.shape == ref.shape == (3, 48, 64)
     assert (out == ref).mean() >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# the int8 tensor-core route's dispatch rule
+# ---------------------------------------------------------------------------
+
+# the student's full widths (PERF.md §4): 10 conv sites and 2 shortcuts
+FULL = dict(stem=(32, 64), body=((64, 1), (64, 1), (96, 2), (96, 4),
+                                 (128, 1)))
+
+
+@pytest.fixture(scope="module")
+def full_body():
+    """The full-width body, folded from seeded weights calibrated on a
+    few 32x32 noise frames (only the sites' shapes matter here)."""
+    torch.manual_seed(0)
+    model = LaneNetLite(4, policy=F32_POLICY, **FULL).eval()
+    return fold_body(P8.quantize_lanenet(model, torch.randn(2, 32, 32, 3)))
+
+
+def _site_specs(body):
+    return [s for blk in body.blocks for s in blk if s is not None]
+
+
+@pytest.mark.parametrize("i", range(12))
+def test_takes_imma_at_every_full_width_site(full_body, i):
+    """Every conv site of the full-width student takes the int8 tensor
+    cores; ``w_cols`` holds its weights as [tap][cout][cin]."""
+    specs = _site_specs(full_body)
+    assert len(specs) == 12
+    s = specs[i]
+    rows, cout = s.w_rows.shape
+    cin = rows // s.taps
+    assert kib.takes_imma(cin, cout, s.taps, s.dilation)
+    assert kib.imma_tiles(cin, cout, s.taps, s.dilation) == 2
+    assert s.w_cols.shape == (s.taps * cout, cin)
+    assert torch.equal(s.w_cols.reshape(s.taps, cout, cin).transpose(1, 2)
+                       .reshape(rows, cout), s.w_rows)
+
+
+def test_takes_imma_on_the_small_net(nets):
+    """The 8/16-channel test net mixes both routes: only its 32-channel
+    conv2 takes the tensor cores."""
+    _, _, _, _, _, pq = nets
+    routes = [kib.takes_imma(s.w_rows.shape[0] // s.taps, s.w_rows.shape[1],
+                             s.taps, s.dilation)
+              for s in _site_specs(fold_body(pq))]
+    assert routes == [False] * 5 + [True, False]
+
+
+@pytest.mark.parametrize("cin,cout,taps,dil,tiles", [
+    (32, 8, 9, 1, 2), (64, 64, 9, 2, 2), (96, 96, 9, 4, 2),
+    (128, 128, 9, 1, 2), (128, 128, 9, 4, 1), (288, 64, 9, 1, 1),
+    (256, 96, 9, 1, 0), (256, 96, 1, 1, 2), (288, 64, 9, 4, 0),
+    (16, 32, 9, 1, 2), (48, 64, 1, 1, 2), (64, 12, 9, 1, 2)])
+def test_takes_imma_rule(cin, cout, taps, dil, tiles):
+    """Whole 32-byte k steps, whole 8-output tiles, and every tap's weights
+    (for up to 128 outputs) beside one or two halo tiles in 227 KB."""
+    assert kib.imma_tiles(cin, cout, taps, dil) == tiles
+    assert kib.takes_imma(cin, cout, taps, dil) == (
+        cin % 32 == 0 and cout % 8 == 0 and tiles > 0)
