@@ -17,9 +17,10 @@ Phases:
 
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: builds the four kernel sources from ``csrc/`` with nvcc, at once;
-   prints ptxas's registers and spills per kernel and counts the
-   tensor-core instructions of the tensor-core kernels (HGMMA, HMMA: the
-   bf16 dense layer, TransitionDown, K1, K2, K3a and K3b; IMMA: K6's conv);
+   prints ptxas's registers and spills per kernel (the classifier's and
+   K5's on a line of their own) and counts the tensor-core instructions of
+   the tensor-core kernels (HGMMA, HMMA: the bf16 dense layer,
+   TransitionDown, classifier, K1, K2, K3a and K3b; IMMA: K6's conv);
 3. K4 against plain: all 11 dense blocks at their real widths (B=8,
    120x160), in float32 (TF32 off) and in bfloat16; every bfloat16 dense
    layer must take the tensor-core route, no float32 one (the routes as
@@ -34,7 +35,11 @@ Phases:
    events around a B=64 fused forward and around each kernel's launches,
    beside the plain versions, the cuDNN yardsticks and the least time the
    card could take (bound); the dense layer per resolution with the splits
-   the launches reported; fails if it exceeds MAX_FWD_MS;
+   the launches reported; the classifier against plain at B=64 on every
+   block's features (a seeded classifier of the block's width, the real one
+   on the last block) and on a buffer with all-zero pixels (LOGIT_ATOL),
+   and its device time by torch.profiler; fails if the dense layer or the
+   classifier exceeds MAX_FWD_MS;
 6. K1-K3b against plain: every call of one fused train step (B=4; all 60
    consumer sites, 55 stages, 11 block inputs) in float32 and bfloat16,
    with a channel of every dropout site dropped for the whole batch and
@@ -63,10 +68,14 @@ Phases:
     plain version never ran, and fused vs plain int8 pixel agreement
     (>= 99.9%);
 12. K5 against plain: ``process_classes_batch`` on B=32 seeded pairs at
-    480x640 and 120x160 in both channel orders, bit-exact;
+    480x640 and 120x160 in both channel orders, bit-exact; then (after the
+    launch count) two 1080x1920 pairs, two column tiles a strip;
 13. timing: K6 per B=64 forward (fails above MAX_FWD_MS) and K5 per B=32
-    480x640 batch beside their plain versions and bounds, and the whole
-    LaneNetLite forwards (int8 through K6, plain int8, float bf16) at B=64.
+    480x640 batch (fails if its device time exceeds MAX_LABEL_MS) beside
+    their plain versions and bounds, the device time of K5 and of the
+    classifier by torch.profiler beside their event readings, and the
+    whole LaneNetLite forwards (int8 through K6, plain int8, float bf16)
+    at B=64.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -118,6 +127,7 @@ INT8_LOGIT_TOL = dict(rtol=1e-5, atol=1e-4)
 MIN_INT8_AGREEMENT = 0.999    # served masks: K6 vs the plain int8 path
 LABEL_BATCH = 32
 LABEL_SIZES = ((480, 640), (120, 160))
+LABEL_WIDE = (2, 1080, 1920)  # (B, H, W): frames of two column tiles
 PEAK_INT8_OPS = 1979e12       # dense int8 tensor cores
 PEAK_F32_OPS = 67e12          # float32 outside the tensor cores
 _CSRC = "sim2real_lane_segment_tpu_torch/csrc"
@@ -159,12 +169,13 @@ MIN_PIXEL_AGREEMENT = 0.98    # served masks: fused kernels vs plain module
 
 # the bf16 kernels on the tensor cores: the TransitionDown forward's two
 # (serving, and K1 with one tap) and K2's dgrad (wgmma), K2's wgrad, the
-# 3x3 dense layer of serving and of K1, K3a's two kernels and K3b
-# (mma.sync); and K6's int8 conv (IMMA)
+# 3x3 dense layer of serving and of K1, K3a's two kernels, K3b and the
+# classifier's bf16 instance (mma.sync); and K6's int8 conv (IMMA)
 MMA_KERNELS = ("td_fwd_small_kernel", "td_fwd_mma_kernel",
                "bwd1x1_dgrad_mma_kernel", "bwd1x1_wgrad_mma_kernel",
                "dense3x3_mma_kernel", "fwd3x3_mma_kernel",
-               "sum_dgrad_mma_kernel", "stage_own_mma_kernel")
+               "sum_dgrad_mma_kernel", "stage_own_mma_kernel",
+               "classifier_kernel")
 IMMA_KERNELS = ("conv_i8_mma_kernel",)
 # dense layers of one FCDenseNet67 forward, all bf16 growth 16; conv sites
 # of the full-width LaneNetLite body, all on the int8 tensor cores
@@ -178,9 +189,15 @@ TRAIN_MMA_PER_STEP = {"consumer_fwd": 60, "consumer_bwd": 5, "stage": 55,
 # 41.201 on an H100 at 700 W), a guard that the tensor-core kernels are
 # the code that ran, not a target
 MAX_STEP_MS = {"stage": 47.0, "consumer_fwd": 21.0}
-# per B=64 forward, ms: half of what the CUDA-core kernels took (53.9 and
-# 2.997 on an H100 at 700 W), the same kind of guard
-MAX_FWD_MS = {"k4_dense_layer": 27.0, "k6_int8_body": 1.5}
+# per B=64 forward, ms: half of what the first kernels took (53.9, 2.997
+# and 0.982 on an H100 at 700 W), the same kind of guard
+MAX_FWD_MS = {"k4_dense_layer": 27.0, "k6_int8_body": 1.5,
+              "k4_classifier": 0.5}
+# per B=32 480x640 batch, ms of device time: half of what the first K5
+# took (0.278 on an H100 at 700 W)
+MAX_LABEL_MS = 0.14
+# kernels whose registers and spills phase 2 also prints on a line of its own
+REDESIGNED = ("classifier_kernel", "labelgen_kernel")
 
 
 def fail(msg: str) -> None:
@@ -570,8 +587,48 @@ def _time_ms(fn, reps=REPS):
     return t0.elapsed_time(t1) / reps
 
 
+def _device_ms(fn, match, reps=REPS):
+    """Device time per launch of ``fn``'s CUDA kernel whose name holds
+    ``match`` (one a call), by torch.profiler over ``reps`` calls (0.0 if
+    the profiler saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.count, getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)))
+            for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and match in e.key]
+    n = sum(r[0] for r in rows)
+    return sum(r[1] for r in rows) / 1e3 / n if n else 0.0
+
+
+def _seeded_classifier(c, device, seed):
+    """A classifier tail of width ``c`` from ``seed``: 4 classes padded to
+    8 rows, temperature 0.05, bf16 weights."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+
+    gen = torch.Generator().manual_seed(seed)
+    w = torch.zeros(8, c)
+    w[:N_CLS] = torch.randn(N_CLS, c, generator=gen) * 0.3
+    b = torch.zeros(8)
+    b[:N_CLS] = torch.randn(N_CLS, generator=gen) * 0.1
+    return kdb.FoldedClassifier(w.to(device, torch.bfloat16), b.to(device),
+                                1.0 / 0.05)
+
+
 def timing_phase(sd, device, card, launches, errs):
-    """Phase 5: B=64.  Returns the kernels line entries."""
+    """Phase 5: B=64.  Returns the kernels line entries and the
+    classifier's (events ms, device ms by the profiler, bound ms)."""
     import torch
     import torch.nn.functional as F
 
@@ -599,7 +656,8 @@ def timing_phase(sd, device, card, launches, errs):
     # (h, w) -> [layers, kernel ms, cuDNN ms, GFLOP, c_j seen, splits taken]
     planes = {}
     chain_err = 0.0
-    for name, segs, layers, kw in calls:
+    cls_err = {}  # block -> the classifier's max|err| against plain
+    for i, (name, segs, layers, kw) in enumerate(calls):
         feat = kdb.dense_block_plain(segs, layers, c_lo=0)
         b, _, h, w = feat.shape
         hw = h * w
@@ -661,7 +719,26 @@ def timing_phase(sd, device, card, launches, errs):
             e["ms"] += _time_ms(lambda: kdb.transition(feat, td))
             e["plain_ms"] += _time_ms(lambda: kdb.transition_plain(feat, td))
             e["library_ms"] += _time_ms(lambda: F.conv2d(a, wo))
+        # the classifier against plain on this block's features at B=64
+        held = cls if cls is not None else _seeded_classifier(
+            feat.shape[1], device, SEED + 50 + i)
+        err = (kdb.classifier(feat, held)
+               - kdb.classifier_plain(feat, held)).abs().max().item()
+        check(err <= LOGIT_ATOL["bfloat16"],
+              f"B={TIME_BATCH} {name} classifier differs by {err}")
+        cls_err[name] = err
         if cls is not None:
+            # and on the same features with all-zero pixels: the 1e-12 clamp
+            zeroed = feat.clone()
+            zeroed[:, :, ::7] = 0
+            zeroed[::3, :, :, 5] = 0
+            err = (kdb.classifier(zeroed, cls)
+                   - kdb.classifier_plain(zeroed, cls)).abs().max().item()
+            check(err <= LOGIT_ATOL["bfloat16"],
+                  f"B={TIME_BATCH} classifier with all-zero pixels differs "
+                  f"by {err}")
+            cls_err["zero pixels"] = err
+            del zeroed
             c = cls.weight.shape[1]
             e = t["classifier"]
             e["bytes"] += b * hw * c * it + b * 8 * hw * 4 + 8 * c * it + 32
@@ -669,6 +746,8 @@ def timing_phase(sd, device, card, launches, errs):
             e["ms"] += _time_ms(lambda: kdb.classifier(feat, cls))
             e["plain_ms"] += _time_ms(lambda: kdb.classifier_plain(feat, cls))
             e["library_ms"] = None  # no single PyTorch call computes it
+            cls_device_ms = _device_ms(lambda: kdb.classifier(feat, cls),
+                                       "classifier_kernel")
     print(f"timing: k4_dense_layer per resolution, B={TIME_BATCH} (CUDA "
           f"events; cuDNN conv on the activated operands)  [{card}]")
     for (h, w), (n, ms, lib_ms, gflop, cs, splits) in planes.items():
@@ -683,6 +762,11 @@ def timing_phase(sd, device, card, launches, errs):
           f"{errs['dense_layer']:.3e} (phase 3 and here)  [{card}]")
     check(max(split) > 1, f"no B={TIME_BATCH} dense layer split its "
           f"channel loop: {split}")
+    errs["classifier"] = max(errs["classifier"], *cls_err.values())
+    print(f"timing: B={TIME_BATCH} classifier against plain on every "
+          f"block's features, max|err| (limit {LOGIT_ATOL['bfloat16']}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in cls_err.items())
+          + f"  [{card}]")
     kernels = []
     for name, e in t.items():
         t_bytes = e["bytes"] / PEAK_BYTES * 1e3
@@ -706,11 +790,13 @@ def timing_phase(sd, device, card, launches, errs):
     print(f"timing: kernels' work {gflop:.3f} GFLOP per frame; their bound "
           f"for one B={TIME_BATCH} forward "
           f"{sum(k['bound_ms'] for k in kernels):.3f} ms  [{card}]")
-    limit = MAX_FWD_MS["k4_dense_layer"]
-    check(t["dense_layer"]["ms"] <= limit,
-          f"k4_dense_layer took {t['dense_layer']['ms']:.3f} ms per "
-          f"B={TIME_BATCH} forward, above {limit} ms")
-    return kernels
+    for name in ("dense_layer", "classifier"):
+        limit = MAX_FWD_MS[f"k4_{name}"]
+        check(t[name]["ms"] <= limit,
+              f"k4_{name} took {t[name]['ms']:.3f} ms per B={TIME_BATCH} "
+              f"forward, above {limit} ms")
+    return kernels, (t["classifier"]["ms"], cls_device_ms,
+                     kernels[-1]["bound_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -1455,6 +1541,16 @@ def labelgen_phase(device, card):
               f"{torch.bincount(ref.flatten().long(), minlength=4).tolist()}"
               f"  [{card}]")
         check(diff == 0, f"K5 {hw} {order}: {diff} pixels differ from plain")
+    # frames of two column tiles a strip (after the launch count)
+    n, h, w = LABEL_WIDE
+    wide = tuple(torch.from_numpy(a).to(device)
+                 for a in label_pairs(rng, n, h, w))
+    for order in ("bgr", "rgb"):
+        diff = int((klg.process_classes(*wide, order)
+                    != klg.process_classes_plain(*wide, order)).sum())
+        print(f"  K5 B={n} {h}x{w} {order} ({klg.geometry(h, w).tiles} "
+              f"column tiles): {diff} pixels differ  [{card}]")
+        check(diff == 0, f"K5 {h}x{w} {order}: {diff} pixels differ")
     return launches["labelgen"], pairs[LABEL_SIZES[0]]
 
 
@@ -1477,10 +1573,12 @@ def _body_cost(body, b, p) -> tuple[float, float, float]:
 
 
 def lite_timing(trainer, qn, pairs, device, card, k6_launches, k6_err,
-                k5_launches):
+                k5_launches, cls_times):
     """Phase 13: K6 per B=64 forward and K5 per B=32 480x640 batch, beside
     their plain versions and bounds; the whole int8-fused, int8-plain and
-    float forwards at B=64.  Returns the kernels line entries of K5, K6."""
+    float forwards at B=64; K5's and the classifier's (``cls_times``, from
+    phase 5) device time by torch.profiler beside their event readings.
+    Returns the kernels line entries of K5, K6."""
     import torch
 
     from sim2real_lane_segment_tpu_torch.kernels import int8_body as kib
@@ -1544,6 +1642,24 @@ def lite_timing(trainer, qn, pairs, device, card, k6_launches, k6_err,
           f"{orig.shape[2]} batch: kernel {k5_ms:.3f} ms, plain "
           f"{k5_plain:.3f} ms, library n/a, bound {k5_bound:.4f} ms (bytes; "
           f"{7 * px / 1e6:.1f} MB)  [{card}]")
+    k5_device = _device_ms(lambda: klg.process_classes(orig, annot),
+                           "labelgen_kernel")
+    for name, (ev, dev, bound) in (("k4_classifier", cls_times),
+                                   ("k5_labelgen",
+                                    (k5_ms, k5_device, k5_bound))):
+        seen = (f"{dev:.4f} ms ({dev / bound:.2f}x the bound, "
+                f"{bound / dev:.1%} of its rate)" if dev > 0
+                else "not measured (the profiler saw no device time)")
+        print(f"timing: {name} by torch.profiler {seen}; by CUDA events "
+              f"around the wrapper {ev:.4f} ms; bound {bound:.4f} ms  "
+              f"[{card}]")
+    # the kernel's own time: the wrapper's host time a call is as long as
+    # the kernel, so the events read the host; they stand in only where the
+    # profiler saw nothing
+    k5_guard = k5_device if k5_device > 0 else k5_ms
+    check(k5_guard <= MAX_LABEL_MS,
+          f"k5_labelgen took {k5_guard:.3f} ms per B={orig.shape[0]} "
+          f"{orig.shape[1]}x{orig.shape[2]} batch, above {MAX_LABEL_MS} ms")
     return [k5, k6]
 
 
@@ -1581,6 +1697,10 @@ def main() -> None:
             tag = (" [tensor cores]" if entry in MMA_KERNELS + IMMA_KERNELS
                    else "")
             print(f"  {name}: {entry}{tag}: {info}")
+    for name in sources:
+        for entry, info in ptxas_report(build.build_log.get(name, "")):
+            if entry in REDESIGNED:
+                print(f"build: {entry}: {info}  [{card}]")
     hmma = tensor_core_instructions(build)
     if hmma is None:
         print("build: cuobjdump not found beside nvcc; tensor-core "
@@ -1605,7 +1725,8 @@ def main() -> None:
     launches, fps = serve_phase(sd, device, card)
 
     # phase 5: timing
-    kernels = timing_phase(sd, device, card, launches, errs["bfloat16"])
+    kernels, cls_times = timing_phase(sd, device, card, launches,
+                                      errs["bfloat16"])
     print(f"engine: {fps:.1f} frames/s end to end  [{card}]", flush=True)
 
     # phase 6: train kernels against plain, every site of one step
@@ -1642,7 +1763,7 @@ def main() -> None:
 
     # phase 13: LaneNetLite and label timing
     kernels += lite_timing(lite_trainer, qn, big_pairs, device, card,
-                           k6_launches, k6_err, k5_launches)
+                           k6_launches, k6_err, k5_launches, cls_times)
     print("engine lite: " + ", ".join(f"{k} {v:.1f} frames/s"
                                       for k, v in lite_fps.items())
           + f" end to end  [{card}]", flush=True)

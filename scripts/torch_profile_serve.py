@@ -8,9 +8,13 @@ Needs one CUDA card.  Builds the serving kernels and, under
 
 1. the fused FCDenseNet67 forward (``fused_apply``, weights from a seed as
    ``chip_smoke.py`` makes them);
-2. K6, the int8 body of the committed LaneNetLite student
+2. the classifier tail alone (``kernels/dense_block.classifier``) on the
+   last block's features of that forward;
+3. K6, the int8 body of the committed LaneNetLite student
    (``kernels/int8_body.int8_body`` on the stem rows of the frames,
-   calibrated as ``cli.serve --int8`` does).
+   calibrated as ``cli.serve --int8`` does);
+4. K5, label extraction (``kernels/labelgen.process_classes``) on
+   ``--label_batch`` seeded 480x640 pairs, as ``chip_smoke.py`` makes them.
 
 For each it prints the time per call by CUDA events, the device time per
 CUDA kernel name (per call, largest first) and the card's busy and idle
@@ -63,13 +67,16 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--label_batch", type=int, default=32)
     args = ap.parse_args()
 
     import torch
 
     import chip_smoke as cs
     from sim2real_lane_segment_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
     from sim2real_lane_segment_tpu_torch.kernels import int8_body as kib
+    from sim2real_lane_segment_tpu_torch.kernels import labelgen as klg
     from sim2real_lane_segment_tpu_torch.models.lanenet_fused import \
         fold_body
     from sim2real_lane_segment_tpu_torch.models.tiramisu_fused import (
@@ -90,6 +97,12 @@ def main() -> None:
         profile_calls(lambda: fused_apply(model, x, folded, use_softmax=False),
                       f"FCDenseNet67 fused forward B={args.batch}", card,
                       args.reps, args.top)
+        _, segs, layers, kw = cs.capture_blocks(model, x, folded)[-1]
+        feat = kdb.dense_block_plain(segs, layers, c_lo=0)
+        profile_calls(lambda: kdb.classifier(feat, kw["cls"]),
+                      f"classifier alone B={args.batch} "
+                      f"{list(feat.shape)}", card, args.reps, args.top)
+        del feat, segs
 
     _, qn = cs.lite_quantized(device)
     body = fold_body(qn)
@@ -99,6 +112,12 @@ def main() -> None:
                       f"K6 int8 body B={args.batch} ({hh}x{ww} rows)", card,
                       args.reps, args.top)
         site_times(rows, body, hh, ww, card, args.reps)
+
+    orig, annot = (torch.from_numpy(a).to(device) for a in cs.label_pairs(
+        np.random.default_rng(cs.SEED + 13), args.label_batch, 480, 640))
+    profile_calls(lambda: klg.process_classes(orig, annot),
+                  f"K5 labels B={args.label_batch} 480x640", card, args.reps,
+                  args.top)
 
 
 def site_times(rows, body, hh, ww, card, reps):

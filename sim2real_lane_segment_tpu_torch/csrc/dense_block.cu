@@ -26,15 +26,23 @@
 // tensor cores too; the kernels and their note are in td_fwd_mma.cuh,
 // which the training forward shares.
 //
-// The CUDA-core kernels below (conv_bnrelu_kernel, classifier_kernel)
-// serve float32, the parity control (TF32 would not hold the TransitionDown
-// to 1e-5), other growth rates (FCDenseNet57's 12) and the classifier.
-// What bounds them: at FCDenseNet67, 120x160, the 55 dense layers are 13.7
+// The classifier tail (classifier_kernel) does 18 operations per feature
+// it reads (the square, the scale and 8 multiply-adds), 9 per bf16 byte, so
+// it is bound by bytes: at FCDenseNet67, B=64, it must read the last
+// block's 708 MB once.  It reads each feature from device memory once (a
+// pixel tile's channels staged in shared memory for the norm and the
+// product); the bf16 product runs on the tensor cores (mma.sync), float32
+// on the CUDA cores.  Its note is above the kernel.
+//
+// The CUDA-core conv kernel below (conv_bnrelu_kernel) serves float32, the
+// parity control (TF32 would not hold the TransitionDown to 1e-5), and
+// other growth rates (FCDenseNet57's 12).
+// What bounds it: at FCDenseNet67, 120x160, the 55 dense layers are 13.7
 // GFLOP per frame; one layer launch reads c_j channels and writes 16, 144
 // operations per bf16 byte moved, below the H100's ~295 bf16 tensor-core
-// operations per byte: a tensor-core layer launch is bound by bytes.  These
-// kernels compute on the CUDA cores in f32 (67 TFLOP/s peak, not 989), so
-// they are bound by their FMA issue rate.  Their design is the simple,
+// operations per byte: a tensor-core layer launch is bound by bytes.  This
+// kernel computes on the CUDA cores in f32 (67 TFLOP/s peak, not 989), so
+// it is bound by its FMA issue rate.  Its design is the simple,
 // correct first kernel: each block owns a 16x16 pixel tile and 16 output
 // channels of one image; it stages 16 input channels at a time (with a
 // one-pixel halo) into shared memory, applying BN, ReLU, rounding and the
@@ -170,37 +178,236 @@ conv_bnrelu_kernel(const T* in, long long in_bstride, int K, int H, int W,
   }
 }
 
-// Classifier tail: one thread per pixel.
-//   in:  [B, C, H*W] features in T;  wc: [8][C] in T;  cb: [8] f32
-//   out: [B, 8, H*W] f32
+// Classifier tail: one pass over the features.
+//   in:  [B, C, hw] features in T, image b at in + b * in_bstride
+//   wc:  [8][C] in T;  cb: [8] f32;  out: [B, 8, hw] f32
+// A block owns CLS_PX = 64 consecutive pixels of one image and stages all
+// their channels once into its shared-memory tile [Cp][64] (Cp = C rounded
+// up to 16, the rows past C zero): 16-byte cp.async where every channel row
+// starts on 16 bytes, so one warp instruction copies four whole 128-byte
+// rows (bf16), element loads otherwise, pixels past hw zero, in CLS_GROUPS
+// groups of rows.  Warp w takes pixels 16w .. 16w + 15:
+//   1. the f32 squares of each group as it lands (a block barrier a
+//      group), summed per pixel, and inv = 1 / max(sqrt(n2), 1e-12);
+//   2. the 8-row product of T(f * inv) with the weights:
+//      bfloat16 on the tensor cores, mma.sync m16n8k16 with the warp's 16
+//        pixels as M, the 8 rows as N and 16 channels a step as K, f32
+//        sums.  A comes from the tile by ldmatrix.trans (the 16-byte chunk
+//        c of row k stored at c ^ (k % 8), so the eight rows of a matrix
+//        fall in distinct banks), is scaled and rounded in registers (one
+//        cvt a pair), and the norm reads the same fragments; B is read
+//        from the 4.6 KB of weights in device memory (L1 hits), the next
+//        step's in flight during this one;
+//      float32 (the parity control) on the CUDA cores: lane l takes pixel
+//        l % 16 and every other channel from l / 16, the two halves added
+//        by one shuffle, the weights staged once per block as [Cp][8];
+//   3. (u + b) * (1 / T_softmax) for the warp's pixels.
+// The sums are taken in a fixed order, so a run repeats its bits.  Whole
+// 128-byte rows matter: a tile per warp, read in 32-byte rows, ran slower
+// on an H100, and so did 128-pixel blocks of eight warps.
+constexpr int CLS_WPX = 16;                   // pixels a warp
+constexpr int CLS_WARPS = 4;
+constexpr int CLS_PX = CLS_WPX * CLS_WARPS;   // pixels a block
+constexpr int CLS_THREADS = 32 * CLS_WARPS;
+constexpr int CLS_GROUPS = 4;
+constexpr int CLS_SMEM_MAX = 232448;  // 227 KB, the most a block may use
+
+__host__ __device__ __forceinline__ int cls_rows(int C) { return (C + 15) / 16 * 16; }
+
+// dynamic shared memory of one block: the tile, and the float32 weights
+// (kernels/dense_block.classifier_smem states it)
+__host__ __device__ __forceinline__ long long classifier_smem(int C, int itemsize) {
+  const long long cp = cls_rows(C);
+  return cp * CLS_PX * itemsize + (itemsize == 2 ? 0 : cp * 8 * 4);
+}
+
+// element (channel k, pixel m) of the block's tile [Cp][CLS_PX]: bf16 rows
+// hold 8 chunks of 16 bytes, chunk c at c ^ (k % 8); float32 rows swap
+// neighbouring 16-element quarters on odd k (so each access pattern below
+// hits distinct banks)
+template <bool BF>
+__device__ __forceinline__ int cls_off(int k, int m) {
+  return BF ? k * CLS_PX + (((m >> 3) ^ (k & 7)) << 3) + (m & 7)
+            : k * CLS_PX + (m ^ ((k & 1) << 4));
+}
+
+// cp.async.wait_group with a run-time count below CLS_GROUPS
+__device__ __forceinline__ void cls_wait(int pending) {
+  switch (pending) {
+    case 0: s2r_mma::cp_async_wait<0>(); break;
+    case 1: s2r_mma::cp_async_wait<1>(); break;
+    case 2: s2r_mma::cp_async_wait<2>(); break;
+    default: s2r_mma::cp_async_wait<3>(); break;
+  }
+}
+static_assert(CLS_GROUPS == 4, "cls_wait covers 4 groups");
+
+// weights k, k + 1 of a bf16 row of C as one word (lo: k), zero past C;
+// even: C is even, so the pair is one aligned word
+__device__ __forceinline__ uint32_t cls_wpair(const unsigned short* row, int k, int C,
+                                              bool even) {
+  if (k + 1 < C)
+    return even ? __ldg(reinterpret_cast<const unsigned int*>(row + k))
+                : (uint32_t)__ldg(row + k) | ((uint32_t)__ldg(row + k + 1) << 16);
+  return k < C ? (uint32_t)__ldg(row + k) : 0u;
+}
+
+__device__ __forceinline__ float cls_logit(float u, float b, float inv_temp) {
+  return __fmul_rn(__fadd_rn(u, b), inv_temp);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(CLS_THREADS)
 classifier_kernel(const T* __restrict__ in, long long in_bstride, int C,
-                  long long hw, int B, const T* __restrict__ wc,
+                  long long hw, const T* __restrict__ wc,
                   const float* __restrict__ cb, float inv_temp,
-                  float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)B * hw) return;
-  const long long b = i / hw;
-  const long long p = i - b * hw;
-  const T* f = in + b * in_bstride + p;
-  float n2 = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float v = to_f<T>(f[c * hw]);
-    n2 = fmaf(v, v, n2);
+                  float* __restrict__ out, int vec) {
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int EPC = 16 / sizeof(T);     // elements per 16-byte piece
+  constexpr int PPR = CLS_PX / EPC;       // pieces per tile row
+  extern __shared__ __align__(16) unsigned char cls_smem[];
+  const int Cp = cls_rows(C);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  T* tile = reinterpret_cast<T*>(cls_smem);
+  unsigned char* wsm = cls_smem + (size_t)Cp * CLS_PX * sizeof(T);
+  const long long pb = (long long)blockIdx.x * CLS_PX;   // the block's pixels
+  const int mw = warp * CLS_WPX;                         // the warp's, in the tile
+  const bool active = pb + mw < hw;
+  const T* img = in + (long long)blockIdx.y * in_bstride + pb;
+  const int gk = (Cp / 16 + CLS_GROUPS - 1) / CLS_GROUPS * 16;  // rows a group
+
+  // the block's tile, in CLS_GROUPS groups of rows; a warp instruction
+  // copies whole 128-byte (bf16) rows
+  for (int g = 0; g < CLS_GROUPS; ++g) {
+    const int k0 = min(Cp, g * gk), k1 = min(Cp, k0 + gk);
+    if (vec) {
+      for (int q = threadIdx.x; q < (k1 - k0) * PPR; q += CLS_THREADS) {
+        const int k = k0 + q / PPR;
+        const int e = (q % PPR) * EPC;
+        const bool ok = k < C && pb + e < hw;
+        s2r_mma::cp_async16(tile + cls_off<BF>(k, e), ok ? img + k * hw + e : in,
+                            ok ? 16 : 0);
+      }
+    } else {
+      for (int q = threadIdx.x; q < (k1 - k0) * CLS_PX; q += CLS_THREADS) {
+        const int k = k0 + q / CLS_PX;
+        const int m = q % CLS_PX;
+        tile[cls_off<BF>(k, m)] = k < C && pb + m < hw ? img[k * hw + m] : from_f<T>(0.f);
+      }
+    }
+    s2r_mma::cp_async_commit();
   }
-  const float inv = 1.f / fmaxf(sqrtf(n2), 1e-12f);
-  float u[8];
-#pragma unroll
-  for (int o = 0; o < 8; ++o) u[o] = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float fn = round_to<T>(__fmul_rn(to_f<T>(f[c * hw]), inv));
-#pragma unroll
-    for (int o = 0; o < 8; ++o) u[o] = fmaf(to_f<T>(wc[o * C + c]), fn, u[o]);
+  // float32: the weights, zero past C, while the tile lands
+  if constexpr (!BF) {
+    float* w = reinterpret_cast<float*>(wsm);
+    for (int i = threadIdx.x; i < 8 * Cp; i += CLS_THREADS) {
+      const int n = i / Cp, k = i % Cp;
+      w[k * 8 + n] = k < C ? to_f<T>(wc[n * C + k]) : 0.f;
+    }
   }
-  float* ob = out + b * 8 * hw + p;
+
+  float* ob = out + (long long)blockIdx.y * 8 * hw + pb + mw;
+  if constexpr (BF) {
+    // lane (g, t): pixels g and g + 8, channels 2t, 2t + 1 (+ 8) of a step
+    const int g = lane >> 2, t = lane & 3;
+    // the row this lane addresses for ldmatrix: matrix j = lane / 8 holds
+    // channels +8 (j / 2) and pixels 8 (j % 2) of a step
+    const int kl = 8 * (lane >> 4) + (lane & 7), ml = mw + 8 * ((lane >> 3) & 1);
+    float n0 = 0.f, n1 = 0.f;
+    for (int grp = 0; grp < CLS_GROUPS; ++grp) {
+      cls_wait(CLS_GROUPS - 1 - grp);
+      __syncthreads();
+      if (!active) continue;
+      const int k1 = min(Cp, (grp + 1) * gk);
+      for (int k0 = min(Cp, grp * gk); k0 < k1; k0 += 16) {
+        uint32_t a[4];
+        s2r_mma::ldsm_x4_t(a, s2r_mma::smem_u32(tile + cls_off<true>(k0 + kl, ml)));
+        // a0, a2: pixel g; a1, a3: pixel g + 8
 #pragma unroll
-  for (int o = 0; o < 8; ++o) ob[o * hw] = __fmul_rn(__fadd_rn(u[o], cb[o]), inv_temp);
+        for (int r = 0; r < 4; r += 2) {
+          n0 = fmaf(s2r_mma::lo_f(a[r]), s2r_mma::lo_f(a[r]), n0);
+          n0 = fmaf(s2r_mma::hi_f(a[r]), s2r_mma::hi_f(a[r]), n0);
+          n1 = fmaf(s2r_mma::lo_f(a[r + 1]), s2r_mma::lo_f(a[r + 1]), n1);
+          n1 = fmaf(s2r_mma::hi_f(a[r + 1]), s2r_mma::hi_f(a[r + 1]), n1);
+        }
+      }
+    }
+    if (!active) return;
+    // the quad's four partial sums (the same bits in all four lanes)
+    n0 = __fadd_rn(n0, __shfl_xor_sync(0xffffffffu, n0, 1));
+    n1 = __fadd_rn(n1, __shfl_xor_sync(0xffffffffu, n1, 1));
+    n0 = __fadd_rn(n0, __shfl_xor_sync(0xffffffffu, n0, 2));
+    n1 = __fadd_rn(n1, __shfl_xor_sync(0xffffffffu, n1, 2));
+    const float inv0 = 1.f / fmaxf(sqrtf(n0), 1e-12f);
+    const float inv1 = 1.f / fmaxf(sqrtf(n1), 1e-12f);
+    const unsigned short* w = reinterpret_cast<const unsigned short*>(wc) + g * C;
+    const bool even = (C & 1) == 0 && (reinterpret_cast<uintptr_t>(wc) & 3) == 0;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    uint32_t b0 = cls_wpair(w, 2 * t, C, even), b1 = cls_wpair(w, 8 + 2 * t, C, even);
+    for (int k0 = 0; k0 < Cp; k0 += 16) {
+      uint32_t a[4];
+      s2r_mma::ldsm_x4_t(a, s2r_mma::smem_u32(tile + cls_off<true>(k0 + kl, ml)));
+      // the next step's weights, in flight during this step
+      const uint32_t nb0 = cls_wpair(w, k0 + 16 + 2 * t, C, even);
+      const uint32_t nb1 = cls_wpair(w, k0 + 24 + 2 * t, C, even);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float inv = (r & 1) ? inv1 : inv0;
+        a[r] = s2r_mma::pack_bf16x2(__fmul_rn(s2r_mma::lo_f(a[r]), inv),
+                                    __fmul_rn(s2r_mma::hi_f(a[r]), inv));
+      }
+      s2r_mma::mma_16816(d, a, b0, b1);
+      b0 = nb0;
+      b1 = nb1;
+    }
+    // d0, d1: pixel g, rows 2t, 2t + 1; d2, d3: pixel g + 8
+    const float c0 = cb[2 * t], c1 = cb[2 * t + 1];
+    if (pb + mw + g < hw) {
+      ob[2 * t * hw + g] = cls_logit(d[0], c0, inv_temp);
+      ob[(2 * t + 1) * hw + g] = cls_logit(d[1], c1, inv_temp);
+    }
+    if (pb + mw + g + 8 < hw) {
+      ob[2 * t * hw + g + 8] = cls_logit(d[2], c0, inv_temp);
+      ob[(2 * t + 1) * hw + g + 8] = cls_logit(d[3], c1, inv_temp);
+    }
+  } else {
+    // lane (m, h): pixel m, channels h, h + 2, ...
+    const int m = mw + (lane & 15), h = lane >> 4;
+    float n2 = 0.f;
+    for (int grp = 0; grp < CLS_GROUPS; ++grp) {
+      cls_wait(CLS_GROUPS - 1 - grp);
+      __syncthreads();  // the first also orders the weights
+      if (!active) continue;
+      const int k1 = min(Cp, (grp + 1) * gk);
+      for (int k = min(Cp, grp * gk) + h; k < k1; k += 2) {
+        const float v = to_f<T>(tile[cls_off<false>(k, m)]);
+        n2 = fmaf(v, v, n2);
+      }
+    }
+    if (!active) return;
+    n2 = __fadd_rn(n2, __shfl_xor_sync(0xffffffffu, n2, 16));
+    const float inv = 1.f / fmaxf(sqrtf(n2), 1e-12f);
+    const float* w = reinterpret_cast<const float*>(wsm);
+    float u[8];
+#pragma unroll
+    for (int o = 0; o < 8; ++o) u[o] = 0.f;
+    for (int k = h; k < Cp; k += 2) {
+      const float fn = round_to<T>(__fmul_rn(to_f<T>(tile[cls_off<false>(k, m)]), inv));
+      const float4 wa = *reinterpret_cast<const float4*>(w + 8 * k);
+      const float4 wb = *reinterpret_cast<const float4*>(w + 8 * k + 4);
+      const float w8[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+      for (int o = 0; o < 8; ++o) u[o] = fmaf(w8[o], fn, u[o]);
+    }
+#pragma unroll
+    for (int o = 0; o < 8; ++o) u[o] = __fadd_rn(u[o], __shfl_xor_sync(0xffffffffu, u[o], 16));
+    const int px = lane & 15;
+    if (pb + mw + px < hw) {
+#pragma unroll
+      for (int o = 4 * h; o < 4 * h + 4; ++o) ob[o * hw + px] = cls_logit(u[o], cb[o], inv_temp);
+    }
+  }
 }
 
 template <typename T, int TAPS>
@@ -249,12 +456,22 @@ cudaError_t launch_classifier(const void* in, long long in_bstride, int B,
                               int C, long long hw, const void* wc,
                               const float* cb, float inv_temp, float* out,
                               cudaStream_t stream) {
-  const long long n = (long long)B * hw;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  classifier_kernel<T><<<blocks, threads, 0, stream>>>(
-      static_cast<const T*>(in), in_bstride, C, hw, B,
-      static_cast<const T*>(wc), cb, inv_temp, out);
+  const long long smem = classifier_smem(C, sizeof(T));
+  if (B <= 0 || C <= 0 || hw <= 0 || smem > CLS_SMEM_MAX) return cudaErrorInvalidValue;
+  static bool ready = false;  // the shared-memory limit, set once
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        classifier_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, CLS_SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  // 16-byte pieces when every channel row of every image starts on 16 bytes
+  constexpr int EPC = 16 / sizeof(T);
+  const int vec = hw % EPC == 0 && in_bstride % EPC == 0 && s2r_mma::aligned16(in);
+  const dim3 grid((unsigned)((hw + CLS_PX - 1) / CLS_PX), B);
+  classifier_kernel<T><<<grid, CLS_THREADS, smem, stream>>>(
+      static_cast<const T*>(in), in_bstride, C, hw, static_cast<const T*>(wc), cb,
+      inv_temp, out, vec);
   return cudaGetLastError();
 }
 
@@ -305,6 +522,14 @@ extern "C" int s2r_conv_bnrelu(int dtype, int taps, const void* in,
                                          shift, wt, bias, N, out, out_bstride,
                                          round_first, s);
   return cudaErrorInvalidValue;
+}
+
+// The classifier's shared memory per block for C channels of this dtype
+// (kernels/dense_block.classifier_smem states it for the CPU tests); C
+// above the 227 KB a block may hold returns cudaErrorInvalidValue from
+// s2r_classifier.
+extern "C" long long s2r_classifier_smem(int dtype, int C) {
+  return classifier_smem(C, dtype == 0 ? 4 : 2);
 }
 
 extern "C" int s2r_classifier(int dtype, const void* in, long long in_bstride,

@@ -15,13 +15,15 @@ into the first channels (the virtual concat) and runs three entry points:
   to 8 (padded) rows in f32, ``(. + b) * (1/temperature)``, f32 logits.
 
 A bfloat16 ``dense_layer`` with growth 16 (``takes_mma_dense``: every
-FCDenseNet67 and FCDenseNet103 site) and a bfloat16 ``transition`` run on
-the tensor cores; float32, other growth rates and the classifier on the
-CUDA cores.  At small planes the tensor-core dense layer splits its
-channel loop across a cluster of ``dense_splits`` blocks.  The C library
-chooses the route and the split and reports both with each launch;
-``takes_mma_dense`` and ``dense_splits`` state its rules for the CPU
-tests.  Each wrapper takes a CPU tensor to its plain version and a CUDA
+FCDenseNet67 and FCDenseNet103 site), a bfloat16 ``transition`` and the
+product of a bfloat16 ``classifier`` run on the tensor cores; float32 and
+other growth rates on the CUDA cores.  The classifier stages all channels
+of ``CLS_PIXELS`` pixels in shared memory (``classifier_smem`` bytes a
+block) and reads each feature once.  At small planes the tensor-core dense
+layer splits its channel loop across a cluster of ``dense_splits`` blocks.
+The C library chooses the route and the split and reports both with each
+launch; ``takes_mma_dense`` and ``dense_splits`` state its rules for the
+CPU tests.  Each wrapper takes a CPU tensor to its plain version and a CUDA
 tensor to its kernel; a failed build or launch raises.  ``launches``
 counts kernel launches per entry point (CUDA tensors only),
 ``mma_launches`` the dense-layer launches that the C library reports on
@@ -51,6 +53,13 @@ MMA_CHUNK = 32
 MAX_SPLITS = 8
 BLOCKS_PER_SM = 2
 
+# the classifier (csrc/dense_block.cu classifier_kernel): pixels a warp,
+# warps a block, and the most shared memory a block may hold on sm_90
+CLS_WARP_PIXELS = 16
+CLS_WARPS = 4
+CLS_PIXELS = CLS_WARP_PIXELS * CLS_WARPS
+CLS_SMEM_MAX = 232_448
+
 
 def reset_launches() -> None:
     for counts in (launches, mma_launches):
@@ -75,6 +84,18 @@ def dense_splits(b: int, h: int, w: int, c: int, sms: int) -> int:
     blocks = b * -(-h // th) * -(-w // tw)
     chunks = -(-c // MMA_CHUNK)
     return max(1, min(-(-BLOCKS_PER_SM * sms // blocks), MAX_SPLITS, chunks))
+
+
+def classifier_smem(c: int, dtype: torch.dtype) -> int:
+    """Shared memory of one classifier block over ``c`` channels: the
+    [cp][CLS_PIXELS] feature tile (cp = c rounded up to 16; a warp takes
+    CLS_WARP_PIXELS of the pixels), and in float32 the weights as [cp][8]
+    (bfloat16 reads them from device memory); the C library's rule, stated
+    for the CPU tests."""
+    item = torch.empty((), dtype=dtype).element_size()
+    cp = -(-c // 16) * 16
+    weights = 0 if item == 2 else cp * 8 * 4
+    return cp * CLS_PIXELS * item + weights
 
 
 class FoldedLayer(NamedTuple):
@@ -163,6 +184,8 @@ def _lib() -> ctypes.CDLL:
     lib.s2r_classifier.argtypes = [_I, _P, _L, _I, _I, _L, _P, _P,
                                    ctypes.c_float, _P, _P]
     lib.s2r_classifier.restype = _I
+    lib.s2r_classifier_smem.argtypes = [_I, _I]
+    lib.s2r_classifier_smem.restype = _L
     lib.s2r_dense_splits.argtypes = [_I, _I, _I, _I]
     lib.s2r_dense_splits.restype = _I
     lib.s2r_error_string.argtypes = [_I]
@@ -262,6 +285,9 @@ def classifier(feat: torch.Tensor, cls: FoldedClassifier) -> torch.Tensor:
     b, c, h, w = feat.shape
     _check_operand(cls.weight, feat, feat.dtype, (8, c), "classifier", "weight")
     _check_operand(cls.bias, feat, torch.float32, (8,), "classifier", "bias")
+    _require(classifier_smem(c, feat.dtype) <= CLS_SMEM_MAX,
+             f"classifier: {c} {feat.dtype} channels exceed one block's "
+             f"shared memory")
     out = torch.empty(b, 8, h, w, dtype=torch.float32, device=feat.device)
     lib = _lib()
     with build.on_device(feat.device):

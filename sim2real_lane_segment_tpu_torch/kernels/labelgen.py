@@ -5,15 +5,20 @@ version.
 Counterpart of ``process_classes_fused`` in the JAX package's
 ``ops/labelgen_pallas.py``: the whole of ``process_classes`` (the diff,
 the channel-sign rules, a 5x5 OPEN then CLOSE per class with cv2's
-borders, the priority overwrite) in one launch.  ``process_classes``
-takes CPU tensors to ``process_classes_plain`` and CUDA tensors to the
-kernel; a failed build or launch raises.  ``launches`` counts kernel
-launches (CUDA tensors only).
+borders, the priority overwrite) in one launch.  The kernel holds each
+class as a bit plane (32 pixels a word) and gives a block a strip of
+``STRIP_ROWS`` rows of one image, with an 8-row halo, across a column tile
+of at most 32 words; ``geometry`` states its launch geometry for the CPU
+tests.  ``process_classes`` takes CPU tensors to
+``process_classes_plain`` and CUDA tensors to the kernel; a failed build
+or launch raises.  ``launches`` counts kernel launches (CUDA tensors
+only).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +26,36 @@ from ..ops.morphology import morph_close, morph_open
 from . import build
 
 launches = {"labelgen": 0}
+
+# the kernel's strip (output rows a block), its halo (4 passes x radius 2)
+# and the words a block holds per row (one per lane)
+STRIP_ROWS = 32
+HALO_ROWS = 8
+LANES = 32
+
+
+class Geometry(NamedTuple):
+    """K5's launch at H x W: ``strips`` x ``tiles`` blocks per image, each
+    ``strip_rows`` rows and ``core`` of the row's ``words`` 32-pixel words
+    (plus a halo word on each inner side), ``smem`` bytes of shared memory
+    (two buffers of 3 planes x (strip + 2 halo) rows x 32 words)."""
+    strip_rows: int
+    strips: int
+    words: int
+    tiles: int
+    core: int
+    smem: int
+
+
+def geometry(h: int, w: int) -> Geometry:
+    """The C library's launch geometry, stated for the CPU tests: one
+    column tile while a row fits the 32 lanes, else tiles of at most 30
+    core words, as even as they divide."""
+    words = -(-w // 32)
+    tiles = 1 if words <= LANES else -(-words // (LANES - 2))
+    return Geometry(STRIP_ROWS, -(-h // STRIP_ROWS), words, tiles,
+                    -(-words // tiles),
+                    2 * 3 * (STRIP_ROWS + 2 * HALO_ROWS) * LANES * 4)
 
 
 def reset_launches() -> None:
@@ -68,6 +103,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.s2r_labelgen.argtypes = [p, p, i, i, i, i, p, p]
     lib.s2r_labelgen.restype = i
+    lib.s2r_labelgen_geometry.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.s2r_labelgen_geometry.restype = None
     lib.s2r_labelgen_error_string.argtypes = [i]
     lib.s2r_labelgen_error_string.restype = ctypes.c_char_p
     return lib
@@ -90,11 +127,11 @@ def process_classes(img_orig: torch.Tensor, img_annot: torch.Tensor,
     if out.numel() == 0:
         return out.reshape(*lead, h, w)
     lib = _lib()
-    with torch.cuda.device(orig.device):
+    with build.on_device(orig.device):
         err = lib.s2r_labelgen(
             orig.data_ptr(), annot.data_ptr(), orig.shape[0], h, w,
             int(channel_order == "bgr"), out.data_ptr(),
-            torch.cuda.current_stream(orig.device).cuda_stream)
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"labelgen launch failed: CUDA error {err} "
                            f"({lib.s2r_labelgen_error_string(err).decode()})")

@@ -153,6 +153,7 @@ def test_cpu_wrappers_take_the_plain_versions(block):
 ARCHS = {"57": fcdensenet57, "67": fcdensenet67, "103": fcdensenet103}
 N_SITES = {"57": 44, "67": 55, "103": 91}
 H100_SMS = 132  # an H100 SXM
+SM_SMEM = 233_472  # shared memory of one SM, 1 KB of it reserved per block
 
 
 def _dense_sites(arch, h=120, w=160):
@@ -211,3 +212,34 @@ def test_dense_splits_of_a_b64_forward():
                    (15, 20): {2}, (7, 10): {5}, (3, 5): {5}}
     assert fewer == {(120, 160): {1}, (60, 80): {1}, (30, 40): {1},
                      (15, 20): {1}, (7, 10): {4}, (3, 5): {4}}
+
+
+# ---------------------------------------------------------------------------
+# the classifier's tile
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_classifier_tile_at_the_last_block(arch, dtype):
+    """The classifier stages all of the last block's channels for
+    CLS_PIXELS pixels in one block: it fits, several blocks share an SM
+    (six or more in bf16, the serving dtype), and a B=64 120x160 forward
+    gives many waves of blocks."""
+    c = ARCHS[arch](4).classifier.finalConv.in_channels
+    assert c == {"57": 192, "67": 288, "103": 256}[arch]
+    item = torch.empty((), dtype=dtype).element_size()
+    smem = kdb.classifier_smem(c, dtype)
+    assert c * kdb.CLS_PIXELS * item <= smem <= kdb.CLS_SMEM_MAX
+    per_sm = min(2048 // (32 * kdb.CLS_WARPS), SM_SMEM // (smem + 1024))
+    assert per_sm >= (6 if dtype == torch.bfloat16 else 2)
+    blocks = 64 * -(-120 * 160 // kdb.CLS_PIXELS)
+    assert blocks >= 10 * per_sm * H100_SMS
+
+
+@pytest.mark.parametrize("dtype,widest", [(torch.bfloat16, 1808),
+                                          (torch.float32, 800)])
+def test_classifier_widest_buffer(dtype, widest):
+    """The widest feature buffer one classifier block holds."""
+    assert kdb.classifier_smem(widest, dtype) <= kdb.CLS_SMEM_MAX
+    assert kdb.classifier_smem(widest + 1, dtype) > kdb.CLS_SMEM_MAX
+    assert SM_SMEM // (kdb.classifier_smem(widest, dtype) + 1024) == 1

@@ -15,8 +15,13 @@ layer's 12x16 pixel tiles, 32-channel chunks and channel-loop splits of
 128-pixel tiles and 16-channel tensor-core steps (forward and K2), K6's
 int8 tensor-core 16x8 pixel tiles (halo 1, 2 and 4), 32-channel k steps
 and 128-output slices, its CUDA-core 64-pixel rows and 64-channel output
-groups, K5's 32x32 tiles (and images smaller than their halo).
+groups, the classifier's 64-pixel block tiles, 16-pixel warp slices and
+16-channel steps (rows that are and are not 16-byte aligned, C not a
+multiple of 16), K5's 32-row strips and 32-pixel words (images smaller
+than the halo, and frames wider than one 32-word column tile).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -166,6 +171,60 @@ def test_wrapper_rejects_bad_operands(cuda):
         kdb.dense_layer(feat, bad)
     with pytest.raises(ValueError):  # f64 is not a kernel dtype
         kdb.dense_layer(feat.double(), layers[0])
+
+
+# the classifier: C of FCDenseNet57/67's last block among them; planes of
+# one pixel, a ragged tail with rows not 16-byte aligned (5x7, 33x65), a
+# ragged tail with aligned rows (7x8) and the serving plane
+CLS_CHANNELS = [20, 100, 288]
+CLS_PLANES = [(1, 1), (5, 7), (7, 8), (33, 65), (120, 160)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("plane", CLS_PLANES)
+@pytest.mark.parametrize("c", CLS_CHANNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_classifier_matches_plain(cuda, dtype, c, plane, b):
+    """Against the plain version, with all-zero pixels (the 1e-12 clamp)
+    in the first and last image; a second run gives the same bits (the
+    partial sums are added in a fixed order), and the C library's shared
+    memory is the rule ``classifier_smem`` states."""
+    h, w = plane
+    gen = torch.Generator().manual_seed(c + h * w + b)
+    feat = torch.randn(b, c, h, w, generator=gen)
+    feat[0, :, 0, 0] = 0
+    feat[-1, :, h // 2] = 0
+    feat = feat.to(cuda, dtype)
+    wc = torch.zeros(8, c)
+    wc[:4] = torch.randn(4, c, generator=gen) * 0.3
+    cb = torch.zeros(8)
+    cb[:4] = torch.randn(4, generator=gen) * 0.1
+    cls = kdb.FoldedClassifier(wc.to(cuda, dtype), cb.to(cuda), 1.0 / 0.05)
+    kdb.reset_launches()
+    out = kdb.classifier(feat, cls)
+    again = kdb.classifier(feat, cls)
+    ref = kdb.classifier_plain(feat, cls)
+    torch.cuda.synchronize()
+    assert kdb.launches["classifier"] == 2
+    assert out.shape == (b, 8, h, w) and out.dtype == torch.float32
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, atol=LOGIT_ATOL[dtype], rtol=0)
+    # the clamped pixels: (0 + b) / T exactly
+    torch.testing.assert_close(out[0, :, 0, 0], cb.to(cuda) * cls.inv_temp,
+                               atol=0, rtol=0)
+    assert kdb._lib().s2r_classifier_smem(int(dtype == torch.bfloat16),
+                                          c) == kdb.classifier_smem(c, dtype)
+
+
+@pytest.mark.gpu
+def test_classifier_rejects_a_buffer_too_wide(cuda):
+    c = 801  # f32: one block's tiles would exceed 227 KB
+    feat = torch.zeros(1, c, 2, 2, device=cuda)
+    cls = kdb.FoldedClassifier(torch.zeros(8, c, device=cuda),
+                               torch.zeros(8, device=cuda), 1.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        kdb.classifier(feat, cls)
 
 
 # ---------------------------------------------------------------------------
@@ -510,8 +569,8 @@ def _label_pairs(n, h, w, seed):
 @pytest.mark.parametrize("shape", [(3, 120, 160), (2, 100, 70), (4, 5, 7),
                                    (1, 33, 65)])
 def test_labelgen_matches_plain(cuda, shape, order):
-    """Bit-exact: tiles ragged against the 32x32 blocks, images smaller
-    than one block's 8-pixel halo."""
+    """Bit-exact: strips ragged against the 32 rows and words ragged
+    against the 32 pixels, images smaller than one block's 8-row halo."""
     orig, annot = _label_pairs(*shape, seed=sum(shape))
     ref = klg.process_classes_plain(orig, annot, order)
     klg.reset_launches()
@@ -525,3 +584,65 @@ def test_labelgen_matches_plain(cuda, shape, order):
                        ref)
     if shape[1] >= 100:
         assert len(torch.unique(ref)) == 4
+
+
+def _check_labels(cuda, orig, annot, order):
+    """K5 bit-exact against plain, twice (the same bits), one launch each."""
+    ref = klg.process_classes_plain(orig, annot, order)
+    klg.reset_launches()
+    out = klg.process_classes(orig.to(cuda), annot.to(cuda), order)
+    again = klg.process_classes(orig.to(cuda), annot.to(cuda), order)
+    torch.cuda.synchronize()
+    assert klg.launches["labelgen"] == 2
+    assert out.dtype == torch.uint8 and out.shape == ref.shape
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), ref)
+    return ref
+
+
+# widths across the 32-pixel words and 16-byte rows, the model's and the
+# simulator's widths, and frames of two and three column tiles; heights
+# below the 32-row strip and not a multiple of it
+LABEL_WIDTHS = [1, 31, 32, 33, 63, 64, 65, 160, 640, 1100, 2100]
+LABEL_HEIGHTS = [5, 45]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["bgr", "rgb"])
+@pytest.mark.parametrize("h", LABEL_HEIGHTS)
+@pytest.mark.parametrize("w", LABEL_WIDTHS)
+def test_labelgen_widths_and_heights(cuda, w, h, order):
+    orig, annot = _label_pairs(2, h, w, seed=w + h)
+    _check_labels(cuda, orig, annot, order)
+    g = (ctypes.c_int * 6)()
+    klg._lib().s2r_labelgen_geometry(h, w, g)
+    assert tuple(g) == tuple(klg.geometry(h, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["bgr", "rgb"])
+@pytest.mark.parametrize("fill", [0, 255])
+def test_labelgen_uniform_masks(cuda, fill, order):
+    """Every pixel in one class (fill 255: obstacle, whose erosion must
+    keep the image border) or none (fill 0), on 16-byte rows and not."""
+    for h, w in ((40, 64), (37, 70)):
+        orig = torch.zeros(1, h, w, 3, dtype=torch.uint8)
+        annot = torch.full((1, h, w, 3), fill, dtype=torch.uint8)
+        ref = _check_labels(cuda, orig, annot, order)
+        assert torch.equal(ref, torch.full_like(ref, 3 if fill else 0))
+
+
+@pytest.mark.gpu
+def test_labelgen_unaligned_frames(cuda):
+    """Frames whose storage does not start on 16 bytes take the byte
+    loads and stores: the same bits."""
+    orig, annot = _label_pairs(2, 40, 64, seed=3)
+    ref = klg.process_classes_plain(orig, annot)
+    n = orig.numel()
+    o = torch.empty(n + 1, dtype=torch.uint8, device=cuda)[1:]
+    a = torch.empty(n + 1, dtype=torch.uint8, device=cuda)[1:]
+    o.copy_(orig.reshape(-1))
+    a.copy_(annot.reshape(-1))
+    out = klg.process_classes(o.view(orig.shape), a.view(annot.shape))
+    assert out.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 1
+    assert torch.equal(out.cpu(), ref)

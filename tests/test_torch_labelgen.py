@@ -100,3 +100,36 @@ def test_bad_inputs_raise():
         process_classes(orig, annot[:, :4])
     with pytest.raises(ValueError, match="uint8"):
         process_classes(orig.astype(np.int16), annot.astype(np.int16))
+
+
+@pytest.mark.parametrize("hw,want", [
+    ((480, 640), (15, 20, 1, 20)), ((120, 160), (4, 5, 1, 5)),
+    ((1080, 1920), (34, 60, 2, 30)), ((5, 7), (1, 1, 1, 1))])
+def test_kernel_geometry(hw, want):
+    """K5's launch at the simulator's render size, the model's size, a
+    1080p frame (two column tiles) and a frame smaller than the halo:
+    (strips, words per row, column tiles, core words)."""
+    g = klg.geometry(*hw)
+    assert (g.strips, g.words, g.tiles, g.core) == want
+    assert g.strip_rows == klg.STRIP_ROWS == 32
+    # two buffers of 3 planes x (32 + 2 x 8) rows x 32 words: static
+    # shared memory, six blocks to an SM
+    assert g.smem == 2 * 3 * 48 * 32 * 4 <= 48 * 1024
+
+
+@pytest.mark.parametrize("w", [1, 31, 32, 33, 640, 1024, 1025, 1920, 2100,
+                               4096, 5000])
+def test_kernel_column_tiles_cover_the_row(w):
+    """Each word of a row is written by one column tile; a tile stages its
+    core words and one halo word (32 pixels, more than the 8 the four
+    passes reach) on each inner side, at most one word per lane."""
+    g = klg.geometry(7, w)
+    assert g.words == -(-w // 32)
+    written = []
+    for t in range(g.tiles):
+        c0, c1 = t * g.core, min(g.words, (t + 1) * g.core)
+        lo, hi = max(0, c0 - 1), min(g.words, c1 + 1)
+        assert hi - lo <= klg.LANES
+        assert (lo < c0) == (t > 0) and (hi > c1) == (t < g.tiles - 1)
+        written += range(c0, c1)
+    assert written == list(range(g.words))
