@@ -7,8 +7,11 @@ Drives the port's main paths and holds every kernel of those paths
 against its plain PyTorch version: FCDenseNet67 at full width (3,461,220
 parameters, 120x160 frames, random weights made from a seed) serving
 (``cli.serve.build_predict_fn --arch 67 --fused`` behind
-``serving.BatchingEngine``, kernel K4) and training (``cli.train.main
---trainType sim --arch 67 --pallas_train``, kernels K1, K2, K3a, K3b);
+``serving.BatchingEngine``, kernel K4), training (``cli.train.main
+--trainType sim --arch 67 --pallas_train``, kernels K1, K2, K3a, K3b),
+the two-domain regimes with augmentation (``--trainType st`` and ``mme``
+``--augment --pallas_train``; MME runs K1-K3b twice a step, phase G on a
+reversed cotangent) and evaluation (``cli.test.main -t mme --fused``);
 LaneNetLite serving from the committed student
 (``artifacts/lanenet_lite_sim.msgpack``, ``--arch lite [--int8
 [--fused]]``, kernel K6); and label extraction
@@ -75,7 +78,28 @@ Phases:
     their plain versions and bounds, the device time of K5 and of the
     classifier by torch.profiler beside their event readings, and the
     whole LaneNetLite forwards (int8 through K6, plain int8, float bf16)
-    at B=64.
+    at B=64;
+14. the MME step: one augmented step of FCDenseNet67 at B=32 (both
+    batches augmented on the card, each phase's masks with channel 0 of
+    every site dropped) in float32 and bfloat16, through the plain
+    versions with every K1, K2, K3a and K3b call of both phases also run
+    through its kernel and held against the plain result (phase G's
+    negated entropy cotangent included), then through the kernels alone
+    from the same state, draws and masks: the launches (120/10/110/22 per
+    step, all on the tensor-core route in bfloat16), both losses, both
+    stages of the running statistics, both optimizers' gradients and the
+    updated parameters against the plain step (MME_STEP_TOL);
+15. the two-domain CLIs: ``--trainType st`` and then ``mme`` (from
+    phase 8's ``best_weights.pt``), ``--augment --pallas_train -b 32``, one
+    epoch each on a synthetic tree (source 64, target/train 32,
+    target/test 32, target/unlabelled 96); checks the steps, finite
+    losses, the launches (one and two passes a step) and that no plain
+    version ran; then ``cli.test.main -t mme --fused`` on the MME run's
+    weights (metrics, the confusion matrix, K4's launches);
+16. timing: the B=32 MME step through the kernels against the plain step
+    (CUDA events, medians of REPS steps in turns), its device busy time
+    and idle share (torch.profiler), and ``augment_batch`` and
+    ``draw_augment`` at B=32 from 120x160 and 480x640 sources.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -198,6 +222,23 @@ MAX_FWD_MS = {"k4_dense_layer": 27.0, "k6_int8_body": 1.5,
 MAX_LABEL_MS = 0.14
 # kernels whose registers and spills phase 2 also prints on a line of its own
 REDESIGNED = ("classifier_kernel", "labelgen_kernel")
+# phases 14-16: MME's step (two train-mode passes, each through every K1,
+# K2, K3a and K3b site) at B=32, the two-domain PNG tree of the st and mme
+# CLIs (labelled 64 + 32 <= unlabelled 96), augmentation's source sizes
+MME_BATCH = 32
+MME_SPLITS = (("source", 64), ("target/train", 32), ("target/test", 32),
+              ("target/unlabelled", 96))
+AUG_SOURCES = ((120, 160), (480, 640))
+# one whole MME step through the kernels against the same step through
+# their plain versions: the losses and both stages of the running
+# statistics as max|err| / max|ref|; the gradients (SGD's momentum after
+# phase G, Adam's first moment after phase F) per parameter as max|err| /
+# max(max|ref|, 1e-2 * the largest), as phase 7 holds them.  float32: sums
+# in another order (phase 7's limits).  bfloat16: a site's output may
+# round one bf16 step (2^-8) apart and later sites see it.
+MME_STEP_TOL = {"float32": {"loss": 1e-4, "stats": 1e-3, "grad": GRAD_RTOL},
+                "bfloat16": {"loss": 2 ** -6, "stats": 2 ** -6,
+                             "grad": 2 ** -4}}
 
 
 def fail(msg: str) -> None:
@@ -591,6 +632,15 @@ def _device_ms(fn, match, reps=REPS):
     """Device time per launch of ``fn``'s CUDA kernel whose name holds
     ``match`` (one a call), by torch.profiler over ``reps`` calls (0.0 if
     the profiler saw none)."""
+    rows = [(n, ms) for k, n, ms in _device_rows(fn, reps) if match in k]
+    n = sum(r[0] for r in rows)
+    return sum(r[1] for r in rows) / n if n else 0.0
+
+
+def _device_rows(fn, reps=1) -> list:
+    """[(kernel name, launches, device ms)] over ``reps`` calls of ``fn``
+    by torch.profiler, device-side entries only (a CPU op's row repeats
+    its kernels' time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -601,13 +651,11 @@ def _device_ms(fn, match, reps=REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.count, getattr(e, "self_device_time_total",
-                              getattr(e, "self_cuda_time_total", 0)))
+    return [(e.key, e.count, getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0))
+             / 1e3)
             for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU
-            and match in e.key]
-    n = sum(r[0] for r in rows)
-    return sum(r[1] for r in rows) / 1e3 / n if n else 0.0
+            if e.device_type != torch.autograd.DeviceType.CPU]
 
 
 def _seeded_classifier(c, device, seed):
@@ -1011,15 +1059,18 @@ def check_model_grads(sd, device, card):
           "not separate float32 rounding from the bfloat16 control")
 
 
-def write_png_tree(root: str) -> None:
-    """A synthetic Duckietown-like PNG tree from SEED: BGR frames with a
+def write_png_tree(root: str, splits=TRAIN_SPLITS, seed: int = SEED,
+                   unlabelled=()) -> None:
+    """A synthetic Duckietown-like PNG tree from ``seed``: BGR frames with a
     right lane (class 1), a left lane (2) and, on every third frame, an
-    obstacle (3), written by the port's own PNG writer."""
+    obstacle (3), written by the port's own PNG writer.  The ``unlabelled``
+    splits get no ``label/`` directory."""
     from sim2real_lane_segment_tpu_torch.data.png import write_png
 
-    rng = np.random.default_rng(SEED)
-    for split, n in TRAIN_SPLITS:
-        for sub in ("input", "label"):
+    rng = np.random.default_rng(seed)
+    for split, n in splits:
+        subs = ("input",) if split in unlabelled else ("input", "label")
+        for sub in subs:
             os.makedirs(os.path.join(root, split, sub), exist_ok=True)
         frames = synthetic_frames(rng, n)
         for i in range(n):
@@ -1032,12 +1083,17 @@ def write_png_tree(root: str) -> None:
                 img[y0:y0 + 20, x0:x0 + 24] = (30, 30, 200)
                 lab[y0:y0 + 20, x0:x0 + 24] = 3
             write_png(os.path.join(root, split, "input", f"{i:06d}.png"), img)
-            write_png(os.path.join(root, split, "label", f"{i:06d}.png"), lab)
+            if "label" in subs:
+                write_png(os.path.join(root, split, "label",
+                                       f"{i:06d}.png"), lab)
 
 
-def train_phase(card):
+def train_phase(card, keep_dir: str):
     """Phase 8: the training CLI on the card.  Returns the kernels' launch
-    counts over the run and the number of train steps."""
+    counts over the run, the number of train steps and the run's
+    ``best_weights.pt``, copied into ``keep_dir``."""
+    import shutil
+
     import torch
 
     from sim2real_lane_segment_tpu_torch.cli import train as train_cli
@@ -1120,7 +1176,9 @@ def train_phase(card):
               f"resume: latest epoch {latest}, {n_logged} steps logged")
         print(f"train: --resume continued at epoch 2 ({n_logged} steps "
               f"logged in all)")
-    return launches, steps
+        best = shutil.copy(os.path.join(run, "best_weights.pt"),
+                           os.path.join(keep_dir, "sim_best_weights.pt"))
+    return launches, steps, best
 
 
 def _bn_act(x, scale, shift):
@@ -1664,6 +1722,344 @@ def lite_timing(trainer, qn, pairs, device, card, k6_launches, k6_err,
 
 
 
+# ---------------------------------------------------------------------------
+# the MME step (K1, K2, K3a, K3b twice a step), the st and mme CLIs
+# ---------------------------------------------------------------------------
+
+def mme_trainer(sd, policy, device, fused=True):
+    from sim2real_lane_segment_tpu_torch.train.mme import MMETrainer
+
+    return MMETrainer(num_cls=N_CLS, model=make_model(sd, policy, device),
+                      augment=True, pallas_train=fused, device=device)
+
+
+def mme_operands(trainer, device):
+    """Labelled frames, labels and unlabelled frames from SEED, and the
+    step's draws: both batches' augmentation, each phase's masks (channel
+    0 of every site dropped, as in phase 6)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.ops.augment import draw_augment
+
+    rng = np.random.default_rng(SEED + 14)
+    frames = (synthetic_frames(rng, MME_BATCH),
+              rng.integers(0, N_CLS, (MME_BATCH, H, W)).astype(np.uint8),
+              synthetic_frames(rng, MME_BATCH))
+    gen = torch.Generator().manual_seed(SEED + 15)
+    kw = dict(draws_l=draw_augment(gen, MME_BATCH, trainer.cfg, device),
+              draws_u=draw_augment(gen, MME_BATCH, trainer.cfg, device),
+              masks_g=train_masks(trainer.model, MME_BATCH, device,
+                                  SEED + 16),
+              masks_f=train_masks(trainer.model, MME_BATCH, device,
+                                  SEED + 17))
+    return frames, kw
+
+
+def run_mme_step(trainer, frames, kw):
+    """One MME step; returns its logs and both stages of the running
+    statistics (phase G's update, then phase F's)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.train import mme
+
+    stages = []
+    real = mme.apply_batch_stats
+
+    def keep(model, updates):
+        stages.append({k: {s: t.clone() for s, t in v.items()}
+                       for k, v in updates.items()})
+        real(model, updates)
+
+    with mock.patch.object(mme, "apply_batch_stats", keep):
+        logs = trainer.mme_train_step(*frames, *trainer.lrs_at(0), **kw)
+    torch.cuda.synchronize()
+    return logs, stages
+
+
+def _scaled_errs(got, ref) -> list:
+    """Per tensor max|err| / max(max|ref|, 1e-2 * the largest |ref|)."""
+    big = max(r.abs().max().item() for r in ref)
+    return [(a.double() - r.double()).abs().max().item()
+            / max(r.abs().max().item(), 1e-2 * big)
+            for a, r in zip(got, ref)]
+
+
+def compare_mme_step(sd, device, dtype_name, card):
+    """Phase 14 for one dtype: one augmented MME step of FCDenseNet67,
+    B=32, 120x160, (b) through the kernels' plain versions, each call also
+    run through its kernel on the same operands and held against the plain
+    result (phase G's reversed cotangent included), then (a) through the
+    kernels alone from the same state, draws and masks; (a) is held
+    against (b).  Returns the largest max|err| per kernel."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.core.dtypes import (DEFAULT_POLICY,
+                                                             F32_POLICY)
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+
+    policy = F32_POLICY if dtype_name == "float32" else DEFAULT_POLICY
+    site_tol = TRAIN_REL_TOL[dtype_name]
+    errs = {k: 0.0 for k in TRAIN_KERNELS}
+    worst = {(p, k): (0.0, 0) for p in "GF" for k in TRAIN_KERNELS}
+    sites = {k: 0 for k in TRAIN_KERNELS}
+    kernel = {k: getattr(ktb, k) for k in TRAIN_KERNELS}
+
+    def holding(name):
+        plain = getattr(ktb, f"{name}_plain")
+
+        def wrapper(*a, **kw):
+            outs = _as_list(kernel[name](*a, **{k: v for k, v in kw.items()
+                                                if k != "out"}))
+            ref = plain(*a, **kw)
+            sites[name] += 1
+            phase = "G" if sites[name] <= TRAIN_LAUNCHES_PER_STEP[name] \
+                else "F"
+            rels = [_rel(o, r) for o, r in zip(outs, _as_list(ref))]
+            check(max(rels) <= site_tol,
+                  f"{dtype_name} MME phase {phase} {TRAIN_KERNELS[name][0]} "
+                  f"site {sites[name]}: relative errors {rels} > {site_tol}")
+            errs[name] = max(errs[name], max(
+                (o.float() - r.float()).abs().max().item()
+                for o, r in zip(outs, _as_list(ref))))
+            if max(rels) >= worst[phase, name][0]:
+                worst[phase, name] = (max(rels), sites[name])
+            return ref
+        return wrapper
+
+    plain_run = mme_trainer(sd, policy, device)
+    frames, kw = mme_operands(plain_run, device)
+    with mock.patch.multiple(ktb, **{k: holding(k) for k in TRAIN_KERNELS}):
+        ref_logs, ref_stages = run_mme_step(plain_run, frames, kw)
+    check(sites == {k: 2 * v for k, v in TRAIN_LAUNCHES_PER_STEP.items()},
+          f"{dtype_name} MME: compared sites {sites}")
+    for (phase, name), (rel, site) in worst.items():
+        print(f"  {dtype_name} MME phase {phase} {TRAIN_KERNELS[name][0]:16s}"
+              f" {TRAIN_LAUNCHES_PER_STEP[name]:2d} sites: worst max|err|/"
+              f"max|ref| {rel:.2e} (site {site})  [{card}]")
+
+    kernel_run = mme_trainer(sd, policy, device)
+    ktb.reset_launches()
+    logs, stages = run_mme_step(kernel_run, frames, kw)
+    launches, mma = dict(ktb.launches), dict(ktb.mma_launches)
+    expect = {k: 2 * v for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    expect_mma = {k: 2 * v * (dtype_name == "bfloat16")
+                  for k, v in TRAIN_MMA_PER_STEP.items()}
+    print(f"  {dtype_name} MME step launches {json.dumps(launches)}, "
+          f"expected {json.dumps(expect)}; on the tensor-core route "
+          f"{json.dumps(mma)}, expected {json.dumps(expect_mma)}")
+    check(launches == expect, f"{dtype_name} MME launch counts differ")
+    check(mma == expect_mma, f"{dtype_name} MME: tensor-core routes differ")
+
+    tol = MME_STEP_TOL[dtype_name]
+    e_loss = {k: _rel(logs[k], ref_logs[k]) for k in ref_logs}
+    e_stats = [max(_rel(st[k][s], ref[k][s]) for k in ref for s in ref[k])
+               for st, ref in zip(stages, ref_stages, strict=True)]
+    e_g = _scaled_errs(kernel_run.opt_g.trace, plain_run.opt_g.trace)
+    e_f = _scaled_errs(kernel_run.opt.mu, plain_run.opt.mu)
+    lr_f = kernel_run.lrs_at(0)[2]
+    dp = max((a - b).abs().max().item() for a, b in zip(
+        kernel_run.params, plain_run.params)) / lr_f
+    print(f"  {dtype_name} MME step, kernels vs plain (B={MME_BATCH}): losses "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in e_loss.items()})}"
+          f" (values {float(logs['tr_loss_adent']):.5f}, "
+          f"{float(logs['tr_loss']):.5f}); running statistics, phase G "
+          f"{e_stats[0]:.2e}, phase F {e_stats[1]:.2e}; gradients over "
+          f"{len(e_g)} parameters, phase G worst {max(e_g):.2e}, phase F "
+          f"worst {max(e_f):.2e}; parameters max|diff| {dp:.3f} x Adam's lr"
+          f"  [{card}]")
+    check(max(e_loss.values()) <= tol["loss"], f"{dtype_name} MME losses "
+          f"{e_loss} > {tol['loss']}")
+    check(max(e_stats) <= tol["stats"], f"{dtype_name} MME running "
+          f"statistics {e_stats} > {tol['stats']}")
+    check(max(e_g + e_f) <= tol["grad"], f"{dtype_name} MME gradients "
+          f"{max(e_g)}, {max(e_f)} > {tol['grad']}")
+    # Adam's first step is about +-lr per element whatever the gradient's
+    # size, so a gradient that is float noise may step either way
+    check(dp <= 2.0 + tol["grad"], f"{dtype_name} MME parameters differ by "
+          f"{dp} x lr")
+    return errs
+
+
+def two_domain_phase(card, sim_weights):
+    """Phase 15: ``cli.train.main --trainType st`` then ``mme`` (from phase
+    8's weights), both ``--augment --pallas_train``, one epoch each on a
+    two-domain PNG tree, then ``cli.test.main -t mme --fused`` on the MME
+    run's weights.  Returns the MME run's launches and steps."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import test as test_cli
+    from sim2real_lane_segment_tpu_torch.cli import train as train_cli
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+
+    plain_calls = {k: 0 for k in TRAIN_KERNELS}
+
+    def counting(name):
+        fn = getattr(ktb, f"{name}_plain")
+
+        def wrapper(*a, **kw):
+            plain_calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "simRealData")
+        t0 = time.perf_counter()
+        write_png_tree(root, MME_SPLITS, SEED + 18,
+                       unlabelled=("target/unlabelled",))
+        print(f"two-domain: wrote {sum(n for _, n in MME_SPLITS)} PNG frames "
+              f"({', '.join(f'{s} {n}' for s, n in MME_SPLITS)}) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        n_lab = MME_SPLITS[0][1] + MME_SPLITS[1][1]
+        args = ["--dataPath", root, "--arch", ARCH, "--pallas_train",
+                "--augment", "--height", str(H), "--width", str(W),
+                "--max_epochs", "1", "-b", str(TRAIN_BATCH),
+                "--default_root_dir", tmp, "--log_every", "1", "--seed",
+                str(SEED)]
+        for regime, extra, passes in (
+                ("st", [], 1),
+                ("mme", ["--pretrained_path", sim_weights], 2)):
+            with mock.patch.multiple(ktb, **{f"{k}_plain": counting(k)
+                                             for k in TRAIN_KERNELS}):
+                ktb.reset_launches()
+                t0 = time.perf_counter()
+                res = train_cli.main(["--trainType", regime, "--model_name",
+                                      regime, *args, *extra])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(ktb.launches)
+                mma = dict(ktb.mma_launches)
+            with open(os.path.join(res["out_dir"], "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            logged = [r for r in rows if "train/tr_loss" in r]
+            keys = [k for k in logged[0] if k.startswith("train/")] \
+                if logged else []
+            values = [r[k] for r in logged for k in keys]
+            steps = len(logged)
+            check(steps == n_lab // TRAIN_BATCH,
+                  f"{regime}: {steps} train steps logged")
+            check(bool(np.isfinite(values).all()), f"{regime}: {values}")
+            expect = {k: v * passes * steps
+                      for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+            expect_mma = {k: v * passes * steps
+                          for k, v in TRAIN_MMA_PER_STEP.items()}
+            print(f"two-domain: --trainType {regime} --augment --pallas_train"
+                  f", 1 epoch, {steps} steps of B={TRAIN_BATCH} in {wall:.1f}"
+                  f" s (with validation, test and checkpoints); "
+                  f"{', '.join(k[6:] for k in keys)} "
+                  f"{[round(v, 4) for v in values]}, best val_iou "
+                  f"{res['best_iou']:.3f}  [{card}]")
+            print(f"two-domain: {regime} kernel launches "
+                  f"{json.dumps(launches)}, expected {json.dumps(expect)} "
+                  f"({passes} pass(es) a step); tensor-core route "
+                  f"{json.dumps(mma)}; plain versions called "
+                  f"{json.dumps(plain_calls)}")
+            check(launches == expect, f"{regime}: launch counts differ")
+            check(mma == expect_mma, f"{regime}: a launch left the "
+                  f"tensor-core route")
+            check(not any(plain_calls.values()), "a plain version ran")
+        mme_launches, mme_steps = launches, steps
+
+        kdb.reset_launches()
+        test_dir = os.path.join(root, "target", "test")
+        res = test_cli.main(["-t", "mme", "--checkpointPath",
+                             os.path.join(res["out_dir"], "best_weights.pt"),
+                             "--testDataPath", test_dir, "--arch", ARCH,
+                             "--height", str(H), "--width", str(W),
+                             "--fused", "--batch_size", str(TRAIN_BATCH)])
+        torch.cuda.synchronize()
+        n_test = MME_SPLITS[2][1]
+        check({"acc", "dice", "iou", "loss", "confusion"} <= set(res),
+              f"cli.test returned {sorted(res)}")
+        check(int(res["confusion"].sum()) == n_test * H * W,
+              f"confusion matrix counts {res['confusion'].sum()} pixels")
+        batches = -(-n_test // TRAIN_BATCH)
+        expect = {"dense_layer": 55 * batches, "transition": 5 * batches,
+                  "classifier": batches}
+        check(dict(kdb.launches) == expect,
+              f"cli.test --fused: K4 launches {kdb.launches}, expected "
+              f"{expect}")
+        print(f"two-domain: cli.test -t mme --fused on {n_test} target/test "
+              f"frames: acc {res['acc']:.4f}, dice {res['dice']:.4f}, iou "
+              f"{res['iou']:.4f}; K4 launches {json.dumps(kdb.launches)}  "
+              f"[{card}]")
+    return mme_launches, mme_steps
+
+
+def mme_timing(sd, device, card):
+    """Phase 16: the augmented B=32 MME step through the kernels against
+    the plain step (autograd through cuDNN), CUDA events per step, medians
+    of REPS steps taken in turns; the step's device busy time and idle
+    share by torch.profiler; ``augment_batch`` and ``draw_augment`` at
+    B=32 from each source size in AUG_SOURCES."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from sim2real_lane_segment_tpu_torch.ops.augment import (augment_batch,
+                                                             draw_augment)
+
+    trainers = {fused: mme_trainer(sd, DEFAULT_POLICY, device, fused)
+                for fused in (True, False)}
+    frames, _ = mme_operands(trainers[True], device)
+    gens = {fused: torch.Generator().manual_seed(SEED + 19)
+            for fused in trainers}
+
+    def step(fused):
+        t = trainers[fused]
+        t.mme_train_step(*frames, *t.lrs_at(0), generator=gens[fused])
+
+    def one_ms(fused):
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        step(fused)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1)
+
+    for fused in trainers:  # warm-up
+        step(fused)
+    torch.cuda.synchronize()
+    t = {True: [], False: []}
+    for fused in (False, True, True, False):  # in turns
+        t[fused] += [one_ms(fused) for _ in range(REPS // 2)]
+    med = {k: float(np.median(v)) for k, v in t.items()}
+    print(f"timing: MME step B={MME_BATCH} --augment --pallas_train "
+          f"{med[True]:.3f} ms (median of {len(t[True])}, range "
+          f"{min(t[True]):.3f}-{max(t[True]):.3f}); plain step (autograd "
+          f"through cuDNN) {med[False]:.3f} ms (range {min(t[False]):.3f}-"
+          f"{max(t[False]):.3f})  [{card}]")
+
+    rows = _device_rows(lambda: step(True))
+    busy = sum(ms for _, _, ms in rows)
+    ours = [(n, ms) for k, n, ms in rows
+            if "(anonymous namespace)::" in k or "s2r_" in k]
+    print(f"timing: MME step device busy {busy:.3f} ms of {med[True]:.3f} "
+          f"(idle share {max(0.0, 1 - busy / med[True]):.3f}) in "
+          f"{sum(n for _, n, _ in rows)} device launches; the port's kernels "
+          f"{sum(ms for _, ms in ours):.3f} ms in {sum(n for n, _ in ours)} "
+          f"launches  [{card}]")
+    check(busy > 0, "torch.profiler saw no device time in the MME step")
+
+    cfg = trainers[True].cfg
+    rng = np.random.default_rng(SEED + 20)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    for src in AUG_SOURCES:
+        images = torch.from_numpy(rng.integers(
+            0, 256, (MME_BATCH, *src, 3), dtype=np.uint8)).to(device)
+        labels = torch.from_numpy(rng.integers(
+            0, N_CLS, (MME_BATCH, *src), dtype=np.uint8)).to(device)
+        draws = draw_augment(gen, MME_BATCH, cfg, device)
+        aug_ms = _time_ms(lambda: augment_batch(images, labels, cfg, draws))
+        draw_ms = _time_ms(lambda: draw_augment(gen, MME_BATCH, cfg, device))
+        rows = _device_rows(lambda: augment_batch(images, labels, cfg,
+                                                  draws))
+        print(f"timing: augment_batch B={MME_BATCH} {src[0]}x{src[1]} -> "
+              f"{H}x{W} {aug_ms:.3f} ms (device busy "
+              f"{sum(ms for _, _, ms in rows):.3f} ms in "
+              f"{sum(n for _, n, _ in rows)} launches), draw_augment "
+              f"{draw_ms:.3f} ms  [{card}]")
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -1742,7 +2138,8 @@ def main() -> None:
     check_model_grads(sd, device, card)
 
     # phase 8: train end to end (the training main path)
-    train_launches, _ = train_phase(card)
+    work = tempfile.TemporaryDirectory()
+    train_launches, _, sim_weights = train_phase(card, work.name)
 
     # phase 9: train timing
     kernels += train_timing(sd, device, card, train_launches,
@@ -1767,6 +2164,28 @@ def main() -> None:
     print("engine lite: " + ", ".join(f"{k} {v:.1f} frames/s"
                                       for k, v in lite_fps.items())
           + f" end to end  [{card}]", flush=True)
+
+    # phase 14: one MME step, kernels against plain at every site
+    t0 = time.perf_counter()
+    for dtype_name in ("float32", "bfloat16"):
+        compare_mme_step(sd, device, dtype_name, card)
+    print(f"compare: MME step done in {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]", flush=True)
+
+    # phase 15: the st and mme CLIs, then cli.test, end to end
+    t0 = time.perf_counter()
+    mme_launches, mme_steps = two_domain_phase(card, sim_weights)
+    work.cleanup()
+    print(f"two-domain: done in {time.perf_counter() - t0:.1f} s; K1-K3b "
+          f"launches per MME step "
+          f"{json.dumps({k: v // mme_steps for k, v in mme_launches.items()})}"
+          f"  [{card}]", flush=True)
+
+    # phase 16: MME step and augmentation timing
+    t0 = time.perf_counter()
+    mme_timing(sd, device, card)
+    print(f"timing: phase 16 done in {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

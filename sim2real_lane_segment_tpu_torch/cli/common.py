@@ -21,8 +21,7 @@ def add_data_args(parser: argparse.ArgumentParser) -> None:
     g.add_argument("--height", type=int, default=120,
                    help="Resize height of input images")
     g.add_argument("--augment", action="store_true",
-                   help="Use data augmentation on training set "
-                        "(not yet ported)")
+                   help="Use data augmentation on training set")
     g.add_argument("-b", "--batch_size", type=int, default=32,
                    help="Input batch size")
     g.add_argument("--load2memory", action="store_true",

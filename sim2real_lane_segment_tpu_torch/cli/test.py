@@ -1,17 +1,32 @@
-"""Model construction and weight loading for the evaluation and serving
-CLIs.
+"""Evaluation CLI, the reference ``test.py`` interface, and the model
+construction and weight loading of the evaluation and serving CLIs.
 
-Counterpart of ``build_model`` and ``load_trainer_and_state`` in the JAX
-package's ``cli/test.py``.  The FC-DenseNet archs (67, 57, 103, tiny) and
-LaneNetLite (``lite``) are ported; ``67r``, ``encdec`` and the ``mme``
-module type are not yet, and raise.  The evaluation ``main`` belongs to a
-later slice.
+Counterpart of the JAX package's ``cli/test.py``:
+
+    python -m sim2real_lane_segment_tpu_torch.cli.test -t mme \\
+        --checkpointPath best_weights.pt --testDataPath simRealData/target/test
+
+``main`` evaluates ``--testDataPath`` (an ``input/`` + ``label/`` PNG
+directory) in batches: the eval step's accuracy, Dice and IoU, and the
+4x4 confusion matrix of the predictions (through the fused forward with
+``--fused``), printed and returned as the JAX CLI prints and returns
+them.  It runs on the card unless given ``device="cpu"``.  The
+FC-DenseNet archs (67, 57, 103, tiny) and LaneNetLite (``lite``) are
+ported.  Not yet ported, and raising: the archs ``67r`` and ``encdec``,
+and the sample montage (``--trainDataPath`` with ``--realDataPath``),
+which resizes with cv2's LANCZOS4.
 """
 from __future__ import annotations
 
+import argparse
+
+import numpy as np
+
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
+from . import common
 
 PORTED_ARCHES = ("67", "57", "103", "tiny", "lite")
+ARCHES = ["67", "67r", "57", "103", "tiny", "lite", "encdec"]
 
 
 def build_model(arch: str, num_cls: int,
@@ -37,17 +52,91 @@ def load_trainer_and_state(module_type: str, checkpoint_path: str,
                            num_cls: int = 4, arch: str = "67",
                            height: int = 120, width: int = 160,
                            device=None, policy: DTypePolicy = DEFAULT_POLICY):
-    """A ``SupervisedTrainer`` on ``device`` (default ``cuda``) holding the
-    weights at ``checkpoint_path`` (``.pt``, ``.msgpack`` or ``.npz``).  The
-    model holds the weights, so the trainer is the whole state."""
+    """A trainer on ``device`` (default ``cuda``) holding the weights at
+    ``checkpoint_path`` (``.pt``, ``.msgpack`` or ``.npz``): an
+    ``MMETrainer`` for ``mme``, else a ``SupervisedTrainer``.  The model
+    holds the weights, so the trainer is the whole state."""
     from ..train.checkpoint import load_weights
+    from ..train.mme import MMETrainer
     from ..train.supervised import SupervisedTrainer
 
     if module_type == "mme":
-        raise NotImplementedError("-t mme is not yet ported to PyTorch")
-    if module_type not in ("baseline", "sandt", "hm", "CycleGAN"):
+        trainer_cls = MMETrainer
+    elif module_type in ("baseline", "sandt", "hm", "CycleGAN"):
+        trainer_cls = SupervisedTrainer
+    else:
         raise RuntimeError(f"Cannot recognize module type {module_type}")
     model = build_model(arch, num_cls, policy)
     load_weights(checkpoint_path, model)
-    return SupervisedTrainer(num_cls=num_cls, model=model, height=height,
-                             width=width, device=device)
+    return trainer_cls(num_cls=num_cls, model=model, height=height,
+                       width=width, device=device)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("-t", "--module_type", required=True,
+                   choices=["baseline", "sandt", "hm", "CycleGAN", "mme"])
+    p.add_argument("--checkpointPath", type=str, required=True)
+    p.add_argument("-c", "--showCount", type=int, default=5)
+    p.add_argument("--realDataPath", type=str)
+    p.add_argument("--trainDataPath", type=str)
+    p.add_argument("--testDataPath", type=str)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--arch", choices=ARCHES, default="67")
+    p.add_argument("--fused", action="store_true",
+                   help="predict through the fused FC-DenseNet forward")
+    p.add_argument("--height", type=int, default=120)
+    p.add_argument("--width", type=int, default=160)
+    return p
+
+
+def main(args=None, device=None) -> dict:
+    """Evaluate; ``device`` defaults to ``cuda`` and raises without a
+    card."""
+    import torch
+
+    from ..data.datasets import RightLaneDataset
+    from ..data.samplers import batched
+    from ..ops.augment import eval_batch
+    from ..ops.metrics import confusion_matrix, summarize_weighted
+
+    common.setup_logging()
+    args = build_parser().parse_args(args)
+    if args.trainDataPath and args.realDataPath:
+        raise NotImplementedError(
+            "the sample montage (--trainDataPath, --realDataPath) resizes "
+            "with cv2 LANCZOS4 and is not yet ported to PyTorch")
+    trainer = load_trainer_and_state(
+        args.module_type, args.checkpointPath, arch=args.arch,
+        height=args.height, width=args.width, device=device)
+    predict = (trainer.predict_step_fused if args.fused
+               else trainer.predict_step)
+    results: dict = {}
+    if args.testDataPath:
+        ds = RightLaneDataset(args.testDataPath, True)
+        outs = []
+        conf = torch.zeros(4, 4, dtype=torch.int64, device=trainer.device)
+        for idx in batched(np.arange(len(ds)), args.batch_size,
+                           drop_last=False):
+            images, labels = ds.read_batch(idx)
+            outs.append({k: float(v) for k, v in
+                         trainer.eval_step(images, labels).items()})
+            preds = predict(images)
+            _, y = eval_batch(torch.from_numpy(images),
+                              torch.from_numpy(labels), trainer.cfg)
+            conf += confusion_matrix(preds, y.to(trainer.device), 4)
+        logs = summarize_weighted(outs)
+        conf = conf.cpu().numpy()
+        print(f"Accuracy on test set: {logs['acc']:.4f}%")
+        print(f"Dice score on test set: {logs['dice']:.4f}")
+        print(f"IoU on test set: {logs['iou']:.4f}")
+        print("Confusion matrix (column: prediction, row: label):")
+        print(conf)
+        print(f"Total: {conf.sum()}")
+        results.update(logs)
+        results["confusion"] = conf
+    return results
+
+
+if __name__ == "__main__":
+    main()

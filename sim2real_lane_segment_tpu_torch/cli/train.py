@@ -1,19 +1,26 @@
 """Training CLI, the reference ``train.py`` interface.
 
-Counterpart of the JAX package's ``cli/train.py`` for ``--trainType
-sim``:
+Counterpart of the JAX package's ``cli/train.py``:
 
     python -m sim2real_lane_segment_tpu_torch.cli.train --trainType sim \\
-        --dataPath simData --arch 67 --pallas_train -b 32 --max_epochs 175
+        --dataPath simData --arch 67 --pallas_train --augment -b 32
+    python -m sim2real_lane_segment_tpu_torch.cli.train --trainType mme \\
+        --dataPath simRealData --pretrained_path best_weights.pt \\
+        --pallas_train --augment -b 32
 
-``--pallas_train`` runs the FC-DenseNet train step through the fused
-consumer kernels (``models.tiramisu_train_fused``); without it the plain
-module trains with autograd.  Training runs on the card unless ``main``
-is given ``device="cpu"``.  Artifacts go to
-``<default_root_dir or results>/<model_name>``: ``metrics.jsonl``,
-``checkpoints/best.pt`` (best val_iou), ``checkpoints_latest/latest.pt``
-and ``best_weights.pt``.  Not yet ported, and raising: ``--trainType st`` and
-``mme``, ``--augment``, ``--fast_train``, ``--device_cache``, ``--dp``
+``--trainType sim`` trains on ``train``/``valid``/``test`` under
+``--dataPath``; ``st`` on ``source/`` and ``target/{train,test}`` drawn
+50/50 per sample; ``mme`` adds ``target/unlabelled`` and runs MME's
+two-phase step from the ``--pretrained_path`` weights (``.pt``,
+``.msgpack`` or ``.npz``), which it requires.  ``--augment`` runs the
+training augmentation on the card.  ``--pallas_train`` runs the
+FC-DenseNet train step through the fused consumer kernels
+(``models.tiramisu_train_fused``); without it the plain module trains
+with autograd.  Training runs on the card unless ``main`` is given
+``device="cpu"``.  Artifacts go to ``<default_root_dir or
+results>/<model_name>``: ``metrics.jsonl``, ``checkpoints/best.pt`` (best
+val_iou), ``checkpoints_latest/latest.pt`` and ``best_weights.pt``.  Not
+yet ported, and raising: ``--fast_train``, ``--device_cache``, ``--dp``
 and ``--profile``.
 """
 from __future__ import annotations
@@ -24,7 +31,7 @@ import os
 
 from . import common
 
-NOT_PORTED = ("augment", "fast_train", "device_cache", "profile")
+NOT_PORTED = ("fast_train", "device_cache", "profile")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,8 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataPath", type=str, required=True,
                    help="Path of database root")
     p.add_argument("--pretrained_path", type=str,
-                   help="MME training uses pretrained weights (not yet "
-                        "ported)")
+                   help="MME training uses pretrained weights")
     p.add_argument("--model_name", type=str, default="baseline",
                    help="Model identifier for logging and checkpoints.")
     p.add_argument("--reproducible", action="store_true",
@@ -73,16 +79,17 @@ def main(args=None, device=None) -> dict:
     """Train; ``device`` defaults to ``cuda`` and raises without a card."""
     import torch
 
-    from ..data.modules import SimulatorDataModule
+    from ..data.modules import (SimulatorDataModule, TwoDomainDataModule,
+                                TwoDomainMMEDataModule)
     from ..train.loop import fit
+    from ..train.mme import MMETrainer
     from ..train.supervised import SupervisedTrainer
     from .test import build_model
 
     common.setup_logging()
     args = build_parser().parse_args(args)
-    if args.trainType != "sim":
-        raise NotImplementedError(
-            f"--trainType {args.trainType} is not yet ported to PyTorch")
+    if args.trainType == "mme" and not args.pretrained_path:
+        raise SystemExit("--trainType=mme requires --pretrained_path")
     for flag in NOT_PORTED:
         if getattr(args, flag):
             raise NotImplementedError(
@@ -93,16 +100,22 @@ def main(args=None, device=None) -> dict:
     seed = 42 if args.reproducible else args.seed
     out_dir = os.path.join(args.default_root_dir or "results",
                            args.model_name)
-    data = SimulatorDataModule(args.dataPath, batch_size=args.batch_size,
-                               seed=seed, load_into_memory=args.load2memory)
+    module, trainer_cls = {
+        "sim": (SimulatorDataModule, SupervisedTrainer),
+        "st": (TwoDomainDataModule, SupervisedTrainer),
+        "mme": (TwoDomainMMEDataModule, MMETrainer)}[args.trainType]
+    data = module(args.dataPath, batch_size=args.batch_size, seed=seed,
+                  load_into_memory=args.load2memory)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)  # the initial weights
         model = build_model(args.arch, 4)
-    trainer = SupervisedTrainer(
+    trainer = trainer_cls(
         num_cls=4, lr=args.learningRate, decay=args.decay,
         lr_ratio=args.lrRatio, height=args.height, width=args.width,
-        gray=args.gray, model=model, pallas_train=args.pallas_train,
-        device=device)
+        gray=args.gray, augment=args.augment, model=model,
+        pallas_train=args.pallas_train, device=device)
+    if args.trainType == "mme":
+        trainer.from_pretrained(args.pretrained_path)
     data.setup()
     _, best_iou, _ = fit(trainer, data, max_epochs=args.max_epochs,
                          out_dir=out_dir, seed=seed,

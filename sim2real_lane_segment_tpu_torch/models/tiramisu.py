@@ -25,8 +25,9 @@ in f32 over N, H, W) and returns the running-statistics update ``0.9 * old
 operand (``drop_masks``), one ``[B, C]`` tensor per dropout site in the
 JAX site order (``dropout_sites``), already scaled by 1/(1-rate); the
 2x2 max-pool is an ``amax`` over the window, whose gradient splits evenly
-among tied maxima as the JAX train paths' does.  Gradient reversal (MME)
-is not ported yet.
+among tied maxima as the JAX train paths' does.  ``grad_reverse`` is
+MME's gradient reversal: the identity forward, the negated gradient
+backward.
 """
 from __future__ import annotations
 
@@ -84,6 +85,21 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
     ho, wo = h // 2, w // 2
     y = x[:, :, :ho * 2, :wo * 2].reshape(b, c, ho, 2, wo, 2)
     return y.amax(dim=(3, 5))
+
+
+class _GradReverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -g
+
+
+def grad_reverse(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; negated gradient backward (GradReverse)."""
+    return _GradReverse.apply(x)
 
 
 def bn_relu(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:

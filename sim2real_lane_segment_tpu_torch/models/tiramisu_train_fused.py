@@ -35,7 +35,8 @@ import torch.nn.functional as F
 
 from ..kernels import train_block as ktb
 from .tiramisu import (EPS, DenseBlock, FCDenseNet, batch_stats,
-                       dropout_sites, max_pool2, running_update, transition_up)
+                       dropout_sites, grad_reverse, max_pool2, running_update,
+                       transition_up)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +266,8 @@ def _block_train(block: DenseBlock, segs, stats, masks, updates, prefix,
 
 def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
                       use_softmax: bool = True,
-                      fused_block_bwd: bool = True):
+                      fused_block_bwd: bool = True,
+                      reverse_features: bool = False):
     """Train-mode forward of an ``FCDenseNet`` through the fused consumer
     kernels, differentiable by autograd.
 
@@ -274,6 +276,9 @@ def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
     new_batch_stats)`` like ``model(x, train=True, masks=masks)``.
     ``fused_block_bwd=False`` runs every dense layer as its own
     ``Consumer`` (K2 backward) instead of the fused block sweep.
+    ``reverse_features`` puts MME's ``grad_reverse`` on the features that
+    enter the head: the JAX path reverses each segment of that concat,
+    which is the same.
     """
     if model.kernel_size != 1:
         raise NotImplementedError("the fused train head takes a 1x1 "
@@ -320,4 +325,6 @@ def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
         cat, _, new, _ = block(f"denseUp{i}", [up, skip],
                                [batch_stats(up), skip_st])
         feats = cat if i == len(model.up_blocks) - 1 else new
+    if reverse_features:
+        feats = grad_reverse(feats)
     return head(model, feats, use_softmax), updates

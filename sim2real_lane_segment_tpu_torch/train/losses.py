@@ -1,7 +1,8 @@
 """Supervised losses with the reference's semantics.
 
 Counterpart of ``sim2real_lane_segment_tpu.train.losses``:
-``get_class_weight``, ``cross_entropy`` and ``weighted_cross_entropy``.
+``get_class_weight``, ``cross_entropy``, ``weighted_cross_entropy`` and
+MME's ``adentropy``.
 Outputs are NCHW (class axis 1), the port's model layout; targets are
 (N, H, W) integer maps.  As in the reference, the trainer feeds the
 model's *softmax* output to ``cross_entropy``, which applies
@@ -43,3 +44,13 @@ def weighted_cross_entropy(outputs: torch.Tensor, targets: torch.Tensor,
     """``cross_entropy`` with this batch's inverse-frequency weights."""
     return cross_entropy(outputs, targets,
                          get_class_weight(targets, num_classes))
+
+
+def adentropy(probs: torch.Tensor, lamda: float = 1.0) -> torch.Tensor:
+    """MME's adversarial entropy (reference MMETrainingModule.py:10-11):
+    ``lamda * mean over (N, H, W) of sum_c p * log(p + 1e-5)`` for (N, C,
+    H, W) probabilities, the *negative* entropy.  Minimized through
+    ``grad_reverse``, it maximizes the classifier's entropy on unlabelled
+    target frames."""
+    p = at_least_f32(probs)
+    return lamda * torch.mean(torch.sum(p * torch.log(p + 1e-5), dim=1))

@@ -1,16 +1,24 @@
-"""AdamW in the order of the JAX package's ``optax`` chain, with the
+"""Optimizers in the order of the JAX package's ``optax`` chains, with the
 learning rate given per step.
 
-Counterpart of ``sim2real_lane_segment_tpu.train.optim.adamw`` plus
-``apply_updates``: ``scale_by_adam`` (bias-corrected moments, ``u =
-m_hat / (sqrt(v_hat) + eps)``), then ``add_decayed_weights`` (``u += wd *
-p``), then ``p -= lr * u``.  The learning rate is an argument of ``step``
-rather than part of the optimizer, so a schedule never rebuilds it.
-Weight decay applies to every parameter, as in the JAX chain.
+Counterparts of ``sim2real_lane_segment_tpu.train.optim``:
+
+- ``AdamW`` (``adamw`` plus ``apply_updates``): ``scale_by_adam``
+  (bias-corrected moments, ``u = m_hat / (sqrt(v_hat) + eps)``), then
+  ``add_decayed_weights`` (``u += wd * p``), then ``p -= lr * u``;
+- ``SGDNesterov`` (``sgd_nesterov`` plus ``apply_updates`` with per-leaf
+  factors): torch's SGD(momentum, nesterov=True, weight_decay), ``g' = g +
+  wd * p``, ``buf = mu * buf + g'``, ``u = g' + mu * buf``, ``p -= lr_p *
+  u`` with one learning rate per parameter (``lr_factors`` is the
+  counterpart of ``lr_factor_tree``).
+
+The learning rate is an argument of ``step`` rather than part of the
+optimizer, so a schedule never rebuilds it.  Weight decay applies to
+every parameter, as in the JAX chains.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
@@ -49,3 +57,40 @@ class AdamW:
         self.count = int(state["count"])
         for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
             dst.copy_(src)
+
+
+class SGDNesterov:
+    def __init__(self, params: Sequence[torch.Tensor], weight_decay: float,
+                 momentum: float = 0.9):
+        self.params = list(params)
+        self.weight_decay = weight_decay
+        self.momentum = momentum
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor],
+             lrs: Sequence[float]) -> None:
+        """One update of every parameter in place; ``lrs`` holds one
+        learning rate per parameter."""
+        mu = self.momentum
+        for p, g, buf, lr in zip(self.params, grads, self.trace, lrs,
+                                 strict=True):
+            g = g + self.weight_decay * p
+            buf.mul_(mu).add_(g)
+            p.sub_(lr * (g + mu * buf))
+
+    def state_dict(self) -> dict:
+        """The momentum buffers, copied to the CPU."""
+        return {"trace": [t.to("cpu", copy=True) for t in self.trace]}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copies the buffers in place, onto the parameters' device."""
+        for dst, src in zip(self.trace, state["trace"], strict=True):
+            dst.copy_(src)
+
+
+def lr_factors(named_params, factor_fn: Callable[[str], float]
+               ) -> list[float]:
+    """One learning-rate factor per parameter from its name (the
+    counterpart of the JAX ``lr_factor_tree``)."""
+    return [float(factor_fn(name)) for name, _ in named_params]

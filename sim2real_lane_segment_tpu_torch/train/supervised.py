@@ -1,12 +1,12 @@
-"""Supervised segmentation trainer (regime ``sim``): train, eval and
-predict steps.
+"""Supervised segmentation trainer (regimes ``sim`` and ``st``): train,
+eval and predict steps.
 
 Counterpart of ``sim2real_lane_segment_tpu.train.supervised``.  The
 trainer owns the model (weights and running statistics) and the AdamW
 state on its device, so the steps take batches alone:
 
-- ``train_step``: ``eval_batch`` (augmentation is not ported yet), the
-  train-mode forward, the class-weighted cross entropy on the softmax
+- ``train_step``: ``augment_batch`` (with ``augment``) or ``eval_batch``,
+  the train-mode forward, the class-weighted cross entropy on the softmax
   output, gradients, AdamW at this step's learning rate, and the running
   statistics update.  With ``pallas_train`` the forward is
   ``models.tiramisu_train_fused.fused_apply_train`` (kernels K1, K2, K3a,
@@ -17,8 +17,11 @@ state on its device, so the steps take batches alone:
   The trainer also holds a LaneNetLite (``--arch lite``) for the predict
   and eval steps; its train mode is not ported yet.
 
-Dropout masks are drawn from an explicit ``torch.Generator``
-(``models.tiramisu.drop_masks``) or given as operands.
+The random draws are operands: the augmentation's (``ops.augment.
+AugmentDraws``) and the Dropout2d masks (``models.tiramisu.drop_masks``).
+When a step is not given them it draws them from an explicit
+``torch.Generator``, augmentation first, then dropout (the JAX step's
+``k_aug, k_drop`` order).
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from ..models.tiramisu import (FCDenseNet, apply_batch_stats, drop_masks,
                                fcdensenet67)
 from ..models.tiramisu_fused import FoldedModel, fold_model, fused_apply
 from ..models.tiramisu_train_fused import fused_apply_train
-from ..ops.augment import AugmentConfig, eval_batch
+from ..ops.augment import (AugmentConfig, AugmentDraws, augment_batch,
+                           draw_augment, eval_batch)
 from ..ops.metrics import accuracy, evaluate_outputs
 from .losses import cross_entropy, weighted_cross_entropy
 from .optim import AdamW
@@ -53,13 +57,11 @@ class SupervisedTrainer:
                  policy: DTypePolicy = DEFAULT_POLICY,
                  model: nn.Module | None = None, pallas_train: bool = False,
                  device=None):
-        if augment:
-            raise NotImplementedError(
-                "--augment (augment_batch) is not yet ported to PyTorch")
         self.num_cls = num_cls
         self.lr = lr
         self.decay = decay
         self.lr_ratio = lr_ratio
+        self.augment = augment
         self.device = resolve_device(device)
         self.cfg = AugmentConfig(height=height, width=width, gray=gray,
                                  min_crop_height=height // 2,
@@ -98,29 +100,48 @@ class SupervisedTrainer:
             a = torch.from_numpy(np.ascontiguousarray(a))
         return a.to(self.device)
 
-    def _batch(self, images, labels):
-        """uint8 NHWC frames (+ labels) -> NCHW float32 input, int64 labels."""
-        x, y = eval_batch(self._to_device(images),
-                          None if labels is None else self._to_device(labels),
-                          self.cfg, with_labels=labels is not None)
+    def _batch(self, images, labels, draws: AugmentDraws | None = None):
+        """uint8 NHWC frames (+ labels) -> NCHW float32 input, int64 labels;
+        through ``augment_batch`` when ``draws`` are given."""
+        images = self._to_device(images)
+        labels = None if labels is None else self._to_device(labels)
+        if draws is None:
+            x, y = eval_batch(images, labels, self.cfg,
+                              with_labels=labels is not None)
+        else:
+            x, y = augment_batch(images, labels, self.cfg,
+                                 draws.to(self.device),
+                                 with_labels=labels is not None)
         x = x.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW, once
         return x, (None if y is None else y.to(torch.int64))
 
+    def _train_input(self, images, labels, draws, generator):
+        """``_batch`` for a train step: augmented with ``draws``, drawn
+        from ``generator`` when not given, if the trainer augments."""
+        if self.augment and draws is None:
+            draws = draw_augment(generator, len(images), self.cfg,
+                                 self.device)
+        return self._batch(images, labels, draws if self.augment else None)
+
     # -- steps ----------------------------------------------------------
 
-    def train_step(self, images, labels, lr: float, *, masks=None,
-                   generator: torch.Generator | None = None) -> dict:
-        """One AdamW step on a uint8 batch.  ``masks``: the Dropout2d masks
-        in site order; drawn from ``generator`` when not given.  Returns
-        ``{"tr_loss", "tr_acc"}`` as 0-d tensors on the device."""
+    def _require_trainable(self) -> None:
         if not isinstance(self.model, FCDenseNet):
             raise NotImplementedError(
                 f"training {type(self.model).__name__} is not yet ported to "
                 f"PyTorch")
-        x, y = self._batch(images, labels)
+
+    def train_step(self, images, labels, lr: float, *,
+                   draws: AugmentDraws | None = None, masks=None,
+                   generator: torch.Generator | None = None) -> dict:
+        """One AdamW step on a uint8 batch.  ``draws``: the augmentation's
+        draws (used with ``augment``); ``masks``: the Dropout2d masks in
+        site order; each drawn from ``generator`` when not given.  Returns
+        ``{"tr_loss", "tr_acc"}`` as 0-d tensors on the device."""
+        self._require_trainable()
+        generator = generator if generator is not None else torch.Generator()
+        x, y = self._train_input(images, labels, draws, generator)
         if masks is None:
-            if generator is None:
-                generator = torch.Generator()
             masks = drop_masks(generator, self.model, x.shape[0],
                                self.device)
         if self.pallas_train:

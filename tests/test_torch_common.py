@@ -104,3 +104,76 @@ def torch_grad_like(flax_path: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     from sim2real_lane_segment_tpu_torch.models.flax_import import _torch_key
     key, convert = _torch_key(flax_path)
     return key, (convert(arr) if convert is not None else arr)
+
+
+# ---------------------------------------------------------------------------
+# augmentation: JAX's draws as the port's AugmentDraws
+# ---------------------------------------------------------------------------
+
+def jax_augment_draws(key, n: int, cfg):
+    """Replay the key chain of the JAX ``augment_batch`` (``split(key,
+    n)``, per sample ``split(k, 5)``, with ``split(k_crop, 3)`` and
+    ``split(k_noise, 3)`` beneath it) into the port's ``AugmentDraws``."""
+    from sim2real_lane_segment_tpu_torch.ops.augment import (
+        MOTION_BLUR_BANK, AugmentDraws)
+
+    def one(k):
+        k_hsv, k_crop, k_which, k_mb, k_noise = jax.random.split(k, 5)
+        kh, kpos_h, kpos_w = jax.random.split(k_crop, 3)
+        _, k_sig, k_g = jax.random.split(k_noise, 3)
+        return (jax.random.uniform(k_hsv, (3,), minval=-1.0, maxval=1.0),
+                jax.random.randint(kh, (), cfg.min_crop_height,
+                                   cfg.max_crop_height + 1),
+                jax.random.uniform(kpos_h), jax.random.uniform(kpos_w),
+                jax.random.randint(k_mb, (), 0, len(MOTION_BLUR_BANK)),
+                jax.random.uniform(k_sig, (), minval=cfg.noise_var_min,
+                                   maxval=cfg.noise_var_max),
+                jax.random.bernoulli(k_which, 0.5),
+                jax.random.normal(k_g, (cfg.height, cfg.width, 3)))
+
+    outs = [np.array(a) for a in jax.vmap(one)(jax.random.split(key, n))]
+    hsv, crop_h, hs, ws, idx, sig2, blur, noise = outs
+    return AugmentDraws(
+        hsv=torch.from_numpy(hsv), crop_h=torch.from_numpy(crop_h).long(),
+        h_start=torch.from_numpy(hs), w_start=torch.from_numpy(ws),
+        blur_idx=torch.from_numpy(idx).long(), sigma2=torch.from_numpy(sig2),
+        use_blur=torch.from_numpy(blur), noise=torch.from_numpy(noise))
+
+
+# ---------------------------------------------------------------------------
+# train-step gates: the port's parameters after an AdamW step against JAX's
+# ---------------------------------------------------------------------------
+
+def assert_adam_step_matches(model, mu, params_ref, mu_ref, lr: float, *,
+                             g_atol=5e-4, g_rtol=5e-3, p_atol=1e-4) -> None:
+    """Gradients (read back from Adam's first moment, mu = 0.1 g after one
+    step) and parameters against JAX's.  A gradient that is zero in exact
+    arithmetic (a bias whose output only feeds BatchNorm) is float noise
+    on both sides, and Adam turns it into a step of up to lr of either
+    sign: such elements (|g| <= 1e-5) are held to |p - p_ref| <= 2 lr +
+    p_atol."""
+    named = dict(model.named_parameters())
+    mu_t = dict(zip(named, mu))
+    want_p = flat_numpy({"params": params_ref})
+    want_mu = flat_numpy({"params": mu_ref})
+    assert len(want_p) == len(named)
+    for path, arr in want_p.items():
+        key_t, want = torch_grad_like(path, arr)
+        _, g_ref = torch_grad_like(path, want_mu[path] / 0.1)
+        g = mu_t[key_t].numpy() / 0.1
+        np.testing.assert_allclose(g, g_ref, atol=g_atol, rtol=g_rtol,
+                                   err_msg=path)
+        p = named[key_t].detach().numpy()
+        real = np.abs(g_ref) > 1e-5
+        np.testing.assert_allclose(p[real], want[real], atol=p_atol,
+                                   err_msg=path)
+        assert (np.abs(p - want)[~real] <= 2 * lr + p_atol).all(), path
+
+
+def assert_batch_stats_match(model, batch_stats_ref, atol=1e-4) -> None:
+    sd = model.state_dict()
+    flat = flat_numpy({"batch_stats": batch_stats_ref})
+    for path, arr in flat.items():
+        key_t, _ = torch_grad_like(path, arr)
+        np.testing.assert_allclose(sd[key_t].numpy(), arr, atol=atol,
+                                   err_msg=path)

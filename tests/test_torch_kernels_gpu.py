@@ -646,3 +646,127 @@ def test_labelgen_unaligned_frames(cuda):
     out = klg.process_classes(o.view(orig.shape), a.view(annot.shape))
     assert out.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 1
     assert torch.equal(out.cpu(), ref)
+
+
+# ---------------------------------------------------------------------------
+# the training regimes on the card: augmentation and the MME step
+# ---------------------------------------------------------------------------
+
+import contextlib  # noqa: E402
+from unittest import mock  # noqa: E402
+
+from sim2real_lane_segment_tpu_torch.models.tiramisu import (  # noqa: E402
+    FCDenseNet, drop_masks)
+from sim2real_lane_segment_tpu_torch.ops import augment as aug  # noqa: E402
+from sim2real_lane_segment_tpu_torch.train.mme import MMETrainer  # noqa: E402
+
+TRAIN_WRAPPERS = ("consumer_fwd", "consumer_bwd", "stage", "final")
+# growth 16: the bf16 sites take the tensor-core routes
+SMALL_MME_NET = dict(n_classes=4, down_blocks=(2, 2), up_blocks=(2, 2),
+                     bottleneck_layers=2, growth_rate=16,
+                     out_chans_first_conv=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src", [(120, 160), (61, 83)])
+def test_augment_batch_on_the_card_matches_the_cpu(cuda, src):
+    """The same draws on the card and on the CPU: the same crops (labels
+    equal) and images within float32 reordering (normalized values)."""
+    cfg = aug.AugmentConfig(height=48, width=64, min_crop_height=24,
+                            max_crop_height=192)
+    rng = np.random.default_rng(7)
+    images = torch.from_numpy(rng.integers(0, 256, (6, *src, 3),
+                                           dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 4, (6, *src), dtype=np.uint8))
+    draws = aug.draw_augment(torch.Generator().manual_seed(1), 6, cfg, "cpu")
+    x, y = aug.augment_batch(images, labels, cfg, draws)
+    xc, yc = aug.augment_batch(images.to(cuda), labels.to(cuda), cfg,
+                               draws.to(cuda))
+    assert torch.equal(yc.cpu(), y)
+    torch.testing.assert_close(xc.cpu(), x, atol=1e-4, rtol=0)
+    on_card = aug.draw_augment(torch.Generator().manual_seed(1), 6, cfg,
+                               cuda)
+    assert all(t.device == xc.device for t in on_card)
+
+
+def _mme_trainer(cuda, seed):
+    torch.manual_seed(seed)
+    model = FCDenseNet(**SMALL_MME_NET, policy=F32_POLICY)
+    return MMETrainer(num_cls=4, height=32, width=48, model=model,
+                      augment=True, pallas_train=True, device=cuda)
+
+
+def _mme_operands(trainer, cuda):
+    rng = np.random.default_rng(3)
+    lab = rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8)
+    y = rng.integers(0, 4, (2, 40, 56), dtype=np.uint8)
+    unl = rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8)
+    gen = torch.Generator().manual_seed(4)
+    kw = dict(draws_l=aug.draw_augment(gen, 2, trainer.cfg, cuda),
+              draws_u=aug.draw_augment(gen, 2, trainer.cfg, cuda),
+              masks_g=drop_masks(gen, trainer.model, 2, cuda),
+              masks_f=drop_masks(gen, trainer.model, 2, cuda))
+    return (lab, y, unl, 3e-3, 1e-2, 1e-3), kw
+
+
+@pytest.mark.gpu
+def test_mme_step_kernels_match_plain(cuda):
+    """One augmented float32 MME step through K1-K3b against the same step
+    through their plain versions: both losses, both optimizers' first
+    moments (phase G's and phase F's gradients) and the running
+    statistics, each within 1e-3 of its scale (floored at 1e-2 of the
+    largest, as a gradient that is zero in exact arithmetic is noise)."""
+    steps = []
+    for plain in (False, True):
+        trainer = _mme_trainer(cuda, 0)
+        args, kw = _mme_operands(trainer, cuda)
+        ktb.reset_launches()
+        with (mock.patch.multiple(ktb, **{k: getattr(ktb, f"{k}_plain")
+                                          for k in TRAIN_WRAPPERS})
+              if plain else contextlib.nullcontext()):
+            logs = trainer.mme_train_step(*args, **kw)
+        torch.cuda.synchronize()
+        if not plain:
+            assert all(ktb.launches[k] > 0 for k in TRAIN_WRAPPERS)
+        steps.append((logs, trainer))
+    (logs, tk), (ref, tp) = steps
+    for k in ("tr_loss_adent", "tr_loss"):
+        assert _rel_err(logs[k], ref[k]) <= 1e-4, k
+    for name, a, b in (("sgd", tk.opt_g.trace, tp.opt_g.trace),
+                       ("adam", tk.opt.mu, tp.opt.mu)):
+        big = max(t.abs().max().item() for t in b)
+        for i, (x, r) in enumerate(zip(a, b)):
+            err = (x - r).abs().max().item() / max(r.abs().max().item(),
+                                                   1e-2 * big)
+            assert err <= 1e-3, (name, i, err)
+    for (k, x), r in zip(tk.model.state_dict().items(),
+                         tp.model.state_dict().values()):
+        if "running" in k:
+            assert _rel_err(x, r) <= 1e-4, k
+
+
+@pytest.mark.gpu
+def test_mme_pallas_train_never_runs_the_plain_step(cuda):
+    """``MMETrainer(pallas_train=True)`` on a card: both phases launch the
+    kernels and neither the plain module nor a plain kernel version runs."""
+    trainer = _mme_trainer(cuda, 1)
+    args, kw = _mme_operands(trainer, cuda)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain path ran")
+
+    ktb.reset_launches()
+    with mock.patch.multiple(ktb, **{f"{k}_plain": refuse
+                                     for k in TRAIN_WRAPPERS}), \
+            mock.patch.object(FCDenseNet, "forward", refuse), \
+            mock.patch.object(type(trainer.model.featureExtractor),
+                              "forward", refuse):
+        logs = trainer.mme_train_step(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v) for v in logs.values())
+    # two train-mode passes, each over 2 + 2 + 2 + 2 + 2 dense layers and
+    # two TransitionDowns
+    assert ktb.launches["consumer_fwd"] == 2 * (10 + 2)
+    assert ktb.launches["consumer_bwd"] == 2 * 2
+    assert ktb.launches["stage"] == 2 * 10
+    assert ktb.launches["final"] == 2 * 5

@@ -131,14 +131,13 @@ def test_train_cli_on_cpu_writes_artifacts_and_resumes(tmp_path):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
-    for extra in (["--augment"], ["--fast_train"], ["--device_cache"],
-                  ["--dp", "auto"], ["--profile"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train_cli.main(_train_args(str(tmp_path), str(tmp_path), *extra),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_cli.main(["--trainType", "mme", "--dataPath", str(tmp_path)],
-                       device="cpu")
+    for extra in (["--fast_train"], ["--device_cache"], ["--dp", "auto"],
+                  ["--profile"]):
+        for regime in ("sim", "st"):
+            args = _train_args(str(tmp_path), str(tmp_path), *extra)
+            args[1] = regime
+            with pytest.raises(NotImplementedError, match="not yet ported"):
+                train_cli.main(args, device="cpu")
 
 
 def test_train_cli_needs_a_card_unless_cpu(tmp_path, monkeypatch):

@@ -194,12 +194,15 @@ def test_train_step_matches_jax_supervised_trainer():
 
 
 def test_train_entry_points_need_a_card_unless_cpu(monkeypatch):
+    from sim2real_lane_segment_tpu_torch.train.mme import MMETrainer
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        SupervisedTrainer(model=build_model("tiny", 4))
-    with pytest.raises(NotImplementedError, match="augment"):
-        SupervisedTrainer(model=build_model("tiny", 4), augment=True,
-                          device="cpu")
+    for cls in (SupervisedTrainer, MMETrainer):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(model=build_model("tiny", 4), augment=True)
+        trainer = cls(model=build_model("tiny", 4), augment=True,
+                      device="cpu")
+        assert trainer.augment and trainer.device.type == "cpu"
 
 
 def test_pallas_train_never_falls_back_to_the_plain_step():
