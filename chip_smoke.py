@@ -99,7 +99,19 @@ Phases:
 16. timing: the B=32 MME step through the kernels against the plain step
     (CUDA events, medians of REPS steps in turns), its device busy time
     and idle share (torch.profiler), and ``augment_batch`` and
-    ``draw_augment`` at B=32 from 120x160 and 480x640 sources.
+    ``draw_augment`` at B=32 from 120x160 and 480x640 sources;
+17. ``--device_cache``: ``cli.train.main --augment --pallas_train -b 32``
+    with and without it, 2 epochs of 8 steps each for ``sim``, ``st``
+    and ``mme`` (from phase 8's weights): every logged row and the final
+    weights, running statistics and optimizer state bit-equal, one graph
+    replay a step, captured once, the kernels launched (all on the
+    tensor-core route) only while capturing; then a 1,536-frame 480x640
+    split uploaded through ``DeviceCachedView`` (time, bytes), the
+    graphed supervised step against the eager step over the same cache
+    and over host batches, the graphed MME step against the eager one
+    (medians of 20, in turns), one replay's kernels against one eager
+    step's by name (torch.profiler), and each graph's device busy time,
+    idle share and private pool.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -239,6 +251,16 @@ AUG_SOURCES = ((120, 160), (480, 640))
 MME_STEP_TOL = {"float32": {"loss": 1e-4, "stats": 1e-3, "grad": GRAD_RTOL},
                 "bfloat16": {"loss": 2 ** -6, "stats": 2 ** -6,
                              "grad": 2 ** -4}}
+# phase 17: --device_cache.  The CLI trees give 8 steps of B=32 an epoch
+# (sim: train 256; st and mme: source 160 + target/train 96, unlabelled
+# 256); the timed split is 1,536 frames at 480x640, the simulator's render
+# size (1.416 GB of images, 0.472 GB of labels on the card)
+CACHE_SIM_SPLITS = (("train", 256), ("valid", 32), ("test", 32))
+CACHE_MME_SPLITS = (("source", 160), ("target/train", 96),
+                    ("target/test", 32), ("target/unlabelled", 256))
+CACHE_FRAMES, CACHE_SIZE = 1536, (480, 640)
+CACHE_TIMED_STEPS = 20   # per mode, in two turns of 10
+CACHE_PROFILED_REPLAYS = 10
 
 
 def fail(msg: str) -> None:
@@ -656,6 +678,31 @@ def _device_rows(fn, reps=1) -> list:
              / 1e3)
             for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU]
+
+
+def port_kernel_names() -> set:
+    """The names of the ``__global__`` functions in the port's CUDA
+    sources."""
+    import glob
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    names = set()
+    for path in glob.glob(os.path.join(here, _CSRC, "*.cu*")):
+        with open(path) as f:
+            names |= set(re.findall(
+                r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(?:void\s+)?(\w+)\s*\(", f.read()))
+    return names
+
+
+def port_kernel(key: str, names: set) -> str | None:
+    """The port's kernel name behind a profiler row's key, or None for a
+    kernel of PyTorch's or a library's."""
+    path = key.replace("(anonymous namespace)::", "")
+    path = path[5:] if path.startswith("void ") else path
+    path = re.split(r"[(<]", path, maxsplit=1)[0]
+    base = path.rsplit("::", 1)[-1]
+    return base if base in names and "at::" not in path else None
 
 
 def _seeded_classifier(c, device, seed):
@@ -2031,8 +2078,8 @@ def mme_timing(sd, device, card):
 
     rows = _device_rows(lambda: step(True))
     busy = sum(ms for _, _, ms in rows)
-    ours = [(n, ms) for k, n, ms in rows
-            if "(anonymous namespace)::" in k or "s2r_" in k]
+    names = port_kernel_names()
+    ours = [(n, ms) for k, n, ms in rows if port_kernel(k, names)]
     print(f"timing: MME step device busy {busy:.3f} ms of {med[True]:.3f} "
           f"(idle share {max(0.0, 1 - busy / med[True]):.3f}) in "
           f"{sum(n for _, n, _ in rows)} device launches; the port's kernels "
@@ -2058,6 +2105,302 @@ def mme_timing(sd, device, card):
               f"{sum(ms for _, _, ms in rows):.3f} ms in "
               f"{sum(n for _, n, _ in rows)} launches), draw_augment "
               f"{draw_ms:.3f} ms  [{card}]")
+
+
+def _train_state(run_dir):
+    """(model state dict, optimizer tensors by name) of a run's latest
+    checkpoint."""
+    from sim2real_lane_segment_tpu_torch.train.checkpoint import \
+        load_train_state
+
+    ck = load_train_state(os.path.join(run_dir, "checkpoints_latest",
+                                       "latest.pt"))
+    opt = ck["optimizer"]
+    opts = {"f": opt["f"], "g": opt["g"]} if "g" in opt else {"f": opt}
+    tensors = {f"{o}.{k}[{i}]": t for o, st in opts.items()
+               for k, ts in st.items() if k != "count"
+               for i, t in enumerate(ts)}
+    counts = {o: st.get("count") for o, st in opts.items()}
+    return ck["model"], tensors, counts
+
+
+def _state_errs(a: dict, b: dict) -> dict:
+    """max|a - b| / max|b| per kind of tensor (weights, running statistics,
+    optimizer state), over every tensor of the kind."""
+    out = {}
+    for k, t in b.items():
+        kind = ("stats" if "running" in k or "num_batches" in k
+                else "optimizer" if "[" in k else "weights")
+        err = _rel(a[k], t) if t.numel() else 0.0
+        out[kind] = max(out.get(kind, 0.0), err)
+    return out
+
+
+def cache_equivalence(card, sim_weights):
+    """Phase 17, part 1: ``cli.train.main`` with and without
+    ``--device_cache`` from the same seed, ``--augment --pallas_train -b
+    32 --log_every 1``, 2 epochs of 8 steps: ``sim``, ``st``, and ``mme``
+    from phase 8's weights.  Every logged row, the final weights, running
+    statistics and optimizer state must agree, bit for bit; the cached run
+    must replay one graph per step, captured once, and launch the kernels
+    only while capturing (the warm-up steps and the capture)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import train as train_cli
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+    from sim2real_lane_segment_tpu_torch.train import graphs
+
+    plain_calls = {k: 0 for k in TRAIN_KERNELS}
+
+    def counting(name):
+        fn = getattr(ktb, f"{name}_plain")
+
+        def wrapper(*a, **kw):
+            plain_calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sim_root = os.path.join(tmp, "simData")
+        two_root = os.path.join(tmp, "simRealData")
+        write_png_tree(sim_root, CACHE_SIM_SPLITS, SEED + 23)
+        write_png_tree(two_root, CACHE_MME_SPLITS, SEED + 24,
+                       unlabelled=("target/unlabelled",))
+        print(f"cache: wrote {sum(n for _, n in CACHE_SIM_SPLITS)} + "
+              f"{sum(n for _, n in CACHE_MME_SPLITS)} PNG frames in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for regime, root, extra, passes in (
+                ("sim", sim_root, [], 1), ("st", two_root, [], 1),
+                ("mme", two_root, ["--pretrained_path", sim_weights], 2)):
+            runs = {}
+            for cache in (False, True):
+                args = ["--trainType", regime, "--dataPath", root, "--arch",
+                        ARCH, "--pallas_train", "--augment", "--height",
+                        str(H), "--width", str(W), "--max_epochs", "2", "-b",
+                        str(TRAIN_BATCH), "--default_root_dir", tmp,
+                        "--log_every", "1", "--seed", str(SEED),
+                        "--model_name", f"{regime}_{int(cache)}", *extra,
+                        *(["--device_cache"] if cache else [])]
+                with mock.patch.multiple(ktb, **{f"{k}_plain": counting(k)
+                                                 for k in TRAIN_KERNELS}):
+                    ktb.reset_launches()
+                    graphs.reset_counts()
+                    t0 = time.perf_counter()
+                    res = train_cli.main(args)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    runs[cache] = (res["out_dir"], wall, dict(ktb.launches),
+                                   dict(ktb.mma_launches),
+                                   dict(graphs.counts))
+            rows = {}
+            for cache, (out, *_) in runs.items():
+                with open(os.path.join(out, "metrics.jsonl")) as f:
+                    rows[cache] = [json.loads(line) for line in f]
+            logged = [r for r in rows[True] if "train/tr_loss" in r]
+            steps = len(logged)
+            check(steps == 16, f"{regime}: {steps} train steps logged")
+            same_rows = rows[True] == rows[False]
+            (m0, o0, c0), (m1, o1, c1) = (_train_state(runs[c][0])
+                                          for c in (False, True))
+            errs = _state_errs({**m1, **o1}, {**m0, **o0})
+            bit_equal = (same_rows and c0 == c1
+                         and all(torch.equal(m1[k], v) for k, v in m0.items())
+                         and all(torch.equal(o1[k], v)
+                                 for k, v in o0.items()))
+            counts = runs[True][4]
+            per_step = {k: v * passes
+                        for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+            at_capture = {k: v * (graphs.WARMUP_STEPS + 1)
+                          for k, v in per_step.items()}
+            mma_at_capture = {k: v * passes * (graphs.WARMUP_STEPS + 1)
+                              for k, v in TRAIN_MMA_PER_STEP.items()}
+            keys = [k for k in logged[0] if k.startswith("train/")]
+            print(f"cache: --trainType {regime}: 2 epochs of 8 steps, "
+                  f"{runs[False][1]:.1f} s without --device_cache, "
+                  f"{runs[True][1]:.1f} s with it (validation, test and "
+                  f"checkpoints included); {counts['replays']} graph "
+                  f"replays, {counts['captures']} capture(s); logged "
+                  f"{', '.join(k[6:] for k in keys)} equal: {same_rows}; "
+                  f"final state bit-equal: {bit_equal} (max rel err "
+                  f"{json.dumps(errs)})  [{card}]")
+            print(f"cache: {regime} kernel launches with --device_cache "
+                  f"{json.dumps(runs[True][2])} (warm-up and capture, "
+                  f"expected {json.dumps(at_capture)}); tensor-core route "
+                  f"{json.dumps(runs[True][3])}; without it "
+                  f"{json.dumps(runs[False][2])}; plain versions called "
+                  f"{json.dumps(plain_calls)}")
+            check(counts == {"captures": 1, "replays": steps},
+                  f"{regime}: the cached run took {counts}, not one replay "
+                  f"a step")
+            check(runs[True][2] == at_capture,
+                  f"{regime}: launches at capture differ")
+            check(runs[True][3] == mma_at_capture,
+                  f"{regime}: a launch left the tensor-core route")
+            check(runs[False][2] == {k: v * steps
+                                     for k, v in per_step.items()},
+                  f"{regime}: eager launch counts differ")
+            check(not any(plain_calls.values()), "a plain version ran")
+            check(bit_equal, f"{regime}: the cached run differs from the "
+                  f"uncached one: rows equal {same_rows}, {errs}")
+
+
+def cache_timing(sd, device, card):
+    """Phase 17, part 2: a 1,536-frame 480x640 split uploaded through
+    ``DeviceCachedView`` (time, bytes), then B=32 ``--augment
+    --pallas_train`` steps over it: the graphed supervised step, the eager
+    step over the same cache and over host batches, the graphed and the
+    eager MME step, medians of CACHE_TIMED_STEPS each in turns (CUDA
+    events between steps: the host is not synchronized, so a host-paced
+    step reads the host's time); the kernels of one replay against one
+    eager step by name (torch.profiler); each graph's device busy time and
+    idle share over CACHE_PROFILED_REPLAYS replays and its private pool."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from sim2real_lane_segment_tpu_torch.data.device_cache import \
+        DeviceCachedView
+    from sim2real_lane_segment_tpu_torch.train import graphs
+    from sim2real_lane_segment_tpu_torch.train.supervised import \
+        SupervisedTrainer
+
+    rng = np.random.default_rng(SEED + 25)
+    t0 = time.perf_counter()
+    n, (h, w) = CACHE_FRAMES, CACHE_SIZE
+    images = np.frombuffer(bytearray(rng.bytes(n * h * w * 3)),
+                           np.uint8).reshape(n, h, w, 3)
+    labels = (np.frombuffer(rng.bytes(n * h * w), np.uint8) % N_CLS
+              ).reshape(n, h, w)
+    made = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    view = DeviceCachedView.from_arrays(images, labels, device,
+                                        name="train480")
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - before
+    print(f"cache: {n} seeded frames at {h}x{w} (made in {made:.1f} s) "
+          f"uploaded through DeviceCachedView in {up_s:.3f} s "
+          f"({view.images.numel()} bytes of images, {view.labels.numel()} "
+          f"of labels; torch.cuda.memory_allocated +{held} bytes, "
+          f"{view.nbytes / up_s / 1e9:.2f} GB/s)  [{card}]")
+    check(held >= view.nbytes, f"the cache holds {held} bytes")
+
+    def sup():
+        return SupervisedTrainer(num_cls=N_CLS, augment=True,
+                                 pallas_train=True, device=device,
+                                 model=make_model(sd, DEFAULT_POLICY, device))
+
+    trainers = {"graphed": sup(), "eager_cache": sup(), "eager_host": sup(),
+                "mme_graphed": mme_trainer(sd, DEFAULT_POLICY, device),
+                "mme_eager": mme_trainer(sd, DEFAULT_POLICY, device)}
+    gens = {k: torch.Generator().manual_seed(SEED + 26) for k in trainers}
+    total = 2 + 2 * CACHE_TIMED_STEPS + 2 * CACHE_PROFILED_REPLAYS
+    idx = rng.integers(0, n, (total, MME_BATCH))
+    idx2 = np.stack([idx, rng.integers(0, n, (total, MME_BATCH))], 1)
+    dev_idx = torch.from_numpy(idx2).to(device)
+    sup_arrays = (view.images, view.labels)
+    mme_arrays = (view.images, view.labels, view.images)
+    pos = {k: 0 for k in trainers}
+
+    def step(mode):
+        t, k = trainers[mode], pos[mode]
+        pos[mode] += 1
+        gen = gens[mode]
+        if mode == "graphed":
+            t.run_scan_chunk(sup_arrays, idx[k:k + 1], gen, 0)
+        elif mode == "mme_graphed":
+            t.run_scan_chunk(mme_arrays, idx2[k:k + 1], gen, 0)
+        elif mode == "eager_cache":
+            r = dev_idx[k, 0]
+            t.train_step(view.images[r], view.labels[r], t.lr_at(0),
+                         generator=gen)
+        elif mode == "eager_host":
+            t.train_step(images[idx[k]], labels[idx[k]], t.lr_at(0),
+                         generator=gen)
+        else:
+            lab, unl = dev_idx[k]
+            t.mme_train_step(view.images[lab], view.labels[lab],
+                             view.images[unl], *t.lrs_at(0), generator=gen)
+
+    def times(mode, reps):
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        evs[0].record()
+        for i in range(reps):
+            step(mode)
+            evs[i + 1].record()
+        torch.cuda.synchronize()
+        return [evs[i].elapsed_time(evs[i + 1]) for i in range(reps)]
+
+    for mode in trainers:  # captures, and the eager paths' warm-up
+        step(mode)
+    torch.cuda.synchronize()
+    graphs.reset_counts()
+    t = {k: [] for k in trainers}
+    half = CACHE_TIMED_STEPS // 2
+    for mode in ("graphed", "eager_cache", "eager_host", "eager_host",
+                 "eager_cache", "graphed", "mme_graphed", "mme_eager",
+                 "mme_eager", "mme_graphed"):
+        t[mode] += times(mode, half)
+    check(graphs.counts["replays"] == 4 * half,
+          f"{graphs.counts['replays']} replays timed")
+    med = {k: float(np.median(v)) for k, v in t.items()}
+    for mode, v in t.items():
+        print(f"timing: B={MME_BATCH} {mode} step over the {h}x{w} cache "
+              f"{med[mode]:.3f} ms (median of {len(v)}, range "
+              f"{min(v):.3f}-{max(v):.3f})  [{card}]")
+
+    # the port's kernels of one replay against one eager step, by name
+    names = port_kernel_names()
+
+    def ours(rows):
+        out = {}
+        for k, c, _ in rows:
+            name = port_kernel(k, names)
+            if name:
+                out[name] = out.get(name, 0) + c
+        return out
+
+    for graphed, eager in (("graphed", "eager_cache"),
+                           ("mme_graphed", "mme_eager")):
+        got = ours(_device_rows(lambda: step(graphed)))
+        ref = ours(_device_rows(lambda: step(eager)))
+        print(f"cache: {graphed} one replay launched {sum(got.values())} "
+              f"kernels of the port's, one eager step {sum(ref.values())}; "
+              f"by name equal: {got == ref}; {json.dumps(got)}  [{card}]")
+        check(got and got == ref, f"{graphed}: a replay launches other "
+              f"kernels than an eager step: {got} against {ref}")
+
+    for mode, arrays, ix in (("graphed", sup_arrays, idx),
+                             ("mme_graphed", mme_arrays, idx2)):
+        tr = trainers[mode]
+        k = pos[mode]
+        pos[mode] += 2 * CACHE_PROFILED_REPLAYS
+        chunks = iter((ix[k:k + CACHE_PROFILED_REPLAYS],
+                       ix[k + CACHE_PROFILED_REPLAYS:
+                          k + 2 * CACHE_PROFILED_REPLAYS]))
+        rows = _device_rows(lambda: tr.run_scan_chunk(
+            arrays, next(chunks), gens[mode], 0))
+        busy = sum(ms for _, _, ms in rows) / CACHE_PROFILED_REPLAYS
+        port = sum(ms for k, _, ms in rows if port_kernel(k, names)
+                   ) / CACHE_PROFILED_REPLAYS
+        print(f"timing: {mode} step device busy {busy:.3f} ms of "
+              f"{med[mode]:.3f} (idle share "
+              f"{max(0.0, 1 - busy / med[mode]):.3f}) over "
+              f"{CACHE_PROFILED_REPLAYS} replays, "
+              f"{sum(c for _, c, _ in rows) // CACHE_PROFILED_REPLAYS} "
+              f"device launches a step, the port's kernels {port:.3f} ms of "
+              f"it; the graph's private pool {tr.graph.pool_bytes} bytes  "
+              f"[{card}]")
+        check(busy > 0, f"torch.profiler saw no device time in {mode}")
+        check(tr.graph.pool_bytes > 0, f"{mode}: pool {tr.graph.pool_bytes}")
+    rows = _device_rows(lambda: step("eager_cache"))
+    busy = sum(ms for _, _, ms in rows)
+    print(f"timing: eager_cache step device busy {busy:.3f} ms of "
+          f"{med['eager_cache']:.3f} (idle share "
+          f"{max(0.0, 1 - busy / med['eager_cache']):.3f})  [{card}]")
+    del trainers, view
 
 
 def main() -> None:
@@ -2175,7 +2518,6 @@ def main() -> None:
     # phase 15: the st and mme CLIs, then cli.test, end to end
     t0 = time.perf_counter()
     mme_launches, mme_steps = two_domain_phase(card, sim_weights)
-    work.cleanup()
     print(f"two-domain: done in {time.perf_counter() - t0:.1f} s; K1-K3b "
           f"launches per MME step "
           f"{json.dumps({k: v // mme_steps for k, v in mme_launches.items()})}"
@@ -2185,6 +2527,14 @@ def main() -> None:
     t0 = time.perf_counter()
     mme_timing(sd, device, card)
     print(f"timing: phase 16 done in {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]", flush=True)
+
+    # phase 17: --device_cache, the graphed multi-step dispatch
+    t0 = time.perf_counter()
+    cache_equivalence(card, sim_weights)
+    work.cleanup()
+    cache_timing(sd, device, card)
+    print(f"cache: phase 17 done in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]", flush=True)
 
     print(card)

@@ -16,12 +16,19 @@ two-phase step from the ``--pretrained_path`` weights (``.pt``,
 training augmentation on the card.  ``--pallas_train`` runs the
 FC-DenseNet train step through the fused consumer kernels
 (``models.tiramisu_train_fused``); without it the plain module trains
-with autograd.  Training runs on the card unless ``main`` is given
-``device="cpu"``.  Artifacts go to ``<default_root_dir or
-results>/<model_name>``: ``metrics.jsonl``, ``checkpoints/best.pt`` (best
-val_iou), ``checkpoints_latest/latest.pt`` and ``best_weights.pt``.  Not
-yet ported, and raising: ``--fast_train``, ``--device_cache``, ``--dp``
-and ``--profile``.
+with autograd.  ``--device_cache`` keeps every split on the device
+(``data.device_cache``): batches are gathered there, and the fit loop
+runs each epoch in chunks of 32 steps (``run_scan_chunk``), every step on
+a card one replay of the whole step captured as a CUDA graph, with the
+same batches, draws and logged values as without the flag.  A split that
+does not fit on the device, or a step that cannot be captured, raises;
+nothing falls back to host reads or eager steps.  ``--profile`` writes a
+``torch.profiler`` trace of the run to ``<out_dir>/profile/trace.json``.
+Training runs on the card unless ``main`` is given ``device="cpu"``.
+Artifacts go to ``<default_root_dir or results>/<model_name>``:
+``metrics.jsonl``, ``checkpoints/best.pt`` (best val_iou),
+``checkpoints_latest/latest.pt`` and ``best_weights.pt``.  Not yet
+ported, and raising: ``--fast_train`` and ``--dp``.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import os
 
 from . import common
 
-NOT_PORTED = ("fast_train", "device_cache", "profile")
+NOT_PORTED = ("fast_train",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,7 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train FC-DenseNets through the fused consumer "
                         "kernels (K1, K2, K3a, K3b)")
     p.add_argument("--profile", action="store_true",
-                   help="profiler trace (not yet ported)")
+                   help="torch.profiler trace of the run under "
+                        "<out_dir>/profile")
     p.add_argument("--dp", default="off",
                    help="data parallelism (not yet ported; 'off' only)")
     common.add_data_args(p)
@@ -105,7 +113,8 @@ def main(args=None, device=None) -> dict:
         "st": (TwoDomainDataModule, SupervisedTrainer),
         "mme": (TwoDomainMMEDataModule, MMETrainer)}[args.trainType]
     data = module(args.dataPath, batch_size=args.batch_size, seed=seed,
-                  load_into_memory=args.load2memory)
+                  load_into_memory=args.load2memory,
+                  device_cache=args.device_cache, device=device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)  # the initial weights
         model = build_model(args.arch, 4)
@@ -117,11 +126,33 @@ def main(args=None, device=None) -> dict:
     if args.trainType == "mme":
         trainer.from_pretrained(args.pretrained_path)
     data.setup()
-    _, best_iou, _ = fit(trainer, data, max_epochs=args.max_epochs,
-                         out_dir=out_dir, seed=seed,
-                         log_every=args.log_every, resume=args.resume)
+    prof = _start_profile(trainer.device) if args.profile else None
+    try:
+        _, best_iou, _ = fit(trainer, data, max_epochs=args.max_epochs,
+                             out_dir=out_dir, seed=seed,
+                             log_every=args.log_every, resume=args.resume)
+    finally:
+        if prof is not None:
+            path = os.path.join(out_dir, "profile", "trace.json")
+            prof.stop()
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            prof.export_chrome_trace(path)
+            logging.info("profiler trace written to %s", path)
     logging.info("best val_iou %.4f; artifacts in %s", best_iou, out_dir)
     return {"best_iou": best_iou, "out_dir": out_dir}
+
+
+def _start_profile(device):
+    """A started ``torch.profiler`` over the host and, on a card, the
+    device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
 
 
 if __name__ == "__main__":

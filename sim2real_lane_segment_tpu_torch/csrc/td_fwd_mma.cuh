@@ -292,12 +292,11 @@ td_fwd_small_kernel(const mma::u16* in, long long in_bstride, int K, int hw,
   }
 }
 
-static cudaError_t launch_td_mma(const void* in, long long in_bstride, int B, int K,
-                          int H, int W, const float* scale, const float* shift,
-                          const void* wt, const float* bias, int N, void* out,
-                          long long out_bstride, int round_first,
-                          const float* mask, cudaStream_t stream) {
-  static int sms = 0;  // the SM count, with the shared-memory limits set once
+// The SM count, with the shared-memory limits set at the first call (a
+// library may call it when it loads, so that no launch, and no stream
+// capture, meets the attribute calls).
+static cudaError_t td_setup(int* sms_out) {
+  static int sms = 0;
   if (sms == 0) {
     int dev = 0;
     cudaError_t e = cudaFuncSetAttribute(
@@ -311,6 +310,18 @@ static cudaError_t launch_td_mma(const void* in, long long in_bstride, int B, in
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
   }
+  *sms_out = sms;
+  return cudaSuccess;
+}
+
+static cudaError_t launch_td_mma(const void* in, long long in_bstride, int B, int K,
+                          int H, int W, const float* scale, const float* shift,
+                          const void* wt, const float* bias, int N, void* out,
+                          long long out_bstride, int round_first,
+                          const float* mask, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t se = td_setup(&sms);
+  if (se != cudaSuccess) return se;
   const int hw = H * W;
   const int items = ((hw + TD_TP - 1) / TD_TP) * B;
   const int vec_w = N % 8 == 0 && mma::aligned16(wt);

@@ -940,14 +940,6 @@ cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
   const int hw = H * W;
   const int tiles = (hw + B1_TP - 1) / B1_TP;
   const int P = B * tiles;
-  static bool ready = false;  // the shared-memory limits, set once
-  if (!ready) {
-    S2R_TRY(cudaFuncSetAttribute(bwd1x1_dgrad_mma_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, B1_SMEM_MAX));
-    S2R_TRY(cudaFuncSetAttribute(bwd1x1_wgrad_mma_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, B1_SMEM_MAX));
-    ready = true;
-  }
   const size_t smem = b1_dgrad_smem(N);
   const int vec_dy = hw % 8 == 0 && mma::aligned16(dy) && mma::aligned16(gbuf);
   const int vec_w = N % 8 == 0 && mma::aligned16(wt);
@@ -1420,17 +1412,22 @@ stage_reduce_kernel(const float* __restrict__ part, int S, ll M,
     reduce_cols_body(part_gp, P, mma::C3_N, out + M, blockIdx.x - row_blocks);
 }
 
-cudaError_t mma3x3_setup() {
-  static bool ready = false;  // the shared-memory limits, set once
-  if (ready) return cudaSuccess;
+// The shared-memory limits of every tensor-core kernel, set once when the
+// library loads (s2r_train_init): no launch calls cudaFuncSetAttribute, so
+// a launch inside a CUDA-graph capture records kernels only.
+cudaError_t setup_all() {
   S2R_TRY(cudaFuncSetAttribute(fwd3x3_mma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM));
   S2R_TRY(cudaFuncSetAttribute(sum_dgrad_mma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, GP_SMEM));
   S2R_TRY(cudaFuncSetAttribute(stage_own_mma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, OW_SMEM));
-  ready = true;
-  return cudaSuccess;
+  S2R_TRY(cudaFuncSetAttribute(bwd1x1_dgrad_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, B1_SMEM_MAX));
+  S2R_TRY(cudaFuncSetAttribute(bwd1x1_wgrad_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, B1_SMEM_MAX));
+  int sms = 0;
+  return s2r_td::td_setup(&sms);
 }
 
 // K1, bf16, 3x3, 16 outputs
@@ -1438,7 +1435,6 @@ cudaError_t fwd3x3_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
                        const float* scale, const float* shift, const void* wt,
                        const float* bias, const float* mask, void* out,
                        ll out_bstride, cudaStream_t s) {
-  S2R_TRY(mma3x3_setup());
   return s2r_d3::launch_fwd3x3(fwd3x3_mma_kernel, X, x_bstride, B, K, H, W, scale, shift,
                                wt, bias, mask, out, out_bstride, s);
 }
@@ -1450,7 +1446,6 @@ cudaError_t sum_dgrad_mma(const void* X, ll x_bstride, int B, int C, int H, int 
                           cudaStream_t s) {
   for (int l = 0; l < nl; ++l)
     if (!mma::aligned16(L.w[l])) return cudaErrorMisalignedAddress;
-  S2R_TRY(mma3x3_setup());
   const int tiles = mma::c3_tiles(H, W);
   const int ncg = (C + mma::C3_N - 1) / mma::C3_N;
   // enough blocks for two per SM of an H100 (264), as few as that allows:
@@ -1527,8 +1522,9 @@ cudaError_t stage(const void* X, ll x_bstride, int B, int K, int H, int W,
 
 // Plain C interface, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // Each returns the cudaError_t of its launches (0 on success); an unknown
-// dtype, tap count or layer count returns cudaErrorInvalidValue.  Scratch
-// (gbuf, part_*) is allocated by the caller:
+// dtype, tap count or layer count returns cudaErrorInvalidValue.  *route
+// receives the route taken: 1 for the tensor cores, 0 for the CUDA cores.
+// Scratch (gbuf, part_*) is allocated by the caller:
 //   part_gp  [B * N] floats (bwd) or [B * tiles * G] (stage)
 //   part_ss  [2 * B * tiles * K]   part_w [S * K * taps * N]
 // Dispatch (mirrored by takes_mma_fwd, takes_mma_bwd and takes_mma_stage in
@@ -1547,23 +1543,29 @@ extern "C" int s2r_train_fwd(int dtype, int taps, const void* X, ll x_bstride,
                              int B, int K, int H, int W, const float* scale,
                              const float* shift, const void* wt,
                              const float* bias, const float* mask, int N,
-                             void* out, ll out_bstride, void* stream) {
+                             void* out, ll out_bstride, int* route,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *route = 0;
   if (dtype == 0 && taps == 9)
     return fwd<float, 9>(X, x_bstride, B, K, H, W, scale, shift, wt, bias, mask, N,
                          out, out_bstride, s);
   if (dtype == 0 && taps == 1)
     return fwd<float, 1>(X, x_bstride, B, K, H, W, scale, shift, wt, bias, mask, N,
                          out, out_bstride, s);
-  if (dtype == 1 && taps == 9 && N == mma::C3_N)
+  if (dtype == 1 && taps == 9 && N == mma::C3_N) {
+    *route = 1;
     return fwd3x3_mma(X, x_bstride, B, K, H, W, scale, shift, wt, bias, mask, out,
                       out_bstride, s);
+  }
   if (dtype == 1 && taps == 9)
     return fwd<__nv_bfloat16, 9>(X, x_bstride, B, K, H, W, scale, shift, wt, bias,
                                  mask, N, out, out_bstride, s);
-  if (dtype == 1 && taps == 1 && K <= TD_MAX_K)
+  if (dtype == 1 && taps == 1 && K <= TD_MAX_K) {
+    *route = 1;
     return s2r_td::launch_td_mma(X, x_bstride, B, K, H, W, scale, shift, wt, bias, N,
                                  out, out_bstride, 0, mask, s);
+  }
   if (dtype == 1 && taps == 1)
     return fwd<__nv_bfloat16, 1>(X, x_bstride, B, K, H, W, scale, shift, wt, bias,
                                  mask, N, out, out_bstride, s);
@@ -1577,18 +1579,21 @@ extern "C" int s2r_train_bwd(int dtype, int taps, const void* X, ll x_bstride,
                              void* dseg, float* dscale, float* dshift,
                              float* dw, float* dbias, void* gbuf,
                              float* part_gp, float* part_ss, float* part_w,
-                             int S, void* stream) {
+                             int S, int* route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *route = 0;
 #define S2R_BWD(T, TAPS)                                                      \
   bwd<T, TAPS>(X, x_bstride, B, K, H, W, scale, shift, wt, mask, N, dy, dseg, \
                dscale, dshift, dw, dbias, gbuf, part_gp, part_ss, part_w, S, s)
   if (dtype == 0 && taps == 9) return S2R_BWD(float, 9);
   if (dtype == 0 && taps == 1) return S2R_BWD(float, 1);
   if (dtype == 1 && taps == 9) return S2R_BWD(__nv_bfloat16, 9);
-  if (dtype == 1 && taps == 1 && N <= B1_MAX_N)
+  if (dtype == 1 && taps == 1 && N <= B1_MAX_N) {
+    *route = 1;
     return bwd1x1_mma(X, x_bstride, B, K, H, W, scale, shift, wt, mask, N, dy,
                       dseg, dscale, dshift, dw, dbias, gbuf, part_gp, part_ss,
                       part_w, S, s);
+  }
   if (dtype == 1 && taps == 1) return S2R_BWD(__nv_bfloat16, 1);
 #undef S2R_BWD
   return cudaErrorInvalidValue;
@@ -1605,7 +1610,8 @@ extern "C" int s2r_train_stage(int dtype, const void* X, ll x_bstride, int B,
                                const float* mask, void* gp_out, float* dw,
                                float* dscale, float* dshift, float* dbias,
                                float* part_gp, float* part_ss, float* part_w,
-                               int S, void* stream) {
+                               int S, int* route, void* stream) {
+  *route = 0;
   if (nl < 0 || nl > MAXL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layers L = make_layers(nl, gps, w_slices, scs, shs);
@@ -1618,6 +1624,7 @@ extern "C" int s2r_train_stage(int dtype, const void* X, ll x_bstride, int B,
     if (dscale != dw + (ll)K * mma::C3_WROW || dshift != dscale + K ||
         dbias != dshift + K)
       return cudaErrorInvalidValue;
+    *route = 1;
     return stage_mma(X, x_bstride, B, K, H, W, Y, y_bstride, ext, nl, L, wt, scale,
                      shift, mask, gp_out, dw, part_gp, part_w, S, s);
   }
@@ -1634,22 +1641,29 @@ extern "C" int s2r_train_final(int dtype, const void* X, ll x_bstride, int B,
                                const void* const* w_slices,
                                const float* const* scs,
                                const float* const* shs, void* dseg,
-                               void* stream) {
+                               int* route, void* stream) {
+  *route = 0;
   if (nl < 1 || nl > MAXL) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layers L = make_layers(nl, gps, w_slices, scs, shs);
   if (dtype == 0)
     return launch_dgrad<float, 9, true>(X, x_bstride, B, K, H, W, G, nl, L,
                                         nullptr, nullptr, dseg, nullptr, nullptr, s);
-  if (dtype == 1 && G == mma::C3_N)
+  if (dtype == 1 && G == mma::C3_N) {
+    *route = 1;
     return sum_dgrad_mma(X, x_bstride, B, K, H, W, nullptr, nl, L, nullptr, dseg,
                          nullptr, s);
+  }
   if (dtype == 1)
     return launch_dgrad<__nv_bfloat16, 9, true>(X, x_bstride, B, K, H, W, G, nl, L,
                                                 nullptr, nullptr, dseg, nullptr,
                                                 nullptr, s);
   return cudaErrorInvalidValue;
 }
+
+// Sets the shared-memory limits of the tensor-core kernels on the current
+// device; called once when the library is loaded, before any launch.
+extern "C" int s2r_train_init() { return setup_all(); }
 
 extern "C" const char* s2r_train_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -31,7 +31,11 @@ Float32 and the other shapes run on the CUDA cores.
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; a failed build or launch raises.  ``launches`` counts wrapper
 calls that launched a kernel (CUDA tensors only), ``mma_launches`` those
-of them that took the tensor-core route.
+of them that took the tensor-core route, as the C entry reports it through
+its ``route`` argument.  A wrapper called while a CUDA graph is captured
+counts once, at the capture: a replay runs no Python.  The library sets
+its kernels' shared-memory limits when it loads, so a launch records
+kernels only and can be captured.
 """
 from __future__ import annotations
 
@@ -161,6 +165,7 @@ _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 
 
 @functools.cache
@@ -168,19 +173,23 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built once)."""
     lib = build.load("train_block")
     lib.s2r_train_fwd.argtypes = [_I, _I, _P, _L, _I, _I, _I, _I, _P, _P, _P,
-                                  _P, _P, _I, _P, _L, _P]
+                                  _P, _P, _I, _P, _L, _IP, _P]
     lib.s2r_train_bwd.argtypes = ([_I, _I, _P, _L, _I, _I, _I, _I, _P, _P, _P,
-                                   _P, _I, _P] + [_P] * 9 + [_I, _P])
+                                   _P, _I, _P] + [_P] * 9 + [_I, _IP, _P])
     lib.s2r_train_stage.argtypes = ([_I, _P, _L, _I, _I, _I, _I, _P, _L, _I,
                                      _P, _I, _PP, _PP, _PP, _PP]
-                                    + [_P] * 12 + [_I, _P])
+                                    + [_P] * 12 + [_I, _IP, _P])
     lib.s2r_train_final.argtypes = [_I, _P, _L, _I, _I, _I, _I, _I, _I, _PP,
-                                    _PP, _PP, _PP, _P, _P]
+                                    _PP, _PP, _PP, _P, _IP, _P]
     for fn in (lib.s2r_train_fwd, lib.s2r_train_bwd, lib.s2r_train_stage,
-               lib.s2r_train_final):
+               lib.s2r_train_final, lib.s2r_train_init):
         fn.restype = _I
+    lib.s2r_train_init.argtypes = []
     lib.s2r_train_error_string.argtypes = [_I]
     lib.s2r_train_error_string.restype = ctypes.c_char_p
+    # the kernels' shared-memory limits, set here so that no launch (and
+    # no CUDA-graph capture) meets an attribute call
+    _check(lib, lib.s2r_train_init(), "train_block init")
     return lib
 
 
@@ -325,15 +334,16 @@ def consumer_fwd(x: torch.Tensor, scale, shift, weight, bias, mask,
     _require(out.dtype == x.dtype and tuple(out.shape) == (b, n, h, w),
              "consumer output shape or dtype")
     lib = _lib()
+    route = _I(0)
     with build.on_device(x.device):
         err = lib.s2r_train_fwd(
             _DTYPE_CODE[x.dtype], taps, x.data_ptr(), x.stride(0), b, c, h,
             w, scale.data_ptr(), shift.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), mask.data_ptr(), n, out.data_ptr(),
-            out.stride(0), _stream())
+            out.stride(0), ctypes.byref(route), _stream())
     _check(lib, err, "consumer_fwd")
     launches["consumer_fwd"] += 1
-    mma_launches["consumer_fwd"] += takes_mma_fwd(x.dtype, taps, c, n)
+    mma_launches["consumer_fwd"] += route.value
     return out
 
 
@@ -368,6 +378,7 @@ def consumer_bwd(x: torch.Tensor, scale, shift, weight, mask, dy):
         sizes = (b * n, 2 * b * n_tiles(h, w) * c, splits * c * taps * n)
     part_gp, part_ss, part_w = _empty((sum(sizes),), f32, x).split(sizes)
     lib = _lib()
+    route = _I(0)
     with build.on_device(x.device):
         err = lib.s2r_train_bwd(
             _DTYPE_CODE[x.dtype], taps, x.data_ptr(), x.stride(0), b, c, h,
@@ -375,10 +386,11 @@ def consumer_bwd(x: torch.Tensor, scale, shift, weight, mask, dy):
             mask.data_ptr(), n, dy.data_ptr(), dseg.data_ptr(),
             dscale.data_ptr(), dshift.data_ptr(), dw.data_ptr(),
             dbias.data_ptr(), gbuf.data_ptr(), part_gp.data_ptr(),
-            part_ss.data_ptr(), part_w.data_ptr(), splits, _stream())
+            part_ss.data_ptr(), part_w.data_ptr(), splits,
+            ctypes.byref(route), _stream())
     _check(lib, err, "consumer_bwd")
     launches["consumer_bwd"] += 1
-    mma_launches["consumer_bwd"] += takes_mma_bwd(x.dtype, taps, n)
+    mma_launches["consumer_bwd"] += route.value
     return dseg, dscale, dshift, dw, dbias
 
 
@@ -437,6 +449,7 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
                  splits * c * 9 * g)
     part_gp, part_ss, part_w = _empty((sum(sizes),), f32, x).split(sizes)
     lib = _lib()
+    route = _I(0)
     with build.on_device(x.device):
         err = lib.s2r_train_stage(
             _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), b, c, h, w,
@@ -447,10 +460,11 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
             scale.data_ptr(), shift.data_ptr(), mask.data_ptr(),
             gp.data_ptr(), dw.data_ptr(), dscale.data_ptr(),
             dshift.data_ptr(), dbias.data_ptr(), part_gp.data_ptr(),
-            part_ss.data_ptr(), part_w.data_ptr(), splits, _stream())
+            part_ss.data_ptr(), part_w.data_ptr(), splits,
+            ctypes.byref(route), _stream())
     _check(lib, err, "stage")
     launches["stage"] += 1
-    mma_launches["stage"] += mma
+    mma_launches["stage"] += route.value
     return gp, dw, dscale, dshift, dbias
 
 
@@ -467,14 +481,16 @@ def final(x: torch.Tensor, gps: Sequence[torch.Tensor],
     _check_later(x, gps, w_slices, sc_slices, sh_slices, c, g)
     dseg = _empty((b, c, h, w), x.dtype, x)
     lib = _lib()
+    route = _I(0)
     with build.on_device(x.device):
         err = lib.s2r_train_final(
             _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), b, c, h, w, g,
             len(gps), ctypes.cast(_ptrs(gps), _PP),
             ctypes.cast(_ptrs(w_slices), _PP),
             ctypes.cast(_ptrs(sc_slices), _PP),
-            ctypes.cast(_ptrs(sh_slices), _PP), dseg.data_ptr(), _stream())
+            ctypes.cast(_ptrs(sh_slices), _PP), dseg.data_ptr(),
+            ctypes.byref(route), _stream())
     _check(lib, err, "final")
     launches["final"] += 1
-    mma_launches["final"] += takes_mma_stage(x.dtype, g)
+    mma_launches["final"] += route.value
     return dseg

@@ -366,22 +366,45 @@ def dropout_sites(model: FCDenseNet) -> list[int]:
     return sites
 
 
+def draw_drop_masks(generator: torch.Generator, model: FCDenseNet,
+                    batch: int, pin: bool = False) -> torch.Tensor:
+    """Every Dropout2d mask of one step, flat, site after site (one f32
+    [batch, C] block per site: keep with probability 1 - rate, kept
+    channels scaled by 1/(1 - rate)), drawn on the generator's device.
+    ``pin``: in pinned memory, for one asynchronous copy to a card."""
+    rate = model.dropout_rate
+    sites = dropout_sites(model)
+    u = torch.empty(batch * sum(sites), device=generator.device)
+    if rate == 0.0:
+        u.fill_(1.0)
+    else:
+        off = 0
+        for c in sites:  # the per-site draws, in site order
+            torch.rand(batch, c, generator=generator,
+                       out=u[off:off + batch * c].view(batch, c))
+            off += batch * c
+        u = (u >= rate).to(torch.float32) / (1.0 - rate)
+    return u.pin_memory() if pin and not u.is_pinned() else u
+
+
+def split_masks(flat: torch.Tensor, model: FCDenseNet,
+                batch: int) -> list[torch.Tensor]:
+    """``draw_drop_masks``'s flat buffer as one [batch, C] view per site."""
+    out, off = [], 0
+    for c in dropout_sites(model):
+        out.append(flat[off:off + batch * c].view(batch, c))
+        off += batch * c
+    return out
+
+
 def drop_masks(generator: torch.Generator, model: FCDenseNet, batch: int,
                device=None) -> list[torch.Tensor]:
-    """One f32 [batch, C] Dropout2d mask per site: keep with probability
-    1 - rate, kept channels scaled by 1/(1 - rate).  Drawn on the
-    generator's device, then moved to ``device``."""
-    rate = model.dropout_rate
-    out = []
-    for c in dropout_sites(model):
-        if rate == 0.0:
-            m = torch.ones(batch, c)
-        else:
-            keep = torch.rand(batch, c, generator=generator,
-                              device=generator.device) >= rate
-            m = keep.to(torch.float32) / (1.0 - rate)
-        out.append(m.to(device))
-    return out
+    """One f32 [batch, C] Dropout2d mask per site (``draw_drop_masks``),
+    moved to ``device`` in one copy (from pinned memory to a card)."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    flat = draw_drop_masks(generator, model, batch,
+                           pin=device.type == "cuda")
+    return split_masks(flat.to(device, non_blocking=True), model, batch)
 
 
 @torch.no_grad()

@@ -20,6 +20,7 @@ every device (a cuDNN convolution could round it to TF32).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -27,8 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from .colorspace import shift_hsv
-from .resize import normalize, normalize_flat, resize_bilinear, \
-    resize_nearest_label, to_gray
+from .resize import device_constant, normalize, normalize_flat, \
+    resize_bilinear, resize_nearest_label, to_gray
 
 
 class AugmentConfig(NamedTuple):
@@ -71,6 +72,13 @@ _MB_ANGLES = 8
 MOTION_BLUR_BANK = np.stack([
     _line_kernel(s, a) for s in _MB_SIZES for a in range(_MB_ANGLES)
 ])  # (24, 7, 7) float32
+
+
+@functools.cache
+def _blur_bank(device: torch.device) -> torch.Tensor:
+    """``MOTION_BLUR_BANK`` on ``device``, uploaded once per device."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(MOTION_BLUR_BANK).to(device)
 
 
 def motion_blur(images: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
@@ -140,8 +148,7 @@ def crop_boxes(draws: AugmentDraws, src_h: int, src_w: int,
     aspect is the output's; crops larger than the source are clamped to
     it; the position is uniform."""
     f32 = torch.float32
-    w2h = torch.tensor(cfg.width / cfg.height, dtype=f32,
-                       device=draws.crop_h.device)
+    w2h = device_constant(cfg.width / cfg.height, draws.crop_h.device)
     crop_h = torch.clamp(draws.crop_h.to(f32), max=float(src_h))
     crop_w = torch.clamp(torch.floor(crop_h * w2h), max=float(src_w))
     y1 = torch.floor((src_h - crop_h + 1.0) * draws.h_start.to(f32))
@@ -220,7 +227,7 @@ def augment_batch(images: torch.Tensor, labels: torch.Tensor | None,
                   per_sample(hsv[:, 1] * cfg.sat_limit),
                   per_sample(hsv[:, 2] * cfg.val_limit), cfg.channel_order)
     x, y = random_sized_crop(x, labels if with_labels else None, draws, cfg)
-    bank = torch.from_numpy(MOTION_BLUR_BANK).to(x.device)
+    bank = _blur_bank(x.device)
     blurred = motion_blur(x, bank[draws.blur_idx])
     sigma = torch.sqrt(draws.sigma2.to(torch.float32)).view(n, 1, 1, 1)
     noisy = x + sigma * draws.noise.to(torch.float32)

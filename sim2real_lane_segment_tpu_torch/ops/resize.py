@@ -11,6 +11,8 @@ element for element.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -44,7 +46,16 @@ def resize_nearest_label(label: torch.Tensor, height: int,
 
 
 def _channel_consts(x: torch.Tensor, values) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=x.device)
+    return device_constant(tuple(values), x.device)
+
+
+@functools.cache
+def device_constant(values, device: torch.device) -> torch.Tensor:
+    """``values`` (a float or a tuple of floats) as a float32 tensor on
+    ``device``, made once per device: an upload at every call would cost
+    host time and could not be captured in a CUDA graph."""
+    with torch.inference_mode(False):  # a normal tensor, usable anywhere
+        return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def normalize(img: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD,

@@ -9,6 +9,14 @@ Scalars go to ``metrics.jsonl``.  ``resume`` continues a run from its own
 checkpoints.  Each epoch draws its dropout masks from a
 ``torch.Generator`` seeded from ``(seed, epoch)``, so a resumed run
 repeats the randomness of an uninterrupted one.
+
+When the data module keeps its splits on the device
+(``train_scan_inputs`` is not None), an epoch runs as chunks of
+``SCAN_CHUNK`` steps through the trainer's ``run_scan_chunk`` (the JAX
+``_run_train_epoch_scanned``): the same batches, draws, logged values and
+cadence as the per-batch loop, with the chunk's logs read once, at its
+end.  The JAX loop's retries of transient backend errors and its retreat
+to the per-batch path are not ported: a failure raises.
 """
 from __future__ import annotations
 
@@ -64,6 +72,46 @@ def _last_logged_step(history_path: str) -> int:
         return 0
 
 
+# steps a chunk of the multi-step dispatch (the JAX loop's _SCAN_CHUNK)
+SCAN_CHUNK = 32
+
+
+def _run_train_epoch(trainer, data, gen, epoch, logger, global_step,
+                     log_every) -> tuple[int, int]:
+    """One epoch of per-batch steps; returns (steps, global step)."""
+    n_steps = 0
+    for batch in background_batches(lambda e=epoch: data.train_batches(e)):
+        logs = trainer.default_step_fn(batch, gen, epoch)
+        n_steps += 1
+        global_step += 1
+        if global_step % log_every == 0:
+            logger.log(global_step, {f"train/{k}": v
+                                     for k, v in logs.items()})
+    return n_steps, global_step
+
+
+def _run_train_epoch_scanned(trainer, scan, gen, epoch, logger, global_step,
+                             log_every) -> tuple[int, int]:
+    """One epoch as ``run_scan_chunk`` calls of ``SCAN_CHUNK`` steps over
+    the device-resident split; ``scan`` is the module's (device arrays,
+    index matrix [n, ...])."""
+    arrays, idx = scan
+    for i in range(0, len(idx), SCAN_CHUNK):
+        chunk = idx[i:i + SCAN_CHUNK]
+        logs = trainer.run_scan_chunk(arrays, chunk, gen, epoch)
+        rows = [j for j in range(len(chunk))
+                if (global_step + j + 1) % log_every == 0]
+        if rows:
+            names = list(logs)
+            values = torch.stack([logs[k] for k in names], 1).cpu()
+            for j in rows:
+                logger.log(global_step + j + 1,
+                           {f"train/{k}": v for k, v in zip(names,
+                                                            values[j])})
+        global_step += len(chunk)
+    return len(idx), global_step
+
+
 def fit(trainer, data, *, max_epochs: int, out_dir: str, seed: int = 42,
         log_every: int = 50, resume: bool = False) -> tuple:
     """Train ``trainer`` on ``data`` with per-epoch validation.
@@ -102,14 +150,13 @@ def fit(trainer, data, *, max_epochs: int, out_dir: str, seed: int = 42,
     for epoch in range(start_epoch, max_epochs):
         t0 = time.time()
         gen = epoch_generator(seed, epoch)
-        n_steps = 0
-        for batch in background_batches(lambda e=epoch: data.train_batches(e)):
-            logs = trainer.default_step_fn(batch, gen, epoch)
-            n_steps += 1
-            global_step += 1
-            if global_step % log_every == 0:
-                logger.log(global_step, {f"train/{k}": v
-                                         for k, v in logs.items()})
+        scan = getattr(data, "train_scan_inputs", lambda e: None)(epoch)
+        if scan is None:
+            n_steps, global_step = _run_train_epoch(
+                trainer, data, gen, epoch, logger, global_step, log_every)
+        else:
+            n_steps, global_step = _run_train_epoch_scanned(
+                trainer, scan, gen, epoch, logger, global_step, log_every)
         val = run_eval(trainer.eval_step, data.val_batches())
         logger.log(global_step, {f"val/{k}": v for k, v in val.items()})
         log.info("epoch %d: %d steps in %.1fs, val_iou=%.3f val_acc=%.2f",

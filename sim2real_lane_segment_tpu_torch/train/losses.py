@@ -18,9 +18,11 @@ from ..core.dtypes import at_least_f32
 
 def get_class_weight(targets: torch.Tensor, num_classes: int) -> torch.Tensor:
     """Inverse-frequency class weights over the batch; an absent class
-    gets weight 0 (it indexes no pixel, so the loss is the same)."""
-    counts = torch.bincount(targets.reshape(-1).to(torch.int64),
-                            minlength=num_classes)[:num_classes]
+    gets weight 0 (it indexes no pixel, so the loss is the same).  The
+    counts go into ``num_classes`` bins of fixed size: ``torch.bincount``
+    would read the largest label back to the host to size its output."""
+    classes = torch.arange(num_classes, device=targets.device)
+    counts = (targets.reshape(-1, 1).to(torch.int64) == classes).sum(0)
     counts = counts.to(torch.float32)
     return torch.where(counts > 0, 1.0 / torch.clamp(counts, min=1.0),
                        torch.zeros_like(counts))

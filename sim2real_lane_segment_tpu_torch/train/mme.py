@@ -21,12 +21,17 @@ is written into the model before phase F's forward, which starts from it.
 With ``pallas_train`` both phases run through the fused consumer kernels
 (K1, K2, K3a, K3b); phase G's cotangent reaches them negated, through
 ``grad_reverse`` on the head's input.
+
+``run_scan_chunk`` (``SupervisedTrainer``'s) runs K MME steps over the
+device-resident splits, the counterpart of the JAX
+``mme_train_steps_scan``: on a card one CUDA graph holds both phases and
+the running-statistics write between them, replayed once a step.
 """
 from __future__ import annotations
 
 import torch
 
-from ..models.tiramisu import apply_batch_stats, drop_masks, grad_reverse
+from ..models.tiramisu import apply_batch_stats, grad_reverse
 from ..models.tiramisu_train_fused import fused_apply_train
 from ..ops.augment import AugmentDraws
 from .checkpoint import load_weights
@@ -105,6 +110,50 @@ class MMETrainer(SupervisedTrainer):
             return fused_apply_train(self.model, x, masks)
         return self.model(x, train=True, masks=masks)
 
+    def _mme_step(self, images_lab, labels, images_unl, draws_l, draws_u,
+                  masks_g, masks_f) -> torch.Tensor:
+        """One MME step, at the rates set in both optimizers, on uint8
+        batches on the device; masks flat.  Returns [tr_loss_adent,
+        tr_loss]."""
+        x_lab, y = self._batch(images_lab, labels, draws_l)
+        x_unl, _ = self._batch(images_unl, None, draws_u)
+
+        # phase G: entropy of the unlabelled batch through grad_reverse
+        probs, upd_g = self._forward_g(x_unl,
+                                       self._masks(masks_g, x_unl.shape[0]))
+        loss_g = adentropy(probs, self.lamda)
+        grads = torch.autograd.grad(loss_g, self.params)
+        del probs
+        self.opt_g.step(grads)
+        del grads
+        apply_batch_stats(self.model, upd_g)
+
+        # phase F: weighted cross entropy of the labelled batch, at the
+        # post-G parameters and running statistics
+        out, upd_f = self._forward_f(x_lab,
+                                     self._masks(masks_f, x_lab.shape[0]))
+        loss_f = weighted_cross_entropy(out, y, self.num_cls)
+        grads = torch.autograd.grad(loss_f, self.params)
+        self.opt.step(grads)
+        apply_batch_stats(self.model, upd_f)
+        return torch.stack([loss_g.detach(), loss_f.detach()])
+
+    def _mme_draw(self, generator, n_lab: int, n_unl: int, draws_l, draws_u,
+                  masks_g, masks_f) -> tuple:
+        """The step's draws in the JAX key order: ``draws_l``, ``draws_u``,
+        ``masks_g``, ``masks_f``, each where not given."""
+        draws_l = self._draw_augment(generator, n_lab, draws_l)
+        draws_u = self._draw_augment(generator, n_unl, draws_u)
+        masks_g = self._draw_masks(generator, n_unl, masks_g)
+        return (draws_l, draws_u, masks_g,
+                self._draw_masks(generator, n_lab, masks_f))
+
+    def _set_rates(self, lr_g_fe: float, lr_g_cls: float,
+                   lr_f: float) -> None:
+        self.opt_g.set_lrs([lr_g_fe * m + lr_g_cls * (1.0 - m)
+                            for m in self.lr_mask_fe])
+        self.opt.set_lr(lr_f)
+
     def mme_train_step(self, images_lab, labels, images_unl, lr_g_fe: float,
                        lr_g_cls: float, lr_f: float, *,
                        draws_l: AugmentDraws | None = None,
@@ -118,31 +167,35 @@ class MMETrainer(SupervisedTrainer):
         "tr_loss"}`` as 0-d tensors on the device."""
         self._require_trainable()
         generator = generator if generator is not None else torch.Generator()
-        x_lab, y = self._train_input(images_lab, labels, draws_l, generator)
-        x_unl, _ = self._train_input(images_unl, None, draws_u, generator)
-        if masks_g is None:
-            masks_g = drop_masks(generator, self.model, x_unl.shape[0],
-                                 self.device)
-        if masks_f is None:
-            masks_f = drop_masks(generator, self.model, x_lab.shape[0],
-                                 self.device)
-
-        # phase G: entropy of the unlabelled batch through grad_reverse
-        probs, upd_g = self._forward_g(x_unl, masks_g)
-        loss_g = adentropy(probs, self.lamda)
-        grads = torch.autograd.grad(loss_g, self.params)
-        del probs
-        self.opt_g.step(grads, [lr_g_fe * m + lr_g_cls * (1.0 - m)
-                                for m in self.lr_mask_fe])
-        del grads
-        apply_batch_stats(self.model, upd_g)
-
-        # phase F: weighted cross entropy of the labelled batch, at the
-        # post-G parameters and running statistics
-        out, upd_f = self._forward_f(x_lab, masks_f)
-        loss_f = weighted_cross_entropy(out, y, self.num_cls)
-        grads = torch.autograd.grad(loss_f, self.params)
-        self.opt.step(grads, lr_f)
-        apply_batch_stats(self.model, upd_f)
+        inputs = self._mme_draw(generator, len(images_lab), len(images_unl),
+                                draws_l, draws_u, masks_g, masks_f)
+        self._set_rates(lr_g_fe, lr_g_cls, lr_f)
+        logs = self._mme_step(self._to_device(images_lab),
+                              self._to_device(labels),
+                              self._to_device(images_unl), *inputs)
         self._folded = None
-        return {"tr_loss_adent": loss_g.detach(), "tr_loss": loss_f.detach()}
+        return dict(zip(self.scan_logs, logs.unbind()))
+
+    # -- the multi-step dispatch (SupervisedTrainer.run_scan_chunk) -----
+
+    scan_logs = ("tr_loss_adent", "tr_loss")
+
+    def _set_epoch_rates(self, epoch: int) -> None:
+        self._set_rates(*self.lrs_at(epoch))
+
+    def _scan_draw(self, generator, b: int, given: dict):
+        return self._mme_draw(generator, b, b, given.get("draws_l"),
+                              given.get("draws_u"), given.get("masks_g"),
+                              given.get("masks_f"))
+
+    def _scan_step(self, arrays, idx: torch.Tensor, inputs) -> torch.Tensor:
+        """One step on labelled rows ``idx[0]`` and unlabelled rows
+        ``idx[1]`` of ``arrays`` = (labelled images, labels, unlabelled
+        images)."""
+        lab_img, lab_lab, unl_img = arrays
+        return self._mme_step(lab_img.index_select(0, idx[0]),
+                              lab_lab.index_select(0, idx[0]),
+                              unl_img.index_select(0, idx[1]), *inputs)
+
+    def _written(self) -> list[torch.Tensor]:
+        return [*super()._written(), *self.opt_g.tensors()]

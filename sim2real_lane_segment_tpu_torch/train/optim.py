@@ -15,6 +15,14 @@ Counterparts of ``sim2real_lane_segment_tpu.train.optim``:
 The learning rate is an argument of ``step`` rather than part of the
 optimizer, so a schedule never rebuilds it.  Weight decay applies to
 every parameter, as in the JAX chains.
+
+The step count, both bias corrections and the learning rates are tensors
+on the parameters' device, read by the update there: a CUDA graph that
+captures ``step`` replays it with the rate set since and the count it
+advanced itself.  ``step`` given a rate writes it into that tensor first
+(``set_lr``/``set_lrs``), so eager and replayed steps run one arithmetic.
+Dividing by a device tensor is a true division on every device (dividing
+a CUDA tensor by a Python number multiplies by its reciprocal).
 """
 from __future__ import annotations
 
@@ -29,22 +37,42 @@ class AdamW:
         self.params = list(params)
         self.weight_decay = weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.count = 0
+        device = self.params[0].device if self.params else None
+        # the count in float64: 1 - b ** count rounds to float32 once, as
+        # the Python arithmetic it replaces did
+        self._count = torch.zeros((), dtype=torch.float64, device=device)
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
+    @property
+    def count(self) -> int:
+        """Steps taken (reads the device)."""
+        return int(self._count.item())
+
+    def set_lr(self, lr: float) -> None:
+        self.lr.fill_(lr)
+
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor], lr: float) -> None:
-        """One update of every parameter in place from ``grads``."""
-        self.count += 1
-        c1 = 1.0 - self.b1 ** self.count
-        c2 = 1.0 - self.b2 ** self.count
+    def step(self, grads: Sequence[torch.Tensor],
+             lr: float | None = None) -> None:
+        """One update of every parameter in place from ``grads``, at ``lr``
+        (None: the rate last set)."""
+        if lr is not None:
+            self.set_lr(lr)
+        self._count.add_(1.0)
+        c1 = (1.0 - torch.pow(self.b1, self._count)).to(torch.float32)
+        c2 = (1.0 - torch.pow(self.b2, self._count)).to(torch.float32)
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             u = u + self.weight_decay * p
-            p.sub_(lr * u)
+            p.sub_(self.lr * u)
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor ``step`` writes besides the parameters."""
+        return [self._count, *self.mu, *self.nu]
 
     def state_dict(self) -> dict:
         """The step count and both moments, copied to the CPU."""
@@ -53,8 +81,9 @@ class AdamW:
                 "nu": [t.to("cpu", copy=True) for t in self.nu]}
 
     def load_state_dict(self, state: dict) -> None:
-        """Copies the moments in place, onto the parameters' device."""
-        self.count = int(state["count"])
+        """Copies the count and the moments in place, onto the parameters'
+        device."""
+        self._count.fill_(int(state["count"]))
         for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
             dst.copy_(src)
 
@@ -66,18 +95,40 @@ class SGDNesterov:
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.trace = [torch.zeros_like(p) for p in self.params]
+        device = self.params[0].device if self.params else None
+        # one rate per parameter, and the host values last written there
+        self.lrs = torch.zeros(len(self.params), dtype=torch.float32,
+                               device=device)
+        self._lr_views = list(self.lrs.unbind())
+        self._lrs_set: tuple | None = None
+
+    def set_lrs(self, lrs: Sequence[float]) -> None:
+        """Write one rate per parameter; a copy only when they changed."""
+        lrs = tuple(float(v) for v in lrs)
+        if len(lrs) != len(self.params):
+            raise ValueError(f"{len(lrs)} rates for {len(self.params)} "
+                             f"parameters")
+        if lrs != self._lrs_set:
+            self.lrs.copy_(torch.tensor(lrs, dtype=torch.float32))
+            self._lrs_set = lrs
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
-             lrs: Sequence[float]) -> None:
+             lrs: Sequence[float] | None = None) -> None:
         """One update of every parameter in place; ``lrs`` holds one
-        learning rate per parameter."""
+        learning rate per parameter (None: the rates last set)."""
+        if lrs is not None:
+            self.set_lrs(lrs)
         mu = self.momentum
-        for p, g, buf, lr in zip(self.params, grads, self.trace, lrs,
-                                 strict=True):
+        for p, g, buf, lr in zip(self.params, grads, self.trace,
+                                 self._lr_views, strict=True):
             g = g + self.weight_decay * p
             buf.mul_(mu).add_(g)
             p.sub_(lr * (g + mu * buf))
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor ``step`` writes besides the parameters."""
+        return list(self.trace)
 
     def state_dict(self) -> dict:
         """The momentum buffers, copied to the CPU."""

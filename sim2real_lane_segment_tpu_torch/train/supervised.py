@@ -22,6 +22,16 @@ AugmentDraws``) and the Dropout2d masks (``models.tiramisu.drop_masks``).
 When a step is not given them it draws them from an explicit
 ``torch.Generator``, augmentation first, then dropout (the JAX step's
 ``k_aug, k_drop`` order).
+
+``run_scan_chunk`` is the multi-step dispatch over a device-resident split
+(``data.device_cache``), the counterpart of the JAX ``train_steps_scan``:
+K steps, step k on the rows ``idx[k]`` gathered on the device, with the
+same batches, draws and values as K ``train_step`` calls.  On a card the
+whole step (gather, augmentation, forward, loss, gradients, optimizer,
+running statistics) is captured once as a CUDA graph (``train.graphs``)
+and replayed once a step; the draws are made outside it, in the same
+order, and written into its static buffers.  A failed capture or replay
+raises.  On the CPU the same steps run eagerly.
 """
 from __future__ import annotations
 
@@ -31,13 +41,15 @@ from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ..core.runtime import resolve_device
-from ..models.tiramisu import (FCDenseNet, apply_batch_stats, drop_masks,
-                               fcdensenet67)
+from ..data.device_cache import to_device_index
+from ..models.tiramisu import (FCDenseNet, apply_batch_stats,
+                               draw_drop_masks, fcdensenet67, split_masks)
 from ..models.tiramisu_fused import FoldedModel, fold_model, fused_apply
 from ..models.tiramisu_train_fused import fused_apply_train
 from ..ops.augment import (AugmentConfig, AugmentDraws, augment_batch,
                            draw_augment, eval_batch)
 from ..ops.metrics import accuracy, evaluate_outputs
+from .graphs import StepGraph
 from .losses import cross_entropy, weighted_cross_entropy
 from .optim import AdamW
 from .schedules import cosine_annealing
@@ -76,6 +88,11 @@ class SupervisedTrainer:
         self.params = list(self.model.parameters())
         self.opt = AdamW(self.params, decay)
         self._folded: FoldedModel | None = None
+        # the step run_scan_chunk captured on a card, its static inputs,
+        # and what it was captured over
+        self.graph: StepGraph | None = None
+        self._static = None
+        self._graph_key = None
 
     # -- state ----------------------------------------------------------
 
@@ -95,16 +112,17 @@ class SupervisedTrainer:
 
     # -- inputs ---------------------------------------------------------
 
-    def _to_device(self, a) -> torch.Tensor:
+    def _to_device(self, a) -> torch.Tensor | None:
+        if a is None:
+            return None
         if isinstance(a, np.ndarray):
             a = torch.from_numpy(np.ascontiguousarray(a))
         return a.to(self.device)
 
     def _batch(self, images, labels, draws: AugmentDraws | None = None):
-        """uint8 NHWC frames (+ labels) -> NCHW float32 input, int64 labels;
-        through ``augment_batch`` when ``draws`` are given."""
-        images = self._to_device(images)
-        labels = None if labels is None else self._to_device(labels)
+        """uint8 NHWC frames (+ labels) on the device -> NCHW float32
+        input, int64 labels; through ``augment_batch`` when ``draws`` are
+        given."""
         if draws is None:
             x, y = eval_batch(images, labels, self.cfg,
                               with_labels=labels is not None)
@@ -115,13 +133,32 @@ class SupervisedTrainer:
         x = x.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW, once
         return x, (None if y is None else y.to(torch.int64))
 
-    def _train_input(self, images, labels, draws, generator):
-        """``_batch`` for a train step: augmented with ``draws``, drawn
-        from ``generator`` when not given, if the trainer augments."""
-        if self.augment and draws is None:
-            draws = draw_augment(generator, len(images), self.cfg,
-                                 self.device)
-        return self._batch(images, labels, draws if self.augment else None)
+    def _draw_augment(self, generator, n: int, draws):
+        """The augmentation's draws (None without ``augment``), from
+        ``generator`` where not given."""
+        if not self.augment:
+            return None
+        return (draw_augment(generator, n, self.cfg, self.device)
+                if draws is None else draws)
+
+    def _draw_masks(self, generator, n: int, masks) -> torch.Tensor:
+        """The flat Dropout2d masks (``draw_drop_masks``, pinned for a
+        card), from ``generator`` where not given."""
+        if masks is None:
+            return draw_drop_masks(generator, self.model, n,
+                                   pin=self.device.type == "cuda")
+        if isinstance(masks, torch.Tensor):
+            return masks
+        return torch.cat([m.reshape(-1) for m in masks])
+
+    def _draw(self, generator, n: int, draws, masks) -> tuple:
+        """A step's draws: augmentation first, then dropout."""
+        draws = self._draw_augment(generator, n, draws)
+        return draws, self._draw_masks(generator, n, masks)
+
+    def _masks(self, flat: torch.Tensor, n: int) -> list[torch.Tensor]:
+        return split_masks(flat.to(self.device, non_blocking=True),
+                           self.model, n)
 
     # -- steps ----------------------------------------------------------
 
@@ -130,6 +167,22 @@ class SupervisedTrainer:
             raise NotImplementedError(
                 f"training {type(self.model).__name__} is not yet ported to "
                 f"PyTorch")
+
+    def _step(self, images, labels, draws, masks) -> torch.Tensor:
+        """One AdamW step, at the rate set in ``opt``, on uint8 batches on
+        the device; ``masks`` flat.  Returns [tr_loss, tr_acc]."""
+        x, y = self._batch(images, labels, draws)
+        masks = self._masks(masks, x.shape[0])
+        if self.pallas_train:
+            out, new_bs = fused_apply_train(self.model, x, masks)
+        else:
+            out, new_bs = self.model(x, train=True, masks=masks)
+        loss = weighted_cross_entropy(out, y, self.num_cls)
+        grads = torch.autograd.grad(loss, self.params)
+        self.opt.step(grads)
+        apply_batch_stats(self.model, new_bs)
+        pred = torch.argmax(out.detach(), dim=1)
+        return torch.stack([loss.detach(), accuracy(pred, y) * 100.0])
 
     def train_step(self, images, labels, lr: float, *,
                    draws: AugmentDraws | None = None, masks=None,
@@ -140,21 +193,12 @@ class SupervisedTrainer:
         ``{"tr_loss", "tr_acc"}`` as 0-d tensors on the device."""
         self._require_trainable()
         generator = generator if generator is not None else torch.Generator()
-        x, y = self._train_input(images, labels, draws, generator)
-        if masks is None:
-            masks = drop_masks(generator, self.model, x.shape[0],
-                               self.device)
-        if self.pallas_train:
-            out, new_bs = fused_apply_train(self.model, x, masks)
-        else:
-            out, new_bs = self.model(x, train=True, masks=masks)
-        loss = weighted_cross_entropy(out, y, self.num_cls)
-        grads = torch.autograd.grad(loss, self.params)
-        self.opt.step(grads, lr)
-        apply_batch_stats(self.model, new_bs)
+        inputs = self._draw(generator, len(images), draws, masks)
+        self.opt.set_lr(lr)
+        logs = self._step(self._to_device(images), self._to_device(labels),
+                          *inputs)
         self._folded = None
-        pred = torch.argmax(out.detach(), dim=1)
-        return {"tr_loss": loss.detach(), "tr_acc": accuracy(pred, y) * 100.0}
+        return dict(zip(self.scan_logs, logs.unbind()))
 
     def default_step_fn(self, batch, generator: torch.Generator,
                         epoch: int) -> dict:
@@ -163,16 +207,84 @@ class SupervisedTrainer:
         return self.train_step(images, labels, self.lr_at(epoch),
                                generator=generator)
 
+    # -- the multi-step dispatch over a device-resident split -----------
+
+    scan_logs = ("tr_loss", "tr_acc")
+
+    def _set_epoch_rates(self, epoch: int) -> None:
+        self.opt.set_lr(self.lr_at(epoch))
+
+    def _scan_draw(self, generator, b: int, given: dict):
+        return self._draw(generator, b, given.get("draws"),
+                          given.get("masks"))
+
+    def _scan_step(self, arrays, idx: torch.Tensor, inputs) -> torch.Tensor:
+        """One step on the rows ``idx`` ([B]) of ``arrays`` = (images,
+        labels)."""
+        images, labels = arrays
+        return self._step(images.index_select(0, idx),
+                          labels.index_select(0, idx), *inputs)
+
+    def _written(self) -> list[torch.Tensor]:
+        """Every tensor a step writes in place."""
+        return [*self.params, *self.model.buffers(), *self.opt.tensors()]
+
+    def run_scan_chunk(self, arrays, idx_chunk, generator: torch.Generator,
+                       epoch: int, draws=None) -> dict:
+        """K steps over the device-resident split ``arrays`` (images,
+        labels; MME: labelled images, labels, unlabelled images): step k
+        on the rows ``idx_chunk[k]`` ([K, B]; MME [K, 2, B]), at epoch
+        ``epoch``'s rates, its draws from ``generator`` in the per-batch
+        order.  ``draws``: per step, a dict of the step's draw keywords to
+        use instead (``draws``/``masks``; MME ``draws_l``, ``draws_u``,
+        ``masks_g``, ``masks_f``).  On a card every step is one replay of
+        the captured step.  Returns ``{name: [K] tensor}`` on the device,
+        one column of one [K, n] tensor per logged scalar."""
+        self._require_trainable()
+        self._set_epoch_rates(epoch)
+        idx = to_device_index(idx_chunk, self.device)
+        logs = torch.empty(len(idx), len(self.scan_logs), device=self.device)
+        for k in range(len(idx)):
+            inputs = self._scan_draw(generator, idx.shape[-1],
+                                     draws[k] if draws is not None else {})
+            if self.device.type == "cuda":
+                logs[k].copy_(self._replay(arrays, idx[k], inputs))
+            else:
+                logs[k] = self._scan_step(arrays, idx[k], inputs)
+        self._folded = None
+        return dict(zip(self.scan_logs, logs.unbind(1)))
+
+    def _replay(self, arrays, idx: torch.Tensor, inputs) -> torch.Tensor:
+        """Write a step's inputs into the graph's static buffers and
+        replay it; capture it first if there is none for these arrays,
+        this batch and these optimizers."""
+        # what the graph reads (held, so that it outlives the graph) and
+        # the batch's shape
+        key = (*arrays, self.opt, getattr(self, "opt_g", None),
+               tuple(idx.shape))
+        if not _same(key, self._graph_key):
+            self.graph = self._static = self._graph_key = None
+            static_idx = idx.clone()
+            static = _to_static(inputs, self.device)
+            self.graph = StepGraph(
+                lambda: self._scan_step(arrays, static_idx, static),
+                self._written())
+            self._static, self._graph_key = (static_idx, static), key
+        static_idx, static = self._static
+        static_idx.copy_(idx)
+        _copy_static(static, inputs)
+        return self.graph.replay()
+
     @torch.inference_mode()
     def eval_step(self, images, labels) -> dict:
         """Unweighted cross entropy and metrics of the plain module in eval
         mode, each pre-multiplied by the batch size."""
-        x, y = self._batch(images, labels)
+        x, y = self._batch(self._to_device(images), self._to_device(labels))
         out = self.model(x)
         return evaluate_outputs(out, y, cross_entropy(out, y), self.num_cls)
 
     def _input(self, images) -> torch.Tensor:
-        return self._batch(images, None)[0]
+        return self._batch(self._to_device(images), None)[0]
 
     @torch.inference_mode()
     def predict_step(self, images) -> torch.Tensor:
@@ -197,3 +309,32 @@ class SupervisedTrainer:
         out = fused_apply(self.model, self._input(images), self._folded,
                           use_softmax=False)
         return torch.argmax(out, dim=1).to(torch.uint8)
+
+
+def _to_static(inputs, device) -> tuple:
+    """A device copy of a step's inputs (None, tensors, AugmentDraws), the
+    graph's static buffers."""
+    return tuple(None if t is None
+                 else AugmentDraws(*(f.to(device, copy=True) for f in t))
+                 if isinstance(t, AugmentDraws)
+                 else t.to(device, copy=True) for t in inputs)
+
+
+def _copy_static(static: tuple, inputs) -> None:
+    """Write a step's inputs into the static buffers (host-pinned masks
+    asynchronously: the pinned block is not reused before its copy ran)."""
+    for dst, src in zip(static, inputs, strict=True):
+        if dst is None:
+            continue
+        for d, s in zip(dst if isinstance(dst, AugmentDraws) else (dst,),
+                        src if isinstance(src, AugmentDraws) else (src,),
+                        strict=True):
+            d.copy_(s, non_blocking=True)
+
+
+def _same(key: tuple, other: tuple | None) -> bool:
+    """Whether a graph captured over ``other`` serves ``key``: the same
+    objects, and equal shapes."""
+    return other is not None and len(key) == len(other) and all(
+        a == b if isinstance(a, tuple) else a is b
+        for a, b in zip(key, other))

@@ -145,13 +145,16 @@ def jax_augment_draws(key, n: int, cfg):
 # ---------------------------------------------------------------------------
 
 def assert_adam_step_matches(model, mu, params_ref, mu_ref, lr: float, *,
-                             g_atol=5e-4, g_rtol=5e-3, p_atol=1e-4) -> None:
+                             g_atol=5e-4, g_rtol=5e-3, p_atol=1e-4,
+                             steps: int = 1) -> None:
     """Gradients (read back from Adam's first moment, mu = 0.1 g after one
     step) and parameters against JAX's.  A gradient that is zero in exact
     arithmetic (a bias whose output only feeds BatchNorm) is float noise
     on both sides, and Adam turns it into a step of up to lr of either
     sign: such elements (|g| <= 1e-5) are held to |p - p_ref| <= 2 lr +
-    p_atol."""
+    p_atol.  After ``steps`` steps at ``lr``, mu / 0.1 is the moment's
+    weighted sum of the steps' gradients, and the noise bound is 2 lr a
+    step."""
     named = dict(model.named_parameters())
     mu_t = dict(zip(named, mu))
     want_p = flat_numpy({"params": params_ref})
@@ -167,7 +170,8 @@ def assert_adam_step_matches(model, mu, params_ref, mu_ref, lr: float, *,
         real = np.abs(g_ref) > 1e-5
         np.testing.assert_allclose(p[real], want[real], atol=p_atol,
                                    err_msg=path)
-        assert (np.abs(p - want)[~real] <= 2 * lr + p_atol).all(), path
+        assert (np.abs(p - want)[~real] <= 2 * steps * lr + p_atol).all(), \
+            path
 
 
 def assert_batch_stats_match(model, batch_stats_ref, atol=1e-4) -> None:

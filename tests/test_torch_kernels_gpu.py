@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K4, K1-K3b, K6, K5) against their plain
-PyTorch versions, on a card.
+PyTorch versions, on a card, and the train step captured as a CUDA graph
+against the eager step.
 
 Every test here is marked ``gpu`` and skips without a CUDA device (the
 kernels have no CPU mode).  This file imports neither JAX nor the JAX
@@ -770,3 +771,83 @@ def test_mme_pallas_train_never_runs_the_plain_step(cuda):
     assert ktb.launches["consumer_bwd"] == 2 * 2
     assert ktb.launches["stage"] == 2 * 10
     assert ktb.launches["final"] == 2 * 5
+
+
+# ---------------------------------------------------------------------------
+# the multi-step dispatch: the step captured as a CUDA graph
+# ---------------------------------------------------------------------------
+
+from sim2real_lane_segment_tpu_torch.core.dtypes import \
+    DEFAULT_POLICY  # noqa: E402
+from sim2real_lane_segment_tpu_torch.data.device_cache import \
+    DeviceCachedView  # noqa: E402
+from sim2real_lane_segment_tpu_torch.train import graphs  # noqa: E402
+from sim2real_lane_segment_tpu_torch.train.supervised import \
+    SupervisedTrainer  # noqa: E402
+
+
+def _graph_trainers(cuda, regime, fused, augment):
+    """Two identical trainers (bf16, growth 16: the tensor-core routes)."""
+    out = []
+    for _ in range(2):
+        torch.manual_seed(5)
+        model = FCDenseNet(**SMALL_MME_NET, policy=DEFAULT_POLICY)
+        cls = MMETrainer if regime == "mme" else SupervisedTrainer
+        out.append(cls(num_cls=4, height=32, width=48, model=model,
+                       augment=augment, pallas_train=fused, device=cuda))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime,fused,augment", [
+    ("sim", True, True), ("mme", True, True), ("sim", False, False),
+    ("mme", False, True)])
+def test_graphed_steps_equal_eager_steps(cuda, regime, fused, augment):
+    """Three steps of ``run_scan_chunk`` (captured once, replayed three
+    times) against three eager steps on the same gathered rows and the
+    same generator: logged values, weights, running statistics and
+    optimizer state equal, bit for bit, at B=4; through the kernels and
+    through the plain module, with and without augmentation."""
+    rng = np.random.default_rng(9)
+    views = [DeviceCachedView.from_arrays(
+        rng.integers(0, 256, (10, 40, 56, 3), dtype=np.uint8),
+        rng.integers(0, 4, (10, 40, 56), dtype=np.uint8), cuda)]
+    arrays = (views[0].images, views[0].labels)
+    idx = rng.integers(0, 10, (3, 4))
+    if regime == "mme":
+        views.append(DeviceCachedView.from_arrays(
+            rng.integers(0, 256, (12, 40, 56, 3), dtype=np.uint8), None,
+            cuda))
+        arrays = arrays + (views[1].images,)
+        idx = np.stack([idx, rng.integers(0, 12, (3, 4))], axis=1)
+    graphed, eager = _graph_trainers(cuda, regime, fused, augment)
+    graphs.reset_counts()
+    logs = graphed.run_scan_chunk(arrays, idx, torch.Generator().manual_seed(
+        2), 1)
+    assert graphs.counts == {"captures": 1, "replays": 3}
+    gen = torch.Generator().manual_seed(2)
+    ref = []
+    for row in idx:
+        if regime == "mme":
+            lab, unl = torch.from_numpy(row).to(cuda)
+            out = eager.mme_train_step(
+                arrays[0][lab], arrays[1][lab], arrays[2][unl],
+                *eager.lrs_at(1), generator=gen)
+        else:
+            r = torch.from_numpy(row).to(cuda)
+            out = eager.train_step(arrays[0][r], arrays[1][r],
+                                   eager.lr_at(1), generator=gen)
+        ref.append(torch.stack(list(out.values())))
+    ref = torch.stack(ref)
+    torch.cuda.synchronize()
+    got = torch.stack(list(logs.values()), 1)
+    assert torch.equal(got, ref), (got, ref)
+    for (k, a), b in zip(graphed.model.state_dict().items(),
+                         eager.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    opts = [(graphed.opt, eager.opt)]
+    if regime == "mme":
+        opts.append((graphed.opt_g, eager.opt_g))
+    for a, b in opts:
+        for x, y in zip(a.tensors(), b.tensors(), strict=True):
+            assert torch.equal(x, y)

@@ -131,8 +131,7 @@ def test_train_cli_on_cpu_writes_artifacts_and_resumes(tmp_path):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
-    for extra in (["--fast_train"], ["--device_cache"], ["--dp", "auto"],
-                  ["--profile"]):
+    for extra in (["--fast_train"], ["--dp", "auto"]):
         for regime in ("sim", "st"):
             args = _train_args(str(tmp_path), str(tmp_path), *extra)
             args[1] = regime
