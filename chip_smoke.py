@@ -15,7 +15,10 @@ reversed cotangent) and evaluation (``cli.test.main -t mme --fused``);
 LaneNetLite serving from the committed student
 (``artifacts/lanenet_lite_sim.msgpack``, ``--arch lite [--int8
 [--fused]]``, kernel K6); and label extraction
-(``ops.labelgen.process_classes_batch`` on CUDA tensors, kernel K5).
+(``ops.labelgen.process_classes_batch`` on CUDA tensors, kernel K5);
+and the HM and CycleGAN regimes (``cli.hist_match``,
+``cli.train_cyclegan``, ``cli.sim2real_convert``, then ``--trainType st
+--pallas_train`` and ``cli.test --fused``) and ``cli.domain_study``.
 Phases:
 
 1. device: requires CUDA, prints the card's name and power limit;
@@ -111,7 +114,24 @@ Phases:
     and over host batches, the graphed MME step against the eager one
     (medians of 20, in turns), one replay's kernels against one eager
     step's by name (torch.profiler), and each graph's device busy time,
-    idle share and private pool.
+    idle share and private pool;
+18. the HM and CycleGAN regimes and the domain study: (a) the cv2-free
+    resamplers (``resize_cubic_u8`` 480x640 -> 120x160,
+    ``resize_lanczos4_u8`` back) at B=16 on the card, bit-equal to the
+    CPU; (b) ``cli.hist_match.main`` on 48 + 48 seeded 480x640 frames,
+    every matched frame equal to ``match_histograms_batch`` on the CPU,
+    matched frames/s on the card and through the CLI; (c) the CycleGAN
+    generator at full width (11,378,179 parameters, B=4, float32) against
+    itself in float64 on the card, and one ``CycleGANTrainer.train_step``
+    against the same step on the CPU; (d) ``cli.train_cyclegan.main``, 2
+    epochs on 64/64 frames at B=4, the B=4 step's median time and idle
+    share, then ``cli.sim2real_convert.main`` over 32 frames (frames/s,
+    every frame rewritten at 480x640); (e) a two-domain tree
+    histogram-matched and restyled, then one epoch of ``--trainType st
+    --pallas_train --augment`` and ``cli.test --fused`` on each, with
+    phase 15's launch checks; (f) ``cli.domain_study.main --arch 67`` with
+    all five regimes over seeded trees, then a second call that resumes
+    without training.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
@@ -261,6 +281,38 @@ CACHE_MME_SPLITS = (("source", 160), ("target/train", 96),
 CACHE_FRAMES, CACHE_SIZE = 1536, (480, 640)
 CACHE_TIMED_STEPS = 20   # per mode, in two turns of 10
 CACHE_PROFILED_REPLAYS = 10
+
+
+# phase 18: the HM and CycleGAN regimes.  Frames at the simulator's render
+# size; the CycleGAN generator at full width (9 residual blocks).  Float32
+# against float64 on the card: measured 3.9e-5 on a CPU.  One CycleGAN step
+# on the card against the CPU: the losses as relative errors; the gradients
+# (Adam's first moment) per parameter as max|err| / max(max|ref|, 1e-2 *
+# the largest): float32 itself strays up to 3.2e-2 from a float64 step on
+# a CPU (the first conv of a residual block, whose gradient the
+# InstanceNorm after it nearly cancels, and the discriminator's deepest
+# conv), and the card and the CPU each stray so; but for the conv biases
+# an InstanceNorm follows, whose
+# gradient is zero in exact arithmetic and float noise on either side (at
+# most CG_NOISE_G of the largest); the parameters within Adam's first step
+# of each other (an element whose gradient is noise may step the other
+# way).
+FRAME_SIZE = (480, 640)
+RESAMPLE_BATCH = 16
+HM_FRAMES = 48
+HM_BATCH = 16
+CG_BATCH = 4
+CG_TREE = 64
+CG_PARAMS = 11_378_179
+CG_LR = 2e-4
+CONVERT_FRAMES = 32
+GEN_F64_ATOL = 5e-4
+CG_LOSS_RTOL = 1e-4
+CG_GRAD_RTOL = 0.1
+CG_NOISE_G = 1e-2
+# the study's trees: baseline 1 step of B=32, st/hm/cyclegan 2, mme 2
+# (labelled 32 + 32 <= unlabelled 32 + 32)
+STUDY_SPLITS = (("train", 32), ("valid", 32), ("test", 32))
 
 
 def fail(msg: str) -> None:
@@ -1107,11 +1159,12 @@ def check_model_grads(sd, device, card):
 
 
 def write_png_tree(root: str, splits=TRAIN_SPLITS, seed: int = SEED,
-                   unlabelled=()) -> None:
+                   unlabelled=(), scale: int = 1) -> None:
     """A synthetic Duckietown-like PNG tree from ``seed``: BGR frames with a
     right lane (class 1), a left lane (2) and, on every third frame, an
-    obstacle (3), written by the port's own PNG writer.  The ``unlabelled``
-    splits get no ``label/`` directory."""
+    obstacle (3), written by the port's own PNG writer, ``scale`` times
+    the model's size by pixel repetition (labels too).  The
+    ``unlabelled`` splits get no ``label/`` directory."""
     from sim2real_lane_segment_tpu_torch.data.png import write_png
 
     rng = np.random.default_rng(seed)
@@ -1129,6 +1182,9 @@ def write_png_tree(root: str, splits=TRAIN_SPLITS, seed: int = SEED,
                 y0, x0 = int(rng.integers(20, 70)), int(rng.integers(60, 90))
                 img[y0:y0 + 20, x0:x0 + 24] = (30, 30, 200)
                 lab[y0:y0 + 20, x0:x0 + 24] = 3
+            if scale > 1:
+                img = img.repeat(scale, 0).repeat(scale, 1)
+                lab = lab.repeat(scale, 0).repeat(scale, 1)
             write_png(os.path.join(root, split, "input", f"{i:06d}.png"), img)
             if "label" in subs:
                 write_png(os.path.join(root, split, "label",
@@ -1927,16 +1983,15 @@ def compare_mme_step(sd, device, dtype_name, card):
     return errs
 
 
-def two_domain_phase(card, sim_weights):
-    """Phase 15: ``cli.train.main --trainType st`` then ``mme`` (from phase
-    8's weights), both ``--augment --pallas_train``, one epoch each on a
-    two-domain PNG tree, then ``cli.test.main -t mme --fused`` on the MME
-    run's weights.  Returns the MME run's launches and steps."""
+def train_cli_checked(label, argv, passes, n_lab, card):
+    """``cli.train.main(argv)`` (``--pallas_train``, ``--log_every 1``, one
+    epoch) with K1-K3b's counts set to 0 just before and read just after:
+    checks the logged steps (``n_lab // TRAIN_BATCH``), finite losses,
+    ``passes`` fused passes a step, every launch on the tensor-core route
+    and that no plain version ran.  Returns (result, launches, steps)."""
     import torch
 
-    from sim2real_lane_segment_tpu_torch.cli import test as test_cli
     from sim2real_lane_segment_tpu_torch.cli import train as train_cli
-    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
     from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
 
     plain_calls = {k: 0 for k in TRAIN_KERNELS}
@@ -1949,6 +2004,81 @@ def two_domain_phase(card, sim_weights):
             return fn(*a, **kw)
         return wrapper
 
+    with mock.patch.multiple(ktb, **{f"{k}_plain": counting(k)
+                                     for k in TRAIN_KERNELS}):
+        ktb.reset_launches()
+        t0 = time.perf_counter()
+        res = train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ktb.launches)
+        mma = dict(ktb.mma_launches)
+    with open(os.path.join(res["out_dir"], "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    logged = [r for r in rows if "train/tr_loss" in r]
+    keys = [k for k in logged[0] if k.startswith("train/")] if logged else []
+    values = [r[k] for r in logged for k in keys]
+    steps = len(logged)
+    check(steps == n_lab // TRAIN_BATCH, f"{label}: {steps} train steps "
+          f"logged")
+    check(bool(np.isfinite(values).all()), f"{label}: {values}")
+    expect = {k: v * passes * steps
+              for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    expect_mma = {k: v * passes * steps
+                  for k, v in TRAIN_MMA_PER_STEP.items()}
+    print(f"{label}: --augment --pallas_train, 1 epoch, {steps} steps of "
+          f"B={TRAIN_BATCH} in {wall:.1f} s (with validation, test and "
+          f"checkpoints); {', '.join(k[6:] for k in keys)} "
+          f"{[round(v, 4) for v in values]}, best val_iou "
+          f"{res['best_iou']:.3f}  [{card}]")
+    print(f"{label}: kernel launches {json.dumps(launches)}, expected "
+          f"{json.dumps(expect)} ({passes} pass(es) a step); tensor-core "
+          f"route {json.dumps(mma)}; plain versions called "
+          f"{json.dumps(plain_calls)}")
+    check(launches == expect, f"{label}: launch counts differ")
+    check(mma == expect_mma, f"{label}: a launch left the tensor-core route")
+    check(not any(plain_calls.values()), f"{label}: a plain version ran")
+    return res, launches, steps
+
+
+def eval_fused_checked(label, module_type, weights, test_dir, n_test, card):
+    """``cli.test.main --fused`` on ``test_dir`` with K4's counts set to 0
+    just before and read just after: the metrics, the confusion matrix's
+    pixel count and K4's launches per batch."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import test as test_cli
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+
+    kdb.reset_launches()
+    res = test_cli.main(["-t", module_type, "--checkpointPath", weights,
+                         "--testDataPath", test_dir, "--arch", ARCH,
+                         "--height", str(H), "--width", str(W), "--fused",
+                         "--batch_size", str(TRAIN_BATCH)])
+    torch.cuda.synchronize()
+    check({"acc", "dice", "iou", "loss", "confusion"} <= set(res),
+          f"{label}: cli.test returned {sorted(res)}")
+    check(int(res["confusion"].sum()) == n_test * H * W,
+          f"{label}: confusion matrix counts {res['confusion'].sum()} "
+          f"pixels")
+    batches = -(-n_test // TRAIN_BATCH)
+    expect = {"dense_layer": 55 * batches, "transition": 5 * batches,
+              "classifier": batches}
+    check(dict(kdb.launches) == expect,
+          f"{label}: cli.test --fused: K4 launches {kdb.launches}, "
+          f"expected {expect}")
+    print(f"{label}: cli.test -t {module_type} --fused on {n_test} "
+          f"target/test frames: acc {res['acc']:.4f}, dice "
+          f"{res['dice']:.4f}, iou {res['iou']:.4f}; K4 launches "
+          f"{json.dumps(kdb.launches)}  [{card}]")
+    return res
+
+
+def two_domain_phase(card, sim_weights):
+    """Phase 15: ``cli.train.main --trainType st`` then ``mme`` (from phase
+    8's weights), both ``--augment --pallas_train``, one epoch each on a
+    two-domain PNG tree, then ``cli.test.main -t mme --fused`` on the MME
+    run's weights.  Returns the MME run's launches and steps."""
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "simRealData")
         t0 = time.perf_counter()
@@ -1958,79 +2088,27 @@ def two_domain_phase(card, sim_weights):
               f"({', '.join(f'{s} {n}' for s, n in MME_SPLITS)}) in "
               f"{time.perf_counter() - t0:.1f} s")
         n_lab = MME_SPLITS[0][1] + MME_SPLITS[1][1]
-        args = ["--dataPath", root, "--arch", ARCH, "--pallas_train",
-                "--augment", "--height", str(H), "--width", str(W),
-                "--max_epochs", "1", "-b", str(TRAIN_BATCH),
-                "--default_root_dir", tmp, "--log_every", "1", "--seed",
-                str(SEED)]
         for regime, extra, passes in (
                 ("st", [], 1),
                 ("mme", ["--pretrained_path", sim_weights], 2)):
-            with mock.patch.multiple(ktb, **{f"{k}_plain": counting(k)
-                                             for k in TRAIN_KERNELS}):
-                ktb.reset_launches()
-                t0 = time.perf_counter()
-                res = train_cli.main(["--trainType", regime, "--model_name",
-                                      regime, *args, *extra])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                launches = dict(ktb.launches)
-                mma = dict(ktb.mma_launches)
-            with open(os.path.join(res["out_dir"], "metrics.jsonl")) as f:
-                rows = [json.loads(line) for line in f]
-            logged = [r for r in rows if "train/tr_loss" in r]
-            keys = [k for k in logged[0] if k.startswith("train/")] \
-                if logged else []
-            values = [r[k] for r in logged for k in keys]
-            steps = len(logged)
-            check(steps == n_lab // TRAIN_BATCH,
-                  f"{regime}: {steps} train steps logged")
-            check(bool(np.isfinite(values).all()), f"{regime}: {values}")
-            expect = {k: v * passes * steps
-                      for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
-            expect_mma = {k: v * passes * steps
-                          for k, v in TRAIN_MMA_PER_STEP.items()}
-            print(f"two-domain: --trainType {regime} --augment --pallas_train"
-                  f", 1 epoch, {steps} steps of B={TRAIN_BATCH} in {wall:.1f}"
-                  f" s (with validation, test and checkpoints); "
-                  f"{', '.join(k[6:] for k in keys)} "
-                  f"{[round(v, 4) for v in values]}, best val_iou "
-                  f"{res['best_iou']:.3f}  [{card}]")
-            print(f"two-domain: {regime} kernel launches "
-                  f"{json.dumps(launches)}, expected {json.dumps(expect)} "
-                  f"({passes} pass(es) a step); tensor-core route "
-                  f"{json.dumps(mma)}; plain versions called "
-                  f"{json.dumps(plain_calls)}")
-            check(launches == expect, f"{regime}: launch counts differ")
-            check(mma == expect_mma, f"{regime}: a launch left the "
-                  f"tensor-core route")
-            check(not any(plain_calls.values()), "a plain version ran")
-        mme_launches, mme_steps = launches, steps
+            res, launches, steps = train_cli_checked(
+                f"two-domain: {regime}", st_args(root, tmp, regime) + extra,
+                passes, n_lab, card)
+        eval_fused_checked("two-domain", "mme",
+                           os.path.join(res["out_dir"], "best_weights.pt"),
+                           os.path.join(root, "target", "test"),
+                           MME_SPLITS[2][1], card)
+    return launches, steps
 
-        kdb.reset_launches()
-        test_dir = os.path.join(root, "target", "test")
-        res = test_cli.main(["-t", "mme", "--checkpointPath",
-                             os.path.join(res["out_dir"], "best_weights.pt"),
-                             "--testDataPath", test_dir, "--arch", ARCH,
-                             "--height", str(H), "--width", str(W),
-                             "--fused", "--batch_size", str(TRAIN_BATCH)])
-        torch.cuda.synchronize()
-        n_test = MME_SPLITS[2][1]
-        check({"acc", "dice", "iou", "loss", "confusion"} <= set(res),
-              f"cli.test returned {sorted(res)}")
-        check(int(res["confusion"].sum()) == n_test * H * W,
-              f"confusion matrix counts {res['confusion'].sum()} pixels")
-        batches = -(-n_test // TRAIN_BATCH)
-        expect = {"dense_layer": 55 * batches, "transition": 5 * batches,
-                  "classifier": batches}
-        check(dict(kdb.launches) == expect,
-              f"cli.test --fused: K4 launches {kdb.launches}, expected "
-              f"{expect}")
-        print(f"two-domain: cli.test -t mme --fused on {n_test} target/test "
-              f"frames: acc {res['acc']:.4f}, dice {res['dice']:.4f}, iou "
-              f"{res['iou']:.4f}; K4 launches {json.dumps(kdb.launches)}  "
-              f"[{card}]")
-    return mme_launches, mme_steps
+
+def st_args(root, out_root, regime):
+    """``cli.train`` arguments of one augmented ``--pallas_train`` epoch of
+    ``regime`` on the two-domain tree ``root``."""
+    return ["--trainType", regime, "--model_name", regime, "--dataPath",
+            root, "--arch", ARCH, "--pallas_train", "--augment", "--height",
+            str(H), "--width", str(W), "--max_epochs", "1", "-b",
+            str(TRAIN_BATCH), "--default_root_dir", out_root, "--log_every",
+            "1", "--seed", str(SEED)]
 
 
 def mme_timing(sd, device, card):
@@ -2403,6 +2481,386 @@ def cache_timing(sd, device, card):
     del trainers, view
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the HM and CycleGAN regimes, and the domain study
+# ---------------------------------------------------------------------------
+
+def frames_480(rng: np.random.Generator, n: int) -> np.ndarray:
+    """uint8 (n, 480, 640, 3) frames at the simulator's render size:
+    low-frequency colour fields with pixel noise."""
+    import torch
+    import torch.nn.functional as F
+
+    base = torch.from_numpy(rng.uniform(0, 255, (n, 3, 6, 8)).astype(
+        np.float32))
+    x = F.interpolate(base, size=FRAME_SIZE, mode="bilinear",
+                      align_corners=False)
+    x = x + torch.from_numpy(rng.normal(0, 6, (n, 3, *FRAME_SIZE)).astype(
+        np.float32))
+    return x.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).numpy().copy()
+
+
+def write_frames(directory: str, frames: np.ndarray) -> None:
+    from sim2real_lane_segment_tpu_torch.data.png import write_png
+
+    os.makedirs(directory, exist_ok=True)
+    for i, img in enumerate(frames):
+        write_png(os.path.join(directory, f"{i:06d}.png"), img)
+
+
+def read_frames(directory: str) -> np.ndarray:
+    from sim2real_lane_segment_tpu_torch.data.png import read_png
+
+    return np.stack([read_png(os.path.join(directory, f))
+                     for f in sorted(os.listdir(directory))])
+
+
+def resample_check(device, card):
+    """Phase 18a: both resamplers on the card, bit-equal to the CPU."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.ops.resize import (
+        resize_cubic_u8, resize_lanczos4_u8)
+
+    rng = np.random.default_rng(SEED + 30)
+    for fn, src, dst in ((resize_cubic_u8, FRAME_SIZE, (H, W)),
+                         (resize_lanczos4_u8, (H, W), FRAME_SIZE)):
+        x = torch.from_numpy(rng.integers(0, 256, (RESAMPLE_BATCH, *src, 3),
+                                          dtype=np.uint8))
+        xd = x.to(device)
+        got = fn(xd, *dst).cpu()
+        want = fn(x, *dst)
+        diff = int((got != want).sum())
+        ms = _time_ms(lambda: fn(xd, *dst))
+        print(f"resample: {fn.__name__} B={RESAMPLE_BATCH} {src[0]}x{src[1]} "
+              f"-> {dst[0]}x{dst[1]}: {diff} values differ from the CPU; "
+              f"{ms:.3f} ms a batch  [{card}]")
+        check(diff == 0, f"{fn.__name__} on the card differs from the CPU")
+
+
+def hist_match_phase(device, card, tmp):
+    """Phase 18b: ``cli.hist_match.main`` on HM_FRAMES source and reference
+    frames at 480x640; every matched frame against
+    ``match_histograms_batch`` on the CPU; matched frames/s on the card."""
+    import random
+
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import hist_match
+    from sim2real_lane_segment_tpu_torch.ops.histmatch import \
+        match_histograms_batch
+
+    rng = np.random.default_rng(SEED + 31)
+    src = frames_480(rng, HM_FRAMES)
+    ref = (frames_480(rng, HM_FRAMES).astype(np.uint16) ** 2 // 255).astype(
+        np.uint8)
+    t0 = time.perf_counter()
+    write_frames(os.path.join(tmp, "hm_src", "input"), src)
+    write_frames(os.path.join(tmp, "hm_ref", "input"), ref)
+    print(f"hist_match: wrote {2 * HM_FRAMES} PNG frames at 480x640 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    random.seed(SEED)
+    t0 = time.perf_counter()
+    n = hist_match.main(["--ds_source", os.path.join(tmp, "hm_src"),
+                         "--ds_reference", os.path.join(tmp, "hm_ref"),
+                         "--batch_size", str(HM_BATCH)])
+    wall = time.perf_counter() - t0
+    random.seed(SEED)
+    order = list(range(HM_FRAMES))
+    random.shuffle(order)
+    want = match_histograms_batch(torch.from_numpy(src),
+                                  torch.from_numpy(ref[order])).numpy()
+    got = read_frames(os.path.join(tmp, "hm_src", "input"))
+    diff = int((got != want).sum())
+    check(n == HM_FRAMES and diff == 0,
+          f"hist_match: {n} frames, {diff} values differ from the CPU")
+    xs = torch.from_numpy(src[:HM_BATCH]).to(device)
+    xr = torch.from_numpy(ref[:HM_BATCH]).to(device)
+    ms = _time_ms(lambda: match_histograms_batch(xs, xr))
+    print(f"hist_match: cli.hist_match matched {n} frames (batches of "
+          f"{HM_BATCH}) in {wall:.2f} s with its PNG reads and writes "
+          f"({n / wall:.1f} frames/s), every frame equal to the CPU's; "
+          f"match_histograms_batch B={HM_BATCH} 480x640 {ms:.3f} ms on the "
+          f"card ({HM_BATCH / ms * 1e3:.1f} matched frames/s)  [{card}]")
+
+
+def _cg_state(tr) -> dict:
+    return {f"{name}.{k}": v.detach().cpu().clone()
+            for name in ("g_ab", "g_ba", "d_a", "d_b")
+            for k, v in getattr(tr, name).state_dict().items()}
+
+
+def _norm_fed_biases(net) -> set:
+    """Names of the conv biases an InstanceNorm follows: the norm removes
+    them, so their gradient is zero in exact arithmetic."""
+    from torch import nn
+
+    from sim2real_lane_segment_tpu_torch.models.cyclegan import InstanceNorm
+
+    out = set()
+    for prefix, mod in net.named_modules():
+        if isinstance(mod, nn.Sequential):
+            kids = list(mod.named_children())
+            for (name, m), (_, nxt) in zip(kids, kids[1:]):
+                if isinstance(m, nn.Conv2d) and isinstance(nxt, InstanceNorm):
+                    out.add(f"{prefix}.{name}.bias".lstrip("."))
+    return out
+
+
+def cyclegan_checks(device, card):
+    """Phase 18c: the full-width generator (f32, TF32 off) against itself
+    in float64 on the card; one ``CycleGANTrainer.train_step`` on the card
+    against the same step on the CPU from the same weights and inputs."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.core.dtypes import (F32_POLICY,
+                                                             F64_POLICY)
+    from sim2real_lane_segment_tpu_torch.models.cyclegan import \
+        GeneratorResNet
+    from sim2real_lane_segment_tpu_torch.train.cyclegan import \
+        CycleGANTrainer
+
+    torch.manual_seed(SEED + 32)
+    gen = GeneratorResNet(policy=F32_POLICY)
+    n_params = sum(p.numel() for p in gen.parameters())
+    check(n_params == CG_PARAMS, f"generator has {n_params} parameters")
+    gen64 = GeneratorResNet(policy=F64_POLICY)
+    gen64.load_state_dict(gen.state_dict())
+    gen, gen64 = gen.to(device).eval(), gen64.double().to(device).eval()
+    rng = np.random.default_rng(SEED + 33)
+    x = torch.from_numpy(rng.uniform(-1, 1, (CG_BATCH, 3, H, W)).astype(
+        np.float32)).to(device)
+    with torch.no_grad():
+        y, y64 = gen(x), gen64(x.double())
+    err = float((y.double() - y64).abs().max())
+    print(f"cyclegan: GeneratorResNet (9 residual blocks, {n_params:,} "
+          f"parameters) B={CG_BATCH} {H}x{W} float32 against float64 on the "
+          f"card: max|err| {err:.3e} (limit {GEN_F64_ATOL:g})  [{card}]")
+    check(bool(torch.isfinite(y).all()) and err <= GEN_F64_ATOL,
+          "the float32 generator strays from float64")
+
+    inputs = [torch.from_numpy(rng.uniform(-1, 1, (CG_BATCH, 3, H, W))
+                               .astype(np.float32)) for _ in range(4)]
+    trainers = {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        torch.manual_seed(SEED + 34)  # the same initial weights
+        trainers[side] = CycleGANTrainer(device=dev)
+    logs = {}
+    for side, tr in trainers.items():
+        _, out = tr.train_step(*(t.to(tr.device) for t in inputs))
+        logs[side] = {k: float(v) for k, v in out.items()}
+    loss_err = max(abs(logs["card"][k] - v) / abs(v)
+                   for k, v in logs["cpu"].items())
+    check(loss_err <= CG_LOSS_RTOL, f"cyclegan step losses {logs}")
+    worst_g, worst_name, worst_noise = 0.0, "", 0.0
+    for opt, nets in (("opt_g", ("g_ab", "g_ba")), ("opt_d", ("d_a", "d_b"))):
+        mus = [getattr(trainers[side], opt).mu for side in ("card", "cpu")]
+        names = [(net, n) for net in nets
+                 for n, _ in getattr(trainers["cpu"], net).named_parameters()]
+        largest = max(float(m.abs().max()) for m in mus[1])
+        for (net, name), g, w in zip(names, *mus):
+            if name in _norm_fed_biases(getattr(trainers["cpu"], net)):
+                # zero in exact arithmetic: float noise on both sides
+                worst_noise = max(worst_noise, float(g.abs().max()) / largest,
+                                  float(w.abs().max()) / largest)
+                continue
+            err = float((g.cpu() - w).abs().max()) / max(
+                float(w.abs().max()), 1e-2 * largest)
+            if err > worst_g:
+                worst_g, worst_name = err, f"{net}.{name}"
+    after = {side: _cg_state(tr) for side, tr in trainers.items()}
+    worst_moved = max(float((after["card"][k] - v).abs().max())
+                      for k, v in after["cpu"].items())
+    print(f"cyclegan: one train_step B={CG_BATCH} card against CPU: losses "
+          f"{ {k: round(v, 6) for k, v in logs['card'].items()} }, max rel "
+          f"err {loss_err:.2e} (limit {CG_LOSS_RTOL:g}); gradients (Adam's "
+          f"first moment) max scaled err {worst_g:.2e} at {worst_name} "
+          f"(limit {CG_GRAD_RTOL:g}); the biases that feed an InstanceNorm "
+          f"(zero gradient) at most {worst_noise:.2e} of the largest "
+          f"gradient (limit {CG_NOISE_G:g}); parameters max|diff| "
+          f"{worst_moved:.3e} (limit 2 lr = {2 * CG_LR:g})  [{card}]")
+    check(worst_g <= CG_GRAD_RTOL, "cyclegan step gradients differ")
+    check(worst_noise <= CG_NOISE_G, "cyclegan step: a bias that feeds an "
+          "InstanceNorm has more than noise for a gradient")
+    check(worst_moved <= 2 * CG_LR + 1e-6, "cyclegan step parameters differ")
+
+
+def cyclegan_training(device, card, tmp, source_dir, target_dir):
+    """Phase 18d: ``cli.train_cyclegan.main`` for 2 epochs at B=4; the B=4
+    step's median time by CUDA events and idle share by torch.profiler;
+    then ``cli.sim2real_convert.main`` over CONVERT_FRAMES frames at
+    480x640.  Returns the run's ``g_ab.pt``."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import (sim2real_convert,
+                                                     train_cyclegan)
+    from sim2real_lane_segment_tpu_torch.train.cyclegan import \
+        CycleGANTrainer
+
+    out = os.path.join(tmp, "cyclegan")
+    t0 = time.perf_counter()
+    res = train_cyclegan.main(["--source_dir", source_dir, "--target_dir",
+                               target_dir, "--out", out, "--epochs", "2",
+                               "-b", str(CG_BATCH), "--max_images",
+                               str(CG_TREE)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "history.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    values = [v for r in rows for k, v in r.items() if k != "epoch"]
+    check(len(rows) == 2 and bool(np.isfinite(values).all()),
+          f"train_cyclegan history {rows}")
+    g_ab = os.path.join(out, "g_ab.pt")
+    sim2real_convert.load_generator(g_ab)
+    print(f"cyclegan: cli.train_cyclegan 2 epochs x {CG_TREE // CG_BATCH} "
+          f"steps of B={CG_BATCH} on {CG_TREE}/{CG_TREE} frames in "
+          f"{wall:.1f} s (with the PNG reads and the bicubic resize); last "
+          f"losses {rows[-1]}; g_ab.pt loads into sim2real_convert  "
+          f"[{card}]")
+
+    torch.manual_seed(SEED + 35)
+    tr = CycleGANTrainer(device=device)
+    rng = np.random.default_rng(SEED + 36)
+    batch = [torch.from_numpy(rng.uniform(-1, 1, (CG_BATCH, 3, H, W)).astype(
+        np.float32)).to(device) for _ in range(4)]
+
+    def step():
+        tr.train_step(*batch)
+
+    def one_ms():
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        step()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1)
+
+    step()
+    torch.cuda.synchronize()
+    times = [one_ms() for _ in range(REPS)]
+    med = float(np.median(times))
+    rows = _device_rows(step)
+    busy = sum(ms for _, _, ms in rows)
+    print(f"cyclegan: train_step B={CG_BATCH} {H}x{W} float32 {med:.3f} ms "
+          f"(median of {REPS}, range {min(times):.3f}-{max(times):.3f}); "
+          f"device busy {busy:.3f} ms (idle share "
+          f"{max(0.0, 1 - busy / med):.3f}) in "
+          f"{sum(n for _, n, _ in rows)} device launches; the largest: "
+          + "; ".join(f"{k[:60]} {ms:.3f} ms ({n})" for k, n, ms in
+                      sorted(rows, key=lambda r: -r[2])[:6])
+          + f"  [{card}]")
+    check(busy > 0, "torch.profiler saw no device time in the CycleGAN step")
+
+    db = os.path.join(tmp, "convert_db")
+    frames = frames_480(np.random.default_rng(SEED + 37), CONVERT_FRAMES)
+    write_frames(os.path.join(db, "input"), frames)
+    t0 = time.perf_counter()
+    n = sim2real_convert.main(["--dataPath", db, "--modelWeightsPath",
+                               g_ab])
+    wall = time.perf_counter() - t0
+    got = read_frames(os.path.join(db, "input"))
+    rewritten = int(sum(g.shape != f.shape or (g != f).any()
+                        for g, f in zip(got, frames)))
+    check(n == CONVERT_FRAMES
+          and got.shape == (n, *sim2real_convert.OUT_SIZE, 3)
+          and rewritten == n, f"sim2real_convert: {n} frames, shape "
+          f"{got.shape}, {rewritten} rewritten")
+    model = sim2real_convert.load_generator(g_ab)
+    x = torch.from_numpy(frames[:16, :H, :W]).to(device)
+    ms = _time_ms(lambda: sim2real_convert.generate(model, x))
+    print(f"cyclegan: cli.sim2real_convert restyled {n} frames at 480x640 "
+          f"in {wall:.2f} s with its PNG reads and writes ({n / wall:.1f} "
+          f"frames/s), all rewritten at 480x640x3 uint8; the generator "
+          f"(bf16) B=16 {H}x{W} {ms:.3f} ms  [{card}]")
+    return g_ab
+
+
+def regimes_phase(card, tmp, root, g_ab):
+    """Phase 18e: the HM and CycleGAN chains through the kernels: the
+    two-domain tree ``root`` histogram-matched (one copy) and restyled
+    (another), then one epoch of ``--trainType st --pallas_train
+    --augment`` and ``cli.test --fused`` on each."""
+    import shutil
+
+    from sim2real_lane_segment_tpu_torch.cli import (hist_match,
+                                                     sim2real_convert)
+
+    trees = {"hm": os.path.join(tmp, "srd_hm"),
+             "cyclegan": os.path.join(tmp, "srd_cg")}
+    for tree in trees.values():
+        shutil.copytree(root, tree)
+    hist_match.main(["--ds_source", os.path.join(trees["hm"], "source"),
+                     "--ds_reference", os.path.join(trees["hm"], "target",
+                                                    "unlabelled")])
+    sim2real_convert.main(["--dataPath", os.path.join(trees["cyclegan"],
+                                                      "source"),
+                           "--modelWeightsPath", g_ab])
+    n_lab = MME_SPLITS[0][1] + MME_SPLITS[1][1]
+    for regime, tree in trees.items():
+        res, _, _ = train_cli_checked(
+            f"regimes: {regime}", st_args(tree, tree, "st"), 1, n_lab, card)
+        eval_fused_checked(f"regimes: {regime}", "sandt",
+                           os.path.join(res["out_dir"], "best_weights.pt"),
+                           os.path.join(tree, "target", "test"),
+                           MME_SPLITS[2][1], card)
+
+
+def study_phase(card, tmp):
+    """Phase 18f: ``cli.domain_study.main`` over seeded trees (the study
+    skips rendering), five rows, then a second call that resumes without
+    training."""
+    from sim2real_lane_segment_tpu_torch.cli import domain_study
+    from sim2real_lane_segment_tpu_torch.train import loop
+
+    work = os.path.join(tmp, "study")
+    for dom, seed in (("sourceData", SEED + 40), ("targetData", SEED + 41)):
+        write_png_tree(os.path.join(work, dom), STUDY_SPLITS, seed,
+                       scale=FRAME_SIZE[0] // H)
+    regimes = ["baseline", "st", "hm", "cyclegan", "mme"]
+    argv = ["--workdir", work, "--arch", ARCH, "--epochs", "1",
+            "--cg_epochs", "1", "-b", str(TRAIN_BATCH), "--regimes",
+            *regimes]
+    t0 = time.perf_counter()
+    res = domain_study.main(argv)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(work, "study_summary.json")) as f:
+        summary = json.load(f)
+    check(list(res) == regimes and summary == res,
+          f"study rows {list(res)}")
+    check(all(np.isfinite(v) for row in res.values() for v in row.values()),
+          f"study rows {res}")
+
+    def no_fit(*a, **kw):
+        raise AssertionError("the resumed study trained")
+
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "fit", no_fit):
+        again = domain_study.main(argv)
+    resumed = time.perf_counter() - t0
+    check(again == res, "the resumed study changed its rows")
+    print(f"study: cli.domain_study --arch {ARCH} --epochs 1 --cg_epochs 1, "
+          f"five regimes in {wall:.1f} s; target-test iou "
+          f"{ {k: round(v['iou'], 4) for k, v in res.items()} }; resumed in "
+          f"{resumed:.1f} s without training  [{card}]")
+
+
+def regimes_study_phase(device, card):
+    """Phase 18: the HM and CycleGAN regimes and the domain study."""
+    with tempfile.TemporaryDirectory() as tmp:
+        resample_check(device, card)
+        hist_match_phase(device, card, tmp)
+        cyclegan_checks(device, card)
+        root = os.path.join(tmp, "simRealData")
+        write_png_tree(root, MME_SPLITS, SEED + 38,
+                       unlabelled=("target/unlabelled",),
+                       scale=FRAME_SIZE[0] // H)
+        g_ab = cyclegan_training(
+            device, card, tmp, os.path.join(root, "source", "input"),
+            os.path.join(root, "target", "unlabelled", "input"))
+        regimes_phase(card, tmp, root, g_ab)
+        study_phase(card, tmp)
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -2535,6 +2993,12 @@ def main() -> None:
     work.cleanup()
     cache_timing(sd, device, card)
     print(f"cache: phase 17 done in {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]", flush=True)
+
+    # phase 18: the HM and CycleGAN regimes and the domain study
+    t0 = time.perf_counter()
+    regimes_study_phase(device, card)
+    print(f"regimes: phase 18 done in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]", flush=True)
 
     print(card)

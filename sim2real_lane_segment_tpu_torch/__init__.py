@@ -11,5 +11,11 @@ The port covers two FCDenseNet paths:
   ``models.tiramisu_train_fused.fused_apply_train`` on the kernels in
   ``csrc/train_block.cu``.
 
+Around them: LaneNetLite serving (``csrc/int8_body.cu``), label
+extraction (``csrc/labelgen.cu``), the ``st`` and MME regimes, and the HM
+and CycleGAN regimes with the domain study (``cli.hist_match``,
+``cli.train_cyclegan``, ``cli.sim2real_convert``, ``cli.domain_study``),
+which run on tensor ops and cuDNN and train through the same kernels.
+
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

@@ -6,7 +6,9 @@ matching names.  File lists are sorted; images are read as BGR and labels
 as gray (``data.png``, no cv2); ``preload`` fills an in-RAM cache on a
 thread pool, and ``read_batch`` stacks an index list into uint8 arrays,
 resizing frames of another size through ``ops.resize`` (bilinear for
-images, nearest for labels, cv2's semantics).
+images, nearest for labels, cv2's semantics).  ``ds[i] = image`` (or
+``(image, label)``) writes a frame back in place through ``data.png``,
+as histogram matching does.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear, resize_nearest_label
-from .png import read_png
+from .png import read_png, write_png
 
 log = logging.getLogger(__name__)
 
@@ -65,6 +67,18 @@ class RightLaneDataset:
         if self._cache is not None:
             return self._cache[index]
         return self._read(index)
+
+    def __setitem__(self, index: int, value) -> None:
+        """Write frame ``index`` back in place: ``value`` is the BGR image,
+        or (image, label) for a labelled dataset."""
+        if self.have_labels:
+            img, label = value
+            write_png(self.label_paths[index], np.asarray(label))
+        else:
+            img = value
+        write_png(self.input_paths[index], np.asarray(img))
+        if self._cache is not None:
+            self._cache[index] = self._read(index)
 
     def preload(self, num_threads: int = 8) -> None:
         with cf.ThreadPoolExecutor(num_threads) as ex:

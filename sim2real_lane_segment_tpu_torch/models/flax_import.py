@@ -19,9 +19,16 @@ Layouts:
   ``F.conv_transpose2d`` scatters with the kernel as given.
 - BatchNorm ``scale/bias`` -> ``weight/bias``; ``batch_stats`` ``mean/var``
   -> ``running_mean/running_var``.
+
+The CycleGAN networks are the exception: the port builds them in the
+reference's ``nn.Sequential`` layout, so ``cyclegan_state_dict_from_flax``
+maps the Flax convolutions onto the port's in the order they are applied
+(``Conv_0..2``, then ``ResidualBlock_j/Conv_0..1``, then the remaining
+``Conv_i``).
 """
 from __future__ import annotations
 
+import re
 from typing import Callable, Mapping
 
 import numpy as np
@@ -90,4 +97,57 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray],
                        f"({len(missing)} entries)")
     for k in target:
         out.setdefault(k, target[k])
+    return out
+
+
+def _flax_conv_order(paths) -> list[str]:
+    """Flax conv module paths of a CycleGAN network (``Conv_3``,
+    ``ResidualBlock_0/Conv_1`` ...) in the order the network applies
+    them: the stem and downsampling ``Conv_0..2``, the residual blocks,
+    then the rest."""
+    def index(name):
+        return int(name.rsplit("_", 1)[1])
+    top = sorted((p for p in paths if "/" not in p), key=index)
+    blocks = sorted({p.split("/")[0] for p in paths if "/" in p}, key=index)
+    inner = [f"{b}/Conv_{k}" for b in blocks for k in (0, 1)]
+    return top[:3] + inner + top[3:]
+
+
+def cyclegan_state_dict_from_flax(flat: Mapping[str, np.ndarray],
+                                  model: nn.Module
+                                  ) -> dict[str, torch.Tensor]:
+    """Flax ``GeneratorResNet`` or ``Discriminator`` variables, flattened
+    to ``params/<module path>/kernel|bias`` numpy leaves (the ``params/``
+    prefix is optional), mapped onto the port's ``model`` of the same
+    configuration."""
+    from .cyclegan import convs
+
+    leaves: dict[str, dict[str, np.ndarray]] = {}
+    for path, arr in flat.items():
+        path = path.removeprefix("params/")
+        m = re.fullmatch(r"(.+)/(kernel|bias)", path)
+        if m is None:
+            raise KeyError(f"not a CycleGAN conv leaf: {path!r}")
+        leaves.setdefault(m.group(1), {})[m.group(2)] = np.asarray(arr)
+    order = _flax_conv_order(list(leaves))
+    targets = convs(model)
+    if len(order) != len(targets):
+        raise ValueError(f"{len(order)} Flax convs for {len(targets)} "
+                         f"convs in the model")
+    names = {id(mod): name for name, mod in model.named_modules()}
+    sd = model.state_dict()
+    out = {}
+    for path, conv in zip(order, targets):
+        name = names[id(conv)]
+        for leaf, key, convert in (("kernel", "weight", conv_weight),
+                                   ("bias", "bias", None)):
+            arr = leaves[path][leaf]
+            arr = convert(arr) if convert is not None else arr
+            want = sd[f"{name}.{key}"]
+            if tuple(arr.shape) != tuple(want.shape):
+                raise ValueError(f"{path}/{leaf}: shape {arr.shape} does "
+                                 f"not match {name}.{key} "
+                                 f"{tuple(want.shape)}")
+            out[f"{name}.{key}"] = torch.from_numpy(np.array(arr)).to(
+                want.dtype)
     return out
