@@ -78,7 +78,7 @@ Phases:
     launch count) two 1080x1920 pairs, two column tiles a strip;
 13. timing: K6 per B=64 forward (fails above MAX_FWD_MS) and K5 per B=32
     480x640 batch (fails if its device time exceeds MAX_LABEL_MS) beside
-    their plain versions and bounds, the device time of K5 and of the
+    their plain versions and bounds, the device time of K5, K6 and the
     classifier by torch.profiler beside their event readings, and the
     whole LaneNetLite forwards (int8 through K6, plain int8, float bf16)
     at B=64;
@@ -132,8 +132,27 @@ Phases:
     phase 15's launch checks; (f) ``cli.domain_study.main --arch 67`` with
     all five regimes over seeded trees, then a second call that resumes
     without training.
+19. the serving student's life, each part's seconds printed: (a)
+    ``cli.train --arch lite --augment -b 32`` at full width (bf16),
+    ``--trainType sim`` then ``mme``, 2 epochs each without and with
+    ``--device_cache`` (rows and final state bit-equal, one replay a
+    step), and the B=32 step eager against graphed; (b) ``cli.distill``
+    from the seeded FCDenseNet67 (``.pt``) into a full-width student, the
+    teacher through K4 (55/5/1 launches a step, on the tensor cores, no
+    plain version), its logits against the plain module on one augmented
+    batch (float32 gated, bfloat16 by argmax agreement), K4's launches in
+    one step by torch.profiler, one ``train_step_unl`` (the teacher at
+    B=64) and the steps' times; (c) the student through ``cli.serve
+    --arch lite --int8 --fused --calib_dir`` on 480x640 PNGs (LANCZOS4):
+    the calibration frames and scales on the card against the CPU, K6
+    against plain on its sites, 32 requests behind the engine (1/12/1
+    launches a batch, no plain version) against plain int8; (d) the
+    montage of ``cli.test --trainDataPath --realDataPath`` from 480x640
+    PNGs; (e) ``cli.domain_study`` with its default ``--arch lite`` and
+    ``--distill --device_cache``, ``baseline`` and ``mme``.
 
-It prints one JSON line of per-kernel numbers, then, as its last line,
+It prints the seconds of each phase, one JSON line of per-kernel numbers,
+then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
 the last line.  Imports nothing of JAX.
 """
@@ -313,6 +332,22 @@ CG_NOISE_G = 1e-2
 # the study's trees: baseline 1 step of B=32, st/hm/cyclegan 2, mme 2
 # (labelled 32 + 32 <= unlabelled 32 + 32)
 STUDY_SPLITS = (("train", 32), ("valid", 32), ("test", 32))
+# phase 19: LaneNetLite's trees at 120x160 (LITE_STEPS steps of B=32 an
+# epoch: sim train 64; mme labelled 32 + 32 <= unlabelled 64; the
+# distillation's train 64), 480x640 PNGs for the calibration and the
+# montage, the timed split on the card.  The int8 calibration scales on the
+# card against the CPU route: percentiles of float32 forwards that sum in
+# another order (measured 0-2 ulp apart between two packages on a CPU),
+# held relatively
+LITE_SIM_SPLITS = (("train", 64), ("valid", 32), ("test", 32))
+LITE_MME_SPLITS = (("source", 32), ("target/train", 32), ("target/test", 32),
+                   ("target/unlabelled", 64))
+LITE_STEPS = 2
+LITE_TIMED_FRAMES = 512
+LITE_TIMED_STEPS = 10
+FULL_SPLITS = (("train", 16), ("real", 16))
+CALIB_RTOL = 1e-4
+MONTAGE_ROWS = 3
 
 
 def fail(msg: str) -> None:
@@ -1522,7 +1557,8 @@ def lite_quantized(device):
 
     trainer = load_trainer_and_state("baseline", LITE_CKPT, arch="lite",
                                      height=H, width=W)
-    calib = model_input(serve.calibration_frames(lite_args("--int8")),
+    calib = model_input(serve.calibration_frames(lite_args("--int8"),
+                                                 "cpu").numpy(),
                         device).permute(0, 2, 3, 1)
     return trainer, quantize_lanenet(trainer.model, calib)
 
@@ -1737,8 +1773,9 @@ def lite_timing(trainer, qn, pairs, device, card, k6_launches, k6_err,
                 k5_launches, cls_times):
     """Phase 13: K6 per B=64 forward and K5 per B=32 480x640 batch, beside
     their plain versions and bounds; the whole int8-fused, int8-plain and
-    float forwards at B=64; K5's and the classifier's (``cls_times``, from
-    phase 5) device time by torch.profiler beside their event readings.
+    float forwards at B=64; K5's, K6's and the classifier's
+    (``cls_times``, from phase 5) device time by torch.profiler beside
+    their event readings.
     Returns the kernels line entries of K5, K6."""
     import torch
 
@@ -1805,9 +1842,17 @@ def lite_timing(trainer, qn, pairs, device, card, k6_launches, k6_err,
           f"{7 * px / 1e6:.1f} MB)  [{card}]")
     k5_device = _device_ms(lambda: klg.process_classes(orig, annot),
                            "labelgen_kernel")
+    # K6's 14 kernels a forward, by name from csrc/
+    names = port_kernel_names()
+    with torch.no_grad():
+        k6_device = sum(ms for key, _, ms in _device_rows(
+            lambda: kib.int8_body(x, body, hh, ww), REPS)
+            if port_kernel(key, names) is not None) / REPS
     for name, (ev, dev, bound) in (("k4_classifier", cls_times),
                                    ("k5_labelgen",
-                                    (k5_ms, k5_device, k5_bound))):
+                                    (k5_ms, k5_device, k5_bound)),
+                                   ("k6_int8_body",
+                                    (k6_ms, k6_device, k6["bound_ms"]))):
         seen = (f"{dev:.4f} ms ({dev / bound:.2f}x the bound, "
                 f"{bound / dev:.1%} of its rate)" if dev > 0
                 else "not measured (the profiler saw no device time)")
@@ -2861,6 +2906,484 @@ def regimes_study_phase(device, card):
         study_phase(card, tmp)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the serving student's life: LaneNetLite trained through the
+# CLIs, distilled from FCDenseNet67 (its frozen forward through K4),
+# calibrated on full-size PNGs and served in int8 through K6
+# ---------------------------------------------------------------------------
+
+def _plain_counting(module, names, calls):
+    """``mock.patch.multiple`` keywords that count the calls of
+    ``module``'s plain versions ``names`` into ``calls``."""
+    def counting(name):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapper
+    return {n: counting(n) for n in names}
+
+
+def lite_train_phase(card, tmp):
+    """Phase 19a: ``cli.train --arch lite --augment -b 32`` at full width
+    (bf16), ``--trainType sim`` and then ``mme`` (from the sim run's
+    weights), 2 epochs of LITE_STEPS steps each, without and with
+    ``--device_cache``: every logged row and the final weights, running
+    statistics and optimizer state bit-equal, one graph replay a step,
+    captured once.  Returns the uncached sim run's ``best_weights.pt``."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import train as train_cli
+    from sim2real_lane_segment_tpu_torch.train import graphs
+
+    sim_root = os.path.join(tmp, "liteSim")
+    two_root = os.path.join(tmp, "liteSimReal")
+    write_png_tree(sim_root, LITE_SIM_SPLITS, SEED + 50)
+    write_png_tree(two_root, LITE_MME_SPLITS, SEED + 51,
+                   unlabelled=("target/unlabelled",))
+    weights = None
+    for regime, root in (("sim", sim_root), ("mme", two_root)):
+        runs = {}
+        for cache in (False, True):
+            argv = ["--trainType", regime, "--dataPath", root, "--arch",
+                    "lite", "--augment", "--height", str(H), "--width",
+                    str(W), "--max_epochs", "2", "-b", str(TRAIN_BATCH),
+                    "--default_root_dir", tmp, "--log_every", "1",
+                    "--seed", str(SEED), "--model_name",
+                    f"lite_{regime}_{int(cache)}",
+                    *(["--pretrained_path", weights] if regime == "mme"
+                      else []),
+                    *(["--device_cache"] if cache else [])]
+            graphs.reset_counts()
+            t0 = time.perf_counter()
+            res = train_cli.main(argv)
+            torch.cuda.synchronize()
+            runs[cache] = (res["out_dir"], time.perf_counter() - t0,
+                           dict(graphs.counts))
+        if regime == "sim":
+            weights = os.path.join(runs[False][0], "best_weights.pt")
+        rows = {}
+        for cache, (out, *_) in runs.items():
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                rows[cache] = [json.loads(line) for line in f]
+        logged = [r for r in rows[True] if any(k.startswith("train/")
+                                                for k in r)]
+        values = [v for r in logged for k, v in r.items()
+                  if k.startswith("train/")]
+        steps = len(logged)
+        check(steps == 2 * LITE_STEPS, f"lite {regime}: {steps} steps logged")
+        check(bool(np.isfinite(values).all()), f"lite {regime}: {values}")
+        same_rows = rows[True] == rows[False]
+        (m0, o0, c0), (m1, o1, c1) = (_train_state(runs[c][0])
+                                      for c in (False, True))
+        errs = _state_errs({**m1, **o1}, {**m0, **o0})
+        bit_equal = (same_rows and c0 == c1
+                     and all(torch.equal(m1[k], v) for k, v in m0.items())
+                     and all(torch.equal(o1[k], v) for k, v in o0.items()))
+        counts = runs[True][2]
+        print(f"lite train: cli.train --trainType {regime} --arch lite "
+              f"--augment, 2 epochs of {LITE_STEPS} steps of B={TRAIN_BATCH}"
+              f": {runs[False][1]:.1f} s without --device_cache, "
+              f"{runs[True][1]:.1f} s with it; {counts['replays']} replays, "
+              f"{counts['captures']} capture(s); rows equal {same_rows}; "
+              f"final state bit-equal {bit_equal} (max rel err "
+              f"{json.dumps(errs)})  [{card}]")
+        check(counts == {"captures": 1, "replays": steps},
+              f"lite {regime}: the cached run took {counts}")
+        check(runs[False][2] == {"captures": 0, "replays": 0},
+              f"lite {regime}: the uncached run replayed a graph")
+        check(bit_equal, f"lite {regime}: the cached run differs from the "
+              f"uncached one: rows equal {same_rows}, {errs}")
+    return weights
+
+
+def lite_step_timing(device, card):
+    """Phase 19a, timing: the full-width LaneNetLite B=32 train step
+    (bf16, augmented) eager against one graph replay a step, over a
+    LITE_TIMED_FRAMES-frame split on the card (CUDA events over
+    LITE_TIMED_STEPS steps, in two turns)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+    from sim2real_lane_segment_tpu_torch.data.device_cache import \
+        DeviceCachedView
+    from sim2real_lane_segment_tpu_torch.train.supervised import \
+        SupervisedTrainer
+
+    rng = np.random.default_rng(SEED + 52)
+    view = DeviceCachedView.from_arrays(
+        synthetic_frames(rng, LITE_TIMED_FRAMES),
+        rng.integers(0, N_CLS, (LITE_TIMED_FRAMES, H, W), dtype=np.uint8),
+        device)
+    arrays = (view.images, view.labels)
+    torch.manual_seed(SEED)
+    trainer = SupervisedTrainer(model=build_model("lite", N_CLS),
+                                augment=True, height=H, width=W,
+                                device=device)
+    gen = torch.Generator().manual_seed(SEED)
+
+    def chunk():
+        return rng.integers(0, LITE_TIMED_FRAMES,
+                            (LITE_TIMED_STEPS, TRAIN_BATCH))
+
+    def eager(idx):
+        lr = trainer.lr_at(0)
+        for row in torch.from_numpy(idx).to(device):
+            trainer.train_step(arrays[0][row], arrays[1][row], lr,
+                               generator=gen)
+
+    def graphed(idx):
+        trainer.run_scan_chunk(arrays, idx, gen, 0)
+
+    times = {"eager": [], "graphed": []}
+    for name, fn in (("eager", eager), ("graphed", graphed)) * 2:
+        fn(chunk()[:3])  # warm-up (the graph's capture)
+        idx = chunk()
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        fn(idx)
+        t1.record()
+        torch.cuda.synchronize()
+        times[name].append(t0.elapsed_time(t1) / LITE_TIMED_STEPS)
+    print(f"lite train timing: B={TRAIN_BATCH} {H}x{W} bf16 augmented step "
+          f"over a {LITE_TIMED_FRAMES}-frame split on the card, ms a step "
+          f"(two turns of {LITE_TIMED_STEPS}): eager "
+          f"{json.dumps([round(t, 3) for t in times['eager']])}, graphed "
+          f"{json.dumps([round(t, 3) for t in times['graphed']])}  [{card}]")
+    return {k: min(v) for k, v in times.items()}
+
+
+def distill_phase(sd, device, card, tmp):
+    """Phase 19b: ``cli.distill`` from the seeded FCDenseNet67 (saved to
+    ``.pt``) into a full-width LaneNetLite, ``--augment -b 32``, one epoch
+    with K4's counts set to 0 just before and read just after (55/5/1 a
+    step, every dense layer on the tensor cores, no plain version); then,
+    on a trainer built as the CLI builds it, the teacher's logits through
+    K4 against the plain module on one augmented batch (f32, gated; bf16,
+    printed with its argmax agreement), K4's launches in one step by
+    torch.profiler, one ``train_step_unl`` (the teacher at B=64), and the
+    steps' times beside the teacher's.  Returns the student's
+    ``best_weights.pt``."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import distill as distill_cli
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+    from sim2real_lane_segment_tpu_torch.core.dtypes import (DEFAULT_POLICY,
+                                                             F32_POLICY)
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.train.distill import DistillTrainer
+
+    teacher_pt = os.path.join(tmp, "fcdensenet67_seeded.pt")
+    torch.save(sd, teacher_pt)
+    root = os.path.join(tmp, "distillData")
+    write_png_tree(root, LITE_SIM_SPLITS, SEED + 53)
+    plain = {}
+    names = ("dense_layer_plain", "transition_plain", "classifier_plain")
+    with mock.patch.multiple(kdb, **_plain_counting(kdb, names, plain)):
+        kdb.reset_launches()
+        t0 = time.perf_counter()
+        res = distill_cli.main(
+            ["--dataPath", root, "--teacherPath", teacher_pt,
+             "--teacher_arch", ARCH, "--augment", "-b", str(TRAIN_BATCH),
+             "--max_epochs", "1", "--height", str(H), "--width", str(W),
+             "--default_root_dir", tmp, "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, mma = dict(kdb.launches), kdb.mma_launches["dense_layer"]
+    expect = {"dense_layer": 55 * LITE_STEPS, "transition": 5 * LITE_STEPS,
+              "classifier": LITE_STEPS}
+    weights = os.path.join(res["out_dir"], "best_weights.pt")
+    print(f"distill: cli.distill --teacher_arch {ARCH} --augment, 1 epoch of "
+          f"{LITE_STEPS} steps of B={TRAIN_BATCH} in {wall:.1f} s (with "
+          f"validation, test and checkpoints), best val_iou "
+          f"{res['best_iou']:.4f}; K4 launches {json.dumps(launches)}, "
+          f"expected {json.dumps(expect)}; dense layers on the tensor "
+          f"cores {mma}; plain versions called {json.dumps(plain)}  [{card}]")
+    check(launches == expect, "distill: K4 launches differ from 55/5/1 a "
+          "step")
+    check(mma == DENSE_LAYERS * LITE_STEPS,
+          "distill: a teacher dense layer left the tensor-core route")
+    check(not plain, "distill: a plain version of K4 ran")
+    check(os.path.exists(weights) and np.isfinite(res["best_iou"]),
+          f"distill: {res}")
+
+    rng = np.random.default_rng(SEED + 54)
+    images = synthetic_frames(rng, TRAIN_BATCH)
+    labels = rng.integers(0, N_CLS, (TRAIN_BATCH, H, W), dtype=np.uint8)
+    unl = synthetic_frames(rng, TRAIN_BATCH)
+    for policy, name in ((F32_POLICY, "float32"),
+                         (DEFAULT_POLICY, "bfloat16")):
+        torch.manual_seed(SEED)
+        tr = DistillTrainer(teacher=make_model(sd, policy, device),
+                            student_model=build_model("lite", N_CLS),
+                            height=H, width=W, augment=True, device=device)
+        draws = tr._draw(torch.Generator().manual_seed(SEED), TRAIN_BATCH,
+                         None)
+        x, _ = tr._prepare(images, labels, draws)
+        kdb.reset_launches()
+        got = tr.teacher_logits(x)
+        with torch.no_grad():
+            ref = tr.teacher(x, use_softmax=False)
+        torch.cuda.synchronize()
+        check(kdb.launches["dense_layer"] == 55, f"{name} teacher: K4 "
+              f"launches {kdb.launches}")
+        err = (got - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        agree = (got.argmax(1) == ref.argmax(1)).float().mean().item()
+        print(f"distill: {name} teacher logits [{x.shape[0]}, {N_CLS}, {H}, "
+              f"{W}] through K4 against the plain module: max|err| "
+              f"{err:.3e}, max relative err {rel:.3e}, argmax agreement "
+              f"{agree:.6f}  [{card}]")
+        check(agree >= MIN_ARGMAX_AGREEMENT, f"{name} teacher argmax "
+              f"agreement {agree}")
+        if name == "float32":
+            check(err <= LOGIT_ATOL[name], f"float32 teacher logits through "
+                  f"K4 differ from plain by {err}")
+    # the bf16 trainer (as the CLI builds it): launches, times, the B=64 step
+    lr = tr.lr_at(0)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    step = {"lab": lambda: tr.train_step(images, labels, lr, generator=gen),
+            "unl": lambda: tr.train_step_unl(images, labels, unl, lr,
+                                             generator=gen)}
+    names = port_kernel_names()
+    k4_names = {"dense3x3_mma_kernel", "td_fwd_small_kernel",
+                "td_fwd_mma_kernel", "classifier_kernel",
+                "conv_bnrelu_kernel"} & names
+    x64 = torch.cat([x, x])
+    ms = {"lab": _time_ms(step["lab"]), "unl": _time_ms(step["unl"]),
+          "teacher32": _time_ms(lambda: tr.teacher_logits(x)),
+          "teacher64": _time_ms(lambda: tr.teacher_logits(x64))}
+    rows = _device_rows(step["lab"])
+    k4_rows = [(port_kernel(k, names), n, ms) for k, n, ms in rows
+               if port_kernel(k, names) in k4_names]
+    k4_launches = sum(n for _, n, _ in k4_rows)
+    k4_dev = sum(ms for _, _, ms in k4_rows)
+    busy = sum(ms for _, _, ms in rows)
+    kdb.reset_launches()
+    out = step["unl"]()
+    torch.cuda.synchronize()
+    check(dict(kdb.launches) == {"dense_layer": 55, "transition": 5,
+                                 "classifier": 1},
+          f"distill train_step_unl: K4 launches {kdb.launches}")
+    check(all(torch.isfinite(v) for v in out.values()),
+          f"distill train_step_unl: {out}")
+    print(f"distill: one B={TRAIN_BATCH} step by torch.profiler: "
+          f"{k4_launches} K4 kernel launches "
+          f"({json.dumps({k: n for k, n, _ in k4_rows})}), K4 device "
+          f"{k4_dev:.3f} ms of {busy:.3f} ms busy (device idle "
+          f"{1 - busy / ms['lab']:.3f} of the step); train_step_unl: the "
+          f"teacher at B={2 * TRAIN_BATCH}, K4 wrapper launches "
+          f"55/5/1, losses "
+          f"{ {k: round(float(v), 4) for k, v in out.items()} }  [{card}]")
+    print(f"distill timing (ms, CUDA events, mean of {REPS}): train_step "
+          f"B={TRAIN_BATCH} {ms['lab']:.3f}, train_step_unl "
+          f"B={TRAIN_BATCH}+{TRAIN_BATCH} {ms['unl']:.3f}; the teacher "
+          f"through K4 alone B={TRAIN_BATCH} {ms['teacher32']:.3f}, "
+          f"B={2 * TRAIN_BATCH} {ms['teacher64']:.3f} (share of the step "
+          f"{ms['teacher32'] / ms['lab']:.2f}, "
+          f"{ms['teacher64'] / ms['unl']:.2f})  [{card}]")
+    return weights
+
+
+def student_serve_phase(device, card, tmp, weights):
+    """Phase 19c: the distilled student through ``cli.serve --arch lite
+    --int8 --fused --calib_dir`` on FULL_SPLITS' 480x640 PNGs (resized
+    with LANCZOS4): the calibration frames and scales on the card against
+    the plain CPU route, K6 against its plain version on the student's
+    sites (phase 10's gates), then 32 requests behind the engine with K6's
+    counts set to 0 just before and read just after (1/12/1 a batch, no
+    plain version), and the masks against plain int8 on the card.
+    Returns K6's launches per batch."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import serve
+    from sim2real_lane_segment_tpu_torch.kernels import int8_body as kib
+    from sim2real_lane_segment_tpu_torch.models import lanenet_int8
+    from sim2real_lane_segment_tpu_torch.models.lanenet_fused import \
+        fused_int8_serve
+
+    root = os.path.join(tmp, "fullSize")
+    write_png_tree(root, FULL_SPLITS, SEED + 55, unlabelled=("real",),
+                   scale=FRAME_SIZE[0] // H)
+    calib = os.path.join(root, "train", "input")
+    flags = ["--checkpointPath", weights, "--arch", "lite", "--height",
+             str(H), "--width", str(W), "--int8", "--calib_dir", calib]
+    frames_card = serve.calibration_frames(serve.parse_args(flags), device)
+    frames_cpu = serve.calibration_frames(serve.parse_args(flags), "cpu")
+    diff = int((frames_card.cpu() != frames_cpu).sum())
+    print(f"serve student: {frames_cpu.shape[0]} calibration PNGs "
+          f"{FRAME_SIZE[0]}x{FRAME_SIZE[1]} -> {H}x{W} (LANCZOS4): {diff} "
+          f"values differ between the card and the CPU  [{card}]")
+    check(diff == 0, "calibration frames differ between the card and the "
+          "CPU")
+    qns = {}
+    real_q = lanenet_int8.quantize_lanenet
+
+    def spy(tag):
+        def f(*a, **kw):
+            qns[tag] = real_q(*a, **kw)
+            return qns[tag]
+        return f
+
+    with mock.patch.object(lanenet_int8, "quantize_lanenet", spy("card")):
+        predict_fn, _, _ = serve.build_predict_fn(
+            serve.parse_args(flags + ["--fused"]))
+    with mock.patch.object(lanenet_int8, "quantize_lanenet", spy("cpu")):
+        serve.build_predict_fn(serve.parse_args(flags), device="cpu")
+    with mock.patch.object(lanenet_int8, "quantize_lanenet", spy("plain")):
+        plain_fn, _, _ = serve.build_predict_fn(serve.parse_args(flags))
+    rels = {}
+    for name, site in qns["cpu"].sites.items():
+        a = qns["card"].sites[name]["act_scale"].item()
+        b = site["act_scale"].item()
+        rels[name] = abs(a - b) / b
+    worst = max(rels.values())
+    print(f"serve student: int8 activation scales on the card against the "
+          f"CPU route, {len(rels)} sites, max relative difference "
+          f"{worst:.3e} (limit {CALIB_RTOL:.0e})  [{card}]")
+    check(worst <= CALIB_RTOL, f"calibration scales differ: {rels}")
+    compare_int8_body(qns["card"], device, card)
+
+    requests = client_requests(np.random.default_rng(SEED + 56))
+    plain_calls = {}
+    with mock.patch.multiple(kib, **_plain_counting(
+            kib, ("int8_body_plain",), plain_calls)):
+        kib.reset_launches()
+        replies, stats, wall = drive_engine(predict_fn, requests)
+        launches = dict(kib.launches)
+    b = stats["batches"]
+    expect = {"quant": b, "conv": K6_CONVS * b, "head": b}
+    n_frames = sum(f.shape[0] for reqs in requests for f in reqs)
+    print(f"serve student: --int8 --fused, {n_frames} frames in 32 requests, "
+          f"{b} batches, {n_frames / wall:.1f} frames/s; K6 launches "
+          f"{json.dumps(launches)}, expected {json.dumps(expect)}; plain "
+          f"version called {json.dumps(plain_calls)}  [{card}]")
+    check(launches == expect, "serve student: K6 launches differ from "
+          "1/12/1 a batch")
+    check(not plain_calls, "serve student: K6's plain version ran")
+    same = total = 0
+    for reqs, outs in zip(requests, replies):
+        for frames, out in zip(reqs, outs):
+            ref = plain_fn(frames)
+            same += int((ref == out).sum())
+            total += out.size
+    agree = same / total
+    print(f"serve student: K6 masks against plain int8 on the card "
+          f"{agree:.6f} of {total} pixels agree  [{card}]")
+    check(agree >= MIN_INT8_AGREEMENT, f"serve student: agreement {agree}")
+    x = torch.from_numpy(synthetic_frames(np.random.default_rng(SEED + 57),
+                                          TIME_BATCH)).to(device)
+    ms = _time_ms(lambda: fused_int8_serve(qns["card"], x))
+    print(f"serve student timing: frames -> masks through K6 at "
+          f"B={TIME_BATCH}, {ms:.3f} ms ({TIME_BATCH / ms * 1e3:.1f} "
+          f"frames/s)  [{card}]")
+    return (launches["quant"] + launches["conv"] + launches["head"]) // b
+
+
+def montage_phase(card, tmp, weights):
+    """Phase 19d: ``cli.test --trainDataPath --realDataPath -c 3`` on
+    FULL_SPLITS' 480x640 PNGs with the distilled student: the montage's
+    shape, its first frame against the LANCZOS4 resize of the path JAX's
+    rule draws, and every overlaid pixel one of the class colours."""
+    import glob
+    import random
+
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import test as test_cli
+    from sim2real_lane_segment_tpu_torch.data.png import read_png
+    from sim2real_lane_segment_tpu_torch.ops.resize import resize_lanczos4_u8
+
+    root = os.path.join(tmp, "fullSize")
+    train_dir = os.path.join(root, "train", "input")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        res = test_cli.main(["-t", "baseline", "--checkpointPath", weights,
+                             "--arch", "lite", "--height", str(H),
+                             "--width", str(W), "--trainDataPath",
+                             train_dir, "--realDataPath",
+                             os.path.join(root, "real", "input"), "-c",
+                             str(MONTAGE_ROWS)])
+        montage = read_png(res["montage"])
+    finally:
+        os.chdir(cwd)
+    random.seed(42)
+    first = random.sample(glob.glob(os.path.join(train_dir, "*.png")),
+                          MONTAGE_ROWS)[0]
+    want = resize_lanczos4_u8(torch.from_numpy(read_png(first)), H,
+                              W).numpy()
+    colours = np.array(list(test_cli.OVERLAY_BGR.values()))
+    painted = bad = 0
+    for r in range(MONTAGE_ROWS):
+        row = montage[r * H:(r + 1) * H]
+        for c in (0, 2):
+            img, over = row[:, c * W:(c + 1) * W], row[:, (c + 1) * W:
+                                                          (c + 2) * W]
+            moved = (img != over).any(-1)
+            hit = (over[moved][:, None] == colours[None]).all(-1).any(-1)
+            painted += int(moved.sum())
+            bad += int((~hit).sum())
+    print(f"montage: cli.test -c {MONTAGE_ROWS} from {FRAME_SIZE[0]}x"
+          f"{FRAME_SIZE[1]} PNGs: {montage.shape}, {painted} pixels painted, "
+          f"{bad} in another colour than a class's  [{card}]")
+    check(montage.shape == (MONTAGE_ROWS * H, 4 * W, 3),
+          f"montage shape {montage.shape}")
+    check(np.array_equal(montage[:H, :W], want),
+          "the montage's first frame is not the LANCZOS4 resize of the "
+          "path drawn")
+    check(bad == 0, f"{bad} overlaid pixels in another colour")
+
+
+def study_defaults_phase(card, tmp):
+    """Phase 19e: ``cli.domain_study`` with its defaults (``--arch lite``)
+    and ``--distill --device_cache``, ``baseline`` and ``mme``, one epoch
+    each, over STUDY_SPLITS trees at 480x640: four finite rows, the
+    students distilled from LaneNetLite teachers (plain eval forward)."""
+    from sim2real_lane_segment_tpu_torch.cli import domain_study
+
+    work = os.path.join(tmp, "studyDefaults")
+    for dom, seed in (("sourceData", SEED + 58), ("targetData", SEED + 59)):
+        write_png_tree(os.path.join(work, dom), STUDY_SPLITS, seed,
+                       scale=FRAME_SIZE[0] // H)
+    t0 = time.perf_counter()
+    res = domain_study.main(["--workdir", work, "--epochs", "1", "-b",
+                             str(TRAIN_BATCH), "--regimes", "baseline",
+                             "mme", "--distill", "--device_cache"])
+    wall = time.perf_counter() - t0
+    rows = ["baseline", "mme", "student_baseline", "student_mme"]
+    print(f"study defaults: cli.domain_study (--arch lite) --distill "
+          f"--device_cache --epochs 1, rows {list(res)} in {wall:.1f} s; "
+          f"target-test iou { {k: round(v['iou'], 4) for k, v in res.items()} }"
+          f"  [{card}]")
+    check(list(res) == rows, f"study rows {list(res)}")
+    check(all(np.isfinite(v) for row in res.values() for v in row.values()),
+          f"study rows {res}")
+
+
+def lifecycle_phase(sd, device, card):
+    """Phase 19: the serving student's life, each part timed."""
+    seconds, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (
+                ("train", lambda: lite_train_phase(card, tmp)),
+                ("train timing", lambda: lite_step_timing(device, card)),
+                ("distill", lambda: distill_phase(sd, device, card, tmp)),
+                ("serve", lambda: student_serve_phase(device, card, tmp,
+                                                      out["distill"])),
+                ("montage", lambda: montage_phase(card, tmp,
+                                                  out["distill"])),
+                ("study", lambda: study_defaults_phase(card, tmp))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            seconds[name] = round(time.perf_counter() - t0, 1)
+    print(f"lifecycle: seconds per part {json.dumps(seconds)}; K6 launches "
+          f"per served batch of the student {out['serve']}  [{card}]",
+          flush=True)
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -2874,12 +3397,22 @@ def main() -> None:
         fail(f"the port's package is not beside this script: {e}")
     card = card_label()
     device = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # strict float32, as every CLI of the port sets it
+    from sim2real_lane_segment_tpu_torch.core.runtime import \
+        set_float32_precision
+    set_float32_precision()
     print(f"device: {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}")
     print(card, flush=True)
+
+    seconds, clock = {}, [time.perf_counter()]
+
+    def lap(phase):
+        """Records the seconds since the last lap as ``phase``'s."""
+        now = time.perf_counter()
+        seconds[phase] = round(now - clock[0], 1)
+        clock[0] = now
 
     # phase 2: build, one nvcc per source, all at once
     t0 = time.perf_counter()
@@ -2909,6 +3442,8 @@ def main() -> None:
         check(all(hmma.values()), "a tensor-core kernel holds no HMMA, "
               "HGMMA or IMMA instruction")
 
+    lap("1-2")
+
     # phase 3: kernel against plain, every block at full width
     t0 = time.perf_counter()
     sd = seeded_state_dict(device)
@@ -2918,13 +3453,19 @@ def main() -> None:
     print(f"compare: done in {time.perf_counter() - t0:.1f} s  [{card}]",
           flush=True)
 
+    lap(3)
+
     # phase 4: serve end to end
     launches, fps = serve_phase(sd, device, card)
+
+    lap(4)
 
     # phase 5: timing
     kernels, cls_times = timing_phase(sd, device, card, launches,
                                       errs["bfloat16"])
     print(f"engine: {fps:.1f} frames/s end to end  [{card}]", flush=True)
+
+    lap(5)
 
     # phase 6: train kernels against plain, every site of one step
     t0 = time.perf_counter()
@@ -2935,16 +3476,24 @@ def main() -> None:
     print(f"compare: train kernels done in {time.perf_counter() - t0:.1f} s"
           f"  [{card}]", flush=True)
 
+    lap(6)
+
     # phase 7: whole-model gradients against plain autograd
     check_model_grads(sd, device, card)
+
+    lap(7)
 
     # phase 8: train end to end (the training main path)
     work = tempfile.TemporaryDirectory()
     train_launches, _, sim_weights = train_phase(card, work.name)
 
+    lap(8)
+
     # phase 9: train timing
     kernels += train_timing(sd, device, card, train_launches,
                             train_errs["bfloat16"])
+
+    lap(9)
 
     # phase 10: K6 against plain at full width, the committed student
     t0 = time.perf_counter()
@@ -2953,11 +3502,17 @@ def main() -> None:
     print(f"compare: K6 done in {time.perf_counter() - t0:.1f} s  [{card}]",
           flush=True)
 
+    lap(10)
+
     # phase 11: serve LaneNetLite: float, int8, int8 through K6
     k6_launches, lite_fps = lite_serve_phase(card)
 
+    lap(11)
+
     # phase 12: label extraction through K5
     k5_launches, big_pairs = labelgen_phase(device, card)
+
+    lap(12)
 
     # phase 13: LaneNetLite and label timing
     kernels += lite_timing(lite_trainer, qn, big_pairs, device, card,
@@ -2966,12 +3521,16 @@ def main() -> None:
                                       for k, v in lite_fps.items())
           + f" end to end  [{card}]", flush=True)
 
+    lap(13)
+
     # phase 14: one MME step, kernels against plain at every site
     t0 = time.perf_counter()
     for dtype_name in ("float32", "bfloat16"):
         compare_mme_step(sd, device, dtype_name, card)
     print(f"compare: MME step done in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]", flush=True)
+
+    lap(14)
 
     # phase 15: the st and mme CLIs, then cli.test, end to end
     t0 = time.perf_counter()
@@ -2981,11 +3540,15 @@ def main() -> None:
           f"{json.dumps({k: v // mme_steps for k, v in mme_launches.items()})}"
           f"  [{card}]", flush=True)
 
+    lap(15)
+
     # phase 16: MME step and augmentation timing
     t0 = time.perf_counter()
     mme_timing(sd, device, card)
     print(f"timing: phase 16 done in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]", flush=True)
+
+    lap(16)
 
     # phase 17: --device_cache, the graphed multi-step dispatch
     t0 = time.perf_counter()
@@ -2995,11 +3558,20 @@ def main() -> None:
     print(f"cache: phase 17 done in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]", flush=True)
 
+    lap(17)
+
     # phase 18: the HM and CycleGAN regimes and the domain study
     t0 = time.perf_counter()
     regimes_study_phase(device, card)
     print(f"regimes: phase 18 done in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]", flush=True)
+    lap(18)
+
+    # phase 19: the serving student's life
+    lifecycle_phase(sd, device, card)
+    lap(19)
+    print(f"phases: seconds {json.dumps(seconds)}, "
+          f"{sum(seconds.values()):.1f} in all  [{card}]", flush=True)
 
     print(card)
     print(json.dumps({"kernels": kernels}))

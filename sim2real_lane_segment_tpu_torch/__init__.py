@@ -15,7 +15,11 @@ Around them: LaneNetLite serving (``csrc/int8_body.cu``), label
 extraction (``csrc/labelgen.cu``), the ``st`` and MME regimes, and the HM
 and CycleGAN regimes with the domain study (``cli.hist_match``,
 ``cli.train_cyclegan``, ``cli.sim2real_convert``, ``cli.domain_study``),
-which run on tensor ops and cuDNN and train through the same kernels.
+which run on tensor ops and cuDNN and train through the same kernels;
+and LaneNetLite's training and distillation (``cli.distill``,
+``train.distill``: the FCDenseNet teacher's frozen forward through
+``csrc/dense_block.cu``, the student served through
+``csrc/int8_body.cu``).
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

@@ -12,6 +12,14 @@ split (``targetData/test``) and writes ``study_summary.json``:
               (``cli.sim2real_convert``), then S&T
   mme       - minimax-entropy SSDA from the baseline weights
 
+With ``--distill`` a LaneNetLite student is then distilled from each
+regime's best weights (``train.distill.DistillTrainer``) on the tree that
+regime trained on (baseline on ``sourceData``; the others on their
+two-domain tree through ``TwoDomainMMEDataModule``, so the KD term also
+sees the unlabelled target frames) for ``--distill_epochs`` (default
+``--epochs``) epochs, and scored on the same target test split, as rows
+``student_<regime>``.
+
     python -m sim2real_lane_segment_tpu_torch.cli.domain_study \\
         --workdir domain_study --arch 67 --epochs 40
 
@@ -28,10 +36,10 @@ skipped, a regime whose ``results/<name>/best_weights.pt`` exists is
 evaluated from it without refitting, and a fit that stopped mid-run
 continues from its checkpoints; ``--force`` retrains everything.
 ``--device_cache`` goes to every data module as it is (the JAX study's
-per-regime crash counter that turns the cache off is not ported).  Not
-yet ported, and raising: ``--distill``, and training ``--arch lite``
-(the default, as in JAX) or ``67r``/``encdec``.  Runs on the card unless
-``main`` is given ``device="cpu"``.
+per-regime crash counter that turns the cache off is not ported).
+``--arch lite`` (the default, as in JAX) trains LaneNetLite in every
+regime; ``67r`` and ``encdec`` are not yet ported, and raise.  Runs on
+the card unless ``main`` is given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import os
 import shutil
 import time
 
+from ..core import runtime
 from . import common
 
 log = logging.getLogger(__name__)
@@ -132,9 +141,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cg_epochs", type=int, default=30,
                    help="CycleGAN training epochs for the cyclegan regime")
     p.add_argument("--distill", action="store_true",
-                   help="distil LaneNetLite students (not yet ported)")
+                   help="after the regimes, distill a LaneNetLite student "
+                        "from each regime's best weights on that regime's "
+                        "training tree and score it on the same target "
+                        "test split (rows student_<regime>)")
     p.add_argument("--distill_epochs", type=int, default=None,
-                   help="distillation budget (not yet ported)")
+                   help="distillation budget per student (default: "
+                        "--epochs)")
     p.add_argument("--force", action="store_true",
                    help="retrain regimes even if a finished result exists "
                         "in the workdir (default: resume)")
@@ -158,9 +171,7 @@ def main(args=None, device=None) -> dict:
 
     common.setup_logging()
     args = build_parser().parse_args(args)
-    if args.distill:
-        raise NotImplementedError(
-            "--distill (LaneNetLite students) is not yet ported to PyTorch")
+    runtime.set_float32_precision()
     device = resolve_device(device)
 
     os.makedirs(args.workdir, exist_ok=True)
@@ -283,6 +294,9 @@ def main(args=None, device=None) -> dict:
         elif "mme" in args.regimes:
             log.info("mme: cached in study_summary.json")
 
+        if args.distill:
+            _distill_students(args, results, data, evaluate, device)
+
         save_summary()
         print("STUDY SUMMARY (target-domain test):")
         for k, v in results.items():
@@ -290,6 +304,52 @@ def main(args=None, device=None) -> dict:
         return results
     finally:
         os.chdir(cwd)
+
+
+def _distill_students(args, results, data, evaluate, device) -> None:
+    """A LaneNetLite student distilled from each regime's best weights
+    (``results/<regime>/best_weights.pt``, the study's ``--arch``) on
+    that regime's tree, scored as ``student_<regime>``; skipped when the
+    weights or the tree are missing, or the row is in the summary."""
+    import torch
+
+    from ..data.modules import SimulatorDataModule, TwoDomainMMEDataModule
+    from ..models.lanenet_lite import LaneNetLite
+    from ..train.checkpoint import load_weights
+    from ..train.distill import DistillTrainer
+    from ..train.loop import fit
+    from .test import build_model
+
+    trees = {"baseline": ("sourceData", SimulatorDataModule),
+             "st": ("srd_st", TwoDomainMMEDataModule),
+             "hm": ("srd_hm", TwoDomainMMEDataModule),
+             "cyclegan": ("srd_cg", TwoDomainMMEDataModule),
+             "mme": ("srd_mme", TwoDomainMMEDataModule)}
+    epochs = args.distill_epochs or args.epochs
+    for name in args.regimes:
+        sk = f"student_{name}"
+        if sk in results and not args.force:
+            log.info("%s: cached in study_summary.json", sk)
+            continue
+        teacher_path = f"results/{name}/best_weights.pt"
+        root, module = trees[name]
+        missing = [p for p in (teacher_path, root) if not os.path.exists(p)]
+        if missing:
+            log.warning("%s: missing %s, skipping the student", sk,
+                        missing[0])
+            continue
+        t0 = time.time()
+        teacher = build_model(args.arch, 4)
+        load_weights(teacher_path, teacher)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(4)  # the student's initial weights
+            student = LaneNetLite(n_classes=4)
+        tr = DistillTrainer(teacher=teacher, num_cls=4, lr=args.lr,
+                            augment=True, t_max=epochs,
+                            student_model=student, device=device)
+        fit(tr, data(module, root), max_epochs=epochs,
+            out_dir=f"results/{sk}", resume=not args.force)
+        evaluate(sk, tr, t0)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.runtime import resolve_device
+from ..core import runtime
 from . import common
 
 log = logging.getLogger(__name__)
@@ -53,6 +54,7 @@ def main(args=None, device=None) -> int:
 
     common.setup_logging()
     args = build_parser().parse_args(args)
+    runtime.set_float32_precision()
     device = resolve_device(device)
     ds_source = RightLaneDataset(args.ds_source, have_labels=False)
     ds_reference = RightLaneDataset(args.ds_reference, have_labels=False)

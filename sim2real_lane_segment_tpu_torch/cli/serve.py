@@ -9,7 +9,8 @@ Serves a segmentation model behind the batch-aggregating ZMQ front end
 ``--arch lite`` (the default) serves LaneNetLite; ``--int8`` serves it
 quantized to int8 (``models.lanenet_int8``), and ``--int8 --fused``
 through kernel K6 (``models.lanenet_fused``), calibrated on the PNGs of
-``--calib_dir`` or, without it, on 16 frames of
+``--calib_dir`` (any size, resized with cv2's LANCZOS4 as the JAX CLI
+resizes them) or, without it, on 16 frames of
 ``np.random.default_rng(0)`` noise as the JAX CLI does.  ``--fused``
 alone runs the FC-DenseNet archs through the fused dense-block kernels
 (``models.tiramisu_fused``); LaneNetLite has no fused float forward and
@@ -25,39 +26,43 @@ import logging
 import numpy as np
 import torch
 
+from ..core import runtime
 from . import common
 
 log = logging.getLogger(__name__)
 
 
-def calibration_frames(args) -> np.ndarray:
-    """uint8 (n, height, width, 3) frames for the int8 activation scales:
-    the first 64 PNGs of ``--calib_dir`` (BGR, already at the model's
-    size), or 16 frames of seeded noise."""
+def calibration_frames(args, device) -> torch.Tensor:
+    """uint8 (n, height, width, 3) frames on ``device`` for the int8
+    activation scales: the first 64 PNGs of ``--calib_dir`` (BGR, any
+    size), each resized with cv2's LANCZOS4 (``ops.resize.
+    resize_lanczos4_u8``; a frame already at the size comes back
+    unchanged, as cv2 copies it), or 16 frames of seeded noise."""
     if not args.calib_dir:
         log.warning("no --calib_dir: calibrating int8 on synthetic noise")
-        return np.random.default_rng(0).integers(
-            0, 255, (16, args.height, args.width, 3), dtype=np.uint8)
+        return torch.from_numpy(np.random.default_rng(0).integers(
+            0, 255, (16, args.height, args.width, 3), dtype=np.uint8)).to(
+                device)
     from ..data.png import read_png
+    from ..ops.resize import resize_lanczos4_u8
 
     paths = sorted(glob.glob(f"{args.calib_dir}/*.png"))[:64]
     if not paths:
         raise FileNotFoundError(f"no PNG in --calib_dir {args.calib_dir}")
-    frames = [read_png(p) for p in paths]
-    for p, f in zip(paths, frames):
-        # the JAX CLI resizes with cv2's LANCZOS4, which the port lacks
-        if f.shape != (args.height, args.width, 3):
-            raise ValueError(f"{p}: {f.shape[:2]} frame, calibration needs "
-                             f"{args.height}x{args.width} BGR PNGs")
     log.info("calibrating int8 scales on %d frames from %s", len(paths),
              args.calib_dir)
-    return np.stack(frames)
+    return torch.stack([resize_lanczos4_u8(
+        torch.from_numpy(read_png(p)).to(device), args.height, args.width)
+        for p in paths])
 
 
 def build_predict_fn(args, device=None):
     """Returns (predict_fn, height, width): uint8 NHW3 numpy -> uint8 NHW
-    numpy.  ``device`` defaults to ``cuda`` and raises without a card."""
+    numpy.  ``device`` defaults to ``cuda`` and raises without a card.
+    ``main`` serves what this returns."""
     from .test import load_trainer_and_state
+
+    runtime.set_float32_precision()
 
     trainer = load_trainer_and_state(
         args.module_type, args.checkpointPath, num_cls=args.num_cls,
@@ -79,7 +84,8 @@ def build_predict_fn(args, device=None):
         return eval_batch(trainer._to_device(frames), None, trainer.cfg,
                           with_labels=False)[0]
 
-    qn = quantize_lanenet(trainer.model, normalized(calibration_frames(args)))
+    qn = quantize_lanenet(trainer.model, normalized(
+        calibration_frames(args, trainer.device)))
     if getattr(args, "fused", False):
         def predict(frames):
             return fused_int8_serve(qn, trainer._to_device(frames),
@@ -112,8 +118,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--int8", action="store_true",
                    help="serve the PTQ int8 path (lite arch only)")
     p.add_argument("--calib_dir", default=None,
-                   help="dir of BGR PNGs at --height x --width for int8 "
-                        "activation calibration")
+                   help="dir of BGR PNGs for int8 activation calibration, "
+                        "resized to --height x --width (LANCZOS4)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8903)
     p.add_argument("--max_batch", type=int, default=64)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
+from ..core import runtime
 from . import common
 
 log = logging.getLogger(__name__)
@@ -102,6 +103,7 @@ def main(args=None, device=None) -> int:
 
     common.setup_logging()
     args = build_parser().parse_args(args)
+    runtime.set_float32_precision()
     dev = resolve_device(device)
     model = load_generator(args.modelWeightsPath, args.num_residual_blocks,
                            device=dev)

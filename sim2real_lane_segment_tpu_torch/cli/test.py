@@ -6,24 +6,39 @@ Counterpart of the JAX package's ``cli/test.py``:
     python -m sim2real_lane_segment_tpu_torch.cli.test -t mme \\
         --checkpointPath best_weights.pt --testDataPath simRealData/target/test
 
-``main`` evaluates ``--testDataPath`` (an ``input/`` + ``label/`` PNG
-directory) in batches: the eval step's accuracy, Dice and IoU, and the
-4x4 confusion matrix of the predictions (through the fused forward with
-``--fused``), printed and returned as the JAX CLI prints and returns
-them.  It runs on the card unless given ``device="cpu"``.  The
-FC-DenseNet archs (67, 57, 103, tiny) and LaneNetLite (``lite``) are
-ported.  Not yet ported, and raising: the archs ``67r`` and ``encdec``,
-and the sample montage (``--trainDataPath`` with ``--realDataPath``),
-which resizes with cv2's LANCZOS4.
+``main`` writes the sample montage when given ``--trainDataPath`` and
+``--realDataPath`` (``results/samplePredictions.png``: per row a train
+frame, its prediction overlaid, a real frame, its prediction overlaid;
+``--showCount`` rows of frames drawn by ``random.sample`` after
+``random.seed(42)``, resized with cv2's LANCZOS4 through
+``ops.resize.resize_lanczos4_u8``), then evaluates ``--testDataPath``
+(an ``input/`` + ``label/`` PNG directory) in batches: the eval step's
+accuracy, Dice and IoU, and the 4x4 confusion matrix of the predictions
+(through the fused forward with ``--fused``), printed and returned as the
+JAX CLI prints and returns them.  It runs on the card unless given
+``device="cpu"``.  The FC-DenseNet archs (67, 57, 103, tiny) and
+LaneNetLite (``lite``) are ported; ``67r`` and ``encdec`` are not yet,
+and raise.
 """
 from __future__ import annotations
 
 import argparse
+import glob
+import logging
+import os
+import random
 
 import numpy as np
 
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
+from ..core import runtime
 from . import common
+
+log = logging.getLogger(__name__)
+
+# the montage's class colours as BGR triples (the JAX CLI's): right lane
+# green, left lane blue, obstacle red
+OVERLAY_BGR = {1: (0, 255, 0), 2: (255, 0, 0), 3: (0, 0, 255)}
 
 PORTED_ARCHES = ("67", "57", "103", "tiny", "lite")
 ARCHES = ["67", "67r", "57", "103", "tiny", "lite", "encdec"]
@@ -72,6 +87,42 @@ def load_trainer_and_state(module_type: str, checkpoint_path: str,
                        width=width, device=device)
 
 
+def overlay_prediction(img_bgr: np.ndarray, pred: np.ndarray) -> np.ndarray:
+    """``img_bgr`` with every pixel of a class painted in its colour."""
+    out = img_bgr.copy()
+    for cls, color in OVERLAY_BGR.items():
+        out[pred == cls] = color
+    return out
+
+
+def sample_montage(trainer, train_paths, real_paths, out_path,
+                   predict=None) -> str:
+    """One row per (train, real) PNG pair: each frame resized to the
+    model's size with cv2's LANCZOS4 and beside it its prediction
+    overlaid; written as a PNG to ``out_path``.  ``predict`` (uint8 NHW3
+    frames -> class maps) defaults to ``trainer.predict_step``."""
+    import torch
+
+    from ..data.png import read_png, write_png
+    from ..ops.resize import resize_lanczos4_u8
+
+    predict = predict or trainer.predict_step
+    h, w = trainer.cfg.height, trainer.cfg.width
+    rows = []
+    for tp, rp in zip(train_paths, real_paths):
+        imgs = torch.stack([resize_lanczos4_u8(
+            torch.from_numpy(read_png(p)).to(trainer.device), h, w)
+            for p in (tp, rp)])
+        preds = predict(imgs).cpu().numpy()
+        imgs = imgs.cpu().numpy()
+        rows.append(np.concatenate(
+            [imgs[0], overlay_prediction(imgs[0], preds[0]),
+             imgs[1], overlay_prediction(imgs[1], preds[1])], axis=1))
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    write_png(out_path, np.concatenate(rows, axis=0))
+    return out_path
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-t", "--module_type", required=True,
@@ -102,16 +153,27 @@ def main(args=None, device=None) -> dict:
 
     common.setup_logging()
     args = build_parser().parse_args(args)
-    if args.trainDataPath and args.realDataPath:
-        raise NotImplementedError(
-            "the sample montage (--trainDataPath, --realDataPath) resizes "
-            "with cv2 LANCZOS4 and is not yet ported to PyTorch")
+    runtime.set_float32_precision()
+    random.seed(42)
     trainer = load_trainer_and_state(
         args.module_type, args.checkpointPath, arch=args.arch,
         height=args.height, width=args.width, device=device)
     predict = (trainer.predict_step_fused if args.fused
                else trainer.predict_step)
     results: dict = {}
+    if args.trainDataPath and args.realDataPath:
+        train_paths = random.sample(
+            glob.glob(os.path.join(args.trainDataPath, "*.png")),
+            args.showCount)
+        real_paths = random.sample(
+            glob.glob(os.path.join(args.realDataPath, "*.png")),
+            args.showCount)
+        out = sample_montage(trainer, train_paths, real_paths,
+                             "results/samplePredictions.png",
+                             predict=predict)
+        log.info("wrote %s", out)
+        results["montage"] = out
+
     if args.testDataPath:
         ds = RightLaneDataset(args.testDataPath, True)
         outs = []

@@ -16,7 +16,7 @@ two-phase step from the ``--pretrained_path`` weights (``.pt``,
 training augmentation on the card.  ``--pallas_train`` runs the
 FC-DenseNet train step through the fused consumer kernels
 (``models.tiramisu_train_fused``); without it the plain module trains
-with autograd.  ``--device_cache`` keeps every split on the device
+with autograd, as ``--arch lite`` (LaneNetLite) always does.  ``--device_cache`` keeps every split on the device
 (``data.device_cache``): batches are gathered there, and the fit loop
 runs each epoch in chunks of 32 steps (``run_scan_chunk``), every step on
 a card one replay of the whole step captured as a CUDA graph, with the
@@ -28,7 +28,8 @@ Training runs on the card unless ``main`` is given ``device="cpu"``.
 Artifacts go to ``<default_root_dir or results>/<model_name>``:
 ``metrics.jsonl``, ``checkpoints/best.pt`` (best val_iou),
 ``checkpoints_latest/latest.pt`` and ``best_weights.pt``.  Not yet
-ported, and raising: ``--fast_train`` and ``--dp``.
+ported, and raising: ``--fast_train``, ``--dp`` and the archs ``67r`` and
+``encdec``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import argparse
 import logging
 import os
 
+from ..core import runtime
 from . import common
 
 NOT_PORTED = ("fast_train",)
@@ -96,6 +98,7 @@ def main(args=None, device=None) -> dict:
 
     common.setup_logging()
     args = build_parser().parse_args(args)
+    runtime.set_float32_precision()
     if args.trainType == "mme" and not args.pretrained_path:
         raise SystemExit("--trainType=mme requires --pretrained_path")
     for flag in NOT_PORTED:

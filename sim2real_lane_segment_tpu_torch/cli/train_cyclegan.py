@@ -27,6 +27,7 @@ import os
 
 import numpy as np
 
+from ..core import runtime
 from . import common
 
 log = logging.getLogger(__name__)
@@ -87,6 +88,7 @@ def main(args=None, device=None) -> dict:
 
     common.setup_logging()
     args = build_parser().parse_args(args)
+    runtime.set_float32_precision()
     device = resolve_device(device)
     images_a = load_image_stack(args.source_dir, args.height, args.width,
                                 args.max_images, device)

@@ -16,12 +16,24 @@ Flax ``padding="SAME"`` is asymmetric for a strided conv: a 3x3 stride-2
 conv over an even size pads (0, 1), not (1, 1), so every conv pads
 explicitly with ``same_pad``.  The upsample is ``jax.image.resize(...,
 "bilinear")``, which for a x4 upsample is ``F.interpolate(mode=
-"bilinear", align_corners=False)``.
+"bilinear", align_corners=False)``; its backward is two products with
+the interpolation matrices, so that a train step repeats bit for bit on a
+card (``F.interpolate``'s own backward adds with atomics).
 
-Only eval mode is ported; the train mode comes with distillation.
+Train mode (``model(x, train=True)``) follows ``model.apply(train=True,
+mutable=["batch_stats"])``, as the FC-DenseNet's does: BatchNorm
+normalizes with the float32 batch statistics and returns the running
+update (momentum 0.9, the biased batch variance) instead of writing it
+(``models.tiramisu.bn_train``).  The call interface is the FC-DenseNet's,
+so the supervised and MME trainers take either model: ``model(x,
+train=True, masks=...)`` returns ``(out, updates)``, and
+``featureExtractor(x, updates, masks)`` and ``classifier(feats,
+use_softmax=...)`` run the two halves.  LaneNetLite has no dropout: its
+mask list is empty.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -30,6 +42,7 @@ from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ..ops.augment import AugmentConfig, eval_batch
+from .tiramisu import bn_train
 
 EPS = 1e-5
 
@@ -52,8 +65,12 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
     return F.conv2d(x, weight, stride=stride, dilation=dilation)
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Running-stat BatchNorm in float32."""
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, train: dict | None,
+        name: str) -> torch.Tensor:
+    """BatchNorm in float32: running statistics, or with ``train`` (the
+    running-update dict) the batch statistics, recorded under ``name``."""
+    if train is not None:
+        return bn_train(bn, x, train, name)
     return F.batch_norm(x.to(torch.float32), bn.running_mean, bn.running_var,
                         bn.weight, bn.bias, False, 0.0, bn.eps)
 
@@ -73,10 +90,11 @@ class ConvBN(nn.Module):
                                 dilation=dilation, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: dict | None = None,
+                name: str = "") -> torch.Tensor:
         cd = self.policy.compute_dtype
-        return torch.relu(_bn(self.BatchNorm_0, _conv(self.Conv_0, x, cd))
-                          ).to(cd)
+        return torch.relu(_bn(self.BatchNorm_0, _conv(self.Conv_0, x, cd),
+                              train, f"{name}.BatchNorm_0")).to(cd)
 
 
 class ResBlock(nn.Module):
@@ -92,9 +110,12 @@ class ResBlock(nn.Module):
         if in_channels != features:
             self.Conv_1 = nn.Conv2d(in_channels, features, 1, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: dict | None = None,
+                name: str = "") -> torch.Tensor:
         cd = self.policy.compute_dtype
-        h = _bn(self.BatchNorm_0, _conv(self.Conv_0, self.ConvBN_0(x), cd))
+        h = self.ConvBN_0(x, train, f"{name}.ConvBN_0")
+        h = _bn(self.BatchNorm_0, _conv(self.Conv_0, h, cd), train,
+                f"{name}.BatchNorm_0")
         if hasattr(self, "Conv_1"):
             x = _conv(self.Conv_1, x, cd)
         return torch.relu(h + x.to(h.dtype)).to(cd)
@@ -119,10 +140,15 @@ class LaneNetLiteFeatures(nn.Module):
             c = f
         self.out_channels = c
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: dict | None = None,
+                masks=None) -> torch.Tensor:
+        """``train``: the running-update dict of a train-mode forward (None:
+        eval mode).  ``masks`` (the FC-DenseNet's dropout masks) is
+        accepted for the shared interface; LaneNetLite has no dropout."""
         x = x.to(self.policy.compute_dtype)
-        for m in self.children():
-            x = m(x)
+        for name, m in self.named_children():
+            x = m(x) if train is None else m(x, train,
+                                             f"featureExtractor.{name}")
         return x
 
 
@@ -144,11 +170,42 @@ class LaneNetLiteClassifier(nn.Module):
         return torch.softmax(x, dim=1) if use_softmax else x
 
 
+@functools.cache
+def _upsample_matrix(n: int, device: torch.device) -> torch.Tensor:
+    """[4n, n] float32: row i holds the two weights of the x4 bilinear
+    upsample (half-pixel centers, clamped at the border) at output i."""
+    src = torch.clamp((torch.arange(4 * n, dtype=torch.float64) + 0.5) / 4
+                      - 0.5, min=0.0)
+    i0 = src.floor().to(torch.int64)
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    lam = src - i0
+    a = torch.zeros(4 * n, n, dtype=torch.float64)
+    rows = torch.arange(4 * n)
+    a.index_put_((rows, i0), 1.0 - lam, accumulate=True)
+    a.index_put_((rows, i1), lam, accumulate=True)
+    return a.to(device=device, dtype=torch.float32)
+
+
+class _Upsample4(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y):
+        ctx.size = y.shape[2:]
+        return F.interpolate(y, size=(y.shape[2] * 4, y.shape[3] * 4),
+                             mode="bilinear", align_corners=False,
+                             antialias=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.size
+        return (_upsample_matrix(h, g.device).t()
+                @ (g @ _upsample_matrix(w, g.device)))
+
+
 def upsample4(y: torch.Tensor) -> torch.Tensor:
-    """x4 bilinear upsample of NCHW float32 maps (``jax.image.resize``)."""
-    return F.interpolate(y, size=(y.shape[2] * 4, y.shape[3] * 4),
-                         mode="bilinear", align_corners=False,
-                         antialias=False)
+    """x4 bilinear upsample of NCHW float32 maps (``jax.image.resize``).
+    The backward is the transposed interpolation as two matrix products,
+    which sum in a fixed order."""
+    return _Upsample4.apply(y)
 
 
 class LaneNetLite(nn.Module):
@@ -171,12 +228,13 @@ class LaneNetLite(nn.Module):
             self.featureExtractor.out_channels, n_classes, policy)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                use_softmax: bool = True) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "LaneNetLite train mode is not yet ported to PyTorch")
-        return self.classifier(self.featureExtractor(x),
-                               use_softmax=use_softmax)
+                use_softmax: bool = True, masks=None):
+        if not train:
+            return self.classifier(self.featureExtractor(x),
+                                   use_softmax=use_softmax)
+        updates: dict = {}
+        x = self.featureExtractor(x, updates, masks)
+        return self.classifier(x, use_softmax=use_softmax), updates
 
 
 @torch.inference_mode()

@@ -59,15 +59,21 @@ def running_update(bn: nn.BatchNorm2d, mu: torch.Tensor,
             "var": 0.9 * bn.running_var + 0.1 * var.detach()}
 
 
-def bn_relu_train(bn: nn.BatchNorm2d, x: torch.Tensor, updates: dict,
-                  name: str) -> torch.Tensor:
-    """Batch-stat BatchNorm in float32, then ReLU; records the running
-    update under ``name``."""
+def bn_train(bn: nn.BatchNorm2d, x: torch.Tensor, updates: dict,
+             name: str) -> torch.Tensor:
+    """Batch-stat BatchNorm in float32 (Flax's ``(x - mu) * (rsqrt(var +
+    eps) * scale) + bias``); records the running update under ``name``."""
     mu, var = batch_stats(x)
     updates[name] = running_update(bn, mu, var)
     mul = torch.rsqrt(var + EPS) * bn.weight
     y = (at_least_f32(x) - mu[:, None, None]) * mul[:, None, None]
-    return torch.relu(y + bn.bias[:, None, None])
+    return y + bn.bias[:, None, None]
+
+
+def bn_relu_train(bn: nn.BatchNorm2d, x: torch.Tensor, updates: dict,
+                  name: str) -> torch.Tensor:
+    """``bn_train``, then ReLU."""
+    return torch.relu(bn_train(bn, x, updates, name))
 
 
 def dropout2d(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -349,10 +355,13 @@ class FCDenseNet(nn.Module):
         return self.classifier(x, use_softmax=use_softmax), updates
 
 
-def dropout_sites(model: FCDenseNet) -> list[int]:
+def dropout_sites(model: nn.Module) -> list[int]:
     """Channels of each Dropout2d site, in the JAX site order: per down
     block its layers then its TransitionDown, the bottleneck's layers, the
-    up blocks' layers."""
+    up blocks' layers.  A model other than an FC-DenseNet (LaneNetLite)
+    has none."""
+    if not isinstance(model, FCDenseNet):
+        return []
     g = model.growth_rate
     cur = model.featureExtractor.firstconv.out_channels
     sites = []
@@ -366,14 +375,14 @@ def dropout_sites(model: FCDenseNet) -> list[int]:
     return sites
 
 
-def draw_drop_masks(generator: torch.Generator, model: FCDenseNet,
+def draw_drop_masks(generator: torch.Generator, model: nn.Module,
                     batch: int, pin: bool = False) -> torch.Tensor:
     """Every Dropout2d mask of one step, flat, site after site (one f32
     [batch, C] block per site: keep with probability 1 - rate, kept
     channels scaled by 1/(1 - rate)), drawn on the generator's device.
     ``pin``: in pinned memory, for one asynchronous copy to a card."""
-    rate = model.dropout_rate
     sites = dropout_sites(model)
+    rate = model.dropout_rate if sites else 0.0
     u = torch.empty(batch * sum(sites), device=generator.device)
     if rate == 0.0:
         u.fill_(1.0)
@@ -387,7 +396,7 @@ def draw_drop_masks(generator: torch.Generator, model: FCDenseNet,
     return u.pin_memory() if pin and not u.is_pinned() else u
 
 
-def split_masks(flat: torch.Tensor, model: FCDenseNet,
+def split_masks(flat: torch.Tensor, model: nn.Module,
                 batch: int) -> list[torch.Tensor]:
     """``draw_drop_masks``'s flat buffer as one [batch, C] view per site."""
     out, off = [], 0
@@ -397,7 +406,7 @@ def split_masks(flat: torch.Tensor, model: FCDenseNet,
     return out
 
 
-def drop_masks(generator: torch.Generator, model: FCDenseNet, batch: int,
+def drop_masks(generator: torch.Generator, model: nn.Module, batch: int,
                device=None) -> list[torch.Tensor]:
     """One f32 [batch, C] Dropout2d mask per site (``draw_drop_masks``),
     moved to ``device`` in one copy (from pinned memory to a card)."""

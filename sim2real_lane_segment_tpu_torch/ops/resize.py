@@ -200,5 +200,7 @@ def resize_lanczos4_u8(img: torch.Tensor, height: int,
                        width: int) -> torch.Tensor:
     """``cv2.resize(img, (width, height), interpolation=INTER_LANCZOS4)``
     for (..., H, W, C) uint8, on ``img``'s device: 8 taps, int16
-    coefficients, integer sums, ``(acc + 2^21) >> 22`` saturated."""
+    coefficients, integer sums, ``(acc + 2^21) >> 22`` saturated.  At the
+    frame's own size the taps are one 2048 each way, so the frame comes
+    back unchanged, as cv2 copies it."""
     return _resample_u8(img, height, width, "lanczos4")

@@ -10,12 +10,14 @@ checkpoints.  Each epoch draws its dropout masks from a
 ``torch.Generator`` seeded from ``(seed, epoch)``, so a resumed run
 repeats the randomness of an uninterrupted one.
 
-When the data module keeps its splits on the device
-(``train_scan_inputs`` is not None), an epoch runs as chunks of
-``SCAN_CHUNK`` steps through the trainer's ``run_scan_chunk`` (the JAX
+When the trainer has ``run_scan_chunk`` and the data module keeps its
+splits on the device (``train_scan_inputs`` is not None), an epoch runs
+as chunks of ``SCAN_CHUNK`` steps through ``run_scan_chunk`` (the JAX
 ``_run_train_epoch_scanned``): the same batches, draws, logged values and
 cadence as the per-batch loop, with the chunk's logs read once, at its
-end.  The JAX loop's retries of transient backend errors and its retreat
+end.  A trainer without it (distillation) runs the per-batch loop, on
+batches gathered on the device where the module caches its splits, as
+the JAX ``fit`` does.  The JAX loop's retries of transient backend errors and its retreat
 to the per-batch path are not ported: a failure raises.
 """
 from __future__ import annotations
@@ -150,7 +152,8 @@ def fit(trainer, data, *, max_epochs: int, out_dir: str, seed: int = 42,
     for epoch in range(start_epoch, max_epochs):
         t0 = time.time()
         gen = epoch_generator(seed, epoch)
-        scan = getattr(data, "train_scan_inputs", lambda e: None)(epoch)
+        scan = (getattr(data, "train_scan_inputs", lambda e: None)(epoch)
+                if hasattr(trainer, "run_scan_chunk") else None)
         if scan is None:
             n_steps, global_step = _run_train_epoch(
                 trainer, data, gen, epoch, logger, global_step, log_every)

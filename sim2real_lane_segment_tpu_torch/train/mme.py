@@ -20,7 +20,9 @@ forwards, so the running statistics move twice per step: phase G's update
 is written into the model before phase F's forward, which starts from it.
 With ``pallas_train`` both phases run through the fused consumer kernels
 (K1, K2, K3a, K3b); phase G's cotangent reaches them negated, through
-``grad_reverse`` on the head's input.
+``grad_reverse`` on the head's input.  Without it phase G runs the
+model's ``featureExtractor``, ``grad_reverse`` and its ``classifier``
+(an FC-DenseNet or a LaneNetLite).
 
 ``run_scan_chunk`` (``SupervisedTrainer``'s) runs K MME steps over the
 device-resident splits, the counterpart of the JAX
@@ -165,7 +167,6 @@ class MMETrainer(SupervisedTrainer):
         where not given, in the JAX step's key order: ``draws_l``,
         ``draws_u``, ``masks_g``, ``masks_f``.  Returns ``{"tr_loss_adent",
         "tr_loss"}`` as 0-d tensors on the device."""
-        self._require_trainable()
         generator = generator if generator is not None else torch.Generator()
         inputs = self._mme_draw(generator, len(images_lab), len(images_unl),
                                 draws_l, draws_u, masks_g, masks_f)

@@ -14,11 +14,14 @@ state on its device, so the steps take batches alone:
 - ``eval_step``: the plain module in eval mode, unweighted cross entropy
   and the batch metrics.
 - ``predict_step``/``predict_step_fused``: uint8 frames to class maps.
-  The trainer also holds a LaneNetLite (``--arch lite``) for the predict
-  and eval steps; its train mode is not ported yet.
+
+The model is an FC-DenseNet or a LaneNetLite (``--arch lite``), whose
+train mode shares the FC-DenseNet's call interface; ``pallas_train``
+takes an FC-DenseNet only, as in JAX.
 
 The random draws are operands: the augmentation's (``ops.augment.
-AugmentDraws``) and the Dropout2d masks (``models.tiramisu.drop_masks``).
+AugmentDraws``) and the Dropout2d masks (``models.tiramisu.drop_masks``;
+none for LaneNetLite).
 When a step is not given them it draws them from an explicit
 ``torch.Generator``, augmentation first, then dropout (the JAX step's
 ``k_aug, k_drop`` order).
@@ -113,25 +116,10 @@ class SupervisedTrainer:
     # -- inputs ---------------------------------------------------------
 
     def _to_device(self, a) -> torch.Tensor | None:
-        if a is None:
-            return None
-        if isinstance(a, np.ndarray):
-            a = torch.from_numpy(np.ascontiguousarray(a))
-        return a.to(self.device)
+        return to_device(a, self.device)
 
     def _batch(self, images, labels, draws: AugmentDraws | None = None):
-        """uint8 NHWC frames (+ labels) on the device -> NCHW float32
-        input, int64 labels; through ``augment_batch`` when ``draws`` are
-        given."""
-        if draws is None:
-            x, y = eval_batch(images, labels, self.cfg,
-                              with_labels=labels is not None)
-        else:
-            x, y = augment_batch(images, labels, self.cfg,
-                                 draws.to(self.device),
-                                 with_labels=labels is not None)
-        x = x.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW, once
-        return x, (None if y is None else y.to(torch.int64))
+        return model_batch(images, labels, self.cfg, draws)
 
     def _draw_augment(self, generator, n: int, draws):
         """The augmentation's draws (None without ``augment``), from
@@ -162,12 +150,6 @@ class SupervisedTrainer:
 
     # -- steps ----------------------------------------------------------
 
-    def _require_trainable(self) -> None:
-        if not isinstance(self.model, FCDenseNet):
-            raise NotImplementedError(
-                f"training {type(self.model).__name__} is not yet ported to "
-                f"PyTorch")
-
     def _step(self, images, labels, draws, masks) -> torch.Tensor:
         """One AdamW step, at the rate set in ``opt``, on uint8 batches on
         the device; ``masks`` flat.  Returns [tr_loss, tr_acc]."""
@@ -191,7 +173,6 @@ class SupervisedTrainer:
         draws (used with ``augment``); ``masks``: the Dropout2d masks in
         site order; each drawn from ``generator`` when not given.  Returns
         ``{"tr_loss", "tr_acc"}`` as 0-d tensors on the device."""
-        self._require_trainable()
         generator = generator if generator is not None else torch.Generator()
         inputs = self._draw(generator, len(images), draws, masks)
         self.opt.set_lr(lr)
@@ -240,7 +221,6 @@ class SupervisedTrainer:
         ``masks_g``, ``masks_f``).  On a card every step is one replay of
         the captured step.  Returns ``{name: [K] tensor}`` on the device,
         one column of one [K, n] tensor per logged scalar."""
-        self._require_trainable()
         self._set_epoch_rates(epoch)
         idx = to_device_index(idx_chunk, self.device)
         logs = torch.empty(len(idx), len(self.scan_logs), device=self.device)
@@ -309,6 +289,28 @@ class SupervisedTrainer:
         out = fused_apply(self.model, self._input(images), self._folded,
                           use_softmax=False)
         return torch.argmax(out, dim=1).to(torch.uint8)
+
+
+def to_device(a, device) -> torch.Tensor | None:
+    """A numpy array or tensor (or None) as a tensor on ``device``."""
+    if a is None:
+        return None
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device)
+
+
+def model_batch(images, labels, cfg: AugmentConfig,
+                draws: AugmentDraws | None = None):
+    """uint8 NHWC frames (+ labels) on the device -> NCHW float32 input,
+    int64 labels; through ``augment_batch`` when ``draws`` are given."""
+    if draws is None:
+        x, y = eval_batch(images, labels, cfg, with_labels=labels is not None)
+    else:
+        x, y = augment_batch(images, labels, cfg, draws.to(images.device),
+                             with_labels=labels is not None)
+    x = x.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW, once
+    return x, (None if y is None else y.to(torch.int64))
 
 
 def _to_static(inputs, device) -> tuple:

@@ -161,9 +161,97 @@ def test_entry_points_need_a_card_unless_cpu(workdir, monkeypatch):
             cli.main(argv)
 
 
-def test_distill_raises(workdir):
-    with pytest.raises(NotImplementedError, match="--distill"):
-        _run(workdir, ["baseline"], extra=["--distill"])
+def test_distill_students_use_the_trees_jax_uses(tmp_path, monkeypatch):
+    """``--distill`` (formerly refused): the students' rows, trees, data
+    modules, budgets and output directories against the JAX study's
+    ``_distill_students`` over the five regimes, both with training and
+    evaluation stubbed; the ``hm`` tree is missing, so both skip its
+    student, and a row already in the summary is kept."""
+    from sim2real_lane_segment_tpu.cli import domain_study as jax_study
+    from sim2real_lane_segment_tpu.data import modules as jmodules
+    from sim2real_lane_segment_tpu.train import checkpoint as jckpt
+    from sim2real_lane_segment_tpu.train import distill as jdistill
+    from sim2real_lane_segment_tpu.train import loop as jloop
+    from sim2real_lane_segment_tpu.train import supervised as jsup
+    from sim2real_lane_segment_tpu_torch.train import loop
+
+    torch.manual_seed(0)
+    # the port's flags, which are the JAX study's
+    args = domain_study.build_parser().parse_args(
+        ["--arch", "tiny", "--epochs", "3", "--distill", "--regimes",
+         *REGIMES])
+    os.makedirs(tmp_path / "sourceData")
+    for name in REGIMES:
+        os.makedirs(tmp_path / "results" / name)
+        (tmp_path / "results" / name / "best_weights.msgpack").write_bytes(
+            b"")
+        torch.save(_tiny_model().state_dict(),
+                   tmp_path / "results" / name / "best_weights.pt")
+        if name not in ("baseline", "hm"):
+            tree = {"cyclegan": "srd_cg"}.get(name, f"srd_{name}")
+            os.makedirs(tmp_path / tree)
+    cached = {"student_mme": {"iou": 1.0}}
+    seen = {"jax": [], "port": []}
+
+    class Stub:
+        model = params = batch_stats = eval_step = None
+
+        def __init__(self, *a, **kw):
+            self.kw = kw
+
+        def init_state(self, key):
+            return self
+
+    def jax_module(cls_name):
+        class Rec(Stub):
+            def __init__(self, data_path, **kw):
+                seen["jax"].append([cls_name, data_path, kw["batch_size"]])
+
+            def setup(self):
+                pass
+        return Rec
+
+    for name in ("SimulatorDataModule", "TwoDomainMMEDataModule"):
+        monkeypatch.setattr(jmodules, name, jax_module(name))
+    monkeypatch.setattr(jsup, "SupervisedTrainer", Stub)
+    monkeypatch.setattr(jdistill, "DistillTrainer", Stub)
+    monkeypatch.setattr(jckpt, "load_weights", lambda p, s: s)
+    monkeypatch.setattr(jloop, "run_eval", lambda *a: {"iou": 0.0})
+
+    def jax_fit(tr, state, data, max_epochs, out_dir, resume):
+        seen["jax"][-1] += [max_epochs, tr.kw["t_max"], out_dir]
+        return None, 0.0, None
+    monkeypatch.setattr(jloop, "fit", jax_fit)
+
+    def port_data(module, root):
+        seen["port"].append([module.__name__, root, args.batch_size])
+
+    def port_fit(tr, data, max_epochs, out_dir, resume):
+        seen["port"][-1] += [max_epochs, tr.t_max, out_dir]
+    monkeypatch.setattr(loop, "fit", port_fit)
+
+    monkeypatch.chdir(tmp_path)
+    jax_rows, port_rows = dict(cached), dict(cached)
+    jax_study._distill_students(
+        args, jax_rows, lambda: {}, lambda name: False, lambda: None,
+        lambda: [])
+    domain_study._distill_students(
+        args, port_rows, port_data,
+        lambda name, tr, t0: port_rows.update({name: {"iou": 0.0}}),
+        "cpu")
+    assert seen["port"] == seen["jax"]
+    assert [row[:2] for row in seen["port"]] == [
+        ["SimulatorDataModule", "sourceData"],
+        ["TwoDomainMMEDataModule", "srd_st"],
+        ["TwoDomainMMEDataModule", "srd_cg"]]
+    assert port_rows == jax_rows
+    assert list(port_rows) == ["student_mme", "student_baseline",
+                               "student_st", "student_cyclegan"]
+
+
+def _tiny_model():
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+    return build_model("tiny", 4)
 
 
 def _files(root):

@@ -19,7 +19,10 @@ and 128-output slices, its CUDA-core 64-pixel rows and 64-channel output
 groups, the classifier's 64-pixel block tiles, 16-pixel warp slices and
 16-channel steps (rows that are and are not 16-byte aligned, C not a
 multiple of 16), K5's 32-row strips and 32-pixel words (images smaller
-than the halo, and frames wider than one 32-word column tile).
+than the halo, and frames wider than one 32-word column tile).  Also the
+paths that put the kernels to new use: the distillation teacher through
+K4, and LaneNetLite's train step on the card against the CPU and as a
+graph replay against the eager step.
 """
 import ctypes
 
@@ -27,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+from sim2real_lane_segment_tpu_torch.core.runtime import \
+    set_float32_precision
 from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
 
 # (B, H, W, c_in, growth, n_layers); the last four give TransitionDown
@@ -47,8 +52,7 @@ LOGIT_ATOL = {torch.float32: 1e-4, torch.bfloat16: 0.1}
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_float32_precision()  # strict float32, as the port's CLIs
     return torch.device("cuda")
 
 
@@ -851,3 +855,136 @@ def test_graphed_steps_equal_eager_steps(cuda, regime, fused, augment):
     for a, b in opts:
         for x, y in zip(a.tensors(), b.tensors(), strict=True):
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# distillation (the teacher through K4) and LaneNetLite's train step
+# ---------------------------------------------------------------------------
+
+from sim2real_lane_segment_tpu_torch.train.distill import \
+    DistillTrainer  # noqa: E402
+
+LITE_SMALL = dict(stem=(8, 16), body=((16, 1), (16, 2), (24, 1)))
+# the whole-network logits of the bf16 teacher: ``chip_smoke.py`` phase 3's
+# bfloat16 logit tolerance and argmax agreement; float32: its 1e-3
+TEACHER_ATOL = {torch.float32: 1e-3, torch.bfloat16: 0.25}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", [F32_POLICY, DEFAULT_POLICY],
+                         ids=["float32", "bfloat16"])
+def test_distill_teacher_logits_through_k4_match_plain(cuda, policy):
+    """A distillation step's teacher on the card runs through K4 (every
+    dense layer, TransitionDown and the classifier, each launched once a
+    step), and its logits equal the plain teacher's on the same x."""
+    torch.manual_seed(11)
+    teacher = FCDenseNet(**SMALL_MME_NET, policy=policy)
+    tr = DistillTrainer(teacher=teacher, num_cls=4, height=32, width=48,
+                        augment=True, student_model=LaneNetLite(
+                            4, **LITE_SMALL), device=cuda)
+    rng = np.random.default_rng(12)
+    images = rng.integers(0, 256, (3, 40, 56, 3), dtype=np.uint8)
+    labels = rng.integers(0, 4, (3, 40, 56), dtype=np.uint8)
+    gen = torch.Generator().manual_seed(13)
+    x, _ = tr._prepare(images, labels, tr._draw(gen, 3, None))
+    kdb.reset_launches()
+    got = tr.teacher_logits(x)
+    with torch.no_grad():
+        ref = teacher(x, use_softmax=False)
+    torch.cuda.synchronize()
+    assert kdb.launches == {"dense_layer": 10, "transition": 2,
+                            "classifier": 1}
+    assert (got - ref).abs().max().item() <= TEACHER_ATOL[policy.compute_dtype]
+    assert (got.argmax(1) == ref.argmax(1)).float().mean().item() >= 0.99
+    kdb.reset_launches()
+    logs = tr.train_step(images, labels, 1e-3, generator=gen)
+    torch.cuda.synchronize()
+    assert kdb.launches["dense_layer"] == 10
+    assert all(torch.isfinite(v) for v in logs.values())
+
+
+def _lite_step(device, policy):
+    """One augmented SupervisedTrainer step of a small LaneNetLite on
+    ``device``, on draws made on the CPU."""
+    torch.manual_seed(14)
+    model = LaneNetLite(4, policy=policy, **LITE_SMALL)
+    tr = SupervisedTrainer(num_cls=4, height=32, width=48, model=model,
+                           augment=True, device=device)
+    rng = np.random.default_rng(15)
+    images = rng.integers(0, 256, (4, 40, 56, 3), dtype=np.uint8)
+    labels = rng.integers(0, 4, (4, 40, 56), dtype=np.uint8)
+    draws = aug.draw_augment(torch.Generator().manual_seed(16), 4, tr.cfg,
+                             "cpu")
+    logs = tr.train_step(images, labels, 1e-3, draws=draws)
+    return tr, {k: float(v) for k, v in logs.items()}
+
+
+@pytest.mark.gpu
+def test_lite_train_step_on_the_card_matches_the_cpu(cuda):
+    """A float32 LaneNetLite step on the card against the same step on the
+    CPU: the loss within 1e-5 relative, Adam's first moment (the
+    gradient) per parameter within 1e-3 of its scale (floored at 1e-2 of
+    the largest: a gradient that is zero in exact arithmetic is noise),
+    the running statistics within 1e-4 relative (cuDNN and the CPU sum
+    the convolutions in another order; TF32 off)."""
+    card, logs = _lite_step(cuda, F32_POLICY)
+    cpu, ref = _lite_step("cpu", F32_POLICY)
+    assert abs(logs["tr_loss"] - ref["tr_loss"]) <= 1e-5 * abs(ref["tr_loss"])
+    big = max(t.abs().max().item() for t in cpu.opt.mu)
+    for i, (a, b) in enumerate(zip(card.opt.mu, cpu.opt.mu, strict=True)):
+        err = (a.cpu() - b).abs().max().item() / max(b.abs().max().item(),
+                                                     1e-2 * big)
+        assert err <= 1e-3, (i, err)
+    for (k, a), b in zip(card.model.state_dict().items(),
+                         cpu.model.state_dict().values()):
+        if "running" in k:
+            assert _rel_err(a.cpu(), b) <= 1e-4, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime", ["sim", "mme"])
+def test_graphed_lite_steps_equal_eager_steps(cuda, regime):
+    """``test_graphed_steps_equal_eager_steps`` for LaneNetLite (bf16,
+    augmented): three replays against three eager steps, bit for bit."""
+    rng = np.random.default_rng(17)
+    views = [DeviceCachedView.from_arrays(
+        rng.integers(0, 256, (10, 40, 56, 3), dtype=np.uint8),
+        rng.integers(0, 4, (10, 40, 56), dtype=np.uint8), cuda)]
+    arrays = (views[0].images, views[0].labels)
+    idx = rng.integers(0, 10, (3, 4))
+    if regime == "mme":
+        views.append(DeviceCachedView.from_arrays(
+            rng.integers(0, 256, (12, 40, 56, 3), dtype=np.uint8), None,
+            cuda))
+        arrays = arrays + (views[1].images,)
+        idx = np.stack([idx, rng.integers(0, 12, (3, 4))], axis=1)
+    trainers = []
+    for _ in range(2):
+        torch.manual_seed(18)
+        model = LaneNetLite(4, policy=DEFAULT_POLICY, **LITE_SMALL)
+        cls = MMETrainer if regime == "mme" else SupervisedTrainer
+        trainers.append(cls(num_cls=4, height=32, width=48, model=model,
+                            augment=True, device=cuda))
+    graphed, eager = trainers
+    graphs.reset_counts()
+    logs = graphed.run_scan_chunk(arrays, idx,
+                                  torch.Generator().manual_seed(19), 1)
+    assert graphs.counts == {"captures": 1, "replays": 3}
+    gen = torch.Generator().manual_seed(19)
+    ref = []
+    for row in idx:
+        if regime == "mme":
+            lab, unl = torch.from_numpy(row).to(cuda)
+            out = eager.mme_train_step(arrays[0][lab], arrays[1][lab],
+                                       arrays[2][unl], *eager.lrs_at(1),
+                                       generator=gen)
+        else:
+            r = torch.from_numpy(row).to(cuda)
+            out = eager.train_step(arrays[0][r], arrays[1][r],
+                                   eager.lr_at(1), generator=gen)
+        ref.append(torch.stack(list(out.values())))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(list(logs.values()), 1), torch.stack(ref))
+    for (k, a), b in zip(graphed.model.state_dict().items(),
+                         eager.model.state_dict().values()):
+        assert torch.equal(a, b), k

@@ -182,6 +182,19 @@ def test_flax_bridge_maps_shortcut_and_head():
     assert sd["classifier.head.weight"].shape == (4, 32, 1, 1)
 
 
-def test_lite_train_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        LaneNetLite(4, **SMALL)(torch.zeros(1, 3, 24, 32), train=True)
+def test_lite_train_mode_returns_outputs_and_updates():
+    """Train mode (formerly refused) returns the output and the running
+    updates of every BatchNorm, written nowhere; the eval forward is
+    unchanged by it.  ``tests/test_torch_lanenet_train.py`` holds its
+    values against Flax."""
+    _, _, pm = small_pair(24, 32)
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 3, 24, 32)).astype(np.float32))
+    before = pm(x)
+    out, updates = pm(x, train=True)
+    assert out.shape == before.shape == (2, 4, 24, 32)
+    bns = {n for n, m in pm.named_modules()
+           if isinstance(m, torch.nn.BatchNorm2d)}
+    assert set(updates) == bns and len(bns) == 2 + 2 * 3
+    torch.testing.assert_close(pm(x), before, rtol=0, atol=0)
+    torch.testing.assert_close(out.sum(1), torch.ones(2, 24, 32))

@@ -10,7 +10,9 @@ Adam's first moment and the parameters as in ``test_torch_train_steps.py``
 (``assert_adam_step_matches``), running statistics at atol 1e-4.
 """
 import os
+import types
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +38,7 @@ from sim2real_lane_segment_tpu_torch.cli.test import (build_model,
                                                       load_trainer_and_state)
 from sim2real_lane_segment_tpu_torch.core.dtypes import F32_POLICY
 from sim2real_lane_segment_tpu_torch.data import modules, samplers
+from sim2real_lane_segment_tpu_torch.data.png import read_png
 from sim2real_lane_segment_tpu_torch.models.flax_import import _torch_key
 from sim2real_lane_segment_tpu_torch.models.tiramisu import (FCDenseNet,
                                                              dropout_sites,
@@ -367,13 +370,17 @@ def test_mme_cli_requires_pretrained_path(tmp_path):
 
 @pytest.mark.parametrize("module_type,fused", [("mme", True),
                                                ("baseline", False)])
-def test_test_cli_matches_jax(tmp_path, module_type, fused, capsys):
+def test_test_cli_and_montage_match_jax(tmp_path, module_type, fused, capsys,
+                                        monkeypatch):
     """``cli/test.main`` on a tiny tree, against the JAX ``cli/test.main``
     on the same ``.msgpack`` weights (bfloat16 compute, the default):
     metrics at 1e-4, the confusion matrix exact.  The JAX fused forward
     has no bfloat16 product on the CPU, so the port's ``--fused`` is held
     against JAX's plain predictions: another bfloat16 rounding order, so
-    at most 1% of the pixels may move to another cell."""
+    at most 1% of the pixels may move to another cell.  Then the sample
+    montage (formerly refused): both CLIs draw the same paths, and on
+    them, through one fixed ``predict``, the two montages are equal pixel
+    for pixel (frames of another size, resized with LANCZOS4)."""
     from flax import serialization
 
     from sim2real_lane_segment_tpu.cli import test as jtest
@@ -397,6 +404,43 @@ def test_test_cli_matches_jax(tmp_path, module_type, fused, capsys):
     assert got["confusion"].sum() == want["confusion"].sum() == 5 * h * w
     moved = np.abs(got["confusion"] - want["confusion"]).sum() // 2
     assert moved <= (0.01 * 5 * h * w if fused else 0), moved
-    with pytest.raises(NotImplementedError, match="LANCZOS4"):
-        test_cli.main(args + ["--trainDataPath", root, "--realDataPath",
-                              root], device="cpu")
+
+    big = str(tmp_path / "big")
+    write_split(big, 4, np.random.default_rng(15), h=45, w=61)
+    montage = ["--trainDataPath", os.path.join(big, "input"),
+               "--realDataPath", os.path.join(root, "input"), "-c", "3"]
+    drawn = {}
+
+    def spy(name, real, lead):
+        def f(*a, **kw):
+            drawn[name] = a[lead:lead + 2]
+            return real(*a, **kw)
+        return f
+
+    monkeypatch.setattr(jtest, "sample_montage",
+                        spy("jax", jtest.sample_montage, 2))
+    monkeypatch.setattr(test_cli, "sample_montage",
+                        spy("port", test_cli.sample_montage, 1))
+    monkeypatch.chdir(tmp_path)
+    jtest.main(args + montage)
+    got = test_cli.main(args + montage + (["--fused"] if fused else []),
+                        device="cpu")
+    assert drawn["port"] == drawn["jax"]
+    assert [len(p) for p in drawn["port"]] == [3, 3]
+    assert read_png(got["montage"]).shape == (3 * h, 4 * w, 3)
+
+    def fixed(frames):  # class = the green channel's quarter
+        return (np.asarray(frames)[..., 1] // 64).astype(np.uint8)
+
+    cfg = types.SimpleNamespace(height=h, width=w)
+    jax_png, port_png = str(tmp_path / "jax.png"), str(tmp_path / "port.png")
+    jtest.sample_montage(types.SimpleNamespace(cfg=cfg), None,
+                         *drawn["jax"], jax_png,
+                         predict=lambda state, imgs: fixed(imgs))
+    test_cli.sample_montage(
+        types.SimpleNamespace(cfg=cfg, device=torch.device("cpu")),
+        *drawn["port"], port_png,
+        predict=lambda imgs: torch.from_numpy(fixed(imgs.numpy())))
+    want = cv2.imread(jax_png, cv2.IMREAD_COLOR)
+    assert (fixed(want) > 0).any()
+    np.testing.assert_array_equal(read_png(port_png), want)

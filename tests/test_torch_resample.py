@@ -20,9 +20,12 @@ cv2 = pytest.importorskip("cv2")
 torch.set_num_threads(2)
 
 # (source (H, W), destination (h, w)): the CycleGAN CLIs' down and up
-# resizes, then two odd sizes (non-integer scales both ways)
+# resizes, two odd sizes (non-integer scales both ways), and a frame
+# already at the model's size, which cv2 copies (the calibration and
+# montage CLIs resize every frame)
 SIZES = [((480, 640), (120, 160)), ((120, 160), (480, 640)),
-         ((37, 53), (61, 29)), ((100, 90), (33, 47))]
+         ((37, 53), (61, 29)), ((100, 90), (33, 47)),
+         ((120, 160), (120, 160))]
 IPP_CUBIC_SHARE = 0.07
 KINDS = {"cubic": (resize_cubic_u8, "INTER_CUBIC"),
          "lanczos4": (resize_lanczos4_u8, "INTER_LANCZOS4")}

@@ -243,16 +243,15 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch, weights):
 
 @pytest.mark.parametrize("what", ["67r", "encdec", "mme"])
 def test_not_yet_ported_raises(weights, what, tmp_path):
-    """The archs not yet ported; for ``-t mme``, whose trainer is ported,
-    the sample montage of ``cli/test.py`` (cv2 LANCZOS4 resizing)."""
-    from sim2real_lane_segment_tpu_torch.cli import test as test_cli
+    """The archs not yet ported; for ``mme``, whose trainer and montage
+    are ported, ``cli/train.py --trainType mme --fast_train``."""
+    from sim2real_lane_segment_tpu_torch.cli import train as train_cli
 
     with pytest.raises(NotImplementedError, match="not yet ported"):
         if what == "mme":
-            test_cli.main(["-t", "mme", "--checkpointPath", weights[0],
-                           "--arch", "tiny", "--trainDataPath",
-                           str(tmp_path), "--realDataPath", str(tmp_path)],
-                          device="cpu")
+            train_cli.main(["--trainType", "mme", "--dataPath",
+                            str(tmp_path), "--pretrained_path", weights[0],
+                            "--arch", "tiny", "--fast_train"], device="cpu")
         else:
             build_model(what, 4)
 
@@ -298,15 +297,24 @@ def test_lite_is_the_default_arch_at_full_size():
     assert predict(rand_frames(1, seed=31, h=h, w=w)).shape == (1, 120, 160)
 
 
-def test_lite_fused_without_int8_is_the_plain_module():
+def test_lite_fused_without_int8_is_the_plain_module_and_trains():
     """No kernel stands behind ``--arch lite --fused`` alone (as in JAX):
-    ``predict_step_fused`` is ``predict_step``."""
+    ``predict_step_fused`` is ``predict_step``.  The committed student's
+    trainer also trains (formerly refused): one step moves its weights
+    and running statistics and logs finite values."""
     tr = load_trainer_and_state("baseline", ART, arch="lite", height=48,
                                 width=64, device="cpu", policy=F32_POLICY)
     frames = rand_frames(2, seed=32, h=48, w=64)
     assert torch.equal(tr.predict_step_fused(frames), tr.predict_step(frames))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tr.train_step(frames, np.zeros((2, 48, 64), np.uint8), 1e-3)
+    before = {k: t.clone() for k, t in tr.model.state_dict().items()}
+    labels = np.zeros((2, 48, 64), np.uint8)
+    labels[:, :, 32:] = 1
+    logs = tr.train_step(frames, labels, 1e-3)
+    assert all(np.isfinite(float(v)) for v in logs.values())
+    after = tr.model.state_dict()
+    for k in ("featureExtractor.ConvBN_0.Conv_0.weight",
+              "featureExtractor.ResBlock_4.BatchNorm_0.running_mean"):
+        assert not torch.equal(after[k], before[k]), k
 
 
 def test_lite_predict_matches_jax_trainer():
@@ -329,22 +337,56 @@ def test_lite_predict_matches_jax_trainer():
     assert (out == ref).mean() >= 0.999
 
 
-def test_calib_dir_reads_pngs_at_the_model_size(tmp_path):
-    from sim2real_lane_segment_tpu_torch.data.png import write_png
+def test_calib_dir_resizes_pngs_as_jax_does(tmp_path, monkeypatch):
+    """``--calib_dir`` PNGs at any size (formerly refused): the frames the
+    port calibrates on are cv2's LANCZOS4 resize bit for bit (a frame
+    already at the size comes back unchanged, as cv2 copies it), and the int8
+    scales equal those of the JAX ``build_predict_fn`` on the same PNGs
+    within 4 ulp (``test_torch_lanenet_int8``'s limit; here each package
+    also normalizes the frames itself, which may round the first site's
+    input apart)."""
+    import cv2
 
-    good = tmp_path / "good"
-    good.mkdir()
-    for i in range(3):
-        write_png(str(good / f"{i:03d}.png"), rand_frames(1, seed=40 + i)[0])
+    from sim2real_lane_segment_tpu.cli import serve as jax_serve
+    from sim2real_lane_segment_tpu.models import lanenet_int8 as jint8
+    from sim2real_lane_segment_tpu_torch.data.png import write_png
+    from sim2real_lane_segment_tpu_torch.models import lanenet_int8
+
+    calib = tmp_path / "calib"
+    calib.mkdir()
+    for i, (h, w) in enumerate([(H, W), (H + 7, W + 13), (96, 128)]):
+        write_png(str(calib / f"{i:03d}.png"),
+                  rand_frames(1, seed=40 + i, h=h, w=w)[0])
+    argv = ["--checkpointPath", ART, "--height", str(H), "--width", str(W),
+            "--int8", "--calib_dir", str(calib)]
+    frames = port_serve.calibration_frames(port_serve.parse_args(argv),
+                                           "cpu").numpy()
+    want = np.stack([cv2.resize(cv2.imread(str(p)), (W, H),
+                                interpolation=cv2.INTER_LANCZOS4)
+                     for p in sorted(calib.iterdir())])
+    np.testing.assert_array_equal(frames, want)
+
+    seen = {}
+
+    def spy(name, real):
+        def f(*a, **kw):
+            seen[name] = real(*a, **kw)
+            return seen[name]
+        return f
+
+    monkeypatch.setattr(jint8, "quantize_lanenet",
+                        spy("jax", jint8.quantize_lanenet))
+    monkeypatch.setattr(lanenet_int8, "quantize_lanenet",
+                        spy("port", lanenet_int8.quantize_lanenet))
+    # the flags are the JAX CLI's (test_serve_flags_match_jax_cli)
+    jax_serve.build_predict_fn(port_serve.parse_args(argv))
     predict, _, _ = port_serve.build_predict_fn(
-        _lite_args("--int8", "--calib_dir", str(good), h=H, w=W),
-        device="cpu")
+        port_serve.parse_args(argv), device="cpu")
     assert predict(rand_frames(2, seed=43)).shape == (2, H, W)
-    write_png(str(good / "zz.png"), rand_frames(1, seed=44, h=H + 2)[0])
-    with pytest.raises(ValueError, match="calibration needs"):
-        port_serve.build_predict_fn(
-            _lite_args("--int8", "--calib_dir", str(good), h=H, w=W),
-            device="cpu")
+    assert list(seen["port"].sites) == list(seen["jax"].sites)
+    for name, js in seen["jax"].sites.items():
+        got = seen["port"].sites[name]["act_scale"].numpy()
+        np.testing.assert_array_max_ulp(got, np.asarray(js["act_scale"]), 4)
     with pytest.raises(FileNotFoundError):
         port_serve.build_predict_fn(
             _lite_args("--int8", "--calib_dir", str(tmp_path / "none")),
