@@ -104,7 +104,7 @@ Phases:
     and idle share (torch.profiler), and ``augment_batch`` and
     ``draw_augment`` at B=32 from 120x160 and 480x640 sources;
 17. ``--device_cache``: ``cli.train.main --augment --pallas_train -b 32``
-    with and without it, 2 epochs of 8 steps each for ``sim``, ``st``
+    with and without it, 2 epochs of 4 steps each for ``sim``, ``st``
     and ``mme`` (from phase 8's weights): every logged row and the final
     weights, running statistics and optimizer state bit-equal, one graph
     replay a step, captured once, the kernels launched (all on the
@@ -150,6 +150,23 @@ Phases:
     montage of ``cli.test --trainDataPath --realDataPath`` from 480x640
     PNGs; (e) ``cli.domain_study`` with its default ``--arch lite`` and
     ``--distill --device_cache``, ``baseline`` and ``mme``.
+20. the trainer's surface, at FCDenseNet67's widths (120x160, B=32, bf16,
+    augmented), each part's seconds printed: (a) ``cli.train --arch 67r
+    --pallas_train`` against ``--arch 67 --pallas_train`` (phase 8's
+    launch checks; rows and final state equal); (b) ``--arch 67r``
+    against ``--arch 67`` through plain autograd (train losses within
+    REMAT_RTOL, no train kernel launched); (c) ``--fast_train`` against
+    (b)'s plain run (within FAST_RTOL); (d) ``--dp auto`` in a one-rank
+    NCCL world, with and without ``--device_cache``, against ``--dp off``
+    (``--pallas_train``; rows and final state bit-equal, the cached run's
+    all-reduces inside its graph); (e) ``cli.tune --device_cache``, three
+    trials over rungs of 1 and 2 epochs, one graph capture for the sweep,
+    ``trials.json`` and ``best.json`` valid, seconds per trial-epoch; (f)
+    ``cli.test --arch 67r --fused`` through K4 and ``cli.test --arch
+    encdec``; then the B=32 step of ``67``, ``67r``, ``--fast_train`` and
+    ``--pallas_train`` by CUDA events with each one's peak of allocated
+    memory (67r's must be lower), and the ``--pallas_train`` step in a
+    one-rank NCCL world against none, eager and graphed.
 
 It prints the seconds of each phase, one JSON line of per-kernel numbers,
 then, as its last line,
@@ -290,13 +307,15 @@ AUG_SOURCES = ((120, 160), (480, 640))
 MME_STEP_TOL = {"float32": {"loss": 1e-4, "stats": 1e-3, "grad": GRAD_RTOL},
                 "bfloat16": {"loss": 2 ** -6, "stats": 2 ** -6,
                              "grad": 2 ** -4}}
-# phase 17: --device_cache.  The CLI trees give 8 steps of B=32 an epoch
-# (sim: train 256; st and mme: source 160 + target/train 96, unlabelled
-# 256); the timed split is 1,536 frames at 480x640, the simulator's render
-# size (1.416 GB of images, 0.472 GB of labels on the card)
-CACHE_SIM_SPLITS = (("train", 256), ("valid", 32), ("test", 32))
-CACHE_MME_SPLITS = (("source", 160), ("target/train", 96),
-                    ("target/test", 32), ("target/unlabelled", 256))
+# phase 17: --device_cache.  The CLI trees give 4 steps of B=32 an epoch
+# (sim: train 128; st and mme: source 80 + target/train 48, unlabelled
+# 128; 8 steps before phase 20 came); the timed split is 1,536 frames at
+# 480x640, the simulator's render size (1.416 GB of images, 0.472 GB of
+# labels on the card)
+CACHE_SIM_SPLITS = (("train", 128), ("valid", 32), ("test", 32))
+CACHE_MME_SPLITS = (("source", 80), ("target/train", 48),
+                    ("target/test", 32), ("target/unlabelled", 128))
+CACHE_STEPS = CACHE_SIM_SPLITS[0][1] // TRAIN_BATCH
 CACHE_FRAMES, CACHE_SIZE = 1536, (480, 640)
 CACHE_TIMED_STEPS = 20   # per mode, in two turns of 10
 CACHE_PROFILED_REPLAYS = 10
@@ -348,6 +367,22 @@ LITE_TIMED_STEPS = 10
 FULL_SPLITS = (("train", 16), ("real", 16))
 CALIB_RTOL = 1e-4
 MONTAGE_ROWS = 3
+# phase 20: the trainer's surface at FCDenseNet67's widths, 120x160, B=32.
+# The CLI trees give 2 steps an epoch (sim: train 64; the sweep's
+# labelled 32 + 32 <= unlabelled 64); the timed split is 256 frames.
+# Train losses of --arch 67r against 67, both plain autograd: the
+# checkpointed blocks recompute the same values, so only cuDNN's backward
+# summing in another order can part them.  --fast_train against the plain
+# step: the bf16 per-segment convolutions round and sum otherwise (on a
+# CPU, the tiny net's four bf16 steps part by 1.6e-4), over 2 steps.
+SURFACE_SPLITS = (("train", 64), ("valid", 32), ("test", 32))
+SURFACE_MME_SPLITS = (("source", 32), ("target/train", 32),
+                      ("target/test", 32), ("target/unlabelled", 64))
+REMAT_RTOL = 1e-3
+FAST_RTOL = 2e-2
+TUNE_TRIALS = 3
+SURFACE_TIMED_FRAMES = 256
+SURFACE_TIMED = 5
 
 
 def fail(msg: str) -> None:
@@ -2086,7 +2121,8 @@ def train_cli_checked(label, argv, passes, n_lab, card):
     return res, launches, steps
 
 
-def eval_fused_checked(label, module_type, weights, test_dir, n_test, card):
+def eval_fused_checked(label, module_type, weights, test_dir, n_test, card,
+                       arch=ARCH):
     """``cli.test.main --fused`` on ``test_dir`` with K4's counts set to 0
     just before and read just after: the metrics, the confusion matrix's
     pixel count and K4's launches per batch."""
@@ -2097,7 +2133,7 @@ def eval_fused_checked(label, module_type, weights, test_dir, n_test, card):
 
     kdb.reset_launches()
     res = test_cli.main(["-t", module_type, "--checkpointPath", weights,
-                         "--testDataPath", test_dir, "--arch", ARCH,
+                         "--testDataPath", test_dir, "--arch", arch,
                          "--height", str(H), "--width", str(W), "--fused",
                          "--batch_size", str(TRAIN_BATCH)])
     torch.cuda.synchronize()
@@ -2112,7 +2148,8 @@ def eval_fused_checked(label, module_type, weights, test_dir, n_test, card):
     check(dict(kdb.launches) == expect,
           f"{label}: cli.test --fused: K4 launches {kdb.launches}, "
           f"expected {expect}")
-    print(f"{label}: cli.test -t {module_type} --fused on {n_test} "
+    print(f"{label}: cli.test -t {module_type} --arch {arch} --fused on "
+          f"{n_test} "
           f"target/test frames: acc {res['acc']:.4f}, dice "
           f"{res['dice']:.4f}, iou {res['iou']:.4f}; K4 launches "
           f"{json.dumps(kdb.launches)}  [{card}]")
@@ -2262,7 +2299,8 @@ def _state_errs(a: dict, b: dict) -> dict:
 def cache_equivalence(card, sim_weights):
     """Phase 17, part 1: ``cli.train.main`` with and without
     ``--device_cache`` from the same seed, ``--augment --pallas_train -b
-    32 --log_every 1``, 2 epochs of 8 steps: ``sim``, ``st``, and ``mme``
+    32 --log_every 1``, 2 epochs of CACHE_STEPS steps: ``sim``, ``st``, and
+    ``mme``
     from phase 8's weights.  Every logged row, the final weights, running
     statistics and optimizer state must agree, bit for bit; the cached run
     must replay one graph per step, captured once, and launch the kernels
@@ -2322,7 +2360,8 @@ def cache_equivalence(card, sim_weights):
                     rows[cache] = [json.loads(line) for line in f]
             logged = [r for r in rows[True] if "train/tr_loss" in r]
             steps = len(logged)
-            check(steps == 16, f"{regime}: {steps} train steps logged")
+            check(steps == 2 * CACHE_STEPS,
+                  f"{regime}: {steps} train steps logged")
             same_rows = rows[True] == rows[False]
             (m0, o0, c0), (m1, o1, c1) = (_train_state(runs[c][0])
                                           for c in (False, True))
@@ -2339,7 +2378,8 @@ def cache_equivalence(card, sim_weights):
             mma_at_capture = {k: v * passes * (graphs.WARMUP_STEPS + 1)
                               for k, v in TRAIN_MMA_PER_STEP.items()}
             keys = [k for k in logged[0] if k.startswith("train/")]
-            print(f"cache: --trainType {regime}: 2 epochs of 8 steps, "
+            print(f"cache: --trainType {regime}: 2 epochs of {CACHE_STEPS} "
+                  f"steps, "
                   f"{runs[False][1]:.1f} s without --device_cache, "
                   f"{runs[True][1]:.1f} s with it (validation, test and "
                   f"checkpoints included); {counts['replays']} graph "
@@ -3384,6 +3424,334 @@ def lifecycle_phase(sd, device, card):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the trainer's surface (--fast_train, 67r, --dp, cli.tune,
+# cli.test --arch 67r --fused and --arch encdec)
+# ---------------------------------------------------------------------------
+
+def _rows(run_dir) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _train_values(rows, key="train/") -> list:
+    return [v for r in rows for k, v in r.items() if k.startswith(key)]
+
+
+def _max_rel(a, b) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, b))
+
+
+def _surface_args(root, tmp, name, arch, *extra):
+    """One augmented epoch of ``--trainType sim`` on ``root``."""
+    return ["--trainType", "sim", "--dataPath", root, "--arch", arch,
+            "--augment", "--height", str(H), "--width", str(W),
+            "--max_epochs", "1", "-b", str(TRAIN_BATCH), "--default_root_dir",
+            tmp, "--log_every", "1", "--seed", str(SEED), "--model_name",
+            name, *extra]
+
+
+def _run_quiet(label, argv, card):
+    """``cli.train.main(argv)``, its K1-K3b counts set to 0 just before
+    and read after: every one must stay 0 (the plain or segment-wise
+    step).  Returns the run's directory."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import train as train_cli
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+
+    ktb.reset_launches()
+    t0 = time.perf_counter()
+    res = train_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not any(ktb.launches.values()),
+          f"{label}: the train kernels ran: {ktb.launches}")
+    values = _train_values(_rows(res["out_dir"]))
+    check(len(values) == 2 * (SURFACE_SPLITS[0][1] // TRAIN_BATCH)
+          and bool(np.isfinite(values).all()), f"{label}: logged {values}")
+    print(f"surface: {label}: 1 epoch, {len(values) // 2} steps of "
+          f"B={TRAIN_BATCH} in {wall:.1f} s (with validation, test and "
+          f"checkpoints); tr_loss, tr_acc {[round(v, 4) for v in values]}  "
+          f"[{card}]")
+    return res["out_dir"]
+
+
+def surface_cli_phase(card, tmp):
+    """Phase 20 (a)-(d): ``cli.train`` at full width (FCDenseNet67's
+    widths, 120x160, B=32, bf16, augmented), one epoch of
+    SURFACE_SPLITS: (a) ``--arch 67r --pallas_train`` against ``--arch 67
+    --pallas_train`` (K1-K3b as in phase 8; rows and weights equal: the
+    kernels run their own backward, remat does not apply); (b) ``--arch
+    67r`` against ``--arch 67`` without kernels (rows within
+    REMAT_RTOL); (c) ``--fast_train`` against (b)'s plain run (rows within
+    FAST_RTOL); (d) ``--dp auto`` (a one-rank NCCL world) with and without
+    ``--device_cache`` against ``--dp off``, ``--pallas_train``: rows and
+    final state bit-equal, the cached run one replay a step.  Returns the
+    67r run's ``best_weights.pt`` and the tree's test split."""
+    import torch
+    import torch.distributed as dist
+
+    from sim2real_lane_segment_tpu_torch.cli import train as train_cli
+    from sim2real_lane_segment_tpu_torch.train import graphs
+
+    root = os.path.join(tmp, "surfaceSim")
+    write_png_tree(root, SURFACE_SPLITS, SEED + 60)
+    n_train = SURFACE_SPLITS[0][1]
+
+    # (a) 67r and 67 through the kernels
+    runs = {}
+    for arch in ("67", "67r"):
+        res, launches, _ = train_cli_checked(
+            f"surface (a): --arch {arch}", _surface_args(
+                root, tmp, f"a{arch}", arch, "--pallas_train"), 1, n_train,
+            card)
+        runs[arch] = res["out_dir"]
+    (m0, o0, _), (m1, o1, _) = (_train_state(runs[a]) for a in ("67", "67r"))
+    same = (_rows(runs["67"]) == _rows(runs["67r"])
+            and all(torch.equal(m1[k], v) for k, v in m0.items())
+            and all(torch.equal(o1[k], v) for k, v in o0.items()))
+    print(f"surface (a): --arch 67r --pallas_train against --arch 67: rows "
+          f"and final state equal {same}  [{card}]")
+    check(same, "67r --pallas_train differs from 67 --pallas_train")
+
+    # (b) 67r and 67 without kernels, (c) --fast_train
+    plain = _run_quiet("(b) --arch 67, plain autograd",
+                       _surface_args(root, tmp, "b67", "67"), card)
+    remat = _run_quiet("(b) --arch 67r, plain autograd",
+                       _surface_args(root, tmp, "b67r", "67r"), card)
+    fast = _run_quiet("(c) --arch 67 --fast_train",
+                      _surface_args(root, tmp, "c67", "67", "--fast_train"),
+                      card)
+    ref = _train_values(_rows(plain), "train/tr_loss")
+    for label, run, bound in (("67r", remat, REMAT_RTOL),
+                              ("--fast_train", fast, FAST_RTOL)):
+        err = _max_rel(_train_values(_rows(run), "train/tr_loss"), ref)
+        print(f"surface (b, c): {label} against the plain 67 run: train "
+              f"losses within {err:.3e} (relative; limit {bound})  [{card}]")
+        check(err <= bound, f"{label}: train losses {err} apart")
+
+    # (d) --dp auto: a world of one on the card
+    dp_runs = {}
+    for name, extra in (("off", []), ("auto", ["--dp", "auto"]),
+                        ("auto_cache", ["--dp", "auto", "--device_cache"])):
+        graphs.reset_counts()
+        t0 = time.perf_counter()
+        res = train_cli.main(_surface_args(root, tmp, f"d{name}", "67",
+                                           "--pallas_train", *extra))
+        torch.cuda.synchronize()
+        dp_runs[name] = (res["out_dir"], time.perf_counter() - t0,
+                         dict(graphs.counts))
+        check(not dist.is_initialized(), f"--dp {name}: the world outlived "
+              f"the CLI")
+    m0, o0, c0 = _train_state(dp_runs["off"][0])
+    rows0 = _rows(dp_runs["off"][0])
+    for name in ("auto", "auto_cache"):
+        m1, o1, c1 = _train_state(dp_runs[name][0])
+        same = (_rows(dp_runs[name][0]) == rows0 and c0 == c1
+                and all(torch.equal(m1[k], v) for k, v in m0.items())
+                and all(torch.equal(o1[k], v) for k, v in o0.items()))
+        print(f"surface (d): --dp {name.replace('_', ' --device_')} (one "
+              f"NCCL rank) against --dp off: {dp_runs[name][1]:.1f} s "
+              f"against {dp_runs['off'][1]:.1f} s; graphs "
+              f"{json.dumps(dp_runs[name][2])}; rows and final state "
+              f"bit-equal {same}  [{card}]")
+        check(same, f"--dp {name} differs from --dp off")
+    steps = n_train // TRAIN_BATCH
+    check(dp_runs["auto_cache"][2] == {"captures": 1, "replays": steps},
+          f"--dp auto --device_cache took {dp_runs['auto_cache'][2]}")
+    return (os.path.join(runs["67r"], "best_weights.pt"),
+            os.path.join(root, "test"))
+
+
+def surface_tune_phase(card, tmp):
+    """Phase 20 (e): ``cli.tune`` end to end at full width on a two-domain
+    tree (2 steps of B=32 an epoch), ``--device_cache``: TUNE_TRIALS
+    trials, rungs at 1 and 2 epochs (reduction factor 2), one graph
+    capture for the whole sweep; ``trials.json`` and ``best.json`` valid;
+    seconds per trial-epoch."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import tune
+    from sim2real_lane_segment_tpu_torch.train import graphs
+
+    root = os.path.join(tmp, "surfaceSimReal")
+    write_png_tree(root, SURFACE_MME_SPLITS, SEED + 61,
+                   unlabelled=("target/unlabelled",))
+    out = os.path.join(tmp, "tune")
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    res = tune.main(["--dataPath", root, "--num_samples", str(TUNE_TRIALS),
+                     "--num_epochs", "2", "--grace_period", "1",
+                     "--reduction_factor", "2", "--arch", ARCH, "-b",
+                     str(TRAIN_BATCH), "--height", str(H), "--width", str(W),
+                     "--device_cache", "--out_dir", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "trials.json")) as f:
+        trials = json.load(f)
+    with open(os.path.join(out, "best.json")) as f:
+        best = json.load(f)
+    epochs = sum(t["epochs"] for t in trials)
+    steps = epochs * (SURFACE_MME_SPLITS[0][1] + SURFACE_MME_SPLITS[1][1]) \
+        // TRAIN_BATCH
+    print(f"surface (e): cli.tune --arch {ARCH} --device_cache, "
+          f"{TUNE_TRIALS} trials, rungs 1, 2: {epochs} trial-epochs in "
+          f"{wall:.1f} s, {wall / epochs:.2f} s a trial-epoch (the first "
+          f"with the capture); graphs {json.dumps(graphs.counts)}; trials "
+          f"{json.dumps([(t['id'], t['epochs'], round(t['best_iou'], 3), t['pruned']) for t in trials])}; "
+          f"best {json.dumps(best)}  [{card}]")
+    check(sorted(t["epochs"] for t in trials) == [1, 2, 2]
+          and sum(t["pruned"] for t in trials) == 1
+          and all(np.isfinite(t["best_iou"]) for t in trials),
+          f"trials.json: {trials}")
+    check(best["best_iou"] == res["best_iou"] == max(
+        t["best_iou"] for t in trials), f"best.json: {best}")
+    check(graphs.counts == {"captures": 1, "replays": steps},
+          f"the sweep took {graphs.counts}, not one capture and a replay "
+          f"a step")
+
+
+def surface_test_phase(card, tmp, weights_67r, test_dir):
+    """Phase 20 (f): ``cli.test --arch 67r --fused`` through K4 (phase
+    15's launch checks) and ``cli.test --arch encdec`` (no kernel) on the
+    surface tree's test split."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import test as test_cli
+
+    n_test = SURFACE_SPLITS[2][1]
+    eval_fused_checked("surface (f)", "baseline", weights_67r, test_dir,
+                       n_test, card, arch="67r")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        weights = os.path.join(tmp, "encdec.pt")
+        torch.save(test_cli.build_model("encdec", N_CLS).state_dict(),
+                   weights)
+    res = test_cli.main(["-t", "baseline", "--checkpointPath", weights,
+                         "--testDataPath", test_dir, "--arch", "encdec",
+                         "--height", str(H), "--width", str(W),
+                         "--batch_size", str(TRAIN_BATCH)])
+    check(int(res["confusion"].sum()) == n_test * H * W
+          and all(np.isfinite(res[k]) for k in ("acc", "dice", "iou",
+                                                 "loss")),
+          f"cli.test --arch encdec: {res}")
+    print(f"surface (f): cli.test --arch encdec (seeded weights) on "
+          f"{n_test} frames: acc {res['acc']:.4f}, iou {res['iou']:.4f}  "
+          f"[{card}]")
+
+
+def surface_timing(sd, device, card):
+    """Phase 20 timing: the augmented B=32 step of FCDenseNet67 (bf16,
+    120x160) over a split on the card, CUDA events over SURFACE_TIMED
+    steps in two turns, and the peak of allocated memory in one step:
+    plain autograd (``67``), checkpointed blocks (``67r``),
+    ``--fast_train`` and ``--pallas_train``; then ``--pallas_train`` in a
+    one-rank NCCL world against no world, eager and as graph replays."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+    from sim2real_lane_segment_tpu_torch.data.device_cache import \
+        DeviceCachedView
+    from sim2real_lane_segment_tpu_torch.parallel import multihost
+    from sim2real_lane_segment_tpu_torch.train.supervised import \
+        SupervisedTrainer
+
+    rng = np.random.default_rng(SEED + 62)
+    n = SURFACE_TIMED_FRAMES
+    view = DeviceCachedView.from_arrays(
+        synthetic_frames(rng, n),
+        rng.integers(0, N_CLS, (n, H, W), dtype=np.uint8), device)
+    arrays = (view.images, view.labels)
+
+    def trainer(arch, world=None, **kw):
+        model = build_model(arch, N_CLS)
+        model.load_state_dict(sd)
+        return SupervisedTrainer(model=model, augment=True, height=H,
+                                 width=W, world=world, device=device, **kw)
+
+    def timed(tr, graphed):
+        gen = torch.Generator().manual_seed(SEED)
+
+        def run(idx):
+            if graphed:
+                tr.run_scan_chunk(arrays, idx, gen, 0)
+                return
+            for row in torch.from_numpy(idx).to(device):
+                tr.train_step(arrays[0][row], arrays[1][row], tr.lr_at(0),
+                              generator=gen)
+
+        out = []
+        for _ in range(2):
+            run(rng.integers(0, n, (3, TRAIN_BATCH)))  # warm-up, capture
+            idx = rng.integers(0, n, (SURFACE_TIMED, TRAIN_BATCH))
+            torch.cuda.synchronize()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            run(idx)
+            t1.record()
+            torch.cuda.synchronize()
+            out.append(round(t0.elapsed_time(t1) / SURFACE_TIMED, 3))
+        return out
+
+    def peak_mb(tr):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        row = torch.arange(TRAIN_BATCH, device=device)
+        tr.train_step(arrays[0][row], arrays[1][row], tr.lr_at(0),
+                      generator=torch.Generator().manual_seed(SEED))
+        torch.cuda.synchronize()
+        return round((torch.cuda.max_memory_allocated() - base) / 2 ** 20, 1)
+
+    times, peaks = {}, {}
+    for name, arch, kw in (("67", "67", {}), ("67r", "67r", {}),
+                           ("fast_train", "67", {"fast_train": True}),
+                           ("pallas_train", "67", {"pallas_train": True})):
+        tr = trainer(arch, **kw)
+        peaks[name] = peak_mb(tr)
+        times[name] = timed(tr, graphed=False)
+        del tr
+        torch.cuda.empty_cache()
+    print(f"surface timing: B={TRAIN_BATCH} {H}x{W} bf16 augmented eager "
+          f"step, ms (two turns of {SURFACE_TIMED}) {json.dumps(times)}; "
+          f"peak allocated MB in one step {json.dumps(peaks)}  [{card}]")
+    check(peaks["67r"] < peaks["67"], f"67r's peak {peaks['67r']} MB is "
+          f"not below 67's {peaks['67']} MB")
+
+    world, owned = multihost.init_world(device)
+    try:
+        dp = {}
+        for name, w, graphed in (("off", None, False), ("dp", world, False),
+                                 ("off_graphed", None, True),
+                                 ("dp_graphed", world, True)):
+            dp[name] = timed(trainer("67", world=w, pallas_train=True),
+                             graphed)
+    finally:
+        if owned:
+            multihost.close_world()
+    print(f"surface timing: --pallas_train B={TRAIN_BATCH} step, ms (two "
+          f"turns of {SURFACE_TIMED}), --dp off against a one-rank NCCL "
+          f"world: {json.dumps(dp)}  [{card}]")
+
+
+def surface_phase(sd, device, card):
+    """Phase 20: the trainer's surface, each part's seconds printed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        weights_67r, test_dir = surface_cli_phase(card, tmp)
+        t1 = time.perf_counter()
+        surface_tune_phase(card, tmp)
+        t2 = time.perf_counter()
+        surface_test_phase(card, tmp, weights_67r, test_dir)
+        t3 = time.perf_counter()
+    surface_timing(sd, device, card)
+    t4 = time.perf_counter()
+    print(f"surface: phase 20 seconds: (a-d) {t1 - t0:.1f}, (e) "
+          f"{t2 - t1:.1f}, (f) {t3 - t2:.1f}, timing {t4 - t3:.1f}  "
+          f"[{card}]", flush=True)
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -3570,6 +3938,10 @@ def main() -> None:
     # phase 19: the serving student's life
     lifecycle_phase(sd, device, card)
     lap(19)
+
+    # phase 20: the trainer's surface
+    surface_phase(sd, device, card)
+    lap(20)
     print(f"phases: seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} in all  [{card}]", flush=True)
 

@@ -38,8 +38,10 @@ continues from its checkpoints; ``--force`` retrains everything.
 ``--device_cache`` goes to every data module as it is (the JAX study's
 per-regime crash counter that turns the cache off is not ported).
 ``--arch lite`` (the default, as in JAX) trains LaneNetLite in every
-regime; ``67r`` and ``encdec`` are not yet ported, and raise.  Runs on
-the card unless ``main`` is given ``device="cpu"``.
+regime; every other arch of ``cli.train`` is accepted too (``encdec``
+has no featureExtractor/classifier split, so its ``mme`` regime raises,
+as the JAX trainer fails on it).  Runs on the card unless ``main`` is
+given ``device="cpu"``.
 """
 from __future__ import annotations
 

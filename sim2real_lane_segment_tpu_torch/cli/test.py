@@ -16,9 +16,9 @@ frame, its prediction overlaid, a real frame, its prediction overlaid;
 accuracy, Dice and IoU, and the 4x4 confusion matrix of the predictions
 (through the fused forward with ``--fused``), printed and returned as the
 JAX CLI prints and returns them.  It runs on the card unless given
-``device="cpu"``.  The FC-DenseNet archs (67, 57, 103, tiny) and
-LaneNetLite (``lite``) are ported; ``67r`` and ``encdec`` are not yet,
-and raise.
+``device="cpu"``.  Every arch of the JAX CLI is built: the FC-DenseNets
+(67, ``67r`` = 67 with its dense blocks recomputed in training, 57, 103,
+tiny), LaneNetLite (``lite``) and the legacy EncDecNet (``encdec``).
 """
 from __future__ import annotations
 
@@ -40,23 +40,23 @@ log = logging.getLogger(__name__)
 # green, left lane blue, obstacle red
 OVERLAY_BGR = {1: (0, 255, 0), 2: (255, 0, 0), 3: (0, 0, 255)}
 
-PORTED_ARCHES = ("67", "57", "103", "tiny", "lite")
 ARCHES = ["67", "67r", "57", "103", "tiny", "lite", "encdec"]
 
 
 def build_model(arch: str, num_cls: int,
                 policy: DTypePolicy = DEFAULT_POLICY):
+    from ..models.encdec import EncDecNet
     from ..models.lanenet_lite import LaneNetLite
     from ..models.tiramisu import (FCDenseNet, fcdensenet57, fcdensenet67,
                                    fcdensenet103)
-    if arch not in PORTED_ARCHES:
-        raise NotImplementedError(
-            f"--arch {arch} is not yet ported to PyTorch "
-            f"(ported: {', '.join(PORTED_ARCHES)})")
     return {"67": lambda: fcdensenet67(num_cls, policy),
+            "67r": lambda: fcdensenet67(num_cls, policy, remat=True),
             "57": lambda: fcdensenet57(num_cls, policy=policy),
             "103": lambda: fcdensenet103(num_cls, policy),
             "lite": lambda: LaneNetLite(n_classes=num_cls, policy=policy),
+            "encdec": lambda: EncDecNet(n_features=64, n_levels=3,
+                                        kernel_size=3, n_classes=num_cls,
+                                        policy=policy),
             "tiny": lambda: FCDenseNet(
                 n_classes=num_cls, down_blocks=(2, 2), up_blocks=(2, 2),
                 bottleneck_layers=2, growth_rate=4,

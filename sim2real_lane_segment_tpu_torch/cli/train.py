@@ -15,8 +15,12 @@ two-phase step from the ``--pretrained_path`` weights (``.pt``,
 ``.msgpack`` or ``.npz``), which it requires.  ``--augment`` runs the
 training augmentation on the card.  ``--pallas_train`` runs the
 FC-DenseNet train step through the fused consumer kernels
-(``models.tiramisu_train_fused``); without it the plain module trains
-with autograd, as ``--arch lite`` (LaneNetLite) always does.  ``--device_cache`` keeps every split on the device
+(``models.tiramisu_train_fused``); ``--fast_train`` (which
+``--pallas_train`` overrides) runs it segment-wise
+(``models.tiramisu_fast``); without either the plain module trains with
+autograd, as ``--arch lite`` (LaneNetLite) and ``encdec`` always do.
+``--arch 67r`` is FCDenseNet67 with every dense block recomputed in the
+backward of the plain train step (``torch.utils.checkpoint``).  ``--device_cache`` keeps every split on the device
 (``data.device_cache``): batches are gathered there, and the fit loop
 runs each epoch in chunks of 32 steps (``run_scan_chunk``), every step on
 a card one replay of the whole step captured as a CUDA graph, with the
@@ -27,9 +31,21 @@ nothing falls back to host reads or eager steps.  ``--profile`` writes a
 Training runs on the card unless ``main`` is given ``device="cpu"``.
 Artifacts go to ``<default_root_dir or results>/<model_name>``:
 ``metrics.jsonl``, ``checkpoints/best.pt`` (best val_iou),
-``checkpoints_latest/latest.pt`` and ``best_weights.pt``.  Not yet
-ported, and raising: ``--fast_train``, ``--dp`` and the archs ``67r`` and
-``encdec``.
+``checkpoints_latest/latest.pt`` and ``best_weights.pt``.
+
+``--dp auto`` (or ``--dp N``, N the number of ranks) trains
+data-parallel over ``torch.distributed``, one process per device
+(``parallel.dp``): every rank reads its shard of the samplers at the
+per-process ``--batch_size`` and steps as one process would on the
+global batch; rank 0 logs and checkpoints under ``<out_dir>``, rank r
+under ``<out_dir>/proc<r>``.  Launch it with ``torchrun`` (NCCL on
+cards, gloo on the CPU):
+
+    torchrun --nproc_per_node 4 -m sim2real_lane_segment_tpu_torch.cli.train \
+        --trainType sim --dataPath simData --dp auto --pallas_train -b 32
+
+Without a launcher ``--dp auto`` is a world of one rank, which runs the
+same code, collectives included, and the same values as ``--dp off``.
 """
 from __future__ import annotations
 
@@ -39,8 +55,6 @@ import os
 
 from ..core import runtime
 from . import common
-
-NOT_PORTED = ("fast_train",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", type=int, default=50,
                    help="Log train scalars every N global steps")
     p.add_argument("--fast_train", action="store_true",
-                   help="segment-wise train forward (not yet ported)")
+                   help="segment-wise FC-DenseNet train forward (no dense "
+                        "concats; models/tiramisu_fast.py)")
     p.add_argument("--pallas_train", action="store_true",
                    help="train FC-DenseNets through the fused consumer "
                         "kernels (K1, K2, K3a, K3b)")
@@ -79,7 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch.profiler trace of the run under "
                         "<out_dir>/profile")
     p.add_argument("--dp", default="off",
-                   help="data parallelism (not yet ported; 'off' only)")
+                   help="data parallelism over torch.distributed: 'off' "
+                        "(default), 'auto' (the launch's ranks, or a world "
+                        "of one), or the number of ranks; --batch_size is "
+                        "per process")
     common.add_data_args(p)
     common.add_model_args(p)
     return p
@@ -91,6 +109,8 @@ def main(args=None, device=None) -> dict:
 
     from ..data.modules import (SimulatorDataModule, TwoDomainDataModule,
                                 TwoDomainMMEDataModule)
+    from ..parallel import multihost
+    from ..parallel.dp import resolve_dp
     from ..train.loop import fit
     from ..train.mme import MMETrainer
     from ..train.supervised import SupervisedTrainer
@@ -101,36 +121,41 @@ def main(args=None, device=None) -> dict:
     runtime.set_float32_precision()
     if args.trainType == "mme" and not args.pretrained_path:
         raise SystemExit("--trainType=mme requires --pretrained_path")
-    for flag in NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not yet ported to PyTorch")
-    if args.dp not in (None, "off"):
-        raise NotImplementedError("--dp is not yet ported to PyTorch")
-
     seed = 42 if args.reproducible else args.seed
     out_dir = os.path.join(args.default_root_dir or "results",
                            args.model_name)
+    world, owned = None, False
+    if resolve_dp(args.dp, multihost.process_index()[1]):
+        world, owned = multihost.init_world(device)
+        device = world.device
+        if world.rank > 0:
+            # the state is replicated, so rank 0's artifacts are the run's;
+            # the others write beside them
+            out_dir = os.path.join(out_dir, f"proc{world.rank}")
     module, trainer_cls = {
         "sim": (SimulatorDataModule, SupervisedTrainer),
         "st": (TwoDomainDataModule, SupervisedTrainer),
         "mme": (TwoDomainMMEDataModule, MMETrainer)}[args.trainType]
+    shards = ({} if world is None else
+              dict(shard_id=world.rank, num_shards=world.size))
     data = module(args.dataPath, batch_size=args.batch_size, seed=seed,
                   load_into_memory=args.load2memory,
-                  device_cache=args.device_cache, device=device)
+                  device_cache=args.device_cache, device=device, **shards)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)  # the initial weights
         model = build_model(args.arch, 4)
-    trainer = trainer_cls(
-        num_cls=4, lr=args.learningRate, decay=args.decay,
-        lr_ratio=args.lrRatio, height=args.height, width=args.width,
-        gray=args.gray, augment=args.augment, model=model,
-        pallas_train=args.pallas_train, device=device)
-    if args.trainType == "mme":
-        trainer.from_pretrained(args.pretrained_path)
-    data.setup()
-    prof = _start_profile(trainer.device) if args.profile else None
+    prof = None
     try:
+        trainer = trainer_cls(
+            num_cls=4, lr=args.learningRate, decay=args.decay,
+            lr_ratio=args.lrRatio, height=args.height, width=args.width,
+            gray=args.gray, augment=args.augment, model=model,
+            pallas_train=args.pallas_train, fast_train=args.fast_train,
+            world=world, device=device)
+        if args.trainType == "mme":
+            trainer.from_pretrained(args.pretrained_path)
+        data.setup()
+        prof = _start_profile(trainer.device) if args.profile else None
         _, best_iou, _ = fit(trainer, data, max_epochs=args.max_epochs,
                              out_dir=out_dir, seed=seed,
                              log_every=args.log_every, resume=args.resume)
@@ -141,6 +166,8 @@ def main(args=None, device=None) -> dict:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             prof.export_chrome_trace(path)
             logging.info("profiler trace written to %s", path)
+        if owned:
+            multihost.close_world()
     logging.info("best val_iou %.4f; artifacts in %s", best_iou, out_dir)
     return {"best_iou": best_iou, "out_dir": out_dir}
 

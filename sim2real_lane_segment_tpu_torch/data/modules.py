@@ -17,8 +17,11 @@ partial batch dropped.  With ``device_cache=True`` every split lives on
 by dataset identity so that the two-domain valid and test splits share
 one copy): train, validation and test batches are gathered there, and
 ``train_scan_inputs`` gives the fit loop's multi-step dispatch the
-device arrays and the epoch's index matrix.  The per-process shards of
-data parallelism are not ported yet.
+device arrays and the epoch's index matrix.  Under data parallelism
+(``cli.train --dp``) each rank's module reads its shard of every epoch's
+train indices (``samplers.shard``: ``shard_id`` of ``num_shards``, the
+trailing partial global batch dropped) and caches the whole splits, from
+which it gathers its shard's rows; evaluation reads every batch whole.
 """
 from __future__ import annotations
 
@@ -41,10 +44,13 @@ class BaseDataModule:
 
     def __init__(self, data_path: str, *, batch_size: int = 32,
                  seed: int = 42, load_into_memory: bool = False,
-                 device_cache: bool = False, device=None):
+                 device_cache: bool = False, device=None, shard_id: int = 0,
+                 num_shards: int = 1):
         self.data_path = data_path
         self.batch_size = batch_size
         self.seed = seed
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.load_into_memory = load_into_memory
         self.device_cache = device_cache
         self.device = resolve_device(device) if device_cache else None
@@ -82,6 +88,11 @@ class BaseDataModule:
 
     def _train_datasets(self) -> tuple:
         raise NotImplementedError
+
+    def _shard(self, indices: np.ndarray) -> np.ndarray:
+        """This module's shard of an epoch's global index sequence."""
+        return samplers.shard(indices, self.shard_id, self.num_shards,
+                              self.batch_size)
 
     def _view(self, *datasets: RightLaneDataset) -> DeviceCachedView:
         """concat(*datasets) on the device, uploaded at the first call and
@@ -130,8 +141,8 @@ class SimulatorDataModule(BaseDataModule):
         return self.datasets["train"].read_batch(indices, self.native_size)
 
     def _train_epoch_indices(self, epoch: int) -> np.ndarray:
-        return samplers.shuffle_epoch(len(self.datasets["train"]), self.seed,
-                                      epoch)
+        return self._shard(samplers.shuffle_epoch(
+            len(self.datasets["train"]), self.seed, epoch))
 
 
 class TwoDomainDataModule(BaseDataModule):
@@ -167,9 +178,9 @@ class TwoDomainDataModule(BaseDataModule):
         return np.stack(xs), np.stack(ys)
 
     def _train_epoch_indices(self, epoch: int) -> np.ndarray:
-        return samplers.two_domain_epoch(
+        return self._shard(samplers.two_domain_epoch(
             len(self.datasets["source"]), len(self.datasets["targetTrain"]),
-            self.seed, epoch)
+            self.seed, epoch))
 
 
 class TwoDomainMMEDataModule(TwoDomainDataModule):
@@ -186,9 +197,10 @@ class TwoDomainMMEDataModule(TwoDomainDataModule):
                 "(reference dataModules.py:112)")
 
     def _mme_epoch(self, epoch: int):
-        return samplers.mme_epoch(
+        lab, unl = samplers.mme_epoch(
             len(self.datasets["source"]), len(self.datasets["targetTrain"]),
             len(self.datasets["targetUnlabelled"]), self.seed, epoch)
+        return self._shard(lab), self._shard(unl)
 
     def _read_unlabelled(self, indices) -> np.ndarray:
         unl = self.datasets["targetUnlabelled"]

@@ -9,7 +9,8 @@ kernel`` or ``batch_stats/.../BatchNorm_0/mean`` (what
 a state-dict key by joining the module path with ``.``: FC-DenseNet's, and
 LaneNetLite's (``params/featureExtractor/ResBlock_2/Conv_1/kernel``, a
 bias-free 1x1 shortcut, or ``params/classifier/head/kernel`` and
-``.../bias``, the 1x1 class head).
+``.../bias``, the 1x1 class head) and EncDecNet's (``params/enc0/Conv_0/
+kernel``, ``params/enc0/prelu_alpha``, ``params/classifier/kernel``).
 
 Layouts:
 - Conv kernel HWIO -> torch OIHW.
@@ -63,6 +64,8 @@ def _torch_key(path: str) -> tuple[str, Callable | None]:
         return prefix + ".weight", fn
     if coll == "params" and leaf == "bias":
         return prefix + ".bias", None
+    if coll == "params" and leaf == "prelu_alpha":  # EncDecNet's PReLU
+        return prefix + ".prelu_alpha", None
     if (coll, leaf) in _BN_LEAVES:
         return f"{prefix}.{_BN_LEAVES[(coll, leaf)]}", None
     raise KeyError(f"unmapped Flax leaf: {path!r}")

@@ -33,7 +33,6 @@ mask list is empty.
 """
 from __future__ import annotations
 
-import functools
 from typing import Sequence
 
 import torch
@@ -42,6 +41,7 @@ from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ..ops.augment import AugmentConfig, eval_batch
+from ..ops.resize import upsample_matrix
 from .tiramisu import bn_train
 
 EPS = 1e-5
@@ -170,22 +170,6 @@ class LaneNetLiteClassifier(nn.Module):
         return torch.softmax(x, dim=1) if use_softmax else x
 
 
-@functools.cache
-def _upsample_matrix(n: int, device: torch.device) -> torch.Tensor:
-    """[4n, n] float32: row i holds the two weights of the x4 bilinear
-    upsample (half-pixel centers, clamped at the border) at output i."""
-    src = torch.clamp((torch.arange(4 * n, dtype=torch.float64) + 0.5) / 4
-                      - 0.5, min=0.0)
-    i0 = src.floor().to(torch.int64)
-    i1 = torch.clamp(i0 + 1, max=n - 1)
-    lam = src - i0
-    a = torch.zeros(4 * n, n, dtype=torch.float64)
-    rows = torch.arange(4 * n)
-    a.index_put_((rows, i0), 1.0 - lam, accumulate=True)
-    a.index_put_((rows, i1), lam, accumulate=True)
-    return a.to(device=device, dtype=torch.float32)
-
-
 class _Upsample4(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y):
@@ -197,8 +181,8 @@ class _Upsample4(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, w = ctx.size
-        return (_upsample_matrix(h, g.device).t()
-                @ (g @ _upsample_matrix(w, g.device)))
+        return (upsample_matrix(h, 4, g.device).t()
+                @ (g @ upsample_matrix(w, 4, g.device)))
 
 
 def upsample4(y: torch.Tensor) -> torch.Tensor:

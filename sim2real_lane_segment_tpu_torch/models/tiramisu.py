@@ -36,19 +36,25 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy, at_least_f32
+from ..parallel import dp
 
 EPS = 1e-5
 
 
 def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel batch mean and biased variance over (N, H, W), f32:
-    ``max(E[x^2] - mu^2, 0)``, Flax's train-mode formula."""
+    ``max(E[x^2] - mu^2, 0)``, Flax's train-mode formula.  In a
+    data-parallel step (``parallel.dp``) the batch is the global one: the
+    ranks' means of x and x^2 are averaged."""
     xf = at_least_f32(x)
-    mu = xf.mean((0, 2, 3))
-    return mu, torch.clamp((xf * xf).mean((0, 2, 3)) - mu * mu, min=0.0)
+    mu, sq = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+    if dp.current() is not None:
+        mu, sq = dp.all_mean(torch.stack([mu, sq])).unbind()
+    return mu, torch.clamp(sq - mu * mu, min=0.0)
 
 
 def running_update(bn: nn.BatchNorm2d, mu: torch.Tensor,
@@ -215,13 +221,38 @@ class TransitionUp(nn.Module):
         return torch.cat([y, skip.to(y.dtype)], dim=1)
 
 
+def _remat_block(block: DenseBlock, x: torch.Tensor, updates: dict,
+                 name: str, masks: list) -> torch.Tensor:
+    """``block`` in train mode under ``torch.utils.checkpoint`` (the
+    counterpart of Flax's ``nn.remat``): the backward recomputes the block
+    from its input instead of keeping its activations.  The recompute
+    takes the same dropout masks (operands, never drawn again) and runs in
+    the data-parallel world of the forward (autograd may run it on another
+    thread); its running-statistics updates are dropped, the forward's
+    kept.  Nothing in it draws random numbers, so no generator state is
+    saved, which also lets a CUDA graph capture it."""
+    world = dp.current()
+
+    def run(x, *masks):
+        upd: dict = {}
+        with dp.active(world):
+            out = block(x, upd, name, iter(masks))
+        return out, upd
+
+    out, upd = torch.utils.checkpoint.checkpoint(
+        run, x, *masks, use_reentrant=False, preserve_rng_state=False)
+    updates.update(upd)
+    return out
+
+
 class FCDenseNetFeatureExtractor(nn.Module):
     def __init__(self, down_blocks: Sequence[int] = (5, 5, 5, 5, 5),
                  up_blocks: Sequence[int] = (5, 5, 5, 5, 5),
                  bottleneck_layers: int = 5, growth_rate: int = 16,
                  out_chans_first_conv: int = 48,
-                 policy: DTypePolicy = DEFAULT_POLICY):
+                 policy: DTypePolicy = DEFAULT_POLICY, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.down_blocks = tuple(down_blocks)
         self.up_blocks = tuple(up_blocks)
         self.bottleneck_layers = bottleneck_layers
@@ -256,7 +287,9 @@ class FCDenseNetFeatureExtractor(nn.Module):
 
         ``train``: a dict that collects the running-statistics updates of
         a train-mode forward (None: eval mode); ``masks``: an iterator
-        over the dropout masks in site order."""
+        over the dropout masks in site order.  With ``remat`` a train-mode
+        forward that records gradients checkpoints every dense block
+        (``_remat_block``)."""
         cd = self.policy.compute_dtype
         fc = self.firstconv
         out = F.conv2d(x.to(cd), fc.weight.to(cd), fc.bias.to(cd), padding=1)
@@ -266,9 +299,12 @@ class FCDenseNetFeatureExtractor(nn.Module):
             if train is None:
                 return mod(*args)
             key = f"featureExtractor.{name}"
-            if isinstance(mod, DenseBlock):
-                return mod(*args, train, key, masks)
-            return mod(*args, train, key, next(masks))
+            if not isinstance(mod, DenseBlock):
+                return mod(*args, train, key, next(masks))
+            if self.remat and torch.is_grad_enabled():
+                return _remat_block(mod, *args, train, key,
+                                    [next(masks) for _ in range(mod.n_layers)])
+            return mod(*args, train, key, masks)
 
         skips = []
         for i in range(len(self.down_blocks)):
@@ -318,7 +354,10 @@ class FCDenseNet(nn.Module):
     running-statistics update of every BatchNorm, keyed by its state-dict
     prefix (``featureExtractor.denseDown0.DenseLayer_0.BatchNorm_0``), as
     ``{"mean": ..., "var": ...}``.  ``masks`` are the dropout masks of
-    ``dropout_sites`` (None: no dropout).
+    ``dropout_sites`` (None: no dropout).  ``remat`` (arch ``67r``)
+    recomputes each dense block in the backward of a train-mode forward;
+    the fused train path (``tiramisu_train_fused``) runs its own
+    backward through the kernels and does not read it.
     """
 
     def __init__(self, n_classes: int = 12,
@@ -327,7 +366,7 @@ class FCDenseNet(nn.Module):
                  bottleneck_layers: int = 5, growth_rate: int = 16,
                  out_chans_first_conv: int = 48, kernel_size: int = 1,
                  policy: DTypePolicy = DEFAULT_POLICY,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, remat: bool = False):
         super().__init__()
         self.n_classes = n_classes
         self.dropout_rate = dropout_rate
@@ -339,7 +378,7 @@ class FCDenseNet(nn.Module):
         self.policy = policy
         self.featureExtractor = FCDenseNetFeatureExtractor(
             down_blocks, up_blocks, bottleneck_layers, growth_rate,
-            out_chans_first_conv, policy)
+            out_chans_first_conv, policy, remat)
         self.classifier = FCDenseNetClassifier(
             self.featureExtractor.feature_channels, n_classes,
             kernel_size=kernel_size, policy=policy)
@@ -355,11 +394,15 @@ class FCDenseNet(nn.Module):
         return self.classifier(x, use_softmax=use_softmax), updates
 
 
-def dropout_sites(model: nn.Module) -> list[int]:
-    """Channels of each Dropout2d site, in the JAX site order: per down
+def dropout_sites(model: nn.Module, size=None) -> list[int]:
+    """The mask elements per sample of each dropout site, in the JAX site
+    order.  FC-DenseNet: the channels of each Dropout2d site (per down
     block its layers then its TransitionDown, the bottleneck's layers, the
-    up blocks' layers.  A model other than an FC-DenseNet (LaneNetLite)
-    has none."""
+    up blocks' layers).  A model with elementwise dropout (EncDecNet)
+    states its own for an input of ``size`` (h, w) (``dropout_elements``);
+    LaneNetLite has none."""
+    if hasattr(model, "dropout_elements"):
+        return model.dropout_elements(size)
     if not isinstance(model, FCDenseNet):
         return []
     g = model.growth_rate
@@ -376,12 +419,13 @@ def dropout_sites(model: nn.Module) -> list[int]:
 
 
 def draw_drop_masks(generator: torch.Generator, model: nn.Module,
-                    batch: int, pin: bool = False) -> torch.Tensor:
+                    batch: int, pin: bool = False, size=None) -> torch.Tensor:
     """Every Dropout2d mask of one step, flat, site after site (one f32
     [batch, C] block per site: keep with probability 1 - rate, kept
     channels scaled by 1/(1 - rate)), drawn on the generator's device.
-    ``pin``: in pinned memory, for one asynchronous copy to a card."""
-    sites = dropout_sites(model)
+    ``pin``: in pinned memory, for one asynchronous copy to a card;
+    ``size``: the input's (h, w), for elementwise sites."""
+    sites = dropout_sites(model, size)
     rate = model.dropout_rate if sites else 0.0
     u = torch.empty(batch * sum(sites), device=generator.device)
     if rate == 0.0:
@@ -396,11 +440,11 @@ def draw_drop_masks(generator: torch.Generator, model: nn.Module,
     return u.pin_memory() if pin and not u.is_pinned() else u
 
 
-def split_masks(flat: torch.Tensor, model: nn.Module,
-                batch: int) -> list[torch.Tensor]:
+def split_masks(flat: torch.Tensor, model: nn.Module, batch: int,
+                size=None) -> list[torch.Tensor]:
     """``draw_drop_masks``'s flat buffer as one [batch, C] view per site."""
     out, off = [], 0
-    for c in dropout_sites(model):
+    for c in dropout_sites(model, size):
         out.append(flat[off:off + batch * c].view(batch, c))
         off += batch * c
     return out
@@ -437,10 +481,11 @@ def fcdensenet57(n_classes, kernel_size=1, policy=DEFAULT_POLICY):
                       kernel_size=kernel_size, policy=policy)
 
 
-def fcdensenet67(n_classes, policy=DEFAULT_POLICY):
+def fcdensenet67(n_classes, policy=DEFAULT_POLICY, remat=False):
     return FCDenseNet(n_classes=n_classes, down_blocks=(5,) * 5,
                       up_blocks=(5,) * 5, bottleneck_layers=5,
-                      growth_rate=16, out_chans_first_conv=48, policy=policy)
+                      growth_rate=16, out_chans_first_conv=48, policy=policy,
+                      remat=remat)
 
 
 def fcdensenet103(n_classes, policy=DEFAULT_POLICY):

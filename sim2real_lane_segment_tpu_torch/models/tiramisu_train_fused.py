@@ -18,9 +18,9 @@ kernel over the virtual concat of its input segments:
   input.
 
 The BatchNorm statistics stay differentiable glue outside the kernels, as
-in JAX: batch statistics (``tiramisu.batch_stats``), the fold to a
-per-channel affine (``fold_affine``) and their gradients are PyTorch
-autograd.  Inside
+in JAX: batch statistics (``tiramisu.batch_stats``, over the global
+batch in a data-parallel step), the fold to a per-channel affine
+(``fold_affine``) and their gradients are PyTorch autograd.  Inside
 ``FusedBlock.backward`` the fold's and the statistics' vector-Jacobian
 products come from ``torch.autograd.grad``; no BatchNorm backward is
 written by hand.  Dropout masks are operands (``tiramisu.drop_masks``).
@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import train_block as ktb
+from ..parallel import dp
 from .tiramisu import (EPS, DenseBlock, FCDenseNet, batch_stats,
                        dropout_sites, grad_reverse, max_pool2, running_update,
                        transition_up)
@@ -140,12 +141,20 @@ class FusedBlock(torch.autograd.Function):
         mu_all, var_all = torch.cat(mus), torch.cat(vars_)
         ctx.seg_chans = [s.shape[1] for s in segs]
         ctx.n = n
+        # the data-parallel world of the statistics, for the backward's
+        # (autograd may run it on a thread of its own)
+        ctx.world = dp.current()
         ctx.save_for_backward(buf, mu_all, var_all, *gammas, *betas,
                               *weights, *masks)
         return buf, mu_all[c_in:], var_all[c_in:]
 
     @staticmethod
     def backward(ctx, dbuf, dmu_new, dvar_new):
+        with dp.active(ctx.world):
+            return FusedBlock._backward(ctx, dbuf, dmu_new, dvar_new)
+
+    @staticmethod
+    def _backward(ctx, dbuf, dmu_new, dvar_new):
         n = ctx.n
         buf, mu_all, var_all, *rest = ctx.saved_tensors
         gammas, betas, weights, masks = _split(rest, [n] * 4)

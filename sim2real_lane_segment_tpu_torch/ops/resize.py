@@ -30,6 +30,30 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.cache
+def upsample_matrix(n: int, scale: int, device: torch.device) -> torch.Tensor:
+    """[scale * n, n] float32: row i holds the two weights of the bilinear
+    upsample by ``scale`` (half-pixel centers, clamped at the border,
+    ``jax.image.resize``'s ``"bilinear"``) at output i.  Made outside
+    inference mode, so that a forward that records gradients can keep the
+    cached matrix for its backward."""
+    with torch.inference_mode(False):
+        return _upsample_matrix(n, scale, device)
+
+
+def _upsample_matrix(n, scale, device):
+    src = torch.clamp((torch.arange(scale * n, dtype=torch.float64) + 0.5)
+                      / scale - 0.5, min=0.0)
+    i0 = src.floor().to(torch.int64)
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    lam = src - i0
+    a = torch.zeros(scale * n, n, dtype=torch.float64)
+    rows = torch.arange(scale * n)
+    a.index_put_((rows, i0), 1.0 - lam, accumulate=True)
+    a.index_put_((rows, i1), lam, accumulate=True)
+    return a.to(device=device, dtype=torch.float32)
+
+
 def resize_bilinear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """cv2 INTER_LINEAR equivalent for (..., H, W, C) images (float32 out)."""
     *lead, h, w, c = img.shape

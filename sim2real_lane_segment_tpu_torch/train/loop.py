@@ -86,7 +86,7 @@ def _run_train_epoch(trainer, data, gen, epoch, logger, global_step,
         logs = trainer.default_step_fn(batch, gen, epoch)
         n_steps += 1
         global_step += 1
-        if global_step % log_every == 0:
+        if log_every and global_step % log_every == 0:
             logger.log(global_step, {f"train/{k}": v
                                      for k, v in logs.items()})
     return n_steps, global_step
@@ -102,7 +102,7 @@ def _run_train_epoch_scanned(trainer, scan, gen, epoch, logger, global_step,
         chunk = idx[i:i + SCAN_CHUNK]
         logs = trainer.run_scan_chunk(arrays, chunk, gen, epoch)
         rows = [j for j in range(len(chunk))
-                if (global_step + j + 1) % log_every == 0]
+                if log_every and (global_step + j + 1) % log_every == 0]
         if rows:
             names = list(logs)
             values = torch.stack([logs[k] for k in names], 1).cpu()
@@ -112,6 +112,21 @@ def _run_train_epoch_scanned(trainer, scan, gen, epoch, logger, global_step,
                                                             values[j])})
         global_step += len(chunk)
     return len(idx), global_step
+
+
+def run_train_epoch(trainer, data, gen, epoch, logger, global_step,
+                    log_every) -> tuple[int, int]:
+    """One epoch: chunks of ``run_scan_chunk`` over the device-resident
+    split where the trainer and the module have one, else per-batch
+    steps.  Logs the train scalars every ``log_every`` steps (None:
+    never).  Returns (steps, global step)."""
+    scan = (getattr(data, "train_scan_inputs", lambda e: None)(epoch)
+            if hasattr(trainer, "run_scan_chunk") else None)
+    if scan is None:
+        return _run_train_epoch(trainer, data, gen, epoch, logger,
+                                global_step, log_every)
+    return _run_train_epoch_scanned(trainer, scan, gen, epoch, logger,
+                                    global_step, log_every)
 
 
 def fit(trainer, data, *, max_epochs: int, out_dir: str, seed: int = 42,
@@ -151,15 +166,9 @@ def fit(trainer, data, *, max_epochs: int, out_dir: str, seed: int = 42,
                "lrRatio": trainer.lr_ratio, "num_cls": trainer.num_cls}
     for epoch in range(start_epoch, max_epochs):
         t0 = time.time()
-        gen = epoch_generator(seed, epoch)
-        scan = (getattr(data, "train_scan_inputs", lambda e: None)(epoch)
-                if hasattr(trainer, "run_scan_chunk") else None)
-        if scan is None:
-            n_steps, global_step = _run_train_epoch(
-                trainer, data, gen, epoch, logger, global_step, log_every)
-        else:
-            n_steps, global_step = _run_train_epoch_scanned(
-                trainer, scan, gen, epoch, logger, global_step, log_every)
+        n_steps, global_step = run_train_epoch(
+            trainer, data, epoch_generator(seed, epoch), epoch, logger,
+            global_step, log_every)
         val = run_eval(trainer.eval_step, data.val_batches())
         logger.log(global_step, {f"val/{k}": v for k, v in val.items()})
         log.info("epoch %d: %d steps in %.1fs, val_iou=%.3f val_acc=%.2f",

@@ -20,9 +20,12 @@ forwards, so the running statistics move twice per step: phase G's update
 is written into the model before phase F's forward, which starts from it.
 With ``pallas_train`` both phases run through the fused consumer kernels
 (K1, K2, K3a, K3b); phase G's cotangent reaches them negated, through
-``grad_reverse`` on the head's input.  Without it phase G runs the
-model's ``featureExtractor``, ``grad_reverse`` and its ``classifier``
-(an FC-DenseNet or a LaneNetLite).
+``grad_reverse`` on the head's input.  With ``fast_train`` both run the
+segment-wise forward (``models.tiramisu_fast``).  Otherwise phase G runs
+the model's ``featureExtractor``, ``grad_reverse`` and its
+``classifier`` (an FC-DenseNet or a LaneNetLite; EncDecNet has no such
+split and is refused, as the JAX trainer fails on it).  With a ``world``
+both phases are data-parallel (``SupervisedTrainer``).
 
 ``run_scan_chunk`` (``SupervisedTrainer``'s) runs K MME steps over the
 device-resident splits, the counterpart of the JAX
@@ -33,12 +36,12 @@ from __future__ import annotations
 
 import torch
 
-from ..models.tiramisu import apply_batch_stats, grad_reverse
-from ..models.tiramisu_train_fused import fused_apply_train
+from ..models.tiramisu import apply_batch_stats
 from ..ops.augment import AugmentDraws
+from ..parallel import dp
 from .checkpoint import load_weights
 from .losses import adentropy, weighted_cross_entropy
-from .optim import AdamW, SGDNesterov, lr_factors
+from .optim import SGDNesterov, lr_factors
 from .schedules import cosine_annealing
 from .supervised import SupervisedTrainer
 
@@ -49,6 +52,10 @@ class MMETrainer(SupervisedTrainer):
 
     def __init__(self, *, lamda: float = 0.1, **kw):
         super().__init__(**kw)
+        if not hasattr(self.model, "featureExtractor"):
+            raise ValueError(
+                f"MME reverses the gradient between a featureExtractor and "
+                f"a classifier; {type(self.model).__name__} has none")
         self.lamda = lamda
         # 1 on the feature extractor's parameters, 0 on the classifier's
         self.lr_mask_fe = lr_factors(
@@ -66,12 +73,14 @@ class MMETrainer(SupervisedTrainer):
                 cosine_annealing(self.lr, eta_min, 25, epoch),
                 cosine_annealing(self.lr, eta_min, 25, epoch))
 
+    def optimizers(self) -> list:
+        return [self.opt_g, self.opt]
+
     def from_pretrained(self, path: str) -> None:
         """Start from baseline weights (``.pt``, ``.msgpack`` or ``.npz``;
         reference train.py:58) with both optimizers fresh."""
         load_weights(path, self.model)
-        self.opt = AdamW(self.params, self.decay)
-        self.opt_g = SGDNesterov(self.params, self.decay)
+        self.reset_optimizers()
         self._folded = None
 
     def state_dict(self) -> dict:
@@ -95,50 +104,39 @@ class MMETrainer(SupervisedTrainer):
         return self.mme_train_step(images_lab, labels, images_unl,
                                    *self.lrs_at(epoch), generator=generator)
 
-    def _forward_g(self, x: torch.Tensor, masks):
-        """Phase G's forward: probabilities of the unlabelled batch with
-        the gradient reversed between the feature extractor and the
-        classifier, and the running-statistics updates."""
-        if self.pallas_train:
-            return fused_apply_train(self.model, x, masks,
-                                     reverse_features=True)
-        updates: dict = {}
-        feats = self.model.featureExtractor(x, updates, iter(masks))
-        return self.model.classifier(grad_reverse(feats),
-                                     use_softmax=True), updates
-
-    def _forward_f(self, x: torch.Tensor, masks):
-        if self.pallas_train:
-            return fused_apply_train(self.model, x, masks)
-        return self.model(x, train=True, masks=masks)
-
     def _mme_step(self, images_lab, labels, images_unl, draws_l, draws_u,
                   masks_g, masks_f) -> torch.Tensor:
         """One MME step, at the rates set in both optimizers, on uint8
         batches on the device; masks flat.  Returns [tr_loss_adent,
         tr_loss]."""
-        x_lab, y = self._batch(images_lab, labels, draws_l)
-        x_unl, _ = self._batch(images_unl, None, draws_u)
+        with dp.active(self.world):
+            x_lab, y = self._batch(images_lab, labels, draws_l)
+            x_unl, _ = self._batch(images_unl, None, draws_u)
 
-        # phase G: entropy of the unlabelled batch through grad_reverse
-        probs, upd_g = self._forward_g(x_unl,
-                                       self._masks(masks_g, x_unl.shape[0]))
-        loss_g = adentropy(probs, self.lamda)
-        grads = torch.autograd.grad(loss_g, self.params)
-        del probs
-        self.opt_g.step(grads)
-        del grads
-        apply_batch_stats(self.model, upd_g)
+            # phase G: entropy of the unlabelled batch through
+            # grad_reverse
+            probs, upd_g = self._forward(
+                x_unl, self._masks(masks_g, x_unl.shape[0]),
+                reverse_features=True)
+            loss_g = adentropy(probs, self.lamda)
+            grads = dp.reduce_grads(torch.autograd.grad(loss_g,
+                                                        self.params))
+            del probs
+            self.opt_g.step(grads)
+            del grads
+            apply_batch_stats(self.model, upd_g)
 
-        # phase F: weighted cross entropy of the labelled batch, at the
-        # post-G parameters and running statistics
-        out, upd_f = self._forward_f(x_lab,
-                                     self._masks(masks_f, x_lab.shape[0]))
-        loss_f = weighted_cross_entropy(out, y, self.num_cls)
-        grads = torch.autograd.grad(loss_f, self.params)
-        self.opt.step(grads)
-        apply_batch_stats(self.model, upd_f)
-        return torch.stack([loss_g.detach(), loss_f.detach()])
+            # phase F: weighted cross entropy of the labelled batch, at
+            # the post-G parameters and running statistics
+            out, upd_f = self._forward(x_lab,
+                                       self._masks(masks_f, x_lab.shape[0]))
+            loss_f = weighted_cross_entropy(out, y, self.num_cls)
+            grads = dp.reduce_grads(torch.autograd.grad(loss_f,
+                                                        self.params))
+            self.opt.step(grads)
+            apply_batch_stats(self.model, upd_f)
+            return dp.all_sum(torch.stack([loss_g.detach(),
+                                           loss_f.detach()]))
 
     def _mme_draw(self, generator, n_lab: int, n_unl: int, draws_l, draws_u,
                   masks_g, masks_f) -> tuple:

@@ -16,10 +16,12 @@ The learning rate is an argument of ``step`` rather than part of the
 optimizer, so a schedule never rebuilds it.  Weight decay applies to
 every parameter, as in the JAX chains.
 
-The step count, both bias corrections and the learning rates are tensors
-on the parameters' device, read by the update there: a CUDA graph that
-captures ``step`` replays it with the rate set since and the count it
-advanced itself.  ``step`` given a rate writes it into that tensor first
+The step count, both bias corrections, the learning rates and the weight
+decay are tensors on the parameters' device, read by the update there: a
+CUDA graph that captures ``step`` replays it with the rate and decay set
+since (``set_lr``, ``set_weight_decay``) and the count it advanced
+itself; ``reset`` zeroes the state in place, so a captured step serves a
+fresh run too (``cli.tune``'s trials).  ``step`` given a rate writes it into that tensor first
 (``set_lr``/``set_lrs``), so eager and replayed steps run one arithmetic.
 Dividing by a device tensor is a true division on every device (dividing
 a CUDA tensor by a Python number multiplies by its reciprocal).
@@ -35,9 +37,10 @@ class AdamW:
     def __init__(self, params: Sequence[torch.Tensor], weight_decay: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.params = list(params)
-        self.weight_decay = weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         device = self.params[0].device if self.params else None
+        self.weight_decay = torch.tensor(weight_decay, dtype=torch.float32,
+                                         device=device)
         # the count in float64: 1 - b ** count rounds to float32 once, as
         # the Python arithmetic it replaces did
         self._count = torch.zeros((), dtype=torch.float64, device=device)
@@ -52,6 +55,14 @@ class AdamW:
 
     def set_lr(self, lr: float) -> None:
         self.lr.fill_(lr)
+
+    def set_weight_decay(self, wd: float) -> None:
+        self.weight_decay.fill_(wd)
+
+    def reset(self) -> None:
+        """The count and both moments to zero, in place."""
+        for t in self.tensors():
+            t.zero_()
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],
@@ -92,10 +103,11 @@ class SGDNesterov:
     def __init__(self, params: Sequence[torch.Tensor], weight_decay: float,
                  momentum: float = 0.9):
         self.params = list(params)
-        self.weight_decay = weight_decay
         self.momentum = momentum
         self.trace = [torch.zeros_like(p) for p in self.params]
         device = self.params[0].device if self.params else None
+        self.weight_decay = torch.tensor(weight_decay, dtype=torch.float32,
+                                         device=device)
         # one rate per parameter, and the host values last written there
         self.lrs = torch.zeros(len(self.params), dtype=torch.float32,
                                device=device)
@@ -111,6 +123,14 @@ class SGDNesterov:
         if lrs != self._lrs_set:
             self.lrs.copy_(torch.tensor(lrs, dtype=torch.float32))
             self._lrs_set = lrs
+
+    def set_weight_decay(self, wd: float) -> None:
+        self.weight_decay.fill_(wd)
+
+    def reset(self) -> None:
+        """The momentum buffers to zero, in place."""
+        for t in self.trace:
+            t.zero_()
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor],

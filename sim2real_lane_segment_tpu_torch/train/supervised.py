@@ -10,14 +10,24 @@ state on its device, so the steps take batches alone:
   output, gradients, AdamW at this step's learning rate, and the running
   statistics update.  With ``pallas_train`` the forward is
   ``models.tiramisu_train_fused.fused_apply_train`` (kernels K1, K2, K3a,
-  K3b on CUDA tensors), else the plain module with autograd.
+  K3b on CUDA tensors); with ``fast_train`` (and not ``pallas_train``)
+  the segment-wise ``models.tiramisu_fast.fast_apply_train``; else the
+  plain module with autograd.
 - ``eval_step``: the plain module in eval mode, unweighted cross entropy
   and the batch metrics.
 - ``predict_step``/``predict_step_fused``: uint8 frames to class maps.
 
-The model is an FC-DenseNet or a LaneNetLite (``--arch lite``), whose
-train mode shares the FC-DenseNet's call interface; ``pallas_train``
-takes an FC-DenseNet only, as in JAX.
+The model is an FC-DenseNet, a LaneNetLite (``--arch lite``) or an
+EncDecNet (``--arch encdec``), whose train modes share the FC-DenseNet's
+call interface; ``pallas_train`` takes an FC-DenseNet only, and
+``fast_train`` applies to an FC-DenseNet only, as in JAX.
+
+With a ``world`` (``core.mesh.World``) the steps are data-parallel over
+its ranks (``parallel.dp``): each rank steps on its rows of the global
+batch, with the global batch's statistics, losses and summed gradients,
+and its rows of the global batch's draws; the logged values are the
+global batch's.  ``eval_step`` splits each batch over the ranks and
+gathers the outputs, so its metrics are the whole batch's.
 
 The random draws are operands: the augmentation's (``ops.augment.
 AugmentDraws``) and the Dropout2d masks (``models.tiramisu.drop_masks``;
@@ -46,12 +56,16 @@ from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ..core.runtime import resolve_device
 from ..data.device_cache import to_device_index
 from ..models.tiramisu import (FCDenseNet, apply_batch_stats,
-                               draw_drop_masks, fcdensenet67, split_masks)
+                               draw_drop_masks, fcdensenet67, grad_reverse,
+                               split_masks)
+from ..models.tiramisu_fast import fast_apply_train
 from ..models.tiramisu_fused import FoldedModel, fold_model, fused_apply
 from ..models.tiramisu_train_fused import fused_apply_train
 from ..ops.augment import (AugmentConfig, AugmentDraws, augment_batch,
                            draw_augment, eval_batch)
 from ..ops.metrics import accuracy, evaluate_outputs
+from ..parallel import dp
+from ..parallel.sharding import gather_rows, rank_rows, replicate_
 from .graphs import StepGraph
 from .losses import cross_entropy, weighted_cross_entropy
 from .optim import AdamW
@@ -71,7 +85,7 @@ class SupervisedTrainer:
                  augment: bool = False,
                  policy: DTypePolicy = DEFAULT_POLICY,
                  model: nn.Module | None = None, pallas_train: bool = False,
-                 device=None):
+                 fast_train: bool = False, world=None, device=None):
         self.num_cls = num_cls
         self.lr = lr
         self.decay = decay
@@ -88,6 +102,11 @@ class SupervisedTrainer:
                 f"{type(model).__name__}")
         self.model = model.to(self.device).eval()
         self.pallas_train = pallas_train
+        self.fast_train = (fast_train and not pallas_train
+                           and isinstance(model, FCDenseNet))
+        self.world = world
+        if world is not None:
+            replicate_(self.model, world)
         self.params = list(self.model.parameters())
         self.opt = AdamW(self.params, decay)
         self._folded: FoldedModel | None = None
@@ -101,6 +120,22 @@ class SupervisedTrainer:
 
     def lr_at(self, epoch: int) -> float:
         return cosine_annealing(self.lr, self.lr / self.lr_ratio, 25, epoch)
+
+    def optimizers(self) -> list:
+        return [self.opt]
+
+    def set_decay(self, decay: float) -> None:
+        """The weight decay of every optimizer: a device operand, so a
+        captured step replays with the value set since."""
+        self.decay = decay
+        for opt in self.optimizers():
+            opt.set_weight_decay(decay)
+
+    def reset_optimizers(self) -> None:
+        """Every optimizer's state to its initial values, in place (a
+        captured step stays valid)."""
+        for opt in self.optimizers():
+            opt.reset()
 
     def state_dict(self) -> dict:
         """Model and optimizer state, copied to the CPU."""
@@ -121,23 +156,41 @@ class SupervisedTrainer:
     def _batch(self, images, labels, draws: AugmentDraws | None = None):
         return model_batch(images, labels, self.cfg, draws)
 
+    def _global(self, n: int) -> int:
+        """The global batch of ``n`` rows a rank."""
+        return n * (self.world.size if self.world is not None else 1)
+
     def _draw_augment(self, generator, n: int, draws):
         """The augmentation's draws (None without ``augment``), from
-        ``generator`` where not given."""
+        ``generator`` where not given (a rank's rows of the global
+        batch's)."""
         if not self.augment:
             return None
-        return (draw_augment(generator, n, self.cfg, self.device)
-                if draws is None else draws)
+        if draws is not None:
+            return draws
+        draws = draw_augment(generator, self._global(n), self.cfg,
+                             self.device)
+        if self.world is None:
+            return draws
+        return AugmentDraws(*(rank_rows(t, self.world) for t in draws))
 
     def _draw_masks(self, generator, n: int, masks) -> torch.Tensor:
         """The flat Dropout2d masks (``draw_drop_masks``, pinned for a
-        card), from ``generator`` where not given."""
+        card), from ``generator`` where not given (a rank's rows of the
+        global batch's)."""
+        pin = self.device.type == "cuda"
         if masks is None:
-            return draw_drop_masks(generator, self.model, n,
-                                   pin=self.device.type == "cuda")
-        if isinstance(masks, torch.Tensor):
+            size = (self.cfg.height, self.cfg.width)
+            flat = draw_drop_masks(generator, self.model, self._global(n),
+                                   pin=pin and self.world is None, size=size)
+            if self.world is None:
+                return flat
+            masks = [rank_rows(m, self.world) for m in split_masks(
+                flat, self.model, self._global(n), size)]
+        elif isinstance(masks, torch.Tensor):
             return masks
-        return torch.cat([m.reshape(-1) for m in masks])
+        flat = torch.cat([m.reshape(-1) for m in masks])
+        return flat.pin_memory() if pin and self.world is not None else flat
 
     def _draw(self, generator, n: int, draws, masks) -> tuple:
         """A step's draws: augmentation first, then dropout."""
@@ -146,25 +199,41 @@ class SupervisedTrainer:
 
     def _masks(self, flat: torch.Tensor, n: int) -> list[torch.Tensor]:
         return split_masks(flat.to(self.device, non_blocking=True),
-                           self.model, n)
+                           self.model, n, (self.cfg.height, self.cfg.width))
 
     # -- steps ----------------------------------------------------------
+
+    def _forward(self, x: torch.Tensor, masks, reverse_features=False):
+        """The train-mode forward: (output, running-statistics updates).
+        ``reverse_features`` (MME's phase G) reverses the gradient between
+        the features and the classifier."""
+        if self.pallas_train:
+            return fused_apply_train(self.model, x, masks,
+                                     reverse_features=reverse_features)
+        if self.fast_train:
+            return fast_apply_train(self.model, x, masks,
+                                    reverse_features=reverse_features)
+        if not reverse_features:
+            return self.model(x, train=True, masks=masks)
+        updates: dict = {}
+        feats = self.model.featureExtractor(x, updates, iter(masks))
+        return self.model.classifier(grad_reverse(feats),
+                                     use_softmax=True), updates
 
     def _step(self, images, labels, draws, masks) -> torch.Tensor:
         """One AdamW step, at the rate set in ``opt``, on uint8 batches on
         the device; ``masks`` flat.  Returns [tr_loss, tr_acc]."""
-        x, y = self._batch(images, labels, draws)
-        masks = self._masks(masks, x.shape[0])
-        if self.pallas_train:
-            out, new_bs = fused_apply_train(self.model, x, masks)
-        else:
-            out, new_bs = self.model(x, train=True, masks=masks)
-        loss = weighted_cross_entropy(out, y, self.num_cls)
-        grads = torch.autograd.grad(loss, self.params)
-        self.opt.step(grads)
-        apply_batch_stats(self.model, new_bs)
-        pred = torch.argmax(out.detach(), dim=1)
-        return torch.stack([loss.detach(), accuracy(pred, y) * 100.0])
+        with dp.active(self.world):
+            x, y = self._batch(images, labels, draws)
+            masks = self._masks(masks, x.shape[0])
+            out, new_bs = self._forward(x, masks)
+            loss = weighted_cross_entropy(out, y, self.num_cls)
+            grads = dp.reduce_grads(torch.autograd.grad(loss, self.params))
+            self.opt.step(grads)
+            apply_batch_stats(self.model, new_bs)
+            pred = torch.argmax(out.detach(), dim=1)
+            return dp.all_sum(torch.stack(
+                [loss.detach(), dp.share(accuracy(pred, y)) * 100.0]))
 
     def train_step(self, images, labels, lr: float, *,
                    draws: AugmentDraws | None = None, masks=None,
@@ -260,7 +329,11 @@ class SupervisedTrainer:
         """Unweighted cross entropy and metrics of the plain module in eval
         mode, each pre-multiplied by the batch size."""
         x, y = self._batch(self._to_device(images), self._to_device(labels))
-        out = self.model(x)
+        world = self.world
+        if world is None or len(x) % world.size:
+            out = self.model(x)  # a batch that does not split: every rank
+        else:
+            out = gather_rows(self.model(rank_rows(x, world)), world)
         return evaluate_outputs(out, y, cross_entropy(out, y), self.num_cls)
 
     def _input(self, images) -> torch.Tensor:

@@ -790,15 +790,21 @@ from sim2real_lane_segment_tpu_torch.train.supervised import \
     SupervisedTrainer  # noqa: E402
 
 
-def _graph_trainers(cuda, regime, fused, augment):
-    """Two identical trainers (bf16, growth 16: the tensor-core routes)."""
+def _graph_trainers(cuda, regime, fused, augment, worlds=(None, None),
+                    **kw):
+    """Two identical trainers (bf16, growth 16: the tensor-core routes);
+    ``worlds``: each one's data-parallel world; ``kw``: the model's
+    (``remat``) and the trainers' (``fast_train``) options."""
     out = []
-    for _ in range(2):
+    remat = kw.pop("remat", False)
+    for world in worlds:
         torch.manual_seed(5)
-        model = FCDenseNet(**SMALL_MME_NET, policy=DEFAULT_POLICY)
+        model = FCDenseNet(**SMALL_MME_NET, policy=DEFAULT_POLICY,
+                           remat=remat)
         cls = MMETrainer if regime == "mme" else SupervisedTrainer
         out.append(cls(num_cls=4, height=32, width=48, model=model,
-                       augment=augment, pallas_train=fused, device=cuda))
+                       augment=augment, pallas_train=fused, world=world,
+                       device=cuda, **kw))
     return out
 
 
@@ -812,6 +818,11 @@ def test_graphed_steps_equal_eager_steps(cuda, regime, fused, augment):
     same generator: logged values, weights, running statistics and
     optimizer state equal, bit for bit, at B=4; through the kernels and
     through the plain module, with and without augmentation."""
+    _check_graphed_vs_eager(cuda, regime,
+                            *_graph_trainers(cuda, regime, fused, augment))
+
+
+def _check_graphed_vs_eager(cuda, regime, graphed, eager):
     rng = np.random.default_rng(9)
     views = [DeviceCachedView.from_arrays(
         rng.integers(0, 256, (10, 40, 56, 3), dtype=np.uint8),
@@ -824,7 +835,6 @@ def test_graphed_steps_equal_eager_steps(cuda, regime, fused, augment):
             cuda))
         arrays = arrays + (views[1].images,)
         idx = np.stack([idx, rng.integers(0, 12, (3, 4))], axis=1)
-    graphed, eager = _graph_trainers(cuda, regime, fused, augment)
     graphs.reset_counts()
     logs = graphed.run_scan_chunk(arrays, idx, torch.Generator().manual_seed(
         2), 1)
@@ -855,6 +865,100 @@ def test_graphed_steps_equal_eager_steps(cuda, regime, fused, augment):
     for a, b in opts:
         for x, y in zip(a.tensors(), b.tensors(), strict=True):
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the trainer's surface: --fast_train, 67r (remat), --dp
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def world_of_one(cuda):
+    """A one-rank NCCL world on the card, ended after the test."""
+    from sim2real_lane_segment_tpu_torch.parallel import multihost
+
+    world, owned = multihost.init_world(cuda)
+    yield world
+    if owned:
+        multihost.close_world()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fast", "remat"])
+@pytest.mark.parametrize("regime", ["sim", "mme"])
+def test_graphed_fast_and_remat_steps_equal_eager_steps(cuda, regime, route):
+    """``--fast_train`` and ``67r``'s checkpointed blocks inside the CUDA
+    graph: three replays equal three eager steps bit for bit."""
+    kw = {"fast": dict(fast_train=True), "remat": dict(remat=True)}[route]
+    _check_graphed_vs_eager(cuda, regime, *_graph_trainers(
+        cuda, regime, False, True, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regime,fused", [("sim", False), ("sim", True),
+                                          ("mme", True)])
+def test_one_rank_nccl_graphed_equals_dp_off_eager(world_of_one, regime,
+                                                   fused):
+    """``--dp`` in a world of one: the steps' all-reduces captured in the
+    CUDA graph, three replays bit-equal to three eager steps without a
+    world (``--dp off``)."""
+    cuda = world_of_one.device
+    _check_graphed_vs_eager(cuda, regime, *_graph_trainers(
+        cuda, regime, fused, True, worlds=(world_of_one, None)))
+
+
+@pytest.mark.gpu
+def test_remat_pallas_train_is_the_kernel_step(cuda):
+    """Under ``--pallas_train`` the kernels run their own backward and
+    ``67r``'s checkpointing does not apply: the same launches and the
+    same step, bit for bit, as without it."""
+    rng = np.random.default_rng(11)
+    images = rng.integers(0, 256, (4, 32, 48, 3), dtype=np.uint8)
+    labels = rng.integers(0, 4, (4, 32, 48), dtype=np.uint8)
+    runs = []
+    for remat in (False, True):
+        torch.manual_seed(5)
+        model = FCDenseNet(**SMALL_MME_NET, policy=DEFAULT_POLICY,
+                           remat=remat)
+        tr = SupervisedTrainer(num_cls=4, height=32, width=48, model=model,
+                               pallas_train=True, device=cuda)
+        ktb.reset_launches()
+        logs = tr.train_step(images, labels, 1e-3,
+                             generator=torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        runs.append((dict(ktb.launches), logs, tr.model.state_dict()))
+    (l0, g0, s0), (l1, g1, s1) = runs
+    assert l0 == l1 and all(v > 0 for v in l0.values())
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+@pytest.mark.gpu
+def test_remat_lowers_peak_memory_and_keeps_the_step(cuda):
+    """The plain step of the small FC-DenseNet at B=8, 96x128, with and
+    without checkpointed blocks: losses within 1e-5 (relative; cuDNN's
+    backward may sum in another order) and a lower peak of allocated
+    memory with them."""
+    rng = np.random.default_rng(12)
+    images = rng.integers(0, 256, (8, 96, 128, 3), dtype=np.uint8)
+    labels = rng.integers(0, 4, (8, 96, 128), dtype=np.uint8)
+    peaks, losses = [], []
+    for remat in (False, True):
+        torch.manual_seed(5)
+        model = FCDenseNet(**SMALL_MME_NET, policy=DEFAULT_POLICY,
+                           remat=remat)
+        tr = SupervisedTrainer(num_cls=4, height=96, width=128, model=model,
+                               device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        logs = tr.train_step(images, labels, 1e-3,
+                             generator=torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        losses.append(float(logs["tr_loss"]))
+        del tr, model
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    assert peaks[1] < peaks[0], peaks
 
 
 # ---------------------------------------------------------------------------

@@ -131,12 +131,23 @@ def test_train_cli_on_cpu_writes_artifacts_and_resumes(tmp_path):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
+    """``--fast_train`` and ``--dp`` are ported: both train in ``sim`` and
+    ``st``; what the CLI still refuses is a ``--dp`` rank count the
+    launch does not hold."""
+    from helpers import make_simreal_tree
+
+    rng = np.random.default_rng(8)
+    roots = {"sim": make_sim_tree(tmp_path, rng, 4, 2, 2),
+             "st": make_simreal_tree(tmp_path, rng, 4, 2, 8, 2)}
     for extra in (["--fast_train"], ["--dp", "auto"]):
         for regime in ("sim", "st"):
-            args = _train_args(str(tmp_path), str(tmp_path), *extra)
+            args = _train_args(roots[regime], str(tmp_path / "o"), *extra)
             args[1] = regime
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                train_cli.main(args, device="cpu")
+            res = train_cli.main(args + ["--max_epochs", "1"], device="cpu")
+            assert np.isfinite(res["best_iou"])
+    with pytest.raises(SystemExit, match="--dp 2"):
+        train_cli.main(_train_args(roots["sim"], str(tmp_path / "o"),
+                                   "--dp", "2"), device="cpu")
 
 
 def test_train_cli_needs_a_card_unless_cpu(tmp_path, monkeypatch):
