@@ -18,7 +18,11 @@ LaneNetLite serving from the committed student
 (``ops.labelgen.process_classes_batch`` on CUDA tensors, kernel K5);
 and the HM and CycleGAN regimes (``cli.hist_match``,
 ``cli.train_cyclegan``, ``cli.sim2real_convert``, then ``--trainType st
---pallas_train`` and ``cli.test --fused``) and ``cli.domain_study``.
+--pallas_train`` and ``cli.test --fused``) and ``cli.domain_study``;
+and data generation at the recording size (``cli.datagen`` rendering
+expert rollouts on the card, ``cli.postprocess`` labelling them through
+K5, ``cli.preprocess_db``, then ``cli.train`` on the rendered tree, and
+the study rendering its missing domains).
 Phases:
 
 1. device: requires CUDA, prints the card's name and power limit;
@@ -167,6 +171,24 @@ Phases:
     ``--pallas_train`` by CUDA events with each one's peak of allocated
     memory (67r's must be lower), and the ``--pallas_train`` step in a
     one-rank NCCL world against none, eager and graphed.
+21. data generation at 480x640, each part's seconds printed: (a)
+    ``sim.render.render_pair`` on the card against the CPU from the same
+    poses, DR rows and noise draws (loop_dyn_duckiebots and zigzag with
+    the fisheye, zigzag through a generated photo pack), at the CPU tests'
+    agreement bounds (DG_RENDER_EQUAL, DG_RENDER_NEAR), and the pairs'
+    alignment; (b) ``cli.datagen`` (2 episodes x 64 steps x 2 agents, 256
+    pairs, PNG-in-AVI), ``cli.postprocess`` (K5 once a batch of <= 32
+    pairs: 8 launches by its count and by torch.profiler, every batch's
+    masks equal to the plain version on the card), ``cli.preprocess_db
+    --dbType sim`` and one epoch of ``cli.train --arch 67 --pallas_train
+    -b 32`` on the rendered tree (phase 15's checks); (c)
+    ``cli.domain_study`` in empty workdirs, rendering both domains (1
+    episode of 24 steps) and training ``baseline``, procedural and with
+    ``--target_texture_pack auto``; (d) rendered pairs/s of a B=2 x 32-step
+    rollout and its device time split between ground, cylinders and
+    meshes (by subtraction), datagen's render and encode seconds,
+    postprocess frames/s with K5's device time, preprocess_db seconds,
+    and PNG encode and decode ms per frame on the host.
 
 It prints the seconds of each phase, one JSON line of per-kernel numbers,
 then, as its last line,
@@ -383,6 +405,25 @@ FAST_RTOL = 2e-2
 TUNE_TRIALS = 3
 SURFACE_TIMED_FRAMES = 256
 SURFACE_TIMED = 5
+
+
+# phase 21: data generation at the recording size (480x640): the renderer
+# on the card against the CPU at the CPU tests' agreement bounds (uint8
+# values equal / within one level), the datagen -> postprocess (K5) ->
+# preprocess_db -> train chain, and the study's render of missing domains
+DG_SIZE = (480, 640)
+DG_RENDER_EQUAL = 0.9995
+DG_RENDER_NEAR = 0.9998
+DG_CHECK_POSES = 4
+DG_ARGS = ["--map-name", "loop_dyn_duckiebots", "--episodes", "2",
+           "--steps", "64", "--agents", "2", "--chunk", "32", "--distortion"]
+DG_PAIRS = 2 * 64 * 2
+DG_RECORDINGS = 4
+DG_LABEL_BATCH = 32
+DG_SPLITS = (179, 39, 38)   # 256 frames, 70/15/15
+DG_TIMED = 3
+DG_STUDY_ARGS = ["--episodes", "1", "--steps", "24", "--regimes",
+                 "baseline", "--epochs", "1", "-b", "8"]
 
 
 def fail(msg: str) -> None:
@@ -3752,6 +3793,294 @@ def surface_phase(sd, device, card):
           f"[{card}]", flush=True)
 
 
+def _dg_poses(m, la, n, seed):
+    """``n`` spawns of map ``m`` moved 5 expert steps on, on the CPU."""
+    from sim2real_lane_segment_tpu_torch.sim import rollout
+
+    pos, ang = rollout.sample_spawns(m, la, np.random.default_rng(seed), n)
+    pos, ang = rollout.step_poses(la, m.tile_size, pos, ang, 5)
+    return pos[-1], ang[-1]
+
+
+def _agreement(a, b) -> tuple[float, float]:
+    """Shares of uint8 values of ``a`` and ``b`` equal / within one."""
+    d = (a.cpu().short() - b.cpu().short()).abs()
+    return (float((d == 0).float().mean()), float((d <= 1).float().mean()))
+
+
+def render_check(device, card, tmp):
+    """Phase 21a: ``sim.render.render_pair`` at 480x640 on the card against
+    the CPU from the same poses, DR rows and noise draws (loop_dyn_duckiebots
+    and zigzag procedural, zigzag through a generated photo pack; all with
+    the fisheye), at the CPU tests' agreement bounds; then, for the
+    procedural scenes, pair alignment without DR or noise: orig and annot
+    differ only where annot holds a shaded pure green, blue or red (lanes
+    and obstacles)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.sim import lanes, render
+    from sim2real_lane_segment_tpu_torch.sim.maps import builtin_map
+    from sim2real_lane_segment_tpu_torch.sim.textures import \
+        generate_photo_pack
+
+    h, w = DG_SIZE
+    pack = generate_photo_pack(os.path.join(tmp, "pack"), seed=9)
+    cases = (("loop_dyn_duckiebots", None), ("zigzag", None),
+             ("zigzag", pack))
+    for k, (name, tex) in enumerate(cases):
+        m = builtin_map(name)
+        pos, ang = _dg_poses(m, lanes.build_lane_arrays(m), DG_CHECK_POSES,
+                             SEED + 70 + k)
+        g = torch.Generator().manual_seed(SEED + 80 + k)
+        dr = render.DRParams.sample(g, DG_CHECK_POSES)
+        noise = torch.randn((DG_CHECK_POSES, h, w, 3), generator=g)
+        kw = dict(height=h, width=w, distortion=True,
+                  procedural=tex is None)
+        cpu = render.render_pair(render.build_scene(m, 9, texture_pack=tex),
+                                 pos, ang, dr, noise, **kw)
+        scene = render.build_scene(m, 9, texture_pack=tex, device=device)
+        gpu = render.render_pair(scene, pos.to(device), ang.to(device),
+                                 render.DRParams(*(f.to(device) for f in dr)),
+                                 noise.to(device), **kw)
+        for label, a, b in zip(("orig", "annot"), gpu, cpu):
+            eq, near = _agreement(a, b)
+            print(f"  render {name}{' (photo pack)' if tex else ''} {label} "
+                  f"x{DG_CHECK_POSES} {h}x{w}: card vs CPU {eq:.6f} of "
+                  f"values equal, {near:.6f} within one level  [{card}]")
+            check(eq >= DG_RENDER_EQUAL and near >= DG_RENDER_NEAR,
+                  f"render {name} {label}: card vs CPU {eq}, {near}")
+        if tex is not None:
+            continue   # bilinear texels mix colours along painted edges
+        o, a = render.render_pair(scene, pos.to(device), ang.to(device),
+                                  render.DRParams.default(DG_CHECK_POSES,
+                                                          device), None, **kw)
+        diff = (o != a).any(-1)
+        marked = (a == 0).sum(-1) >= 2
+        stray = int((diff & ~marked).sum())
+        print(f"  pairs {name}: {int(diff.sum())} pixels differ between orig "
+              f"and annot, {stray} of them off the lanes and obstacles")
+        check(bool(diff.any()) and stray == 0,
+              f"render {name}: orig and annot misaligned ({stray} pixels)")
+
+
+def render_timing(device, card) -> dict:
+    """Phase 21d (renderer): rendered pairs/s of ``expert_rollout`` at
+    480x640, B=2 agents x 32 steps a call (datagen's batch), and the split
+    of its device time by subtraction: the scene with neither cylinders nor
+    meshes (ground and sky), with cylinders only, and whole (CUDA events,
+    medians of DG_TIMED calls)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.sim import lanes, render, rollout
+    from sim2real_lane_segment_tpu_torch.sim.maps import builtin_map
+    from sim2real_lane_segment_tpu_torch.sim.objmesh import MeshSet
+
+    m = builtin_map("loop_dyn_duckiebots")
+    la = lanes.build_lane_arrays(m, device)
+    full = render.build_scene(m, 0, device=device)
+    inert = full.objects[:1].clone()
+    inert[0] = torch.tensor([1e9, 1e9] + [0.0] * 10)
+    scenes = {"ground": full._replace(objects=inert,
+                                      meshes=MeshSet.empty(device)),
+              "cylinders": full._replace(meshes=MeshSet.empty(device)),
+              "whole": full}
+    pos, ang = rollout.sample_spawns(m, la, np.random.default_rng(SEED),
+                                     2, device)
+    h, w = DG_SIZE
+    ms = {}
+    for name, scene in scenes.items():
+        g = torch.Generator(device=device).manual_seed(SEED)
+
+        def call():
+            rollout.expert_rollout(scene, la, g, pos, ang,
+                                   tile_size=m.tile_size, n_steps=32,
+                                   height=h, width=w, distortion=True)
+        ms[name] = float(np.median([_time_ms(call, reps=1)
+                                    for _ in range(DG_TIMED)]))
+    pairs = 64
+    split = {"ground": ms["ground"],
+             "cylinders": ms["cylinders"] - ms["ground"],
+             "meshes": ms["whole"] - ms["cylinders"]}
+    print(f"timing: expert_rollout 2 agents x 32 steps at {h}x{w} "
+          f"(loop_dyn_duckiebots, {full.meshes.num_triangles} triangles, "
+          f"{full.objects.shape[0]} objects): {ms['whole']:.1f} ms a call, "
+          f"{pairs / ms['whole'] * 1e3:.1f} pairs/s; by subtraction ground "
+          f"{split['ground']:.1f} ms, cylinders {split['cylinders']:.1f} ms, "
+          f"meshes {split['meshes']:.1f} ms  [{card}]")
+    return {"pairs_per_s": pairs / ms["whole"] * 1e3, **split}
+
+
+def png_decode_timing(card) -> None:
+    """Phase 21d (video I/O, host): ms per 480x640 frame to encode a PNG at
+    the videos' zlib level and to decode one under Sub (the port's writer)
+    and under Paeth (libpng's adaptive filters pick it often), on this
+    machine's CPU."""
+    from sim2real_lane_segment_tpu_torch.data import png, videoio
+
+    img = frames_480(np.random.default_rng(SEED + 90), 1)[0]
+    data = {f: png.encode_png(img, f, level=videoio.ZLIB_LEVEL)
+            for f in (1, 4)}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        png.encode_png(img, 1, level=videoio.ZLIB_LEVEL)
+    enc = (time.perf_counter() - t0) / 3 * 1e3
+    dec = {}
+    for f, d in data.items():
+        t0 = time.perf_counter()
+        out = png.decode_png(d)
+        dec[f] = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(out, img), f"PNG filter {f} round trip")
+    print(f"timing (host): PNG 480x640 encode {enc:.1f} ms (Sub, zlib "
+          f"{videoio.ZLIB_LEVEL}); decode Sub {dec[1]:.1f} ms, Paeth "
+          f"{dec[4]:.1f} ms a frame  [{card}]")
+
+
+def datagen_chain(device, card, tmp) -> dict:
+    """Phase 21b: ``cli.datagen`` (2 episodes x 64 steps x 2 agents, chunks
+    of 32, fisheye: 256 pairs at 480x640), ``cli.postprocess`` with K5's
+    count set to 0 just before and read just after (one launch a batch of
+    at most 32 pairs of a recording, by the wrapper's count and by
+    torch.profiler; every batch's masks against the plain version on the
+    card), ``cli.preprocess_db --dbType sim``, then one epoch of
+    ``cli.train --trainType sim --arch 67 --pallas_train -b 32`` on the
+    rendered tree (phase 15's launch checks).  Returns the launch counts
+    and times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sim2real_lane_segment_tpu_torch.cli import (datagen, postprocess,
+                                                     preprocess_db)
+    from sim2real_lane_segment_tpu_torch.data import videoio
+    from sim2real_lane_segment_tpu_torch.kernels import labelgen as klg
+    from sim2real_lane_segment_tpu_torch.ops import labelgen as olg
+
+    rec, data = os.path.join(tmp, "recordings"), os.path.join(tmp, "simData")
+    stats = datagen.run(DG_ARGS + ["--output_dir", rec])
+    check(stats.n_frames == DG_PAIRS, f"datagen wrote {stats.n_frames}")
+    avis = sorted(os.listdir(rec))
+    check(len(avis) == 2 * DG_RECORDINGS
+          and all(videoio.frame_count(os.path.join(rec, a)) == 64
+                  for a in avis), f"recordings {avis}")
+    print(f"datagen: {stats.n_frames} pairs at {DG_SIZE[0]}x{DG_SIZE[1]} in "
+          f"{stats.seconds:.1f} s ({stats.n_frames / stats.seconds:.1f} "
+          f"pairs/s): rendering {stats.render_seconds:.1f} s, encoding "
+          f"{stats.encode_seconds:.1f} s of writer-thread time (4 threads); "
+          f"{sum(os.path.getsize(os.path.join(rec, a)) for a in avis) / 1e6:.0f}"
+          f" MB of video  [{card}]", flush=True)
+
+    batches, diffs = [], []
+    real = olg.process_classes_batch
+
+    def held(orig, annot, *a):
+        out = real(orig, annot, *a)
+        batches.append(orig.shape[0])
+        diffs.append(int((out != klg.process_classes_plain(
+            orig, annot, *a)).sum()))
+        return out
+
+    klg.reset_launches()
+    with mock.patch.object(olg, "process_classes_batch", held), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        done = postprocess.main(["-id", rec, "-od", data])
+        torch.cuda.synchronize()
+        post_s = time.perf_counter() - t0
+    launches = klg.launches["labelgen"]
+    rows = [(e.count, getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)) / 1e3)
+            for e in prof.key_averages() if "labelgen_kernel" in e.key
+            and e.device_type != torch.autograd.DeviceType.CPU]
+    prof_launches = sum(r[0] for r in rows)
+    k5_ms = sum(r[1] for r in rows)
+    expect = DG_RECORDINGS * -(-64 // DG_LABEL_BATCH)
+    print(f"postprocess: {done} recordings, {sum(batches)} pairs in "
+          f"{post_s:.1f} s under the profiler ({sum(batches) / post_s:.1f} "
+          f"frames/s); K5 launches {launches} (profiler {prof_launches}, "
+          f"expected {expect}), {k5_ms:.2f} ms of K5 device time "
+          f"({k5_ms / max(prof_launches, 1):.3f} ms a batch); masks against "
+          f"plain: {sum(diffs)} pixels differ  [{card}]", flush=True)
+    check(done == DG_RECORDINGS and sum(batches) == DG_PAIRS,
+          f"postprocess: {done} recordings, {sum(batches)} pairs")
+    check(launches == expect == prof_launches == len(batches),
+          f"K5 launches {launches}, profiler {prof_launches}")
+    check(max(batches) <= DG_LABEL_BATCH and sum(diffs) == 0,
+          f"postprocess masks differ from plain: {diffs}")
+
+    t0 = time.perf_counter()
+    postprocess.main(["-id", rec, "-od", os.path.join(tmp, "again")])
+    torch.cuda.synchronize()
+    post_plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preprocess_db.main(["--dbType", "sim", "--dataPath", data])
+    prep_s = time.perf_counter() - t0
+    sizes = tuple(len(os.listdir(os.path.join(data, s, "input")))
+                  for s in ("train", "valid", "test"))
+    print(f"postprocess (no profiler): {post_plain_s:.1f} s, "
+          f"{DG_PAIRS / post_plain_s:.1f} frames/s; preprocess_db: "
+          f"{prep_s:.1f} s for {DG_PAIRS} pairs, splits {sizes}  [{card}]",
+          flush=True)
+    check(sizes == DG_SPLITS, f"preprocess_db splits {sizes}")
+
+    argv = ["--trainType", "sim", "--dataPath", data, "--arch", ARCH,
+            "--pallas_train", "--max_epochs", "1", "-b", str(TRAIN_BATCH),
+            "--default_root_dir", os.path.join(tmp, "train"), "--log_every",
+            "1", "--seed", str(SEED)]
+    _, train_launches, _ = train_cli_checked(
+        "train (rendered tree)", argv, 1, DG_SPLITS[0], card)
+    return {"k5_launches": launches, "train_launches": train_launches,
+            "datagen": stats, "postprocess_s": post_plain_s,
+            "k5_device_ms": k5_ms, "preprocess_s": prep_s}
+
+
+def study_render_phase(card, tmp) -> None:
+    """Phase 21c: ``cli.domain_study`` in empty workdirs renders both
+    domains (1 episode of 24 steps each) and trains ``baseline`` one epoch;
+    once procedural, once with ``--target_texture_pack auto``."""
+    from sim2real_lane_segment_tpu_torch.cli import domain_study
+
+    for label, extra in (("procedural", []),
+                         ("photo pack", ["--target_texture_pack", "auto"])):
+        work = os.path.join(tmp, f"study_{len(extra)}")
+        t0 = time.perf_counter()
+        res = domain_study.main(["--workdir", work, *DG_STUDY_ARGS, *extra])
+        wall = time.perf_counter() - t0
+        sizes = {d: tuple(len(os.listdir(os.path.join(work, d, s, "input")))
+                          for s in ("train", "valid", "test"))
+                 for d in ("sourceData", "targetData")}
+        print(f"study render ({label}): both domains rendered {sizes}, "
+              f"baseline iou {res['baseline']['iou']:.4f}, in {wall:.1f} s"
+              f"  [{card}]", flush=True)
+        check(all(v == (17, 3, 4) for v in sizes.values()),
+              f"study trees {sizes}")
+        check(list(res) == ["baseline"] and all(
+            np.isfinite(v) for v in res["baseline"].values()),
+            f"study rows {res}")
+        if extra:
+            check(os.path.isdir(os.path.join(work, "photo_pack")),
+                  "no photo pack was generated")
+
+
+def datagen_phase(device, card) -> dict:
+    """Phase 21: data generation on the card, each part's seconds
+    printed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        render_check(device, card, tmp)
+        print(f"datagen: 21a in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out = datagen_chain(device, card, tmp)
+        print(f"datagen: 21b in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        study_render_phase(card, tmp)
+        print(f"datagen: 21c in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out["render"] = render_timing(device, card)
+        png_decode_timing(card)
+        print(f"datagen: 21d in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -3942,6 +4271,17 @@ def main() -> None:
     # phase 20: the trainer's surface
     surface_phase(sd, device, card)
     lap(20)
+
+    # phase 21: data generation, datagen -> postprocess (K5) ->
+    # preprocess_db -> train, and the study's render
+    dg = datagen_phase(device, card)
+    for k in kernels:
+        if k["name"] == "k5_labelgen":
+            k["launches_datagen"] = dg["k5_launches"]
+        for wrapper, (name, _) in TRAIN_KERNELS.items():
+            if k["name"] == name:
+                k["launches_datagen"] = dg["train_launches"][wrapper]
+    lap(21)
     print(f"phases: seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} in all  [{card}]", flush=True)
 

@@ -24,12 +24,15 @@ sees the unlabelled target frames) for ``--distill_epochs`` (default
         --workdir domain_study --arch 67 --epochs 40
 
 The study reads ``sourceData/{train,valid,test}`` and
-``targetData/{train,valid,test}`` under ``--workdir``.  Rendering them
-through the simulator is not ported yet: when a tree is absent the study
-raises and says how to write it with the JAX package (the generation ->
-training contract is the file system).  The render flags (``--episodes``,
-``--steps``, the maps, ``--target_texture_pack``, ``--target_noise``)
-are accepted for that reason and otherwise unused.
+``targetData/{train,valid,test}`` under ``--workdir`` and renders a tree
+that is absent, as the JAX study does: ``--episodes`` expert rollouts of
+``--steps`` steps (fisheye on) of ``--source-map`` (seed 0) and
+``--target-map`` (seed 9) through ``cli.datagen``'s rollouts,
+``cli.postprocess`` and ``cli.preprocess_db``.  The target then takes a
+white-balance shift, or with ``--target_texture_pack`` (a pack directory,
+or ``auto`` for ``sim.textures.generate_photo_pack``) the photographic
+tiles instead, and ``--target_noise`` sensor noise (numpy's draws, the
+JAX study's).
 
 Resume, as the JAX study: regimes already in ``study_summary.json`` are
 skipped, a regime whose ``results/<name>/best_weights.pt`` exists is
@@ -58,20 +61,76 @@ from . import common
 
 log = logging.getLogger(__name__)
 
+# (width, height) of the rendered domains: the reference's recordings
+RECORD_SIZE = (640, 480)
 
-def _record_domain(out_dir: str) -> None:
-    """The domain tree ``out_dir`` must exist: rendering is not ported."""
+
+def _record_domain(out_dir: str, map_name: str, *, seed: int, episodes: int,
+                   steps: int, distortion: bool, color_shift=None,
+                   texture_pack=None, noise_sigma=None,
+                   device=None) -> None:
+    """Render one domain's tree ``out_dir/{train,valid,test}`` unless it is
+    there: ``episodes`` expert rollouts of ``steps`` steps (in chunks of
+    24, as the JAX study) on ``map_name`` at ``RECORD_SIZE``, through
+    ``postprocess`` and ``preprocess_db``; then a colour shift ``(scale,
+    shift)`` and numpy sensor noise of ``noise_sigma``
+    (``default_rng(seed + 77)``, the JAX study's draws) over every input
+    PNG."""
+    import numpy as np
+    import torch
+
+    from ..data.png import read_png, write_png
+    from ..data.videoio import AsyncVideoWriter
+    from ..sim import lanes, render, rollout
+    from ..sim.maps import builtin_map
+    from . import postprocess, preprocess_db
+
     if os.path.exists(os.path.join(out_dir, "train")):
         log.info("%s cached", out_dir)
         return
-    raise NotImplementedError(
-        f"{os.path.abspath(out_dir)}/train is absent, and rendering a "
-        f"domain through the simulator is not yet ported to PyTorch. "
-        f"Write sourceData/ and targetData/ (train, valid, test splits of "
-        f"input/ and label/ PNGs) with the JAX package, then rerun here: "
-        f"its domain_study renders both trees into its --workdir before "
-        f"training, or render with its datagen, postprocess and "
-        f"preprocess_db CLIs.")
+    m = builtin_map(map_name)
+    scene = render.build_scene(m, seed=seed, texture_pack=texture_pack,
+                               device=device)
+    la = lanes.build_lane_arrays(m, device)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rec = out_dir + "_rec"
+    os.makedirs(rec, exist_ok=True)
+    for seq in range(episodes):
+        pos, angle = rollout.sample_spawns(m, la, rng, 1, device)
+        with AsyncVideoWriter(f"{rec}/{seq:03d}_orig.avi",
+                              frame_size=RECORD_SIZE) as wo, \
+                AsyncVideoWriter(f"{rec}/{seq:03d}_annot.avi",
+                                 frame_size=RECORD_SIZE) as wa:
+            done = 0
+            while done < steps:
+                batch = rollout.expert_rollout(
+                    scene, la, gen, pos, angle, tile_size=m.tile_size,
+                    n_steps=24, height=RECORD_SIZE[1],
+                    width=RECORD_SIZE[0], distortion=distortion,
+                    procedural=texture_pack is None)
+                wo.write(batch.orig[:, 0].cpu().numpy()[..., ::-1])
+                wa.write(batch.annot[:, 0].cpu().numpy()[..., ::-1])
+                pos, angle = batch.pos[-1], batch.angle[-1]
+                done += 24
+        log.info("%s: episode %d rendered", map_name, seq)
+    raw = out_dir + "_raw"
+    postprocess.main(["-id", rec, "-od", raw], device=device)
+    preprocess_db.main(["--dbType", "sim", "--dataPath", raw], device=device)
+    if color_shift is not None or noise_sigma:
+        png_rng = np.random.default_rng(seed + 77)
+        for split in ("train", "valid", "test"):
+            for p in sorted(glob.glob(f"{raw}/{split}/input/*.png")):
+                img = read_png(p).astype(np.float32)
+                if color_shift is not None:
+                    scale, shift = color_shift
+                    img = img * np.asarray(scale) + shift
+                if noise_sigma:
+                    # per-frame sensor noise (shot/read noise proxy): the
+                    # real camera's grain the sim lacks
+                    img = img + png_rng.normal(0.0, noise_sigma, img.shape)
+                write_png(p, np.clip(img, 0, 255).astype(np.uint8))
+    os.rename(raw, out_dir)
 
 
 def _build_tree(root: str, src: str, tgt: str, n_labelled: int,
@@ -115,22 +174,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--workdir", default="domain_study")
     p.add_argument("--epochs", type=int, default=40)
     p.add_argument("--episodes", type=int, default=3,
-                   help="rendering (not ported): episodes per domain")
+                   help="rendered episodes per domain")
     p.add_argument("--steps", type=int, default=144,
-                   help="rendering (not ported): steps per episode")
+                   help="steps per rendered episode")
     p.add_argument("--n_labelled", type=int, default=32)
     p.add_argument("--lr", type=float, default=5e-4)
     p.add_argument("--arch", default="lite",
                    choices=["67", "67r", "57", "103", "tiny", "lite",
                             "encdec"])
-    p.add_argument("--source-map", default="loop_empty",
-                   help="rendering (not ported)")
-    p.add_argument("--target-map", default="zigzag",
-                   help="rendering (not ported)")
+    p.add_argument("--source-map", default="loop_empty")
+    p.add_argument("--target-map", default="zigzag")
     p.add_argument("--target_texture_pack", default=None,
-                   help="rendering (not ported)")
+                   help="render the TARGET domain through a photographic "
+                        "texture pack instead of the procedural shader: a "
+                        "pack directory, or 'auto' to generate one "
+                        "(sim/textures.generate_photo_pack), the closest "
+                        "in-environment proxy for the real camera domain")
     p.add_argument("--target_noise", type=float, default=0.0,
-                   help="rendering (not ported)")
+                   help="gaussian sensor-noise sigma added to target "
+                        "input frames (real-camera grain proxy)")
     p.add_argument("--regimes", nargs="+",
                    default=["baseline", "st", "hm", "cyclegan", "mme"])
     p.add_argument("--batch_size", "-b", type=int, default=32,
@@ -180,8 +242,23 @@ def main(args=None, device=None) -> dict:
     cwd = os.getcwd()
     os.chdir(args.workdir)
     try:
-        _record_domain("sourceData")
-        _record_domain("targetData")
+        _record_domain("sourceData", args.source_map, seed=0,
+                       episodes=args.episodes, steps=args.steps,
+                       distortion=True, device=device)
+        pack = args.target_texture_pack
+        if pack == "auto":
+            from ..sim.textures import generate_photo_pack
+            pack = generate_photo_pack("photo_pack", seed=9)
+        _record_domain("targetData", args.target_map, seed=9,
+                       episodes=args.episodes, steps=args.steps,
+                       distortion=True, texture_pack=pack,
+                       noise_sigma=args.target_noise,
+                       # the colour shift models a camera white-balance
+                       # offset; with a texture pack the appearance shift
+                       # comes from the photographic tiles themselves
+                       color_shift=(None if pack else
+                                    ((1.05, 0.85, 0.7), -12)),
+                       device=device)
 
         def trainer(cls, seed: int):
             with torch.random.fork_rng(devices=[]):

@@ -9,7 +9,8 @@ takes the same.  A gray file read as colour is replicated to three
 channels (cv2's ``IMREAD_COLOR``); other formats (palette, alpha, 16-bit,
 interlaced, and a colour file read as gray) raise ``ValueError``.
 
-Filters 1 (Sub) and 2 (Up) decode as whole-row numpy operations; 3
+Filters 1 (Sub) and 2 (Up) decode as whole-row numpy operations (an
+image whose rows all take one of them, or none, as one operation); 3
 (Average) and 4 (Paeth) depend on the decoded byte to their left and
 decode byte by byte, which is slower.  ``write_png`` uses Sub unless told
 otherwise.
@@ -95,11 +96,20 @@ def decode_png(data: bytes) -> np.ndarray:
     if raw.size != h * (stride + 1):
         raise ValueError("PNG image data has the wrong size")
     rows = raw.reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev,
-                                      bpp)
+    filters = np.unique(rows[:, 0])
+    if len(filters) == 1 and filters[0] in (0, 1, 2):
+        # one whole-image operation: Sub sums along rows, Up down columns
+        out = rows[:, 1:].copy()
+        if filters[0] == 1:
+            out = np.cumsum(out.reshape(h, w, bpp), axis=1, dtype=np.uint8)
+        elif filters[0] == 2:
+            out = np.cumsum(out, axis=0, dtype=np.uint8)
+    else:
+        out = np.empty((h, stride), np.uint8)
+        prev = np.zeros(stride, np.uint8)
+        for y in range(h):
+            prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:],
+                                          prev, bpp)
     return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, 3)
 
 
@@ -145,9 +155,10 @@ def _filter_rows(img: np.ndarray, f: int, bpp: int) -> np.ndarray:
     return ((x - pred) & 0xFF).astype(np.uint8)
 
 
-def encode_png(img: np.ndarray, filter_type: int = 1) -> bytes:
+def encode_png(img: np.ndarray, filter_type: int = 1,
+               level: int = 6) -> bytes:
     """(H, W) gray or (H, W, 3) RGB uint8 -> PNG bytes, every row under
-    ``filter_type``."""
+    ``filter_type``, deflated at zlib ``level``."""
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim == 2:
         ctype, bpp = 0, 1
@@ -166,17 +177,18 @@ def encode_png(img: np.ndarray, filter_type: int = 1) -> bytes:
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
     return (SIGNATURE + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
             + chunk(b"IEND", b""))
 
 
-def write_png(path: str, img: np.ndarray, filter_type: int = 1) -> None:
-    """cv2.imwrite for (H, W) gray or (H, W, 3) BGR uint8, written
-    atomically (a temporary file, then a rename)."""
+def write_png(path: str, img: np.ndarray, filter_type: int = 1,
+              level: int = 6) -> None:
+    """cv2.imwrite for (H, W) gray or (H, W, 3) BGR uint8, deflated at zlib
+    ``level``, written atomically (a temporary file, then a rename)."""
     img = np.asarray(img)
     if img.ndim == 3:
         img = img[..., ::-1]
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
-        f.write(encode_png(img, filter_type))
+        f.write(encode_png(img, filter_type, level))
     os.replace(tmp, path)

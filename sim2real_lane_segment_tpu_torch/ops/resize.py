@@ -228,3 +228,233 @@ def resize_lanczos4_u8(img: torch.Tensor, height: int,
     frame's own size the taps are one 2048 each way, so the frame comes
     back unchanged, as cv2 copies it."""
     return _resample_u8(img, height, width, "lanczos4")
+
+
+# ---------------------------------------------------------------------------
+# cv2 INTER_LINEAR, INTER_AREA and INTER_NEAREST on uint8, INTER_CUBIC on
+# float32, and COLOR_BGR2GRAY: the host-side image ops of the data tools
+# ---------------------------------------------------------------------------
+
+# lanes of OpenCV's 128-bit baseline SIMD for float32
+_F32_LANES = 4
+# COLOR_BGR2GRAY: 15-bit fixed-point coefficients of B, G, R
+_GRAY_COEFS = (3735, 19235, 9798)
+_GRAY_SHIFT = 15
+
+
+def _as_hwc(img: torch.Tensor):
+    """(..., H, W, C), or one (H, W) gray image -> ((N, H, W, C) view, a
+    function restoring the caller's shape at the new H, W).  A batch of
+    gray images takes a channel dim of 1."""
+    gray = img.dim() == 2
+    x = img[..., None] if gray else img
+    *lead, h, w, c = x.shape
+
+    def back(y):
+        y = y.reshape(*lead, y.shape[1], y.shape[2], c)
+        return y[..., 0] if gray else y
+    return x.reshape(-1, h, w, c), back
+
+
+@functools.cache
+def _linear_taps(src: int, dst: int, clamp: bool, area: bool):
+    """Source indices and int16 coefficients, [dst, 2] each, of OpenCV's
+    linear ``resizeGeneric_`` along one axis (``clamp``: the x axis, whose
+    border taps collapse to one source pixel; ``area``: the coefficients
+    INTER_AREA uses when it enlarges)."""
+    scale = src / dst
+    d = np.arange(dst)
+    if area:
+        s = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (s + 1) * (dst / src)).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    else:
+        f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        s = np.floor(f).astype(np.int64)
+        f = (f - s).astype(np.float32)
+    if clamp:
+        lo = s < 0
+        f, s = np.where(lo, np.float32(0), f), np.where(lo, 0, s)
+        hi = s >= src - 1
+        f, s = np.where(hi, np.float32(0), f), np.where(hi, src - 1, s)
+    c = np.stack([np.float32(1) - f, f], 1)
+    coef = np.rint(c * np.float32(_COEF_SCALE)).astype(np.int64)
+    idx = np.clip(s[:, None] + np.arange(2)[None], 0, src - 1)
+    return idx, coef
+
+
+def _linear_u8(img: torch.Tensor, height: int, width: int,
+               area: bool) -> torch.Tensor:
+    if img.dtype != torch.uint8:
+        raise TypeError(f"expected uint8 frames, got {img.dtype}")
+    x, back = _as_hwc(img)
+    _, h, w, _ = x.shape
+    dev = img.device
+    ix, cx = (torch.from_numpy(a).to(dev)
+              for a in _linear_taps(w, width, True, area))
+    iy, cy = (torch.from_numpy(a).to(dev)
+              for a in _linear_taps(h, height, False, area))
+    x = x.to(torch.int64)
+    hor = (x[:, :, ix[:, 0]] * cx[:, 0, None]
+           + x[:, :, ix[:, 1]] * cx[:, 1, None])
+    # OpenCV's VResizeLinearVec_32s8u, which every column takes: the rows
+    # shifted right by 4, multiplied keeping the high 16 bits, rounded by 2
+    s0 = ((hor[:, iy[:, 0]] >> 4) * cy[:, 0, None, None]) >> 16
+    s1 = ((hor[:, iy[:, 1]] >> 4) * cy[:, 1, None, None]) >> 16
+    out = ((s0 + s1 + 2) >> 2).clamp(0, 255)
+    return back(out.to(torch.uint8))
+
+
+def resize_linear_u8(img: torch.Tensor, height: int,
+                     width: int) -> torch.Tensor:
+    """``cv2.resize(img, (width, height))`` (INTER_LINEAR) for uint8
+    (..., H, W, C) (or (H, W)) with OpenCV's fixed point: 11-bit
+    coefficients (x clamped at the border, y rows clipped), the horizontal
+    pass in integers, the vertical pass as its SIMD kernel computes it.  A
+    halving of both sides is cv2's INTER_AREA, which the same sums give."""
+    return _linear_u8(img, height, width, False)
+
+
+@functools.cache
+def _area_taps(src: int, dst: int):
+    """OpenCV's ``computeResizeAreaTab``: [dst, k] source indices and
+    float32 weights (0 past a cell's last tap)."""
+    scale = src / dst
+    rows = []
+    for d in range(dst):
+        fs1 = d * scale
+        fs2 = fs1 + scale
+        cell = min(scale, src - fs1)
+        s1, s2 = math.ceil(fs1), math.floor(fs2)
+        s2 = min(s2, src - 1)
+        s1 = min(s1, s2)
+        taps = []
+        if s1 - fs1 > 1e-3:
+            taps.append((s1 - 1, np.float32((s1 - fs1) / cell)))
+        taps += [(s, np.float32(1.0 / cell)) for s in range(s1, s2)]
+        if fs2 - s2 > 1e-3:
+            taps.append((s2, np.float32(min(min(fs2 - s2, 1.0), cell)
+                                        / cell)))
+        rows.append(taps)
+    k = max(len(t) for t in rows)
+    idx = np.zeros((dst, k), np.int64)
+    alpha = np.zeros((dst, k), np.float32)
+    for d, taps in enumerate(rows):
+        for j, (s, a) in enumerate(taps):
+            idx[d, j], alpha[d, j] = s, a
+    return idx, alpha
+
+
+def resize_area_u8(img: torch.Tensor, height: int,
+                   width: int) -> torch.Tensor:
+    """``cv2.resize(img, (width, height), interpolation=INTER_AREA)`` for
+    uint8 (..., H, W, C) (or (H, W)).
+
+    OpenCV's three routes: integer shrink factors average each cell (a
+    halving rounds half up as its SIMD kernel does, other factors round
+    the float32 mean half to even); other shrinks weight the cells'
+    pixels in float32 (``computeResizeAreaTab``), summed row by row in
+    table order; an enlargement is its linear route with INTER_AREA's
+    coefficients.  A frame at its own size comes back unchanged."""
+    if img.dtype != torch.uint8:
+        raise TypeError(f"expected uint8 frames, got {img.dtype}")
+    x, back = _as_hwc(img)
+    _, h, w, _ = x.shape
+    if (h, w) == (height, width):
+        return img.clone()
+    if height > h or width > w:
+        return _linear_u8(img, height, width, True)
+    sx, sy = w / width, h / height
+    if sx == int(sx) and sy == int(sy):
+        sx, sy = int(sx), int(sy)
+        cells = x.to(torch.int64)[:, :height * sy, :width * sx].reshape(
+            x.shape[0], height, sy, width, sx, x.shape[3]).sum((2, 4))
+        if (sx, sy) == (2, 2):
+            out = (cells + 2) >> 2
+        else:
+            out = torch.round(cells.to(torch.float32)
+                              * np.float32(1.0 / (sx * sy)))
+        return back(out.clamp(0, 255).to(torch.uint8))
+    dev = img.device
+    ix, ax = (torch.from_numpy(a).to(dev) for a in _area_taps(w, width))
+    iy, ay = (torch.from_numpy(a).to(dev) for a in _area_taps(h, height))
+    xf = x.to(torch.float32)
+    buf = torch.zeros(x.shape[0], h, width, x.shape[3], device=dev)
+    for j in range(ix.shape[1]):
+        buf = buf + xf[:, :, ix[:, j]] * ax[:, j, None]
+    acc = buf[:, iy[:, 0]] * ay[:, 0, None, None]
+    for j in range(1, iy.shape[1]):
+        acc = acc + buf[:, iy[:, j]] * ay[:, j, None, None]
+    return back(torch.round(acc).clamp(0, 255).to(torch.uint8))
+
+
+def resize_nearest_u8(img: torch.Tensor, height: int,
+                      width: int) -> torch.Tensor:
+    """``cv2.resize(img, (width, height), interpolation=INTER_NEAREST)``
+    for (..., H, W, C) (or (H, W)): source index ``floor(d * src/dst)`` in
+    float64, as OpenCV's ``resizeNN`` computes it."""
+    x, back = _as_hwc(img)
+    _, h, w, _ = x.shape
+    dev = img.device
+    sx = np.minimum(np.floor(np.arange(width) * (1.0 / (width / w))),
+                    w - 1).astype(np.int64)
+    sy = np.minimum(np.floor(np.arange(height) * (1.0 / (height / h))),
+                    h - 1).astype(np.int64)
+    out = x[:, torch.from_numpy(sy).to(dev)][:, :, torch.from_numpy(sx)
+                                             .to(dev)]
+    return back(out)
+
+
+def resize_cubic_f32(img: torch.Tensor, height: int,
+                     width: int) -> torch.Tensor:
+    """``cv2.resize(img, (width, height), interpolation=INTER_CUBIC)`` for
+    float32 (..., H, W, C) (or (H, W)) with OpenCV's own float arithmetic:
+    float32 coefficients, the horizontal taps summed first to last, the vertical
+    ones last to first over the first multiple of 4 values of a row (its
+    SIMD kernel) and first to last over the rest.  cv2 with IPP enabled
+    hands some calls to IPP, which sums otherwise (a few ulp)."""
+    if img.dtype != torch.float32:
+        raise TypeError(f"expected float32 images, got {img.dtype}")
+    x, back = _as_hwc(img)
+    _, h, w, c = x.shape
+    dev = img.device
+
+    def taps(src, dst):
+        scale = 1.0 / (dst / src)
+        f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+        s = np.floor(f)
+        coef = _cubic_coeffs((f - s).astype(np.float32))
+        idx = np.clip(s.astype(np.int64)[:, None] - 1 + np.arange(4)[None],
+                      0, src - 1)
+        return torch.from_numpy(idx).to(dev), torch.from_numpy(coef).to(dev)
+
+    ix, cx = taps(w, width)
+    iy, cy = taps(h, height)
+    hor = x[:, :, ix[:, 0]] * cx[:, 0, None]
+    for k in (1, 2, 3):
+        hor = hor + x[:, :, ix[:, k]] * cx[:, k, None]
+    rows = [hor[:, iy[:, k]] for k in range(4)]
+    beta = [cy[:, k, None, None] for k in range(4)]
+    rev = rows[3] * beta[3]
+    for k in (2, 1, 0):
+        rev = rows[k] * beta[k] + rev
+    fwd = rows[0] * beta[0]
+    for k in (1, 2, 3):
+        fwd = fwd + rows[k] * beta[k]
+    n = width * c
+    lanes = (torch.arange(n, device=dev)
+             < n - n % _F32_LANES).reshape(width, c)
+    return back(torch.where(lanes, rev, fwd))
+
+
+def bgr_to_gray_u8(img: torch.Tensor) -> torch.Tensor:
+    """``cv2.cvtColor(img, COLOR_BGR2GRAY)`` for uint8 (..., H, W, 3):
+    OpenCV's 15-bit fixed point, ``(3735 B + 19235 G + 9798 R + 2^14) >>
+    15``."""
+    if img.dtype != torch.uint8 or img.shape[-1] != 3:
+        raise TypeError(f"expected uint8 (..., 3) BGR frames, got "
+                        f"{img.dtype} {tuple(img.shape)}")
+    x = img.to(torch.int32)
+    b, g, r = _GRAY_COEFS
+    return ((x[..., 0] * b + x[..., 1] * g + x[..., 2] * r
+             + (1 << (_GRAY_SHIFT - 1))) >> _GRAY_SHIFT).to(torch.uint8)

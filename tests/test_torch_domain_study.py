@@ -140,9 +140,12 @@ def test_device_cache_reaches_the_data_modules(workdir, monkeypatch):
 
 
 def test_missing_trees_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        domain_study.main(["--workdir", str(tmp_path), "--arch", "tiny"],
-                          device="cpu")
+    """A missing tree is rendered now; rendering zero episodes leaves no
+    frame to split, which raises as the JAX study's asserts do."""
+    with pytest.raises(ValueError, match="too few data"):
+        domain_study.main(["--workdir", str(tmp_path), "--arch", "tiny",
+                           "--episodes", "0"], device="cpu")
+    assert (tmp_path / "sourceData_rec").is_dir()
 
 
 def test_entry_points_need_a_card_unless_cpu(workdir, monkeypatch):

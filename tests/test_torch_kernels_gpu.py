@@ -21,8 +21,9 @@ groups, the classifier's 64-pixel block tiles, 16-pixel warp slices and
 multiple of 16), K5's 32-row strips and 32-pixel words (images smaller
 than the halo, and frames wider than one 32-word column tile).  Also the
 paths that put the kernels to new use: the distillation teacher through
-K4, and LaneNetLite's train step on the card against the CPU and as a
-graph replay against the eager step.
+K4, LaneNetLite's train step on the card against the CPU and as a graph
+replay against the eager step, K5 under ``cli.postprocess``, and the
+renderer on the card against the CPU.
 """
 import ctypes
 
@@ -1092,3 +1093,59 @@ def test_graphed_lite_steps_equal_eager_steps(cuda, regime):
     for (k, a), b in zip(graphed.model.state_dict().items(),
                          eager.model.state_dict().values()):
         assert torch.equal(a, b), k
+
+
+@pytest.mark.gpu
+def test_render_on_the_card_matches_the_cpu(cuda):
+    """``sim.render.render_pair`` at 120x160 (loop_dyn_duckiebots, the
+    fisheye, DR and noise drawn on the CPU) on the card against the CPU,
+    at the CPU tests' agreement bounds."""
+    from sim2real_lane_segment_tpu_torch.sim import lanes, render, rollout
+    from sim2real_lane_segment_tpu_torch.sim.maps import builtin_map
+
+    m = builtin_map("loop_dyn_duckiebots")
+    pos, ang = rollout.sample_spawns(m, lanes.build_lane_arrays(m),
+                                     np.random.default_rng(0), 3)
+    g = torch.Generator().manual_seed(0)
+    dr = render.DRParams.sample(g, 3)
+    noise = torch.randn((3, 120, 160, 3), generator=g)
+    kw = dict(height=120, width=160, distortion=True)
+    cpu = render.render_pair(render.build_scene(m, 0), pos, ang, dr, noise,
+                             **kw)
+    gpu = render.render_pair(render.build_scene(m, 0, device=cuda),
+                             pos.to(cuda), ang.to(cuda),
+                             render.DRParams(*(f.to(cuda) for f in dr)),
+                             noise.to(cuda), **kw)
+    for a, b in zip(gpu, cpu):
+        d = (a.cpu().short() - b.short()).abs()
+        assert (d == 0).float().mean() >= 0.9995
+        assert (d <= 1).float().mean() >= 0.9998
+
+
+@pytest.mark.gpu
+def test_postprocess_on_the_card_launches_k5(cuda, tmp_path):
+    """``cli.datagen`` then ``cli.postprocess`` on the card: one K5 launch
+    a batch of at most 32 pairs, and the label videos equal the ones the
+    CPU (the plain version) writes from the same recordings."""
+    import random
+
+    from sim2real_lane_segment_tpu_torch.cli import datagen, postprocess
+    from sim2real_lane_segment_tpu_torch.data import videoio
+    from sim2real_lane_segment_tpu_torch.kernels import labelgen as klg
+
+    rec = str(tmp_path / "rec")
+    datagen.main(["--map-name", "zigzag", "--episodes", "1", "--steps",
+                  "40", "--chunk", "20", "--height", "48", "--width", "64",
+                  "--output_dir", rec], device=cuda)
+    klg.reset_launches()
+    random.seed(0)
+    assert postprocess.main(["-id", rec, "-od", str(tmp_path / "gpu")],
+                            device=cuda) == 1
+    assert klg.launches["labelgen"] == 2
+    random.seed(0)
+    postprocess.main(["-id", rec, "-od", str(tmp_path / "cpu")],
+                     device="cpu")
+    for kind in ("input", "label"):
+        a, b = (np.concatenate(list(videoio.read_frames(
+            str(tmp_path / d / kind / "000000.avi")))) for d in ("gpu", "cpu"))
+        np.testing.assert_array_equal(a, b)

@@ -6,10 +6,11 @@ call, with both flags turned on beforehand."""
 import pytest
 import torch
 
-from sim2real_lane_segment_tpu_torch.cli import (distill, domain_study,
-                                                 hist_match, serve,
-                                                 sim2real_convert, test,
-                                                 train, train_cyclegan)
+from sim2real_lane_segment_tpu_torch.cli import (datagen, distill,
+                                                 domain_study, hist_match,
+                                                 postprocess, preprocess_db,
+                                                 serve, sim2real_convert,
+                                                 test, train, train_cyclegan)
 from sim2real_lane_segment_tpu_torch.core import runtime
 from sim2real_lane_segment_tpu_torch.train import cyclegan, supervised
 from sim2real_lane_segment_tpu_torch.train import distill as train_distill
@@ -25,6 +26,9 @@ CLIS = {
     "hist_match": (hist_match, ["--ds_source", "a", "--ds_reference", "b"]),
     "domain_study": (domain_study, ["--workdir", "w"]),
     "distill": (distill, ["--dataPath", "x", "--teacherPath", "y"]),
+    "datagen": (datagen, ["--output_dir", "r"]),
+    "postprocess": (postprocess, ["-id", "r", "-od", "d"]),
+    "preprocess_db": (preprocess_db, ["--dbType", "sim", "--dataPath", "d"]),
 }
 
 
