@@ -22,7 +22,10 @@ and the HM and CycleGAN regimes (``cli.hist_match``,
 and data generation at the recording size (``cli.datagen`` rendering
 expert rollouts on the card, ``cli.postprocess`` labelling them through
 K5, ``cli.preprocess_db``, then ``cli.train`` on the rendered tree, and
-the study rendering its missing domains).
+the study rendering its missing domains); and the interactive simulator
+(``sim.env.DuckietownEnv`` at 640x480 with NPCs), the learning demos and
+the video CLIs (``cli.make_demo_video --fused`` through K4,
+``cli.comparison``).
 Phases:
 
 1. device: requires CUDA, prints the card's name and power limit;
@@ -189,6 +192,29 @@ Phases:
     meshes (by subtraction), datagen's render and encode seconds,
     postprocess frames/s with K5's device time, preprocess_db seconds,
     and PNG encode and decode ms per frame on the host.
+22. the interactive simulator, learning/ and the video CLIs, each part's
+    seconds printed: (a) ``DuckietownEnv(map_name="loop_dyn_duckiebots",
+    domain_rand=True)`` at 640x480 on the card: load, 10 resets and 200
+    expert-driven steps timed (steps/s), the NPCs' mesh triangles moved on
+    the device, no NaN, ``max_steps`` truncating; then the same env on the
+    card and on the CPU from one seed and one CPU generator's draws for 16
+    steps (poses within SIM_POSE_TOL m and SIM_ANGLE_TOL rad, frames
+    DG_RENDER_EQUAL equal); (b) ``cli.sim_benchmark`` at its defaults
+    (its JSON line); (c) ``cli.train_imitation`` at its defaults (4
+    episodes x 64 steps at 60x80, 10 epochs, B=32: finite losses, the
+    last epoch's below the first's), then ``cli.enjoy imitation --out``
+    (as many frames as steps); (d) ``cli.train_reinforcement`` at its
+    defaults (500 timesteps, finite losses, the actor saved), then ``cli.
+    enjoy reinforcement``; (e) ``cli.basic_control --out`` (120 frames)
+    and ``cli.free_camera --orbit`` (8 PNGs); (f) ``cli.make_demo_video
+    -t baseline --arch 67 --fused -b 64`` with phase 8's weights on a
+    rendered 128-frame 480x640 PNG-in-AVI: K4 launches 55/5/1 a batch,
+    every dense layer on the tensor cores, no plain version, output pixels
+    against the run without ``--fused`` (MIN_PIXEL_AGREEMENT), frames/s
+    and the split of host decode, device and encode seconds; (g)
+    ``cli.comparison --showCount 4`` over five seeded 2-class FCDenseNet57
+    ``.pt`` files: the 504x960 BGRA PNG read back, its header the port's
+    header function's.
 
 It prints the seconds of each phase, one JSON line of per-kernel numbers,
 then, as its last line,
@@ -4081,6 +4107,338 @@ def datagen_phase(device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the interactive simulator, learning/ and the video CLIs
+# ---------------------------------------------------------------------------
+
+SIM_MAP = "loop_dyn_duckiebots"
+SIM_SIZE = (480, 640)   # DuckietownEnv's default camera
+SIM_BENCH_ARGS: list = []   # the CLIs' defaults (a CPU rehearsal cuts them)
+IMITATION_ARGS: list = []
+DDPG_ARGS: list = []
+SIM_RESETS = 10
+SIM_STEPS = 200
+SIM_CHECK_STEPS = 16
+SIM_TRUNCATE = 5
+SIM_TRUNCATE_TRIES = 50   # spawns whose first step is an invalid pose
+SIM_POSE_TOL, SIM_ANGLE_TOL = 1e-4, 3e-4   # the CPU tests' bounds
+DEMO_AGENTS, DEMO_STEPS = 2, 64            # a 128-frame input video
+DEMO_BATCH = 64
+COMPARISON_SHOW = 4
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _expert(env):
+    """The expert's (velocity, steering) at the env's pose (host)."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.sim.expert import expert_action
+
+    return expert_action(env.lane_arrays, env.map.tile_size,
+                         torch.from_numpy(env.cur_pos),
+                         torch.tensor(env.cur_angle,
+                                      dtype=torch.float32)).numpy()
+
+
+def env_check(device, card) -> dict:
+    """Phase 22a: ``DuckietownEnv`` at 640x480 with domain randomization on
+    the map whose duckiebots drive: resets, expert-driven steps, the NPCs'
+    meshes on the device, truncation, and the card against the CPU."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.sim.env import (DuckietownEnv,
+                                                         EnvDraws)
+
+    t0 = time.perf_counter()
+    kw = dict(map_name=SIM_MAP, domain_rand=True, seed=SEED,
+              camera_height=SIM_SIZE[0], camera_width=SIM_SIZE[1])
+    env = DuckietownEnv(**kw, device=device)
+    _sync(device)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(SIM_RESETS):
+        obs = env.reset()
+    reset_ms = (time.perf_counter() - t0) / SIM_RESETS * 1e3
+    verts0 = env.scene.meshes.vertices.clone()
+    step_s, rewards, msgs, ends = 0.0, [], {}, 0
+    for _ in range(SIM_STEPS):
+        act = _expert(env)
+        t0 = time.perf_counter()
+        obs, reward, done, info = env.step(act)
+        step_s += time.perf_counter() - t0
+        rewards.append(reward)
+        msgs[info["msg"]] = msgs.get(info["msg"], 0) + 1
+        if done:
+            ends += 1
+            env.reset()
+    moved = int((env.scene.meshes.vertices != verts0).any(-1).any(-1)
+                .sum())
+    t0 = time.perf_counter()   # the render's share of a step
+    for _ in range(SIM_RESETS):
+        env.render_obs()
+    render_ms = (time.perf_counter() - t0) / SIM_RESETS * 1e3
+    print(f"env: {SIM_MAP} {SIM_SIZE[0]}x{SIM_SIZE[1]} DR: load {load_s * 1e3:.1f} ms, reset "
+          f"{reset_ms:.2f} ms, step {step_s / SIM_STEPS * 1e3:.2f} ms "
+          f"({SIM_STEPS / step_s:.1f} steps/s) over {SIM_STEPS} expert "
+          f"steps, of which one frame rendered and copied to the host "
+          f"{render_ms:.2f} ms; endings {json.dumps(msgs)}, {moved} NPC "
+          f"triangles moved on {env.scene.meshes.vertices.device}  [{card}]",
+          flush=True)
+    check(obs.shape == (*SIM_SIZE, 3) and obs.dtype == np.uint8,
+          f"observation {obs.shape} {obs.dtype}")
+    check(np.isfinite(rewards).all() and np.isfinite(env.cur_pos).all()
+          and bool(torch.isfinite(env.scene.meshes.vertices).all()),
+          "a NaN in the rewards, the pose or the meshes")
+    check(moved > 0 and env.scene.meshes.vertices.device.type
+          == device.type, "no NPC mesh triangle moved on the device")
+
+    # truncation: episodes of at most SIM_TRUNCATE steps, until one is
+    # not cut short by an invalid pose
+    env.max_steps = SIM_TRUNCATE
+    endings = []
+    for _ in range(SIM_TRUNCATE_TRIES):
+        env.reset()
+        for n in range(1, SIM_TRUNCATE + 1):
+            _, _, done, info = env.step(_expert(env))
+            if done:
+                break
+        endings.append((info["msg"], n))
+        if info["msg"] == "max-steps-reached":
+            break
+    print(f"env: max_steps={SIM_TRUNCATE}: episodes ended {endings}  "
+          f"[{card}]")
+    check(endings[-1] == ("max-steps-reached", SIM_TRUNCATE) and all(
+        n < SIM_TRUNCATE for m, n in endings[:-1]),
+        f"max_steps={SIM_TRUNCATE}: endings {endings}")
+
+    envs = [DuckietownEnv(**kw, device=d, draws=EnvDraws(SEED))
+            for d in (device, "cpu")]
+    worst = [0.0, 0.0, 1.0]
+    for _ in range(SIM_CHECK_STEPS):
+        act = _expert(envs[1])
+        (og, _, dg, ig), (oc, _, dc, ic) = (e.step(act) for e in envs)
+        check((dg, ig["msg"]) == (dc, ic["msg"]),
+              f"card and CPU ended differently: {ig['msg']}, {ic['msg']}")
+        if dg:
+            for e in envs:
+                e.reset()
+        worst = [max(worst[0], float(np.abs(envs[0].cur_pos
+                                            - envs[1].cur_pos).max())),
+                 max(worst[1], abs(envs[0].cur_angle - envs[1].cur_angle)),
+                 min(worst[2], float((og == oc).mean()))]
+    print(f"env: card against CPU over {SIM_CHECK_STEPS} steps, same seed "
+          f"and draws: max |pos| {worst[0]:.3e} m, max |angle| "
+          f"{worst[1]:.3e} rad, frames equal >= {worst[2]:.6f} (limits "
+          f"{SIM_POSE_TOL}, {SIM_ANGLE_TOL}, {DG_RENDER_EQUAL})  [{card}]")
+    check(worst[0] <= SIM_POSE_TOL and worst[1] <= SIM_ANGLE_TOL
+          and worst[2] >= DG_RENDER_EQUAL, "the env on the card disagrees "
+          "with the CPU")
+    return {"load_ms": load_s * 1e3, "reset_ms": reset_ms,
+            "step_ms": step_s / SIM_STEPS * 1e3, "render_ms": render_ms,
+            "steps_per_s": SIM_STEPS / step_s}
+
+
+def learning_check(device, card, tmp) -> None:
+    """Phases 22b-e: ``cli.sim_benchmark`` at its defaults; imitation and
+    DDPG at their defaults, each then rolled out by ``cli.enjoy``;
+    ``cli.basic_control --out`` and ``cli.free_camera --orbit``."""
+    from sim2real_lane_segment_tpu_torch.cli import (basic_control, enjoy,
+                                                     free_camera,
+                                                     sim_benchmark,
+                                                     train_imitation,
+                                                     train_reinforcement)
+    from sim2real_lane_segment_tpu_torch.data import videoio
+    from sim2real_lane_segment_tpu_torch.data.png import read_png
+
+    bench = sim_benchmark.main(SIM_BENCH_ARGS, device=device)
+    print(f"sim_benchmark: {json.dumps(bench)}  [{card}]", flush=True)
+
+    t0 = time.perf_counter()
+    res = train_imitation.main(["--out", os.path.join(tmp, "bc.pt"),
+                                *IMITATION_ARGS], device=device)
+    wall = time.perf_counter() - t0
+    losses = res["epoch_losses"]
+    print(f"train_imitation: {res['frames']} frames, epoch losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}, {wall:.1f} s  [{card}]",
+          flush=True)
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"imitation losses {losses}")
+    avi = os.path.join(tmp, "enjoy_bc.avi")
+    out = enjoy.main(["imitation", "--weights", res["out"], "--out", avi],
+                     device=device)
+    n = videoio.frame_count(avi)
+    print(f"enjoy imitation: return {out['mean_return']:.2f} over "
+          f"{out['steps']} steps, {n} frames written  [{card}]")
+    check(n == out["steps"] > 0, f"{n} frames for {out['steps']} steps")
+
+    t0 = time.perf_counter()
+    res = train_reinforcement.main(["--out", os.path.join(tmp, "ddpg.pt"),
+                                    *DDPG_ARGS], device=device)
+    wall = time.perf_counter() - t0
+    cl, al = res["critic_losses"], res["actor_losses"]
+    print(f"train_reinforcement: {len(cl)} DDPG steps, critic loss "
+          f"{cl[0]:.4f} -> {cl[-1]:.4f}, actor loss {al[0]:.4f} -> "
+          f"{al[-1]:.4f}, evals {res['evals']}, {wall:.1f} s  [{card}]",
+          flush=True)
+    check(len(cl) > 0 and np.isfinite(cl + al).all()
+          and os.path.exists(res["out"]), "DDPG losses or actor")
+    out = enjoy.main(["reinforcement", "--weights", res["out"]],
+                     device=device)
+    print(f"enjoy reinforcement: return {out['mean_return']:.2f} over "
+          f"{out['steps']} steps  [{card}]")
+
+    avi = os.path.join(tmp, "basic.avi")
+    t0 = time.perf_counter()
+    total = basic_control.main(["--out", avi], device=device)
+    n = videoio.frame_count(avi)
+    print(f"basic_control: 120 steps, total reward {total:.2f}, {n} frames "
+          f"in {time.perf_counter() - t0:.1f} s  [{card}]")
+    check(n == 120 and np.isfinite(total), f"basic_control wrote {n}")
+    orbit = os.path.join(tmp, "orbit")
+    check(free_camera.main(["--orbit", "--out_dir", orbit], device=device)
+          == 8, "free_camera --orbit")
+    shapes = {read_png(os.path.join(orbit, f)).shape
+              for f in os.listdir(orbit)}
+    check(len(os.listdir(orbit)) == 8 and shapes == {(240, 320, 3)},
+          f"orbit frames {shapes}")
+
+
+def demo_video_check(device, card, tmp, weights) -> dict:
+    """Phase 22f: ``cli.make_demo_video -t baseline --arch 67 --fused -b
+    64`` with phase 8's weights on a rendered 128-frame 480x640 video: K4's
+    launches (55/5/1 a batch, every dense layer on the tensor cores), no
+    plain version, masks against the run without ``--fused``."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import make_demo_video
+    from sim2real_lane_segment_tpu_torch.data import videoio
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.sim import lanes, render, rollout
+    from sim2real_lane_segment_tpu_torch.sim.maps import builtin_map
+
+    m = builtin_map(SIM_MAP)
+    la = lanes.build_lane_arrays(m, device)
+    pos, ang = rollout.sample_spawns(m, la, np.random.default_rng(SEED),
+                                     DEMO_AGENTS, device)
+    batch = rollout.expert_rollout(
+        render.build_scene(m, SEED, device=device), la,
+        torch.Generator(device).manual_seed(SEED), pos, ang,
+        tile_size=m.tile_size, n_steps=DEMO_STEPS, height=SIM_SIZE[0],
+        width=SIM_SIZE[1])
+    frames = batch.orig.transpose(0, 1).reshape(-1, *SIM_SIZE, 3).flip(-1)
+    src = os.path.join(tmp, "drive.avi")
+    with videoio.VideoWriter(src, SIM_SIZE[::-1]) as wr:
+        wr.write(frames.cpu().numpy())
+    n_in = len(frames)
+
+    plain_calls = []
+
+    def counting(name):
+        fn = getattr(kdb, name)
+
+        def f(*a, **kw):
+            plain_calls.append(name)
+            return fn(*a, **kw)
+        return f
+
+    argv = ["-t", "baseline", "--checkpointPath", weights, "--arch", ARCH,
+            "-b", str(DEMO_BATCH), "--videoIns", src, "--videoOuts"]
+    fused = os.path.join(tmp, "demo_fused.avi")
+    with mock.patch.multiple(kdb, **{n: counting(n) for n in (
+            "dense_block_plain", "dense_layer_plain", "transition_plain",
+            "classifier_plain", "bn_relu_plain")}):
+        kdb.reset_launches()
+        st = make_demo_video.main(argv + [fused, "--fused"], device=device)
+        launches = dict(kdb.launches)
+        mma = kdb.mma_launches["dense_layer"]
+        again = make_demo_video.main(argv + [fused, "--fused"],
+                                     device=device)
+    batches = -(-n_in // DEMO_BATCH)
+    expect = {"dense_layer": 55 * batches, "transition": 5 * batches,
+              "classifier": batches}
+    print(f"make_demo_video --fused: K4 launches {json.dumps(launches)}, "
+          f"expected {json.dumps(expect)}; tensor-core dense layers {mma}; "
+          f"plain versions run {len(plain_calls)}  [{card}]")
+    check(launches == expect and mma == DENSE_LAYERS * batches,
+          "make_demo_video's K4 launches")
+    check(not plain_calls, f"a plain version ran: {sorted(set(plain_calls))}")
+    plain = os.path.join(tmp, "demo_plain.avi")
+    st_plain = make_demo_video.main(argv + [plain], device=device)
+    a, b = (np.concatenate(list(videoio.read_frames(p)))
+            for p in (fused, plain))
+    agreement = float((a == b).all(-1).mean())
+    for label, s in (("--fused, first run", st), ("--fused, again", again),
+                     ("plain module", st_plain)):
+        fps = s["frames"] / s["seconds"]
+        print(f"make_demo_video ({label}): {s['frames']} frames 480x640 -> "
+              f"160x120 in {s['seconds']:.2f} s, {fps:.1f} frames/s; host "
+              f"decode {s['decode_s']:.2f} s (reader "
+              f"thread), device {s['device_s']:.2f} s, encode "
+              f"{s['encode_s']:.2f} s (writer thread)  [{card}]")
+    print(f"make_demo_video: output pixels equal, fused against plain, "
+          f"{agreement:.6f} (limit {MIN_PIXEL_AGREEMENT})  [{card}]")
+    check(st["frames"] == n_in and a.shape == (n_in, H, W, 3),
+          f"{st['frames']} frames of {a.shape[1:]}")
+    check(agreement >= MIN_PIXEL_AGREEMENT,
+          f"fused and plain masks agree on {agreement}")
+    return {"launches": launches, "fps": again["frames"] / again["seconds"]}
+
+
+def comparison_check(device, card, tmp) -> None:
+    """Phase 22g: ``cli.comparison --showCount 4`` over five seeded 2-class
+    FCDenseNet57 weights and 480x640 PNGs; the PNG read back."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import comparison
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+    from sim2real_lane_segment_tpu_torch.data.png import read_png
+
+    data = os.path.join(tmp, "compare")
+    write_frames(data, frames_480(np.random.default_rng(SEED + 22), 6))
+    argv = ["--dataPath", data, "--showCount", str(COMPARISON_SHOW),
+            "--resultPath", os.path.join(tmp, "comparison.png")]
+    for i, flag in enumerate(("--baselinePath", "--sandtPath", "--hmPath",
+                              "--cycleganPath", "--mmePath")):
+        torch.manual_seed(SEED + i)
+        path = os.path.join(tmp, f"fcdensenet57_{i}.pt")
+        torch.save(build_model("57", 2).state_dict(), path)
+        argv += [flag, path]
+    t0 = time.perf_counter()
+    out = read_png(comparison.main(argv, device=device), color=None)
+    rows = 24 + COMPARISON_SHOW * 120
+    print(f"comparison: {out.shape} montage in "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    check(out.shape == (rows, 960, 4), f"montage {out.shape}")
+    check(np.array_equal(out[:24], comparison.header()),
+          "the montage's header is not the header function's")
+    check((out[24:, :, 3] == 255).all(), "montage rows not opaque")
+
+
+def sim_learning_video_phase(device, card, weights) -> dict:
+    """Phase 22, each part's seconds printed."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["env"] = env_check(device, card)
+        print(f"sim: 22a in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        learning_check(device, card, tmp)
+        print(f"sim: 22b-e in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out["demo"] = demo_video_check(device, card, tmp, weights)
+        print(f"sim: 22f in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        comparison_check(device, card, tmp)
+        print(f"sim: 22g in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -4250,7 +4608,6 @@ def main() -> None:
     # phase 17: --device_cache, the graphed multi-step dispatch
     t0 = time.perf_counter()
     cache_equivalence(card, sim_weights)
-    work.cleanup()
     cache_timing(sd, device, card)
     print(f"cache: phase 17 done in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]", flush=True)
@@ -4282,6 +4639,16 @@ def main() -> None:
             if k["name"] == name:
                 k["launches_datagen"] = dg["train_launches"][wrapper]
     lap(21)
+
+    # phase 22: the interactive simulator, learning/ and the video CLIs
+    # (make_demo_video --fused through K4, from phase 8's weights)
+    sim = sim_learning_video_phase(device, card, sim_weights)
+    work.cleanup()
+    for k in kernels:
+        for name, n in sim["demo"]["launches"].items():
+            if k["name"] == f"k4_{name}":
+                k["launches_demo_video"] = n
+    lap(22)
     print(f"phases: seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} in all  [{card}]", flush=True)
 

@@ -2,12 +2,15 @@
 
 The JAX package reads its PNG trees with cv2, which a machine with only
 PyTorch may lack.  This module covers what those trees hold: 8-bit
-grayscale (labels) and 8-bit RGB (frames), non-interlaced, with any of
-the five row filters.  Like cv2, colour images are BGR in memory:
-``read_png`` returns (H, W, 3) BGR or (H, W) gray, and ``write_png``
-takes the same.  A gray file read as colour is replicated to three
-channels (cv2's ``IMREAD_COLOR``); other formats (palette, alpha, 16-bit,
-interlaced, and a colour file read as gray) raise ``ValueError``.
+grayscale (labels), 8-bit RGB (frames) and 8-bit RGBA (the comparison
+montage), non-interlaced, with any of the five row filters.  Like cv2,
+colour images are BGR(A) in memory: ``read_png`` returns (H, W, 3) BGR
+or (H, W) gray, or as stored ((H, W, 4) BGRA included) with
+``color=None``, and ``write_png`` takes any of them.  A gray file read as
+colour is replicated to three channels and an RGBA one loses its alpha
+(cv2's ``IMREAD_COLOR``); other formats (palette, gray with alpha,
+16-bit, interlaced, and a colour file read as gray) raise
+``ValueError``.
 
 Filters 1 (Sub) and 2 (Up) decode as whole-row numpy operations (an
 image whose rows all take one of them, or none, as one operation); 3
@@ -24,7 +27,7 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3}
+_CHANNELS = {0: 1, 2: 3, 6: 4}
 
 
 def _chunks(data: bytes):
@@ -72,7 +75,8 @@ def _unfilter_row(f: int, line: np.ndarray, prev: np.ndarray,
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) gray or (H, W, 3) RGB uint8, as stored."""
+    """PNG bytes -> (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8,
+    as stored."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
     header, idat = None, []
@@ -89,7 +93,7 @@ def decode_png(data: bytes) -> np.ndarray:
     if depth != 8 or ctype not in _CHANNELS or interlace != 0:
         raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
                          f"{ctype}, interlace {interlace} (8-bit gray or "
-                         "RGB, non-interlaced only)")
+                         "RGB(A), non-interlaced only)")
     bpp = _CHANNELS[ctype]
     stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
@@ -110,14 +114,17 @@ def decode_png(data: bytes) -> np.ndarray:
         for y in range(h):
             prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:],
                                           prev, bpp)
-    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, 3)
+    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
 
 
-def read_png(path: str, color: bool = True) -> np.ndarray:
-    """cv2.imread(path, IMREAD_COLOR / IMREAD_GRAYSCALE) for 8-bit gray or
-    RGB PNGs: (H, W, 3) BGR, or (H, W) gray."""
+def read_png(path: str, color: bool | None = True) -> np.ndarray:
+    """cv2.imread(path, IMREAD_COLOR / IMREAD_GRAYSCALE / IMREAD_UNCHANGED
+    for ``color`` True / False / None) for 8-bit gray, RGB or RGBA PNGs:
+    (H, W, 3) BGR, (H, W) gray, or as stored in BGR(A) order."""
     with open(path, "rb") as f:
         img = decode_png(f.read())
+    if color is None:
+        return img if img.ndim == 2 else _swap_rb(img)
     if not color:
         if img.ndim != 2:
             raise ValueError(f"{path}: a colour PNG read as gray is not "
@@ -125,7 +132,12 @@ def read_png(path: str, color: bool = True) -> np.ndarray:
         return img
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=2)
-    return np.ascontiguousarray(img[..., ::-1])
+    return np.ascontiguousarray(img[..., 2::-1])
+
+
+def _swap_rb(img: np.ndarray) -> np.ndarray:
+    """RGB(A) <-> BGR(A)."""
+    return np.ascontiguousarray(img[..., [2, 1, 0, 3][:img.shape[2]]])
 
 
 def _filter_rows(img: np.ndarray, f: int, bpp: int) -> np.ndarray:
@@ -157,13 +169,15 @@ def _filter_rows(img: np.ndarray, f: int, bpp: int) -> np.ndarray:
 
 def encode_png(img: np.ndarray, filter_type: int = 1,
                level: int = 6) -> bytes:
-    """(H, W) gray or (H, W, 3) RGB uint8 -> PNG bytes, every row under
-    ``filter_type``, deflated at zlib ``level``."""
+    """(H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 -> PNG bytes,
+    every row under ``filter_type``, deflated at zlib ``level``."""
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim == 2:
         ctype, bpp = 0, 1
     elif img.ndim == 3 and img.shape[2] == 3:
         ctype, bpp = 2, 3
+    elif img.ndim == 3 and img.shape[2] == 4:
+        ctype, bpp = 6, 4
     else:
         raise ValueError(f"cannot write a PNG of shape {img.shape}")
     h, w = img.shape[:2]
@@ -183,11 +197,12 @@ def encode_png(img: np.ndarray, filter_type: int = 1,
 
 def write_png(path: str, img: np.ndarray, filter_type: int = 1,
               level: int = 6) -> None:
-    """cv2.imwrite for (H, W) gray or (H, W, 3) BGR uint8, deflated at zlib
-    ``level``, written atomically (a temporary file, then a rename)."""
+    """cv2.imwrite for (H, W) gray, (H, W, 3) BGR or (H, W, 4) BGRA uint8,
+    deflated at zlib ``level``, written atomically (a temporary file, then
+    a rename)."""
     img = np.asarray(img)
     if img.ndim == 3:
-        img = img[..., ::-1]
+        img = _swap_rb(img)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:
         f.write(encode_png(img, filter_type, level))

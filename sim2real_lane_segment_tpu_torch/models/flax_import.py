@@ -21,6 +21,12 @@ Layouts:
 - BatchNorm ``scale/bias`` -> ``weight/bias``; ``batch_stats`` ``mean/var``
   -> ``running_mean/running_var``.
 
+The learning demos' policies (``learning/``: PolicyCNN, ActorCNN,
+CriticCNN) carry the Flax names too; ``policy_state_dict_from_flax`` maps
+their ``Conv_i`` kernels HWIO -> OIHW and their ``Dense_i`` kernels
+(in, out) -> (out, in).  The port flattens their last conv's output in
+Flax's NHWC order, so ``Dense_0``'s rows need no permutation.
+
 The CycleGAN networks are the exception: the port builds them in the
 reference's ``nn.Sequential`` layout, so ``cyclegan_state_dict_from_flax``
 maps the Flax convolutions onto the port's in the order they are applied
@@ -153,4 +159,34 @@ def cyclegan_state_dict_from_flax(flat: Mapping[str, np.ndarray],
                                  f"{tuple(want.shape)}")
             out[f"{name}.{key}"] = torch.from_numpy(np.array(arr)).to(
                 want.dtype)
+    return out
+
+
+def policy_state_dict_from_flax(flat: Mapping[str, np.ndarray],
+                                model: nn.Module
+                                ) -> dict[str, torch.Tensor]:
+    """A Flax policy's params (``Conv_i/kernel``, ``Dense_i/bias`` ...,
+    with or without the ``params/`` prefix: the JAX CLIs save the params
+    tree alone) mapped onto the port's ``learning`` module of the same
+    configuration, every entry covered, shapes checked."""
+    target = model.state_dict()
+    out: dict[str, torch.Tensor] = {}
+    for path, arr in flat.items():
+        mod, leaf = path.removeprefix("params/").rsplit("/", 1)
+        arr = np.asarray(arr)
+        if leaf == "kernel":
+            arr = conv_weight(arr) if arr.ndim == 4 else arr.T
+        elif leaf != "bias":
+            raise KeyError(f"unmapped Flax leaf: {path!r}")
+        name = "weight" if leaf == "kernel" else "bias"
+        key = f"{mod.replace('/', '.')}.{name}"
+        if key not in target:
+            raise KeyError(f"{path!r} -> {key!r}: no such entry in the model")
+        if tuple(arr.shape) != tuple(target[key].shape):
+            raise ValueError(f"{path!r}: shape {arr.shape} does not match "
+                             f"{key!r} {tuple(target[key].shape)}")
+        out[key] = torch.from_numpy(np.array(arr)).to(target[key].dtype)
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"Flax variables do not cover {missing}")
     return out

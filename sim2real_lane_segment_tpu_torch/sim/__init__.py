@@ -1,9 +1,11 @@
-"""The simulator's data-generation path: the tile maps, the ray-cast
-renderer of pixel-aligned (normal, annotated) frame pairs, and batched
-expert rollouts (``rollout.expert_rollout``), on the device.
+"""The simulator: the tile maps, the ray-cast renderer of pixel-aligned
+(normal, annotated) frame pairs, batched expert rollouts
+(``rollout.expert_rollout``), and the gym-style ``Simulator`` /
+``DuckietownEnv`` with NPCs and collisions, its wrappers and the gym
+server (``server.py``).
 
-Counterpart of the JAX package's ``sim/`` for data generation; the
-interactive ``Simulator`` and the gym server are not part of it yet
-(``server.py`` holds only the wire framing).
+Counterpart of the JAX package's ``sim/``.  Scenes and renders live on
+the device; an env's pose, NPCs and reward on the host.
 """
 from .maps import Map, builtin_map, load_map
+from .env import Simulator, DuckietownEnv

@@ -23,7 +23,8 @@ than the halo, and frames wider than one 32-word column tile).  Also the
 paths that put the kernels to new use: the distillation teacher through
 K4, LaneNetLite's train step on the card against the CPU and as a graph
 replay against the eager step, K5 under ``cli.postprocess``, and the
-renderer on the card against the CPU.
+renderer and the env on the card against the CPU, and
+``cli.make_demo_video --fused`` through K4.
 """
 import ctypes
 
@@ -1149,3 +1150,88 @@ def test_postprocess_on_the_card_launches_k5(cuda, tmp_path):
         a, b = (np.concatenate(list(videoio.read_frames(
             str(tmp_path / d / kind / "000000.avi")))) for d in ("gpu", "cpu"))
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_make_demo_video_fused_launches_k4(cuda, tmp_path):
+    """``cli.make_demo_video --fused`` (FCDenseNet67, seeded weights) on a
+    short rendered video: K4 launches 55/5/1 a batch, no plain version
+    runs, and the masks agree with the run without ``--fused`` on at
+    least 98% of the pixels (the served-mask bound)."""
+    from unittest import mock
+
+    from sim2real_lane_segment_tpu_torch.cli import make_demo_video
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+    from sim2real_lane_segment_tpu_torch.data import videoio
+    from sim2real_lane_segment_tpu_torch.sim import lanes, render, rollout
+    from sim2real_lane_segment_tpu_torch.sim.maps import builtin_map
+
+    m = builtin_map("zigzag")
+    la = lanes.build_lane_arrays(m, cuda)
+    pos, ang = rollout.sample_spawns(m, la, np.random.default_rng(0), 2,
+                                     cuda)
+    batch = rollout.expert_rollout(
+        render.build_scene(m, 0, device=cuda), la,
+        torch.Generator(cuda).manual_seed(0), pos, ang,
+        tile_size=m.tile_size, n_steps=5, height=240, width=320)
+    src = str(tmp_path / "in.avi")
+    with videoio.VideoWriter(src, (320, 240)) as wr:
+        wr.write(batch.orig.reshape(-1, 240, 320, 3).flip(-1).cpu().numpy())
+    torch.manual_seed(0)
+    weights = str(tmp_path / "w.pt")
+    torch.save(build_model("67", 4).state_dict(), weights)
+    plain = {"n": 0}
+
+    def counting(fn):
+        def f(*a, **kw):
+            plain["n"] += 1
+            return fn(*a, **kw)
+        return f
+
+    argv = ["-t", "baseline", "--checkpointPath", weights, "--arch", "67",
+            "-b", "4", "--videoIns", src]
+    with mock.patch.multiple(kdb, **{
+            name: counting(getattr(kdb, name)) for name in (
+                "dense_block_plain", "dense_layer_plain",
+                "transition_plain", "classifier_plain")}):
+        kdb.reset_launches()
+        assert make_demo_video.main(argv + ["--fused", "--videoOuts", str(
+            tmp_path / "fused.avi")], device=cuda)["frames"] == 10
+        assert plain["n"] == 0
+    batches = 3   # 10 frames, 4 a batch
+    assert kdb.launches == {"dense_layer": 55 * batches,
+                            "transition": 5 * batches,
+                            "classifier": batches}
+    make_demo_video.main(argv + ["--videoOuts", str(tmp_path / "plain.avi")],
+                         device=cuda)
+    a, b = (np.concatenate(list(videoio.read_frames(str(tmp_path / n))))
+            for n in ("fused.avi", "plain.avi"))
+    assert a.shape == (10, 120, 160, 3)
+    assert (a == b).all(-1).mean() >= 0.98
+
+
+@pytest.mark.gpu
+def test_env_step_on_the_card_matches_the_cpu(cuda):
+    """``DuckietownEnv`` (loop_dyn_duckiebots, DR on, 120x160) on the card
+    and on the CPU from one seed and the same draws (a CPU generator):
+    equal poses (the pose is computed on the host either way), frames
+    with at least 0.9995 of their values equal, NPC meshes moved alike."""
+    from sim2real_lane_segment_tpu_torch.sim.env import (DuckietownEnv,
+                                                         EnvDraws)
+    from sim2real_lane_segment_tpu_torch.sim.expert import expert_action
+
+    envs = [DuckietownEnv(map_name="loop_dyn_duckiebots", seed=3,
+                          camera_width=160, camera_height=120,
+                          domain_rand=True, device=d, draws=EnvDraws(3))
+            for d in (cuda, "cpu")]
+    for _ in range(6):
+        act = expert_action(envs[1].lane_arrays, envs[1].map.tile_size,
+                            torch.from_numpy(envs[1].cur_pos),
+                            torch.tensor(envs[1].cur_angle,
+                                         dtype=torch.float32)).numpy()
+        (og, rg, dg, _), (oc, rc, dc, _) = (e.step(act) for e in envs)
+        np.testing.assert_array_equal(envs[0].cur_pos, envs[1].cur_pos)
+        assert (rg, dg) == (rc, dc)
+        assert (og == oc).mean() >= 0.9995
+    torch.testing.assert_close(envs[0].scene.meshes.vertices.cpu(),
+                               envs[1].scene.meshes.vertices)

@@ -6,11 +6,18 @@ call, with both flags turned on beforehand."""
 import pytest
 import torch
 
-from sim2real_lane_segment_tpu_torch.cli import (datagen, distill,
-                                                 domain_study, hist_match,
+from sim2real_lane_segment_tpu_torch.cli import (basic_control, comparison,
+                                                 datagen, distill,
+                                                 domain_study, enjoy,
+                                                 free_camera, hist_match,
+                                                 make_demo_video,
+                                                 manual_control,
                                                  postprocess, preprocess_db,
                                                  serve, sim2real_convert,
-                                                 test, train, train_cyclegan)
+                                                 sim_benchmark, test, train,
+                                                 train_cyclegan,
+                                                 train_imitation,
+                                                 train_reinforcement)
 from sim2real_lane_segment_tpu_torch.core import runtime
 from sim2real_lane_segment_tpu_torch.train import cyclegan, supervised
 from sim2real_lane_segment_tpu_torch.train import distill as train_distill
@@ -29,6 +36,19 @@ CLIS = {
     "datagen": (datagen, ["--output_dir", "r"]),
     "postprocess": (postprocess, ["-id", "r", "-od", "d"]),
     "preprocess_db": (preprocess_db, ["--dbType", "sim", "--dataPath", "d"]),
+    "make_demo_video": (make_demo_video, ["-t", "baseline",
+                                          "--checkpointPath", "x",
+                                          "--videoIns", "v"]),
+    "comparison": (comparison, ["--dataPath", "d", "--baselinePath", "a",
+                                "--sandtPath", "b", "--hmPath", "c",
+                                "--cycleganPath", "e", "--mmePath", "f"]),
+    "basic_control": (basic_control, []),
+    "sim_benchmark": (sim_benchmark, []),
+    "free_camera": (free_camera, ["--orbit"]),
+    "manual_control": (manual_control, []),
+    "train_imitation": (train_imitation, []),
+    "train_reinforcement": (train_reinforcement, []),
+    "enjoy": (enjoy, ["imitation", "--weights", "x"]),
 }
 
 

@@ -56,7 +56,7 @@ def test_png_writes_what_cv2_reads(tmp_path, filter_type, channels):
 
 def test_png_rejects_what_it_does_not_read(tmp_path):
     path = str(tmp_path / "c.png")
-    cv2.imwrite(path, np.zeros((4, 4, 4), np.uint8))  # RGBA
+    cv2.imwrite(path, np.zeros((4, 4, 3), np.uint16))  # 16-bit RGB
     with pytest.raises(ValueError, match="unsupported"):
         png.read_png(path)
     with pytest.raises(ValueError, match="not a PNG"):
