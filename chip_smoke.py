@@ -209,8 +209,10 @@ Phases:
     and ``cli.free_camera --orbit`` (8 PNGs); (f) ``cli.make_demo_video
     -t baseline --arch 67 --fused -b 64`` with phase 8's weights on a
     rendered 128-frame 480x640 PNG-in-AVI: K4 launches 55/5/1 a batch,
-    every dense layer on the tensor cores, no plain version, output pixels
-    against the run without ``--fused`` (MIN_PIXEL_AGREEMENT), frames/s
+    every dense layer on the tensor cores, no plain version, the class
+    maps against the run without ``--fused`` over all pixels
+    (MIN_PIXEL_AGREEMENT) and over the painted ones
+    (MIN_PAINTED_AGREEMENT), frames/s
     and the split of host decode, device and encode seconds; (g)
     ``cli.comparison --showCount 4`` over five seeded 2-class FCDenseNet57
     ``.pt`` files: the 504x960 BGRA PNG read back, its header the port's
@@ -305,6 +307,11 @@ ISOLATED_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
 LOGIT_ATOL = {"float32": 1e-3, "bfloat16": 0.25}
 MIN_ARGMAX_AGREEMENT = 0.99   # fused bf16 logits: kernel vs plain
 MIN_PIXEL_AGREEMENT = 0.98    # served masks: fused kernels vs plain module
+# make_demo_video's masks again over the pixels either route paints
+# (class > 0), so that a route painting no class fails however small the
+# painted share; the plain run must paint at least MIN_PAINTED_SHARE
+MIN_PAINTED_AGREEMENT = MIN_PIXEL_AGREEMENT
+MIN_PAINTED_SHARE = 0.01
 
 
 # the bf16 kernels on the tensor cores: the TransitionDown forward's two
@@ -4313,7 +4320,9 @@ def demo_video_check(device, card, tmp, weights) -> dict:
     """Phase 22f: ``cli.make_demo_video -t baseline --arch 67 --fused -b
     64`` with phase 8's weights on a rendered 128-frame 480x640 video: K4's
     launches (55/5/1 a batch, every dense layer on the tensor cores), no
-    plain version, masks against the run without ``--fused``."""
+    plain version, the class maps against the run without ``--fused``: all
+    pixels (MIN_PIXEL_AGREEMENT) and the pixels either run paints
+    (MIN_PAINTED_AGREEMENT), so that a route painting no class fails."""
     import torch
 
     from sim2real_lane_segment_tpu_torch.cli import make_demo_video
@@ -4347,6 +4356,21 @@ def demo_video_check(device, card, tmp, weights) -> dict:
             return fn(*a, **kw)
         return f
 
+    maps = {}
+    predict_video = make_demo_video.predict_video
+
+    def recording(key):
+        """``predict_video`` keeping the class maps it paints as ``key``."""
+        def run(vin, vout, trainer, batch_size, predict):
+            out = maps.setdefault(key, [])
+
+            def kept(x):
+                pred = predict(x)
+                out.append(pred.cpu())
+                return pred
+            return predict_video(vin, vout, trainer, batch_size, kept)
+        return run
+
     argv = ["-t", "baseline", "--checkpointPath", weights, "--arch", ARCH,
             "-b", str(DEMO_BATCH), "--videoIns", src, "--videoOuts"]
     fused = os.path.join(tmp, "demo_fused.avi")
@@ -4357,8 +4381,10 @@ def demo_video_check(device, card, tmp, weights) -> dict:
         st = make_demo_video.main(argv + [fused, "--fused"], device=device)
         launches = dict(kdb.launches)
         mma = kdb.mma_launches["dense_layer"]
-        again = make_demo_video.main(argv + [fused, "--fused"],
-                                     device=device)
+        with mock.patch.object(make_demo_video, "predict_video",
+                               recording("fused")):
+            again = make_demo_video.main(argv + [fused, "--fused"],
+                                         device=device)
     batches = -(-n_in // DEMO_BATCH)
     expect = {"dense_layer": 55 * batches, "transition": 5 * batches,
               "classifier": batches}
@@ -4369,10 +4395,17 @@ def demo_video_check(device, card, tmp, weights) -> dict:
           "make_demo_video's K4 launches")
     check(not plain_calls, f"a plain version ran: {sorted(set(plain_calls))}")
     plain = os.path.join(tmp, "demo_plain.avi")
-    st_plain = make_demo_video.main(argv + [plain], device=device)
+    with mock.patch.object(make_demo_video, "predict_video",
+                           recording("plain")):
+        st_plain = make_demo_video.main(argv + [plain], device=device)
     a, b = (np.concatenate(list(videoio.read_frames(p)))
             for p in (fused, plain))
-    agreement = float((a == b).all(-1).mean())
+    pixels = float((a == b).all(-1).mean())
+    mf, mp = (torch.cat(maps[k]).numpy() for k in ("fused", "plain"))
+    agreement = float((mf == mp).mean())
+    either = (mf != 0) | (mp != 0)
+    painted = float(((mf == mp) & either).sum() / max(either.sum(), 1))
+    shares = [float((m != 0).mean()) for m in (mf, mp)]
     for label, s in (("--fused, first run", st), ("--fused, again", again),
                      ("plain module", st_plain)):
         fps = s["frames"] / s["seconds"]
@@ -4381,12 +4414,22 @@ def demo_video_check(device, card, tmp, weights) -> dict:
               f"decode {s['decode_s']:.2f} s (reader "
               f"thread), device {s['device_s']:.2f} s, encode "
               f"{s['encode_s']:.2f} s (writer thread)  [{card}]")
-    print(f"make_demo_video: output pixels equal, fused against plain, "
-          f"{agreement:.6f} (limit {MIN_PIXEL_AGREEMENT})  [{card}]")
+    print(f"make_demo_video: fused against plain, class maps equal "
+          f"{agreement:.6f} (limit {MIN_PIXEL_AGREEMENT}); of the pixels "
+          f"either paints {painted:.6f} (limit {MIN_PAINTED_AGREEMENT}); "
+          f"painted share {shares[0]:.6f} fused, {shares[1]:.6f} plain "
+          f"(at least {MIN_PAINTED_SHARE}); output pixels equal "
+          f"{pixels:.6f}  [{card}]")
     check(st["frames"] == n_in and a.shape == (n_in, H, W, 3),
           f"{st['frames']} frames of {a.shape[1:]}")
+    check(mf.shape == mp.shape == (n_in, H, W), f"class maps {mf.shape}")
     check(agreement >= MIN_PIXEL_AGREEMENT,
           f"fused and plain masks agree on {agreement}")
+    check(shares[1] >= MIN_PAINTED_SHARE,
+          f"the plain run paints {shares[1]} of its pixels: the weights "
+          "cannot show a route that paints nothing")
+    check(painted >= MIN_PAINTED_AGREEMENT,
+          f"fused and plain agree on {painted} of the painted pixels")
     return {"launches": launches, "fps": again["frames"] / again["seconds"]}
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.runtime import resolve_device
 from . import SameConv2d, flatten_nhwc, flax_init_, frames_nchw, same_out
 
 FEATURES = (32, 32, 64)   # three 4x4 convs at stride 2
@@ -97,13 +98,14 @@ class ReplayBuffer:
 
 class DDPG:
     """Actor, critic, their target copies and two Adam optimizers (lr
-    ``lr``, optax.adam's defaults) on ``device``."""
+    ``lr``, optax.adam's defaults) on ``device``, ``cuda`` unless the
+    caller asks for the CPU."""
 
     def __init__(self, obs_hw=(60, 80), lr=1e-4, gamma=0.99, tau=0.005,
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device=None):
         self.obs_hw = obs_hw
         self.gamma, self.tau = gamma, tau
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
         self.actor, self.critic = ActorCNN(obs_hw), CriticCNN(obs_hw)
         flax_init_(self.actor, g)

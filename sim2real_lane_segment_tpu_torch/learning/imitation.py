@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..core.runtime import resolve_device
 from . import SameConv2d, flatten_nhwc, flax_init_, frames_nchw, same_out
 
 CONVS = ((32, 2), (32, 2), (64, 2), (64, 1))   # (features, stride), 4x4
@@ -40,14 +41,15 @@ class PolicyCNN(nn.Module):
 
 
 class ImitationLearner:
-    """A ``PolicyCNN`` on ``device`` with its optimizer: SGD at ``lr``,
+    """A ``PolicyCNN`` on ``device`` (``cuda`` unless the caller asks
+    for the CPU) with its optimizer: SGD at ``lr``,
     momentum 0.9 (optax.sgd's trace: no dampening, not Nesterov).  The
     model holds the weights, so the learner is the whole state."""
 
     def __init__(self, lr: float = 1e-4, obs_hw: tuple[int, int] = (60, 80),
-                 seed: int = 0, device="cpu"):
+                 seed: int = 0, device=None):
         self.obs_hw = obs_hw
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = PolicyCNN(obs_hw=obs_hw)
         flax_init_(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)

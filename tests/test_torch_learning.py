@@ -85,7 +85,7 @@ def test_imitation_step_matches_jax():
     obs, act = batch(2, b=8)
     jl = jimit.ImitationLearner(lr=1e-2, obs_hw=HW)
     state = jl.init_state(jax.random.key(3))
-    tl = timit.ImitationLearner(lr=1e-2, obs_hw=HW)
+    tl = timit.ImitationLearner(lr=1e-2, obs_hw=HW, device="cpu")
     port(tl.model, state.params)
     for _ in range(2):   # the second step runs on the momentum trace
         state, jloss = jl.train_step(state, jnp.asarray(obs),
@@ -108,7 +108,7 @@ def test_ddpg_step_matches_jax():
     done = (rng.uniform(size=8) < 0.3).astype(np.float32)
     jd = jddpg.DDPG(obs_hw=HW, lr=DDPG_LR, tau=0.1)
     state = jd.init_state(jax.random.key(7))
-    td = tddpg.DDPG(obs_hw=HW, lr=DDPG_LR, tau=0.1)
+    td = tddpg.DDPG(obs_hw=HW, lr=DDPG_LR, tau=0.1, device="cpu")
     for net, tgt, params in ((td.actor, td.actor_target, state.actor),
                              (td.critic, td.critic_target, state.critic)):
         port(net, params)
@@ -174,8 +174,8 @@ def test_msgpack_weights_load(tmp_path, kind):
 def test_flax_init_statistics():
     """Parameters start as Flax's do: zero biases, LeCun-normal kernels
     (truncated at two deviations) seeded by ``seed``."""
-    a = timit.ImitationLearner(seed=4).model
-    b = timit.ImitationLearner(seed=4).model
+    a = timit.ImitationLearner(seed=4, device="cpu").model
+    b = timit.ImitationLearner(seed=4, device="cpu").model
     for (k, v), w in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(v, w)
         if k.endswith("bias"):
@@ -184,3 +184,12 @@ def test_flax_init_statistics():
             std = (1.0 / v[0].numel()) ** 0.5
             assert v.abs().max() <= 2 * std / 0.8796 + 1e-6
             assert 0.8 * std < v.std() < 1.2 * std, k
+
+
+@pytest.mark.parametrize("learner", [timit.ImitationLearner, tddpg.DDPG])
+def test_learners_need_a_card_unless_cpu(learner):
+    """Like the trainers, the learners run on the card by default and
+    raise when there is none; the CPU is taken only when asked for."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        learner(obs_hw=HW)
+    assert learner(obs_hw=HW, device="cpu").device == torch.device("cpu")
