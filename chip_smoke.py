@@ -25,14 +25,20 @@ K5, ``cli.preprocess_db``, then ``cli.train`` on the rendered tree, and
 the study rendering its missing domains); and the interactive simulator
 (``sim.env.DuckietownEnv`` at 640x480 with NPCs), the learning demos and
 the video CLIs (``cli.make_demo_video --fused`` through K4,
-``cli.comparison``).
+``cli.comparison``); and the kernel diagnostics (``cli.serve_breakdown``,
+``cli.train_breakdown``, ``cli.train_benchmark``) and the real-domain
+ingestion path (``cli.create_real_db``, ``cli.preprocess_db --dbType
+real``, an MME step on the real target; ``cli.get_real_data``,
+``cli.plot_lr``).
 Phases:
 
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: builds the four kernel sources from ``csrc/`` with nvcc, at once;
    prints ptxas's registers and spills per kernel (the classifier's and
-   K5's on a line of their own) and counts the tensor-core instructions of
-   the tensor-core kernels (HGMMA, HMMA: the bf16 dense layer,
+   K5's on a line of their own, and on another those of the kernels of
+   the shared 3x3 body: serving's, K1's and the two ``--ablate``
+   variants) and counts the tensor-core instructions of the tensor-core
+   kernels (HGMMA, HMMA: the bf16 dense layer and its two variants,
    TransitionDown, classifier, K1, K2, K3a and K3b; IMMA: K6's conv);
 3. K4 against plain: all 11 dense blocks at their real widths (B=8,
    120x160), in float32 (TF32 off) and in bfloat16; every bfloat16 dense
@@ -217,6 +223,26 @@ Phases:
     ``cli.comparison --showCount 4`` over five seeded 2-class FCDenseNet57
     ``.pt`` files: the 504x960 BGRA PNG read back, its header the port's
     header function's.
+23. the kernel diagnostics and the real-domain path, each part's seconds
+    printed: (a) ``cli.serve_breakdown --arch 67 -b 256 --ablate`` on the
+    first level: 11 level rows, K4 at 55 + 5 + 1 launches a forward (every
+    dense layer on the tensor cores, no plain version), both ``--ablate``
+    variants launched, every row finite with its MXU and HBM shares at or
+    below 100%, the levels' sum within the full forward plus its spread,
+    the dense layers' bound four times phase 5's; (b) ``cli.
+    train_breakdown --arch 67 -b 128``: 5 TransitionDown rows, the full
+    forward, backward and step, K1-K3b launched on the tensor-core route,
+    no plain version; (c) ``cli.train_benchmark --archs 67 lite -b 64``
+    (graph replays), with ``--pallas_train`` (K1-K3b launched at the
+    warm-ups and the capture, no plain version) and with ``--stages``;
+    (d) ``cli.create_real_db`` on the committed labelme fixtures on the
+    card, byte-equal to a CPU run, ``cli.preprocess_db --dbType real``, one
+    ``--trainType mme --augment --pallas_train`` step of FCDenseNet67 on a
+    synthetic source plus the real target (phase 15's checks, two passes),
+    ``cli.get_real_data --imitate`` and ``cli.plot_lr``'s values (the
+    card's machine has no matplotlib); (e) the two ``--ablate`` variants
+    against their plain versions on all 55 layers of a B=64 forward, and
+    their times beside plain, cuDNN and their bounds.
 
 It prints the seconds of each phase, one JSON line of per-kernel numbers,
 then, as its last line,
@@ -322,7 +348,13 @@ MMA_KERNELS = ("td_fwd_small_kernel", "td_fwd_mma_kernel",
                "bwd1x1_dgrad_mma_kernel", "bwd1x1_wgrad_mma_kernel",
                "dense3x3_mma_kernel", "fwd3x3_mma_kernel",
                "sum_dgrad_mma_kernel", "stage_own_mma_kernel",
-               "classifier_kernel")
+               "classifier_kernel", "dense3x3_no_taps_kernel",
+               "dense3x3_no_prep_kernel")
+# the serving dense layer's two diagnostic variants (cli/serve_breakdown
+# --ablate) and K1's 3x3 forward, which shares their body: their ptxas
+# lines are printed on one line of their own
+SHARED_BODY = ("dense3x3_mma_kernel", "dense3x3_no_taps_kernel",
+               "dense3x3_no_prep_kernel", "fwd3x3_mma_kernel")
 IMMA_KERNELS = ("conv_i8_mma_kernel",)
 # dense layers of one FCDenseNet67 forward, all bf16 growth 16; conv sites
 # of the full-width LaneNetLite body, all on the int8 tensor cores
@@ -470,12 +502,15 @@ def check(cond: bool, msg: str) -> None:
 
 
 def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit as nvidia-smi gives them
+    (``core.runtime.device_label``); fails if nvidia-smi gave none."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.core.runtime import (UNREAD,
+                                                              device_label)
+    label = device_label(torch.device("cuda", 0))
+    check(UNREAD not in label, f"nvidia-smi failed: {label}")
+    return label
 
 
 def _entry_name(mangled: str) -> str:
@@ -2137,10 +2172,10 @@ def compare_mme_step(sd, device, dtype_name, card):
     return errs
 
 
-def train_cli_checked(label, argv, passes, n_lab, card):
+def train_cli_checked(label, argv, passes, n_lab, card, batch=TRAIN_BATCH):
     """``cli.train.main(argv)`` (``--pallas_train``, ``--log_every 1``, one
-    epoch) with K1-K3b's counts set to 0 just before and read just after:
-    checks the logged steps (``n_lab // TRAIN_BATCH``), finite losses,
+    epoch, ``-b batch``) with K1-K3b's counts set to 0 just before and read
+    just after: checks the logged steps (``n_lab // batch``), finite losses,
     ``passes`` fused passes a step, every launch on the tensor-core route
     and that no plain version ran.  Returns (result, launches, steps)."""
     import torch
@@ -2173,15 +2208,14 @@ def train_cli_checked(label, argv, passes, n_lab, card):
     keys = [k for k in logged[0] if k.startswith("train/")] if logged else []
     values = [r[k] for r in logged for k in keys]
     steps = len(logged)
-    check(steps == n_lab // TRAIN_BATCH, f"{label}: {steps} train steps "
-          f"logged")
+    check(steps == n_lab // batch, f"{label}: {steps} train steps logged")
     check(bool(np.isfinite(values).all()), f"{label}: {values}")
     expect = {k: v * passes * steps
               for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
     expect_mma = {k: v * passes * steps
                   for k, v in TRAIN_MMA_PER_STEP.items()}
     print(f"{label}: --augment --pallas_train, 1 epoch, {steps} steps of "
-          f"B={TRAIN_BATCH} in {wall:.1f} s (with validation, test and "
+          f"B={batch} in {wall:.1f} s (with validation, test and "
           f"checkpoints); {', '.join(k[6:] for k in keys)} "
           f"{[round(v, 4) for v in values]}, best val_iou "
           f"{res['best_iou']:.3f}  [{card}]")
@@ -4482,6 +4516,404 @@ def sim_learning_video_phase(device, card, weights) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the kernel diagnostics and the real-domain ingestion path
+# ---------------------------------------------------------------------------
+
+BREAKDOWN_BATCH = 256
+BREAKDOWN_ARGS = ["--arch", ARCH, "-b", str(BREAKDOWN_BATCH)]
+# the breakdown CLIs' harness constants, cut for this run (calls a timed
+# run and runs; the widths stay full)
+BREAKDOWN_TIMING = {"K": 4, "ITERS": 2}
+ABLATE_LEVEL = "120x160 c_in=48"   # one level: the first block
+K4_PER_FORWARD = {"dense_layer": DENSE_LAYERS, "transition": 5,
+                  "classifier": 1}
+TRAIN_BREAKDOWN_ARGS = ["--arch", ARCH, "-b", "128"]
+TRAIN_BREAKDOWN_TIMING = {"K": 2, "K_FULL": 2, "ITERS": 2}
+TRAIN_BENCH_ARGS = ["--archs", ARCH, "lite", "-b", "64", "--steps", "4",
+                    "--iters", "2"]
+REAL_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "fixtures", "labelme_frames")
+REAL_MME_BATCH = 3   # 1 source + 2 target/train frames, 3 unlabelled
+
+
+def _finite(*vals) -> bool:
+    return all(v is not None and np.isfinite(v) for v in vals)
+
+
+def serve_breakdown_check(card, dense_bound_b64: float) -> dict:
+    """Phase 23a: ``cli.serve_breakdown --arch 67 -b 256 --ablate`` one
+    level, K4's counts (and the variants') set to 0 just before and read
+    just after: 11 level rows, 55/5/1 launches a forward, every dense layer
+    on the tensor cores, both variants launched, no plain version, every
+    row finite and within the card's peaks, the levels' sum within the full
+    forward and its spread, and the dense layers' bound at B=256 four times
+    phase 5's at B=64.  Returns the launch counts."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import serve_breakdown
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+
+    plain = {}
+    with mock.patch.multiple(kdb, **_plain_counting(
+            kdb, ("dense_layer_plain", "transition_plain",
+                  "classifier_plain"), plain)), \
+            mock.patch.multiple(serve_breakdown, **BREAKDOWN_TIMING):
+        kdb.reset_launches()
+        t0 = time.perf_counter()
+        res = serve_breakdown.main(BREAKDOWN_ARGS + ["--ablate",
+                                                     ABLATE_LEVEL])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, mma = dict(kdb.launches), dict(kdb.mma_launches)
+        ablated = dict(kdb.ablate_launches)
+    rows = res["levels"]
+    print(f"serve_breakdown: B={BREAKDOWN_BATCH} in {wall:.1f} s; "
+          f"{len(rows)} levels, sum {res['sum_ms']:.3f} ms, full forward "
+          f"{res['full_ms']:.3f} ms (spread {res['full_spread_ms']:.3f} ms, "
+          f"{res['fps']:.1f} frames/s), glue {res['glue_ms']:.3f} ms; dense "
+          f"layers' bound {res['dense_layer_bound_ms']:.3f} ms; K4 launches "
+          f"{json.dumps(launches)} ({json.dumps(res['launches_per_forward'])}"
+          f" a forward), tensor-core {json.dumps(mma)}, --ablate "
+          f"{json.dumps(ablated)}, plain versions {json.dumps(plain)}  "
+          f"[{card}]", flush=True)
+    check(len(rows) == 11, f"serve_breakdown: {len(rows)} level rows")
+    check(res["launches_per_forward"] == K4_PER_FORWARD,
+          f"serve_breakdown: {res['launches_per_forward']} a forward")
+    check(all(launches[k] > 0 for k in K4_PER_FORWARD)
+          and mma["dense_layer"] == launches["dense_layer"],
+          f"serve_breakdown: launches {launches}, tensor-core {mma}")
+    check(all(ablated.values()), f"serve_breakdown: --ablate {ablated}")
+    check(not any(plain.values()), f"serve_breakdown: a plain version ran "
+          f"{plain}")
+    abl = [r for r in rows if ABLATE_LEVEL in r["level"]]
+    check(len(abl) == 1 and _finite(abl[0].get("no_taps_ms"),
+                                    abl[0].get("no_prep_ms")),
+          f"serve_breakdown: the --ablate level {abl}")
+    for r in rows:
+        ok = _finite(r["ms"], r["mxu_pct"], r["hbm_pct"]) and r["ms"] > 0
+        check(ok, f"serve_breakdown: row {r}")
+        check(ok and r["mxu_pct"] <= 100 and r["hbm_pct"] <= 100,
+              f"serve_breakdown: {r['level']} above the card's peak "
+              f"({r['mxu_pct']}% MXU, {r['hbm_pct']}% HBM)")
+    check(res["sum_ms"] <= res["full_ms"] + res["full_spread_ms"],
+          f"serve_breakdown: the levels' sum {res['sum_ms']:.3f} ms exceeds "
+          f"the full forward {res['full_ms']:.3f} + "
+          f"{res['full_spread_ms']:.3f} ms")
+    want = dense_bound_b64 * BREAKDOWN_BATCH / TIME_BATCH
+    check(abs(res["dense_layer_bound_ms"] - want) <= 0.01 * want,
+          f"serve_breakdown: dense layers' bound "
+          f"{res['dense_layer_bound_ms']:.3f} ms, phase 5's scaled {want:.3f}")
+    return {"launches": launches, "ablated": ablated, "result": res}
+
+
+def train_breakdown_check(card) -> dict:
+    """Phase 23b: ``cli.train_breakdown --arch 67 -b 128`` with K1-K3b's
+    counts set to 0 just before and read just after: 5 TransitionDown rows
+    (one tap), the full forward, forward and backward and step, all finite,
+    every kernel launched, on the tensor-core route, no plain version."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import train_breakdown
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+
+    plain = {}
+    with mock.patch.multiple(ktb, **_plain_counting(
+            ktb, [f"{k}_plain" for k in TRAIN_KERNELS], plain)), \
+            mock.patch.multiple(train_breakdown, **TRAIN_BREAKDOWN_TIMING):
+        ktb.reset_launches()
+        t0 = time.perf_counter()
+        res = train_breakdown.main(TRAIN_BREAKDOWN_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, mma = dict(ktb.launches), dict(ktb.mma_launches)
+    rows = res["levels"]
+    print(f"train_breakdown: B=128 in {wall:.1f} s; {len(rows)} consumers, "
+          f"fwd {res['fwd_sum_ms']:.3f} ms, vjp {res['vjp_sum_ms']:.3f} ms; "
+          f"full fwd {res['full_fwd_ms']:.3f} ms, fwd+bwd "
+          f"{res['full_fwd_bwd_ms']:.3f} ms, step {res['step_ms']:.3f} ms "
+          f"({res['img_s']:.1f} img/s); K1-K3b launches "
+          f"{json.dumps(launches)}, tensor-core {json.dumps(mma)}, plain "
+          f"versions {json.dumps(plain)}  [{card}]", flush=True)
+    check(len(rows) == 5 and all(r["taps"] == 1 for r in rows),
+          f"train_breakdown: rows {[r['level'] for r in rows]}")
+    for r in rows:
+        check(_finite(r["fwd_ms"], r["vjp_ms"], r["fwd_mxu_pct"])
+              and r["fwd_mxu_pct"] <= 100, f"train_breakdown: row {r}")
+    check(_finite(res["full_fwd_ms"], res["full_fwd_bwd_ms"], res["step_ms"]),
+          f"train_breakdown: {res}")
+    check(all(launches.values()) and mma == launches,
+          f"train_breakdown: launches {launches}, tensor-core {mma}")
+    check(not any(plain.values()), f"train_breakdown: a plain version ran "
+          f"{plain}")
+    return launches
+
+
+def train_benchmark_check(card) -> dict:
+    """Phase 23c: ``cli.train_benchmark --archs 67 lite -b 64``, then with
+    ``--pallas_train`` (K1-K3b's counts set to 0 just before and read just
+    after: the two warm-up steps and the capture of FCDenseNet67's step, no
+    plain version), then ``--stages``.  The headline lines go through the
+    CUDA-graph replay; every number finite."""
+    import gc
+
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import train_benchmark
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+    from sim2real_lane_segment_tpu_torch.train import graphs
+
+    t0 = time.perf_counter()
+    rows = train_benchmark.main(TRAIN_BENCH_ARGS)
+    plain = {}
+    with mock.patch.multiple(ktb, **_plain_counting(
+            ktb, [f"{k}_plain" for k in TRAIN_KERNELS], plain)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ktb.reset_launches()
+        graphs.reset_counts()
+        prows = train_benchmark.main(TRAIN_BENCH_ARGS + ["--pallas_train"])
+        torch.cuda.synchronize()
+        launches = dict(ktb.launches)
+        replays = dict(graphs.counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    srows = train_benchmark.main(TRAIN_BENCH_ARGS + ["--stages"])
+    wall = time.perf_counter() - t0
+    for r in rows + prows:
+        print(f"train_benchmark: {r['metric']} {r['value']:.1f} "
+              f"{r['unit']} ({r['step_ms']:.3f} ms a B={r['batch']} step, "
+              f"{r['dispatch']}), final loss {r['final_loss']:.4f}  [{card}]")
+    for r in srows:
+        print(f"train_benchmark: {r['metric']} (ms a step, eager) "
+              + ", ".join(f"{k} {r[k]:.3f}" for k in train_benchmark.STAGES)
+              + f"  [{card}]")
+    print(f"train_benchmark: 3 runs in {wall:.1f} s; --pallas_train K1-K3b "
+          f"launches {json.dumps(launches)}, graphs {json.dumps(replays)}, "
+          f"plain versions {json.dumps(plain)}  [{card}]", flush=True)
+    names = [r["metric"] for r in rows + prows]
+    check(names == [f"train_images_per_sec_{ARCH}", "train_images_per_sec_lite",
+                    f"train_images_per_sec_{ARCH}_pallas",
+                    "train_images_per_sec_lite"],
+          f"train_benchmark: metrics {names}")
+    check(all(r["dispatch"] == "cuda_graph" and r["value"] > 0
+              and _finite(r["value"], r["final_loss"]) for r in rows + prows),
+          f"train_benchmark: {rows + prows}")
+    once = graphs.WARMUP_STEPS + 1   # eager warm-ups, then the capture
+    check(launches == {k: v * once for k, v in
+                       TRAIN_LAUNCHES_PER_STEP.items()},
+          f"train_benchmark --pallas_train: launches {launches}")
+    check(replays["captures"] == 2, f"train_benchmark: graphs {replays}")
+    check(not any(plain.values()), f"train_benchmark: a plain version ran "
+          f"{plain}")
+    check(all(_finite(*(r[k] for k in train_benchmark.STAGES)) for r in srows),
+          f"train_benchmark --stages: {srows}")
+    return launches
+
+
+def real_domain_check(sd, device, card, tmp) -> dict:
+    """Phase 23d: ``cli.create_real_db`` on the committed labelme fixtures
+    on the card, its masks byte-equal to a run on the CPU (and each
+    fixture's mask from ``shapes_to_label`` on both devices);
+    ``cli.preprocess_db --dbType real``; one ``--trainType mme --augment
+    --pallas_train`` step of FCDenseNet67 (seeded weights) on a synthetic
+    source plus the real target (phase 15's launch checks, two passes);
+    then ``cli.get_real_data --imitate`` and ``plot_lr``'s values."""
+    import shutil
+
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import (create_real_db,
+                                                     get_real_data, plot_lr,
+                                                     preprocess_db)
+    from sim2real_lane_segment_tpu_torch.data.png import read_png
+
+    real, on_cpu = os.path.join(tmp, "realData"), os.path.join(tmp, "cpu")
+    t0 = time.perf_counter()
+    res = create_real_db.main(["--imgPath", REAL_FIXTURES, "--targetPath",
+                               real])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    res_cpu = create_real_db.main(["--imgPath", REAL_FIXTURES,
+                                   "--targetPath", on_cpu], device="cpu")
+    check(res == res_cpu == {"labelled": 3, "unlabelled": 3},
+          f"create_real_db: {res}, on the CPU {res_cpu}")
+    diff = 0
+    for name in sorted(os.listdir(os.path.join(real, "label"))):
+        a = read_png(os.path.join(real, "label", name), color=False)
+        b = read_png(os.path.join(on_cpu, "label", name), color=False)
+        diff += int((a != b).sum()) + int(a.shape != b.shape)
+    masks = 0
+    for path in sorted(os.listdir(REAL_FIXTURES)):
+        if not path.endswith(".json"):
+            continue
+        with open(os.path.join(REAL_FIXTURES, path)) as f:
+            shapes = json.load(f)["shapes"]
+        img = read_png(os.path.join(REAL_FIXTURES, path[:-5] + ".png"))
+        m = create_real_db.shapes_to_label(
+            img.shape, shapes, create_real_db.LABEL_NAME_TO_VALUE, device)
+        check(m.device.type == "cuda", "shapes_to_label ran off the card")
+        ref = create_real_db.shapes_to_label(
+            img.shape, shapes, create_real_db.LABEL_NAME_TO_VALUE, "cpu")
+        diff += int((m.cpu() != ref).sum())
+        masks += 1
+    label0 = read_png(os.path.join(real, "label", "000000.png"), color=False)
+    print(f"create_real_db: {res} on the card in {card_s:.2f} s; masks "
+          f"against the CPU run: {diff} pixels differ over 3 label PNGs and "
+          f"{masks} fixture masks; classes {sorted(np.unique(label0))}  "
+          f"[{card}]", flush=True)
+    check(diff == 0 and masks == 3, f"create_real_db: {diff} pixels differ")
+    check(set(np.unique(label0)) == {0, 1, 2, 3},
+          f"create_real_db: classes {np.unique(label0)}")
+
+    preprocess_db.main(["--dbType", "real", "--dataPath", real,
+                        "--train_ratio", "0.67"])
+    sizes = tuple(len(os.listdir(os.path.join(real, s, "input")))
+                  for s in ("train", "test", "unlabelled"))
+    check(sizes == (2, 1, 3), f"preprocess_db --dbType real: {sizes}")
+    root = os.path.join(tmp, "simRealData")
+    write_png_tree(root, splits=(("source", 1),))
+    shutil.copytree(real, os.path.join(root, "target"))
+    weights = os.path.join(tmp, "pretrained.pt")
+    torch.save(sd, weights)
+    argv = ["--trainType", "mme", "--dataPath", root, "--pretrained_path",
+            weights, "--arch", ARCH, "--augment", "--pallas_train",
+            "--max_epochs", "1", "-b", str(REAL_MME_BATCH),
+            "--default_root_dir", os.path.join(tmp, "mme"), "--log_every",
+            "1", "--seed", str(SEED)]
+    _, mme_launches, _ = train_cli_checked(
+        "train (MME, real target)", argv, 2, REAL_MME_BATCH, card,
+        batch=REAL_MME_BATCH)
+
+    got = get_real_data.main(["--imitate"])
+    check(got == {"videos": 0, "frames": 0, "urls": 78},
+          f"get_real_data --imitate: {got}")
+    lrs = plot_lr.schedules(1e-3, 1000, 175)
+    flat = [v for series in lrs.values() for v in series]
+    check(all(len(v) == 175 for v in lrs.values()) and _finite(*flat)
+          and lrs["adamw"][0] == 1e-3 and min(flat) > 0,
+          f"plot_lr: {[(k, v[:2]) for k, v in lrs.items()]}")
+    print(f"get_real_data --imitate: {got['urls']} URLs, no network; "
+          f"plot_lr: {len(lrs)} schedules x 175 epochs, AdamW "
+          f"{lrs['adamw'][0]:.3g} -> {min(lrs['adamw']):.3g} (the card's "
+          f"machine has no matplotlib: values only)  [{card}]", flush=True)
+    return mme_launches
+
+
+def ablation_entries(sd, device, card, ablated) -> list:
+    """Phase 23e: the two --ablate variants of the tensor-core dense layer
+    against their plain versions on all 55 layers of a B=64 forward (each
+    layer alone), then each variant's time per B=64 forward beside its
+    plain version, the cuDNN conv of the same function and its bound.
+    Returns their kernels-line entries (``launches``: phase 23a's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sim2real_lane_segment_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.models.tiramisu_fused import \
+        fold_model
+
+    model = make_model(sd, DEFAULT_POLICY, device)
+    folded = fold_model(model)
+    x = model_input(synthetic_frames(np.random.default_rng(SEED + 3),
+                                     TIME_BATCH), device)
+    with torch.no_grad():
+        calls = capture_blocks(model, x, folded)
+    it = 2
+    t = {m: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "bytes": 0.0, "ops": 0.0} for m in kdb.ABLATIONS}
+    kdb.reset_launches()
+    for _, segs, layers, _ in calls:
+        feat = kdb.dense_block_plain(segs, layers, c_lo=0)
+        b, _, h, w = feat.shape
+        for mode, e in t.items():
+            lib = []
+            for lay in layers:
+                k, _, g = lay.weight.shape
+                buf, ref = feat.clone(), feat.clone()
+                kdb.dense_layer(buf, lay, ablate=mode)
+                kdb.dense_layer_plain(ref, lay, ablate=mode)
+                a, r = buf[:, k:k + g].float(), ref[:, k:k + g].float()
+                torch.testing.assert_close(
+                    a, r, **ISOLATED_TOL["bfloat16"],
+                    msg=f"--ablate {mode} layer at c={k}, {h}x{w}")
+                e["err"] = max(e["err"], (a - r).abs().max().item())
+                del buf, ref
+                wo = lay.weight.reshape(k, 3, 3, g).permute(3, 0, 1, 2)
+                if mode == "no_taps":
+                    lib.append((kdb.bn_relu_plain(feat, lay.scale, lay.shift),
+                                wo[:, :, 1:2, 1:2].contiguous(), 0))
+                else:
+                    lib.append((feat[:, :k], wo.contiguous(), 1))
+                taps = 1 if mode == "no_taps" else 9
+                e["bytes"] += (b * h * w * (k + g) * it + k * 9 * g * it
+                               + 8 * k + 4 * g)
+                e["ops"] += 2.0 * b * h * w * k * taps * g
+            e["ms"] += _time_ms(lambda: [kdb.dense_layer(feat, lay,
+                                                         ablate=mode)
+                                         for lay in layers], reps=3)
+            e["plain_ms"] += _time_ms(lambda: [kdb.dense_layer_plain(
+                feat, lay, ablate=mode) for lay in layers], reps=3)
+            e["library_ms"] += _time_ms(lambda: [F.conv2d(a, wo, padding=p)
+                                                 for a, wo, p in lib], reps=3)
+            del lib
+    check(kdb.mma_launches["dense_layer"] == 0
+          and all(kdb.ablate_launches.values()),
+          f"--ablate: {kdb.ablate_launches}, default {kdb.mma_launches}")
+    out = []
+    for mode, e in t.items():
+        t_bytes = e["bytes"] / PEAK_BYTES * 1e3
+        t_ops = e["ops"] / PEAK_BF16_OPS * 1e3
+        entry = {
+            "name": f"k4_dense_{mode}", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": ablated[mode],
+            "max_abs_err": e["err"], "ms": e["ms"],
+            "plain_ms": e["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": e["library_ms"]}
+        out.append(entry)
+        print(f"timing: k4_dense_{mode} (--ablate) per B={TIME_BATCH} "
+              f"forward: kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} "
+              f"ms, cuDNN conv {e['library_ms']:.3f} ms, bound "
+              f"{entry['bound_ms']:.3f} ms ({entry['bound_by']}); max|err| "
+              f"against plain {e['err']:.3e} (limit "
+              f"{ISOLATED_TOL['bfloat16']})  [{card}]", flush=True)
+    return out
+
+
+def diagnostics_phase(sd, device, card, kernels) -> None:
+    """Phase 23: the kernel diagnostics and the real-domain path, each
+    part's seconds printed; adds this phase's launch counts and the two
+    --ablate variants to ``kernels``."""
+    dense_bound = next(k["bound_ms"] for k in kernels
+                       if k["name"] == "k4_dense_layer")
+    t0 = time.perf_counter()
+    serve = serve_breakdown_check(card, dense_bound)
+    print(f"diagnostics: 23a in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    train = {"launches_breakdown": train_breakdown_check(card)}
+    print(f"diagnostics: 23b in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    train["launches_train_benchmark"] = train_benchmark_check(card)
+    print(f"diagnostics: 23c in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train["launches_real_mme"] = real_domain_check(sd, device, card,
+                                                       tmp)
+    print(f"diagnostics: 23d in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    kernels += ablation_entries(sd, device, card, serve["ablated"])
+    print(f"diagnostics: 23e in {time.perf_counter() - t0:.1f} s", flush=True)
+    for k in kernels:
+        if k["name"].startswith("k4_") and k["name"][3:] in serve["launches"]:
+            k["launches_breakdown"] = serve["launches"][k["name"][3:]]
+        for wrapper, (name, _) in TRAIN_KERNELS.items():
+            if k["name"] == name:
+                for key, counts in train.items():
+                    k[key] = counts[wrapper]
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -4529,6 +4961,12 @@ def main() -> None:
         for entry, info in ptxas_report(build.build_log.get(name, "")):
             if entry in REDESIGNED:
                 print(f"build: {entry}: {info}  [{card}]")
+    shared = [f"{entry}: {info}" for name in sources
+              for entry, info in ptxas_report(build.build_log.get(name, ""))
+              if entry in SHARED_BODY]
+    if shared:  # the libraries were built in this run
+        print(f"build: the 3x3 body's kernels (K1 and serving's, the "
+              f"--ablate variants): {'; '.join(shared)}  [{card}]")
     hmma = tensor_core_instructions(build)
     if hmma is None:
         print("build: cuobjdump not found beside nvcc; tensor-core "
@@ -4692,6 +5130,12 @@ def main() -> None:
             if k["name"] == f"k4_{name}":
                 k["launches_demo_video"] = n
     lap(22)
+
+    # phase 23: the kernel diagnostics (serve_breakdown, train_breakdown,
+    # train_benchmark) and the real-domain path (create_real_db ->
+    # preprocess_db -> an MME step; get_real_data, plot_lr)
+    diagnostics_phase(sd, device, card, kernels)
+    lap(23)
     print(f"phases: seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} in all  [{card}]", flush=True)
 

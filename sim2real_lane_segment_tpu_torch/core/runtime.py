@@ -7,7 +7,11 @@ before it builds a model.
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
+
+UNREAD = "power limit not read"  # in a label whose nvidia-smi query failed
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -31,3 +35,25 @@ def set_float32_precision() -> None:
     route than the one measured.  The flags need no card."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def device_label(device: torch.device) -> str:
+    """The name and power limit of the card behind ``device``, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them, for every time a CLI prints; on the CPU, a label that
+    says its times are the host's."""
+    if device.type != "cuda":
+        return "cpu (host times, no card)"
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"{torch.cuda.get_device_name(device)}, {UNREAD} ({e})"
+    if out.returncode != 0 or not out.stdout.strip():
+        return (f"{torch.cuda.get_device_name(device)}, {UNREAD} "
+                f"(nvidia-smi: {out.stderr.strip()})")
+    return out.stdout.strip().splitlines()[0]

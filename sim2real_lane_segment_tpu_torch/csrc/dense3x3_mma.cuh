@@ -108,12 +108,20 @@ __device__ __forceinline__ float ld_cluster(uint32_t addr, int rank) {
   return v;
 }
 
+// Diagnostic variants of the body (cli/serve_breakdown --ablate), wrong
+// math at the same shapes and launch, so that the time each removes can be
+// read off: NO_TAPS multiplies the centre tap alone instead of all nine;
+// NO_PREP stages x as it is, without BN + ReLU.  ABLATE_NONE is the body.
+constexpr int ABLATE_NONE = 0;
+constexpr int NO_TAPS = 1;
+constexpr int NO_PREP = 2;
+
 // The body of both kernels.  X: channels [0, K) of image b at X + b *
 // x_bstride; wt [K][9][16] (16-byte aligned); out: channels [0, 16) of
 // image b at out + b * out_bstride (in place: the caller's buffer past
 // channel K); mask [B][16] (MASK only); pair: mma::c3_pair_loads.
 // Grid: (tiles, B, S), clusters of (1, 1, S) when S > 1.
-template <bool MASK>
+template <bool MASK, int ABLATE = ABLATE_NONE>
 __device__ __forceinline__ void fwd3x3_body(const mma::u16* X, ll x_bstride, int K, int H,
                                             int W, const float* __restrict__ scale,
                                             const float* __restrict__ shift,
@@ -152,7 +160,7 @@ __device__ __forceinline__ void fwd3x3_body(const mma::u16* X, ll x_bstride, int
   };
   auto store = [&](int c) {
     const int k0 = c * KC;
-    mma::px_store<true, false, ROUNDS, mma::C3_THREADS>(
+    mma::px_store<ABLATE != NO_PREP, false, ROUNDS, mma::C3_THREADS>(
         raw, 0, TOTAL, sA + (c & 1) * SA, nullptr, LD, H, W, ty0, tx0, K - k0,
         scale + k0, shift + k0);
   };
@@ -176,7 +184,7 @@ __device__ __forceinline__ void fwd3x3_body(const mma::u16* X, ll x_bstride, int
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 16) {
 #pragma unroll
-      for (int t = 0; t < 9; ++t) {
+      for (int t = ABLATE == NO_TAPS ? 4 : 0; t < (ABLATE == NO_TAPS ? 5 : 9); ++t) {
         uint32_t bq[4];  // W[k, t, o]: stored [k][o]
         mma::ldsm_x4_t(bq, w_sm + 2u * (uint32_t)((kk + ln.r8 + 8 * ln.j0) * mma::C3_WLD +
                                                   t * mma::C3_N + 8 * ln.j1));

@@ -436,19 +436,45 @@ dense3x3_mma_kernel(const s2r_mma::u16* X, long long x_bstride, int K, int H, in
                              out_bstride, pair);
 }
 
-cudaError_t launch_dense_mma(const void* in, long long in_bstride, int B, int K, int H,
-                             int W, const float* scale, const float* shift,
+// Its two diagnostic variants (s2r_d3::NO_TAPS, NO_PREP): the same launch,
+// one cost removed.
+__global__ void __launch_bounds__(s2r_mma::C3_THREADS, 3)
+dense3x3_no_taps_kernel(const s2r_mma::u16* X, long long x_bstride, int K, int H, int W,
+                        const float* __restrict__ scale, const float* __restrict__ shift,
+                        const s2r_mma::u16* __restrict__ wt, const float* __restrict__ bias,
+                        const float* __restrict__ mask, s2r_mma::u16* out,
+                        long long out_bstride, int pair) {
+  s2r_d3::fwd3x3_body<false, s2r_d3::NO_TAPS>(X, x_bstride, K, H, W, scale, shift, wt, bias,
+                                              mask, out, out_bstride, pair);
+}
+
+__global__ void __launch_bounds__(s2r_mma::C3_THREADS, 3)
+dense3x3_no_prep_kernel(const s2r_mma::u16* X, long long x_bstride, int K, int H, int W,
+                        const float* __restrict__ scale, const float* __restrict__ shift,
+                        const s2r_mma::u16* __restrict__ wt, const float* __restrict__ bias,
+                        const float* __restrict__ mask, s2r_mma::u16* out,
+                        long long out_bstride, int pair) {
+  s2r_d3::fwd3x3_body<false, s2r_d3::NO_PREP>(X, x_bstride, K, H, W, scale, shift, wt, bias,
+                                              mask, out, out_bstride, pair);
+}
+
+// mode: s2r_d3::ABLATE_NONE (the dense layer), NO_TAPS or NO_PREP.
+cudaError_t launch_dense_mma(int mode, const void* in, long long in_bstride, int B, int K,
+                             int H, int W, const float* scale, const float* shift,
                              const void* wt, const float* bias, void* out,
                              long long out_bstride, int* splits, cudaStream_t stream) {
-  static bool ready = false;  // the shared-memory limit, set once
-  if (!ready) {
+  static decltype(&dense3x3_mma_kernel) const kernels[] = {
+      dense3x3_mma_kernel, dense3x3_no_taps_kernel, dense3x3_no_prep_kernel};
+  static bool ready[3] = {false, false, false};  // the shared-memory limits, set once
+  if (mode < s2r_d3::ABLATE_NONE || mode > s2r_d3::NO_PREP) return cudaErrorInvalidValue;
+  if (!ready[mode]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense3x3_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM);
+        kernels[mode], cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM);
     if (e != cudaSuccess) return e;
-    ready = true;
+    ready[mode] = true;
   }
-  return s2r_d3::launch_fwd3x3(dense3x3_mma_kernel, in, in_bstride, B, K, H, W, scale,
-                               shift, wt, bias, nullptr, out, out_bstride, stream, splits);
+  return s2r_d3::launch_fwd3x3(kernels[mode], in, in_bstride, B, K, H, W, scale, shift, wt,
+                               bias, nullptr, out, out_bstride, stream, splits);
 }
 
 template <typename T>
@@ -489,23 +515,29 @@ cudaError_t launch_classifier(const void* in, long long in_bstride, int B,
 // growth rates and a wider TransitionDown on the CUDA cores.  *route
 // receives the route taken: 0 for the CUDA cores, 1 for the tensor-core
 // TransitionDown, and for the tensor-core dense layer the blocks S >= 1
-// that split its channel loop.
+// that split its channel loop.  mode (the tensor-core dense layer only,
+// else 0 or cudaErrorInvalidValue): 0 the layer, 1 and 2 its diagnostic
+// variants, wrong math at the same launch (s2r_d3::NO_TAPS: the centre tap
+// alone; NO_PREP: x staged without BN + ReLU).
 extern "C" int s2r_conv_bnrelu(int dtype, int taps, const void* in,
                                long long in_bstride, int B, int K, int H,
                                int W, const float* scale, const float* shift,
                                const void* wt, const float* bias, int N,
                                void* out, long long out_bstride,
-                               int round_first, int* route, void* stream) {
+                               int round_first, int mode, int* route,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *route = 0;
+  const bool dense_mma = dtype == 1 && taps == 9 && N == s2r_mma::C3_N;
+  if (mode != 0 && !dense_mma) return cudaErrorInvalidValue;
   if (dtype == 0 && taps == 9)
     return launch_conv<float, 9>(in, in_bstride, B, K, H, W, scale, shift, wt,
                                  bias, N, out, out_bstride, round_first, s);
   if (dtype == 0 && taps == 1)
     return launch_conv<float, 1>(in, in_bstride, B, K, H, W, scale, shift, wt,
                                  bias, N, out, out_bstride, round_first, s);
-  if (dtype == 1 && taps == 9 && N == s2r_mma::C3_N)
-    return launch_dense_mma(in, in_bstride, B, K, H, W, scale, shift, wt, bias, out,
+  if (dense_mma)
+    return launch_dense_mma(mode, in, in_bstride, B, K, H, W, scale, shift, wt, bias, out,
                             out_bstride, route, s);
   if (dtype == 1 && taps == 9)
     return launch_conv<__nv_bfloat16, 9>(in, in_bstride, B, K, H, W, scale,

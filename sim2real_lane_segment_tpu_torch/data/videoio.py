@@ -255,6 +255,60 @@ def read_paired_frames(path_a: str, path_b: str, batch_size: int = 64
         yield a[:n], b[:n]
 
 
+# an MP4/QuickTime sample entry's fourcc -> the codec's name
+_MP4_CODECS = {b"avc1": "H.264", b"avc3": "H.264", b"hvc1": "H.265",
+               b"hev1": "H.265", b"mp4v": "MPEG-4 Part 2", b"av01": "AV1",
+               b"vp09": "VP9", b"mjpa": "Motion JPEG", b"jpeg": "Motion JPEG"}
+
+
+def _mp4_boxes(f, end: int):
+    """(type, payload start, payload end) of the boxes from the file's
+    position to ``end``."""
+    pos = f.tell()
+    while pos + 8 <= end:
+        f.seek(pos)
+        size, kind = struct.unpack(">I4s", f.read(8))
+        head = 8
+        if size == 1:
+            size = struct.unpack(">Q", f.read(8))[0]
+            head = 16
+        elif size == 0:
+            size = end - pos
+        if size < head:
+            return
+        yield kind, pos + head, pos + size
+        pos += size
+
+
+def codec_of(path: str) -> str:
+    """The codec of a video file's frames, named: an AVI's fourcc
+    (``MPNG`` is the one ``read_frames`` reads), or for an MP4/QuickTime
+    file the codec of its video sample entry (``H.264 (avc1)``, ...)."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+        if head[:4] == b"RIFF" and head[8:] == b"AVI ":
+            return probe(path).fourcc.decode("latin-1")
+        if head[4:8] not in (b"ftyp", b"moov", b"mdat", b"free", b"wide"):
+            return f"unknown (not an AVI or MP4 file: {head[:8]!r})"
+        f.seek(0, os.SEEK_END)
+        end = f.tell()
+        f.seek(0)
+        for kind, start, stop in _mp4_boxes(f, end):
+            if kind != b"moov":
+                continue
+            f.seek(start)
+            moov = f.read(stop - start)
+            i = moov.find(b"stsd")
+            while i >= 0:
+                # version and flags, entry count, entry size, entry type
+                entry = moov[i + 16:i + 20]
+                if entry in _MP4_CODECS:
+                    return f"{_MP4_CODECS[entry]} ({entry.decode()})"
+                i = moov.find(b"stsd", i + 4)
+            return "unknown (no video sample entry in the MP4 file)"
+    return "unknown (an MP4 file without a moov box)"
+
+
 def frame_count(path: str) -> int:
     return probe(path).n_frames
 

@@ -29,6 +29,13 @@ counts kernel launches per entry point (CUDA tensors only),
 ``mma_launches`` the dense-layer launches that the C library reports on
 the tensor cores, and ``mma_splits`` those by the blocks that split their
 channel loop.
+
+``dense_layer(..., ablate=)`` runs a diagnostic variant of the tensor-core
+dense layer (``cli/serve_breakdown --ablate``): ``"no_taps"`` multiplies
+the centre tap alone, ``"no_prep"`` convolves x without BN + ReLU, wrong
+math at the same launch, so that a level's time can be split between the
+two.  Only the tensor-core route has them: any other layer raises
+``ValueError``.  ``ablate_launches`` counts their launches.
 """
 from __future__ import annotations
 
@@ -43,6 +50,9 @@ from . import build
 
 launches = {"dense_layer": 0, "transition": 0, "classifier": 0}
 mma_launches = {"dense_layer": 0}
+# the diagnostic variants of the tensor-core dense layer, by their C mode
+ABLATIONS = {"no_taps": 1, "no_prep": 2}
+ablate_launches = {k: 0 for k in ABLATIONS}
 mma_splits: dict[int, int] = {}
 
 # the tensor-core dense layer (csrc/dense3x3_mma.cuh): growth, pixel tile,
@@ -62,7 +72,7 @@ CLS_SMEM_MAX = 232_448
 
 
 def reset_launches() -> None:
-    for counts in (launches, mma_launches):
+    for counts in (launches, mma_launches, ablate_launches):
         for k in counts:
             counts[k] = 0
     mma_splits.clear()
@@ -138,12 +148,19 @@ def bn_relu_plain(feat: torch.Tensor, scale: torch.Tensor,
     return torch.relu(a + shift[:, None, None]).to(feat.dtype)
 
 
-def dense_layer_plain(feat: torch.Tensor, layer: FoldedLayer) -> None:
+def dense_layer_plain(feat: torch.Tensor, layer: FoldedLayer,
+                      ablate: str | None = None) -> None:
     k, _, g = layer.weight.shape
-    a = bn_relu_plain(feat, layer.scale, layer.shift)
+    if ablate == "no_prep":
+        a = feat[:, :k]
+    else:
+        a = bn_relu_plain(feat, layer.scale, layer.shift)
     w = layer.weight.reshape(k, 3, 3, g).permute(3, 0, 1, 2)
-    # padding=1 pads the post-ReLU activation: the conv's zero padding
-    y = F.conv2d(a.to(torch.float32), w.to(torch.float32), padding=1)
+    if ablate == "no_taps":
+        w = w[:, :, 1:2, 1:2]
+    # the padding pads the post-ReLU activation: the conv's zero padding
+    y = F.conv2d(a.to(torch.float32), w.to(torch.float32),
+                 padding=w.shape[-1] // 2)
     feat[:, k:k + g] = (y + layer.bias[:, None, None]).to(feat.dtype)
 
 
@@ -178,7 +195,7 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (built once)."""
     lib = build.load("dense_block")
     lib.s2r_conv_bnrelu.argtypes = [_I, _I, _P, _L, _I, _I, _I, _I, _P, _P,
-                                    _P, _P, _I, _P, _L, _I,
+                                    _P, _P, _I, _P, _L, _I, _I,
                                     ctypes.POINTER(_I), _P]
     lib.s2r_conv_bnrelu.restype = _I
     lib.s2r_classifier.argtypes = [_I, _P, _L, _I, _I, _L, _P, _P,
@@ -222,9 +239,10 @@ def _check_operand(t: torch.Tensor, feat: torch.Tensor, dtype, shape,
 
 
 def _conv(feat, scale, shift, weight, bias, taps, out, round_first,
-          what) -> int:
+          what, ablate=None) -> int:
     """One launch; returns the route the C library took (``s2r_conv_bnrelu``:
-    0 on the CUDA cores)."""
+    0 on the CUDA cores).  ``ablate``: the tensor-core dense layer's
+    diagnostic variant to launch (``ABLATIONS``), counted apart."""
     b, c_total, h, w = feat.shape
     k, n = weight.shape[0], weight.shape[-1]
     _check_operand(scale, feat, torch.float32, (k,), what, "scale")
@@ -241,25 +259,38 @@ def _conv(feat, scale, shift, weight, bias, taps, out, round_first,
             _DTYPE_CODE[feat.dtype], taps, feat.data_ptr(), c_total * h * w,
             b, k, h, w, scale.data_ptr(), shift.data_ptr(), weight.data_ptr(),
             bias.data_ptr(), n, out.data_ptr(), out.stride(0), round_first,
-            ctypes.byref(route), stream)
+            ABLATIONS[ablate] if ablate else 0, ctypes.byref(route), stream)
     _check(lib, err, what)
-    launches[what] += 1
+    if ablate:
+        ablate_launches[ablate] += 1
+    else:
+        launches[what] += 1
     return route.value
 
 
-def dense_layer(feat: torch.Tensor, layer: FoldedLayer) -> None:
+def dense_layer(feat: torch.Tensor, layer: FoldedLayer,
+                ablate: str | None = None) -> None:
     """Append one dense layer's ``g`` channels to ``feat`` in place: reads
-    channels [0, c_j), writes [c_j, c_j + g)."""
-    if not feat.is_cuda:
-        return dense_layer_plain(feat, layer)
-    _check_feat(feat)
+    channels [0, c_j), writes [c_j, c_j + g).  ``ablate``: a diagnostic
+    variant (``ABLATIONS``) of the tensor-core layer."""
     k, _, g = layer.weight.shape
+    if ablate is not None:
+        _require(ablate in ABLATIONS,
+                 f"ablate {ablate!r} is not one of {sorted(ABLATIONS)}")
+        _require(takes_mma_dense(feat.dtype, g),
+                 f"ablate is a tensor-core-route diagnostic (bfloat16, "
+                 f"growth {MMA_GROWTH}); this layer is {feat.dtype} with "
+                 f"growth {g}, which runs on the CUDA cores")
+    if not feat.is_cuda:
+        return dense_layer_plain(feat, layer, ablate)
+    _check_feat(feat)
     _require(k + g <= feat.shape[1],
              f"dense layer writes channels [{k}, {k + g}) of {feat.shape[1]}")
     out = feat[:, k:]  # the kernel writes channels [0, g) of this view
     splits = _conv(feat, layer.scale, layer.shift, layer.weight, layer.bias,
-                   9, out, 0, "dense_layer")
-    if splits > 0:  # the tensor-core kernel, its channel loop in `splits`
+                   9, out, 0, "dense_layer", ablate)
+    if splits > 0 and ablate is None:
+        # the tensor-core kernel, its channel loop in `splits`
         mma_launches["dense_layer"] += 1
         mma_splits[splits] = mma_splits.get(splits, 0) + 1
 

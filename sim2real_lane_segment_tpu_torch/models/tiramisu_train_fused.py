@@ -229,7 +229,7 @@ def _cat(ts):
 
 
 def _block_train(block: DenseBlock, segs, stats, masks, updates, prefix,
-                 fused_block_bwd):
+                 fused_block_bwd, consumer_fn):
     """A train-mode dense block over the segments ``segs`` with per-segment
     batch ``stats``.  Returns (concat, its (mu, var), new features, their
     (mu, var))."""
@@ -257,8 +257,8 @@ def _block_train(block: DenseBlock, segs, stats, masks, updates, prefix,
             scale, shift = fold_affine(lay.BatchNorm_0.weight,
                                        lay.BatchNorm_0.bias, torch.cat(mus),
                                        torch.cat(vars_))
-            y = Consumer.apply(_cat(cur), scale, shift, weights[j],
-                               lay.Conv_0.bias, lmasks[j])
+            y = consumer_fn(_cat(cur), scale, shift, weights[j],
+                            lay.Conv_0.bias, lmasks[j])
             cur.append(y)
             mu, var = batch_stats(y)
             mus.append(mu)
@@ -276,7 +276,8 @@ def _block_train(block: DenseBlock, segs, stats, masks, updates, prefix,
 def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
                       use_softmax: bool = True,
                       fused_block_bwd: bool = True,
-                      reverse_features: bool = False):
+                      reverse_features: bool = False,
+                      consumer_fn=Consumer.apply):
     """Train-mode forward of an ``FCDenseNet`` through the fused consumer
     kernels, differentiable by autograd.
 
@@ -287,7 +288,9 @@ def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
     ``Consumer`` (K2 backward) instead of the fused block sweep.
     ``reverse_features`` puts MME's ``grad_reverse`` on the features that
     enter the head: the JAX path reverses each segment of that concat,
-    which is the same.
+    which is the same.  ``consumer_fn`` runs each ``Consumer`` site (a
+    TransitionDown, and each dense layer without ``fused_block_bwd``), as
+    ``Consumer.apply`` does; ``cli/train_breakdown`` records them so.
     """
     if model.kernel_size != 1:
         raise NotImplementedError("the fused train head takes a 1x1 "
@@ -308,7 +311,8 @@ def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
 
     def block(name, segs, stats):
         return _block_train(getattr(fe, name), segs, stats, masks, updates,
-                            f"featureExtractor.{name}", fused_block_bwd)
+                            f"featureExtractor.{name}", fused_block_bwd,
+                            consumer_fn)
 
     skips = []
     for i in range(len(model.down_blocks)):
@@ -319,9 +323,8 @@ def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
         scale, shift = fold_affine(bn.weight, bn.bias, *cat_st)
         updates[f"featureExtractor.transDown{i}.BatchNorm_0"] = \
             running_update(bn, *cat_st)
-        t = Consumer.apply(cat, scale, shift, conv_weight_rows(td.Conv_0,
-                                                               dtype),
-                           td.Conv_0.bias, next(masks))
+        t = consumer_fn(cat, scale, shift, conv_weight_rows(td.Conv_0, dtype),
+                        td.Conv_0.bias, next(masks))
         t = max_pool2(t)
         segs, stats = [t], [batch_stats(t)]
 

@@ -24,7 +24,9 @@ paths that put the kernels to new use: the distillation teacher through
 K4, LaneNetLite's train step on the card against the CPU and as a graph
 replay against the eager step, K5 under ``cli.postprocess``, and the
 renderer and the env on the card against the CPU, and
-``cli.make_demo_video --fused`` through K4.
+``cli.make_demo_video --fused`` through K4, and the two diagnostic
+variants of the tensor-core dense layer (``dense_layer(..., ablate=)``)
+beside the default kernel.
 """
 import ctypes
 
@@ -167,6 +169,60 @@ def test_mma_dense_layer_matches_plain(cuda, case):
     assert torch.equal(out[:, c + 16:], feat[:, c + 16:])
     torch.testing.assert_close(out.float(), ref.float(),
                                **TOLS[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(kdb.ABLATIONS))
+@pytest.mark.parametrize("case", [(3, 15, 20, 40), (64, 7, 10, 448),
+                                  (2, 120, 160, 48)])
+def test_ablated_dense_layer_launches_beside_the_default(cuda, case, mode):
+    """``cli/serve_breakdown --ablate``'s variants of the tensor-core
+    dense layer launch (split and unsplit), give finite output near their
+    plain versions, and leave the default kernel as it was: on one buffer,
+    the default layer, then the variant, then the default again, whose bits
+    equal the first run's."""
+    b, h, w, c = case
+    gen = torch.Generator().manual_seed(c + h + len(mode))
+    feat = torch.randn(b, c + 16, h, w, generator=gen).to(cuda,
+                                                          torch.bfloat16)
+    lay = kdb.FoldedLayer(
+        (torch.rand(c, generator=gen) + 0.5).to(cuda),
+        (torch.randn(c, generator=gen) * 0.3).to(cuda),
+        (torch.randn(c, 9, 16, generator=gen) * (2 / (9 * c)) ** 0.5).to(
+            cuda, torch.bfloat16),
+        (torch.randn(16, generator=gen) * 0.1).to(cuda))
+    kdb.reset_launches()
+    buf = feat.clone()
+    kdb.dense_layer(buf, lay)
+    first = buf.clone()
+    kdb.dense_layer(buf, lay, ablate=mode)
+    torch.cuda.synchronize()
+    ablated = buf.clone()
+    kdb.dense_layer(buf, lay)
+    torch.cuda.synchronize()
+    assert torch.equal(buf, first)
+    assert kdb.ablate_launches == {m: int(m == mode) for m in kdb.ABLATIONS}
+    assert kdb.mma_launches == {"dense_layer": 2}
+    assert torch.isfinite(ablated.float()).all()
+    assert torch.equal(ablated[:, :c], feat[:, :c])
+    ref = feat.clone()
+    kdb.dense_layer_plain(ref, lay, ablate=mode)
+    assert not torch.equal(ablated, first)
+    torch.testing.assert_close(ablated.float(), ref.float(),
+                               **TOLS[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_ablate_raises_off_the_tensor_core_route_on_the_card(cuda):
+    feat = torch.zeros(1, 40, 6, 8, device=cuda)
+    lay = kdb.FoldedLayer(torch.ones(24, device=cuda),
+                          torch.zeros(24, device=cuda),
+                          torch.zeros(24, 9, 16, device=cuda),
+                          torch.zeros(16, device=cuda))
+    kdb.reset_launches()
+    with pytest.raises(ValueError, match="tensor-core-route"):
+        kdb.dense_layer(feat, lay, ablate="no_taps")
+    assert kdb.ablate_launches == {"no_taps": 0, "no_prep": 0}
 
 
 @pytest.mark.gpu
