@@ -29,11 +29,14 @@ the video CLIs (``cli.make_demo_video --fused`` through K4,
 ``cli.train_breakdown``, ``cli.train_benchmark``) and the real-domain
 ingestion path (``cli.create_real_db``, ``cli.preprocess_db --dbType
 real``, an MME step on the real target; ``cli.get_real_data``,
-``cli.plot_lr``).
+``cli.plot_lr``); and the JAX package's FFV1 recordings through the
+port's own FFV1 codec (``data/ffv1.py`` over ``csrc/ffv1.cpp``, host
+code) into ``cli.postprocess`` (K5).
 Phases:
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: builds the four kernel sources from ``csrc/`` with nvcc, at once;
+2. build: builds the four kernel sources from ``csrc/`` with nvcc and the
+   FFV1 codec (``csrc/ffv1.cpp``) with the host's C++ compiler, at once;
    prints ptxas's registers and spills per kernel (the classifier's and
    K5's on a line of their own, and on another those of the kernels of
    the shared 3x3 body: serving's, K1's and the two ``--ablate``
@@ -186,7 +189,8 @@ Phases:
     the fisheye, zigzag through a generated photo pack), at the CPU tests'
     agreement bounds (DG_RENDER_EQUAL, DG_RENDER_NEAR), and the pairs'
     alignment; (b) ``cli.datagen`` (2 episodes x 64 steps x 2 agents, 256
-    pairs, PNG-in-AVI), ``cli.postprocess`` (K5 once a batch of <= 32
+    pairs, FFV1: every recording's fourcc and frame count checked),
+    ``cli.postprocess`` (K5 once a batch of <= 32
     pairs: 8 launches by its count and by torch.profiler, every batch's
     masks equal to the plain version on the card), ``cli.preprocess_db
     --dbType sim`` and one epoch of ``cli.train --arch 67 --pallas_train
@@ -196,8 +200,7 @@ Phases:
     ``--target_texture_pack auto``; (d) rendered pairs/s of a B=2 x 32-step
     rollout and its device time split between ground, cylinders and
     meshes (by subtraction), datagen's render and encode seconds,
-    postprocess frames/s with K5's device time, preprocess_db seconds,
-    and PNG encode and decode ms per frame on the host.
+    postprocess frames/s with K5's device time, preprocess_db seconds.
 22. the interactive simulator, learning/ and the video CLIs, each part's
     seconds printed: (a) ``DuckietownEnv(map_name="loop_dyn_duckiebots",
     domain_rand=True)`` at 640x480 on the card: load, 10 resets and 200
@@ -214,7 +217,7 @@ Phases:
     enjoy reinforcement``; (e) ``cli.basic_control --out`` (120 frames)
     and ``cli.free_camera --orbit`` (8 PNGs); (f) ``cli.make_demo_video
     -t baseline --arch 67 --fused -b 64`` with phase 8's weights on a
-    rendered 128-frame 480x640 PNG-in-AVI: K4 launches 55/5/1 a batch,
+    rendered 128-frame 480x640 FFV1 video: K4 launches 55/5/1 a batch,
     every dense layer on the tensor cores, no plain version, the class
     maps against the run without ``--fused`` over all pixels
     (MIN_PIXEL_AGREEMENT) and over the painted ones
@@ -243,6 +246,17 @@ Phases:
     card's machine has no matplotlib); (e) the two ``--ablate`` variants
     against their plain versions on all 55 layers of a B=64 forward, and
     their times beside plain, cuDNN and their bounds.
+24. the JAX package's FFV1 recordings, each part's seconds printed: (a)
+    the committed JAX-written pair (``data/assets/ffv1/``, from
+    ``scripts/make_ffv1_fixture.py``: 16 frames at 160x120 a video, a
+    keyframe at 0 and 12) decodes to cv2's per-frame SHA-256 digests; (b)
+    ``cli.postprocess`` on it on the card, K5's count set to 0 just before
+    and read just after (1 launch), its input and label videos equal to
+    the JAX postprocess's by digest; (c) 128 rendered 480x640 pairs
+    through ``data/ffv1``'s encoder and decoder, byte-equal, keyframes
+    every 12 frames; (d) ms per 480x640 frame of FFV1 encode and decode
+    (4 slice threads) beside MPNG's (PNG, Sub, one thread; and Paeth's
+    decode) on the host, and kB a frame.
 
 It prints the seconds of each phase, one JSON line of per-kernel numbers,
 then, as its last line,
@@ -3977,31 +3991,6 @@ def render_timing(device, card) -> dict:
     return {"pairs_per_s": pairs / ms["whole"] * 1e3, **split}
 
 
-def png_decode_timing(card) -> None:
-    """Phase 21d (video I/O, host): ms per 480x640 frame to encode a PNG at
-    the videos' zlib level and to decode one under Sub (the port's writer)
-    and under Paeth (libpng's adaptive filters pick it often), on this
-    machine's CPU."""
-    from sim2real_lane_segment_tpu_torch.data import png, videoio
-
-    img = frames_480(np.random.default_rng(SEED + 90), 1)[0]
-    data = {f: png.encode_png(img, f, level=videoio.ZLIB_LEVEL)
-            for f in (1, 4)}
-    t0 = time.perf_counter()
-    for _ in range(3):
-        png.encode_png(img, 1, level=videoio.ZLIB_LEVEL)
-    enc = (time.perf_counter() - t0) / 3 * 1e3
-    dec = {}
-    for f, d in data.items():
-        t0 = time.perf_counter()
-        out = png.decode_png(d)
-        dec[f] = (time.perf_counter() - t0) * 1e3
-        check(np.array_equal(out, img), f"PNG filter {f} round trip")
-    print(f"timing (host): PNG 480x640 encode {enc:.1f} ms (Sub, zlib "
-          f"{videoio.ZLIB_LEVEL}); decode Sub {dec[1]:.1f} ms, Paeth "
-          f"{dec[4]:.1f} ms a frame  [{card}]")
-
-
 def datagen_chain(device, card, tmp) -> dict:
     """Phase 21b: ``cli.datagen`` (2 episodes x 64 steps x 2 agents, chunks
     of 32, fisheye: 256 pairs at 480x640), ``cli.postprocess`` with K5's
@@ -4025,12 +4014,14 @@ def datagen_chain(device, card, tmp) -> dict:
     stats = datagen.run(DG_ARGS + ["--output_dir", rec])
     check(stats.n_frames == DG_PAIRS, f"datagen wrote {stats.n_frames}")
     avis = sorted(os.listdir(rec))
+    codecs = {videoio.codec_of(os.path.join(rec, a)) for a in avis}
     check(len(avis) == 2 * DG_RECORDINGS
           and all(videoio.frame_count(os.path.join(rec, a)) == 64
                   for a in avis), f"recordings {avis}")
+    check(codecs == {"FFV1"}, f"recordings coded as {codecs}")
     print(f"datagen: {stats.n_frames} pairs at {DG_SIZE[0]}x{DG_SIZE[1]} in "
           f"{stats.seconds:.1f} s ({stats.n_frames / stats.seconds:.1f} "
-          f"pairs/s): rendering {stats.render_seconds:.1f} s, encoding "
+          f"pairs/s): rendering {stats.render_seconds:.1f} s, FFV1 encoding "
           f"{stats.encode_seconds:.1f} s of writer-thread time (4 threads); "
           f"{sum(os.path.getsize(os.path.join(rec, a)) for a in avis) / 1e6:.0f}"
           f" MB of video  [{card}]", flush=True)
@@ -4069,6 +4060,11 @@ def datagen_chain(device, card, tmp) -> dict:
           f"plain: {sum(diffs)} pixels differ  [{card}]", flush=True)
     check(done == DG_RECORDINGS and sum(batches) == DG_PAIRS,
           f"postprocess: {done} recordings, {sum(batches)} pairs")
+    labelled = [os.path.join(data, kind, f"{i:06d}.avi")
+                for kind in ("input", "label") for i in range(DG_RECORDINGS)]
+    check(all(videoio.codec_of(p) == "FFV1" and videoio.frame_count(p) == 64
+              for p in labelled), "postprocess wrote other than 64-frame "
+          "FFV1 videos")
     check(launches == expect == prof_launches == len(batches),
           f"K5 launches {launches}, profiler {prof_launches}")
     check(max(batches) <= DG_LABEL_BATCH and sum(diffs) == 0,
@@ -4143,7 +4139,6 @@ def datagen_phase(device, card) -> dict:
         print(f"datagen: 21c in {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         out["render"] = render_timing(device, card)
-        png_decode_timing(card)
         print(f"datagen: 21d in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
@@ -4914,6 +4909,157 @@ def diagnostics_phase(sd, device, card, kernels) -> None:
                     k[key] = counts[wrapper]
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the JAX package's FFV1 recordings through the port's codec
+# ---------------------------------------------------------------------------
+
+FFV1_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "sim2real_lane_segment_tpu_torch", "data",
+                            "assets", "ffv1")
+FFV1_AGENTS, FFV1_STEPS = 2, 64   # 128 rendered pairs: 256 frames
+FFV1_TIMED = 32                    # frames of each kind MPNG is timed on
+
+
+def _digests(frames) -> list:
+    import hashlib
+
+    return [hashlib.sha256(f.tobytes()).hexdigest() for f in frames]
+
+
+def ffv1_fixture_check(card, tmp) -> int:
+    """Phases 24a-b: the committed JAX-written recording
+    (``scripts/make_ffv1_fixture.py``: the JAX datagen's FFV1 pair, 16
+    frames at 160x120, a keyframe at frames 0 and 12) decodes to cv2's
+    digests; ``cli.postprocess`` labels it on the card through K5 (its
+    count set to 0 just before and read just after) into the input and
+    label videos whose frames have the digests of the JAX postprocess's.
+    Returns K5's launches."""
+    import shutil
+
+    from sim2real_lane_segment_tpu_torch.cli import postprocess
+    from sim2real_lane_segment_tpu_torch.data import videoio
+    from sim2real_lane_segment_tpu_torch.kernels import labelgen as klg
+
+    with open(os.path.join(FFV1_FIXTURE, "digests.json")) as f:
+        want = json.load(f)
+    rec = os.path.join(tmp, "jax_recording")
+    os.makedirs(rec)
+    for name, digests in want["recording"].items():
+        path = os.path.join(FFV1_FIXTURE, name)
+        got = _digests(np.concatenate(list(videoio.read_frames(path))))
+        same = sum(a == b for a, b in zip(got, digests))
+        print(f"ffv1: the JAX package's {name} ({videoio.codec_of(path)}, "
+              f"{len(got)} frames): {same} of {len(digests)} frames equal "
+              f"cv2's decode by SHA-256  [{card}]")
+        check(got == digests, f"{name} decodes otherwise than cv2")
+        shutil.copyfile(path, os.path.join(rec, name))
+    out = os.path.join(tmp, "jax_labelled")
+    klg.reset_launches()
+    done = postprocess.main(["-id", rec, "-od", out])
+    launches = klg.launches["labelgen"]
+    for kind in ("input", "label"):
+        path = os.path.join(out, kind, "000000.avi")
+        got = _digests(np.concatenate(list(videoio.read_frames(path))))
+        same = sum(a == b for a, b in zip(got, want["postprocess"][kind]))
+        print(f"ffv1: postprocess of the JAX recording on the card, {kind} "
+              f"({videoio.codec_of(path)}): {same} of {len(got)} frames "
+              f"equal the JAX postprocess's; K5 launches {launches} "
+              f"(expected 1)  [{card}]")
+        check(got == want["postprocess"][kind],
+              f"postprocess {kind} differs from the JAX postprocess's")
+    check(done == 1 and launches == 1,
+          f"postprocess: {done} recordings, K5 launches {launches}")
+    return launches
+
+
+def ffv1_round_trip(device, card) -> None:
+    """Phases 24c-d: 128 rendered 480x640 pairs (loop_dyn_duckiebots, 2
+    agents x 64 expert steps, fisheye) through ``data/ffv1``'s encoder and
+    decoder, byte-equal, as two streams (orig, annot) of cv2's settings;
+    ms per frame of FFV1 encode and decode on the host beside
+    MPNG's (the PNG the port wrote before: Sub filter, zlib level
+    ``videoio.ZLIB_LEVEL``) on FFV1_TIMED frames of each stream, and
+    MPNG's decode under Paeth (which libpng's adaptive filters pick often)
+    on one frame of each."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.data import ffv1, png, videoio
+    from sim2real_lane_segment_tpu_torch.sim import lanes, render, rollout
+    from sim2real_lane_segment_tpu_torch.sim.maps import builtin_map
+
+    h, w = DG_SIZE
+    m = builtin_map("loop_dyn_duckiebots")
+    la = lanes.build_lane_arrays(m, device)
+    pos, ang = rollout.sample_spawns(m, la, np.random.default_rng(SEED + 24),
+                                     FFV1_AGENTS, device)
+    batch = rollout.expert_rollout(
+        render.build_scene(m, SEED, device=device), la,
+        torch.Generator(device).manual_seed(SEED + 24), pos, ang,
+        tile_size=m.tile_size, n_steps=FFV1_STEPS, height=h, width=w,
+        distortion=True)
+    streams = {kind: frames.transpose(0, 1).reshape(-1, h, w, 3).flip(-1)
+               .cpu().numpy() for kind, frames in (("orig", batch.orig),
+                                                   ("annot", batch.annot))}
+    n = sum(len(f) for f in streams.values())
+    ms, sizes = {}, {}
+    for kind, frames in streams.items():
+        enc = ffv1.Encoder(w, h)
+        t0 = time.perf_counter()
+        packets = [enc.encode(f) for f in frames]
+        ms[f"{kind} encode"] = (time.perf_counter() - t0) / len(frames) * 1e3
+        dec = ffv1.Decoder(enc.extradata, w, h)
+        t0 = time.perf_counter()
+        out = [dec.decode(p) for p, _ in packets]
+        ms[f"{kind} decode"] = (time.perf_counter() - t0) / len(frames) * 1e3
+        keys = [i for i, (_, key) in enumerate(packets) if key]
+        equal = sum(np.array_equal(a, b) for a, b in zip(out, frames))
+        sizes[kind] = sum(len(p) for p, _ in packets) / len(frames) / 1e3
+        print(f"ffv1 round trip: {kind} {len(frames)} frames {h}x{w}: "
+              f"{equal} byte-equal, keyframes {keys}, "
+              f"{sizes[kind]:.1f} kB a frame  [{card}]")
+        check(equal == len(frames) and keys == list(
+            range(0, len(frames), ffv1.KEYFRAME_INTERVAL)),
+            f"FFV1 round trip of {kind}: {equal} of {len(frames)} equal")
+    check(n == 2 * FFV1_AGENTS * FFV1_STEPS, f"{n} frames rendered")
+    for kind, frames in streams.items():
+        rgb = [np.ascontiguousarray(f[..., ::-1]) for f in frames[:FFV1_TIMED]]
+        t0 = time.perf_counter()
+        coded = [png.encode_png(f, 1, level=videoio.ZLIB_LEVEL) for f in rgb]
+        ms[f"{kind} MPNG encode"] = ((time.perf_counter() - t0)
+                                     / FFV1_TIMED * 1e3)
+        # Paeth (numpy row by row) on one frame: it is ~20x slower
+        for filt, label, data in (
+                (1, "decode", coded),
+                (4, "decode Paeth", [png.encode_png(
+                    rgb[0], 4, level=videoio.ZLIB_LEVEL)])):
+            t0 = time.perf_counter()
+            back = [png.decode_png(d) for d in data]
+            ms[f"{kind} MPNG {label}"] = ((time.perf_counter() - t0)
+                                          / len(data) * 1e3)
+            check(all(np.array_equal(a, b) for a, b in zip(back, rgb)),
+                  f"PNG filter {filt} round trip")
+        sizes[f"{kind} MPNG"] = sum(len(d) for d in coded) / FFV1_TIMED / 1e3
+    print(f"timing (host): ms a {h}x{w} frame, FFV1 (4 slice threads) "
+          f"against MPNG (one thread): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + "; kB a frame: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in sizes.items())
+          + f"  [{card}]", flush=True)
+
+
+def ffv1_phase(device, card) -> dict:
+    """Phase 24: the JAX package's FFV1 recordings through the port's
+    codec, each part's seconds printed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        k5 = ffv1_fixture_check(card, tmp)
+        print(f"ffv1: 24a-b in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ffv1_round_trip(device, card)
+    print(f"ffv1: 24c-d in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"k5_launches": k5}
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -4944,14 +5090,19 @@ def main() -> None:
         seconds[phase] = round(now - clock[0], 1)
         clock[0] = now
 
-    # phase 2: build, one nvcc per source, all at once
+    # phase 2: build, one nvcc per CUDA source and the host compiler for
+    # the FFV1 codec, all at once
     t0 = time.perf_counter()
     sources = ("dense_block", "train_block", "int8_body", "labelgen")
-    build.build(*sources)
-    for name in sources:
+    build.build(*sources, "ffv1")
+    for name in sources + ("ffv1",):
         build.load(name)
-    print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {json.dumps(build.build_seconds)} s)  [{card}]")
+    nvcc = {k: v for k, v in build.build_seconds.items() if k in sources}
+    cxx = build.build_seconds.get("ffv1")
+    print(f"build: {', '.join(sources)} and ffv1 in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc {json.dumps(nvcc)} s; "
+          f"ffv1 with {build.find_cxx()}: "
+          f"{'built before' if cxx is None else f'{cxx:.1f} s'})  [{card}]")
     for name in sources:
         for entry, info in ptxas_report(build.build_log.get(name, "")):
             tag = (" [tensor cores]" if entry in MMA_KERNELS + IMMA_KERNELS
@@ -5136,6 +5287,15 @@ def main() -> None:
     # preprocess_db -> an MME step; get_real_data, plot_lr)
     diagnostics_phase(sd, device, card, kernels)
     lap(23)
+
+    # phase 24: the JAX package's FFV1 recordings through the port's codec
+    # (its fixture decoded and labelled through K5), and the codec's round
+    # trip and times at 480x640
+    ffv1 = ffv1_phase(device, card)
+    for k in kernels:
+        if k["name"] == "k5_labelgen":
+            k["launches_ffv1_fixture"] = ffv1["k5_launches"]
+    lap(24)
     print(f"phases: seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} in all  [{card}]", flush=True)
 

@@ -14,8 +14,8 @@ numpy's ``default_rng(--seed)``, the JAX CLI's spawns) and drives them
 ``--steps`` steps in rollouts of ``--chunk`` steps
 (``sim.rollout.expert_rollout`` on the card, DR and camera noise from a
 ``torch.Generator`` seeded with ``--seed``).  Agent a of episode e writes
-``<seq>_orig.avi`` and ``<seq>_annot.avi``, BGR frames in PNG-in-AVI
-(``data/videoio.py``: lossless, read by cv2, no FFV1), ready for
+``<seq>_orig.avi`` and ``<seq>_annot.avi``, BGR frames in FFV1 AVIs
+(``data/videoio.py``: the JAX package's format, lossless), ready for
 ``postprocess`` -> ``preprocess_db`` -> training.  Runs on the card
 unless ``main`` is given ``device="cpu"``.
 """

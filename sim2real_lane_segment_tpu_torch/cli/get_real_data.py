@@ -12,9 +12,10 @@ frames as PNGs.
 ``--imitate`` lists what would be downloaded, with no network and no
 writes.  Downloads use urllib and fail cleanly per file; videos already in
 ``--outputPath`` are exploded too.  Frames are read by ``data/videoio``,
-which decodes PNG-coded AVI (fourcc ``MPNG``) only: any other codec (the
-reference's videos are H.264 MP4s) raises an error that names it, and
-nothing is written for that video.  PNGs are written by ``data/png``.
+which decodes FFV1 and PNG-coded AVI (fourcc ``MPNG``) only: any other
+codec (the reference's videos are H.264 MP4s) raises an error that names
+it, and nothing is written for that video.  PNGs are written by
+``data/png``.
 """
 from __future__ import annotations
 
@@ -47,12 +48,12 @@ def download(url: str, out_dir: str) -> str | None:
 
 def explode(video_path: str, frames_dir: str, counter: int) -> int:
     """Write every frame of ``video_path`` as ``<counter>.png``; returns the
-    next counter.  A video not coded as PNG-in-AVI raises ``IOError``
-    naming its codec before anything is written."""
+    next counter.  A video coded otherwise than as FFV1 or PNG-in-AVI
+    raises ``IOError`` naming its codec before anything is written."""
     codec = videoio.codec_of(video_path)
-    if codec != videoio.PNG_FOURCC.decode():
-        raise IOError(f"{video_path}: frames coded as {codec}; only "
-                      f"PNG-coded AVI (fourcc MPNG) is decoded")
+    if codec not in videoio.CODECS:
+        raise IOError(f"{video_path}: frames coded as {codec}; only FFV1 "
+                      f"and PNG-coded AVI (fourcc MPNG) are decoded")
     for batch in videoio.read_frames(video_path):
         for frame in batch:
             write_png(os.path.join(frames_dir, f"{counter:06d}.png"), frame)

@@ -12,9 +12,9 @@ package's ``.msgpack``/``.npz``), ``--videoIns``/``--videoOuts``,
 
 Each output is the input at 160x120 (cv2's LANCZOS4,
 ``ops.resize.resize_lanczos4_u8``) with the predicted classes painted in
-(``cli.test.OVERLAY_BGR``).  Videos are PNG-in-AVI files (fourcc
-``MPNG``, ``data/videoio.py``), lossless and read by cv2, not the JAX
-package's FFV1, which this port neither writes nor reads.
+(``cli.test.OVERLAY_BGR``).  Videos are FFV1 AVIs, as the JAX package
+reads and writes them (``data/videoio.py`` over the port's own codec,
+``data/ffv1.py``); the port's older PNG-in-AVI inputs are read too.
 
 The reference ran a batch-1 forward per frame; here frames stream in
 batches of ``--batch_size``: a reader thread decodes the next batch while

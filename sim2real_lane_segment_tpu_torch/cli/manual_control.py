@@ -6,8 +6,8 @@ annotation mode 0/1/2 (reference manual_control.py:96-115, 122-181), and
 a recording stops by itself after 100 s, as the reference's did.  Each
 recorded step writes the pixel-aligned (original, annotated) pair, the
 annotated frame re-rendered with the step's DR parameters and noise, to
-``<seq>_orig.avi`` and ``<seq>_annot.avi`` (PNG-in-AVI,
-``data/videoio.py``), ready for ``cli.postprocess``:
+``<seq>_orig.avi`` and ``<seq>_annot.avi`` (FFV1 AVIs, as the JAX
+package records them, ``data/videoio.py``), ready for ``cli.postprocess``:
 
     python -m sim2real_lane_segment_tpu_torch.cli.manual_control \\
         --map-name small_loop --output_dir recordings

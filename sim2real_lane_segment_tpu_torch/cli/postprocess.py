@@ -14,9 +14,10 @@ JAX CLI does), so which pair becomes ``000000.avi`` changes from run to
 run.  Frames go to the card ``--batch_size`` pairs at a time and through
 ``ops.labelgen.process_classes`` (kernel K5, one launch a batch; a failed
 launch fails the run); the input frames and the masks, expanded to three
-equal BGR channels as the reference wrote them, are written as
-PNG-in-AVI (``data/videoio.py``).  Runs on the card unless ``main`` is
-given ``device="cpu"``, where the kernel's plain version runs.
+equal BGR channels as the reference wrote them, are written as FFV1
+AVIs (``data/videoio.py``), as the JAX CLI writes them.  Runs on the
+card unless ``main`` is given ``device="cpu"``, where the kernel's plain
+version runs.
 """
 from __future__ import annotations
 

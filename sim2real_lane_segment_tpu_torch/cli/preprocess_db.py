@@ -8,9 +8,9 @@ Counterpart of the JAX package's ``cli/preprocess_db.py``, with its flags
     python -m sim2real_lane_segment_tpu_torch.cli.preprocess_db \\
         --dbType sim --dataPath simData
 
-It explodes the paired videos under ``input/``+``label/`` (PNG-in-AVI,
-``data/videoio.py``) into numbered PNGs, the labels converted to gray,
-then shuffle-splits sim data 70/15/15 into train/valid/test (or real data
+It explodes the paired videos under ``input/``+``label/`` (FFV1 AVIs,
+or the port's older PNG-in-AVI, ``data/videoio.py``) into numbered PNGs,
+the labels converted to gray, then shuffle-splits sim data 70/15/15 into train/valid/test (or real data
 into train/test and re-nests ``unlabelled/input``), moving files into the
 reference's directory contract.  The gray conversion and the optional
 ``--grayscale``/``--resize`` transform are cv2's arithmetic

@@ -1,20 +1,27 @@
-"""Video I/O: lossless AVI files whose frames are PNGs, read in batches.
+"""Video I/O: lossless AVI files, FFV1 or PNG-coded, read in batches.
 
 Counterpart of the JAX package's ``data/videoio.py``, which records the
 reference's format (rightLaneDatagen/gym_duckietown/recorder.py:24: FFV1
-lossless AVI, 640x480 at 30 fps) through cv2.  A machine with only
-PyTorch has no cv2 and no FFV1 codec, so the port writes another lossless
-AVI: a RIFF ``AVI `` file with one video stream of fourcc ``MPNG``, one
-``00dc`` chunk per frame holding a whole PNG (``data/png.encode_png``,
-Sub filter, zlib level ``ZLIB_LEVEL``) and an ``idx1`` index.  cv2 (and so
-the JAX package's reader) reads these files frame for frame, and this
-module reads the ``MPNG`` AVIs cv2 writes (OpenDML ones included).  It
-does not decode FFV1.
+lossless AVI, 640x480 at 30 fps) through cv2.  The port records the same
+format without cv2: ``data/ffv1.py`` codes the frames with the port's own
+FFV1 codec (``csrc/ffv1.cpp``), with cv2's settings, and this module
+writes them into a RIFF ``AVI `` file with one video stream of fourcc
+``FFV1`` (its configuration record after the stream format's
+BITMAPINFOHEADER), one ``00dc`` chunk per frame and an ``idx1`` index
+that flags the keyframes.  cv2, and so the JAX package's reader, reads
+these files frame for frame, and this module reads the FFV1 AVIs cv2 and
+the JAX package write.
 
-Frames are BGR in memory, as cv2 hands them out; the PNGs hold RGB.  A
-file stays under the RIFF limit of 1 GiB (about 2,000 frames at 480x640):
-the writer raises before a frame would cross it and writes no OpenDML
-extension.  Reading is batched into (N, H, W, 3) uint8 blocks.
+The older format of the port, PNG-in-AVI (fourcc ``MPNG``: one
+``00dc`` chunk per frame holding a whole PNG, ``data/png.encode_png``,
+Sub filter, zlib level ``ZLIB_LEVEL``), is still written on request
+(``codec="MPNG"``) and read, cv2's MPNG files (OpenDML ones) included.
+Any other codec is refused by name.
+
+Frames are BGR in memory, as cv2 hands them out.  A file stays under the
+RIFF limit of 1 GiB: the writer raises before a frame would cross it and
+writes no OpenDML extension.  Reading is batched into (N, H, W, 3) uint8
+blocks.
 """
 from __future__ import annotations
 
@@ -24,11 +31,13 @@ import queue
 import struct
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from fractions import Fraction
 from typing import Iterator, NamedTuple
 
 import numpy as np
 
+from . import ffv1
 from .png import decode_png, encode_png
 
 # zlib level of the frames' PNGs: every level is lossless; 1 deflates a
@@ -38,6 +47,8 @@ RIFF_LIMIT = 1 << 30
 AVIF_HASINDEX = 0x10
 AVIIF_KEYFRAME = 0x10
 PNG_FOURCC = b"MPNG"
+FFV1_FOURCC = b"FFV1"
+CODECS = ("FFV1", "MPNG")   # what the writer writes and the reader reads
 
 
 class AviInfo(NamedTuple):
@@ -47,6 +58,7 @@ class AviInfo(NamedTuple):
     n_frames: int
     fourcc: bytes
     movi: list   # (start, end) byte ranges of the movi lists' contents
+    extradata: bytes = b""   # the stream format's bytes after its header
 
 
 def _fps_fraction(fps: float) -> tuple[int, int]:
@@ -55,17 +67,28 @@ def _fps_fraction(fps: float) -> tuple[int, int]:
 
 
 class VideoWriter:
-    """PNG-in-AVI writer; accepts single frames or (N, H, W, 3) batches of
-    BGR uint8 ((N, H, W) gray with ``is_color=False``)."""
+    """FFV1 (or, with ``codec="MPNG"``, PNG-in-AVI) writer; accepts single
+    frames or (N, H, W, 3) batches of BGR uint8 ((N, H, W) gray with
+    ``is_color=False``).  ``ffv1_options`` go to ``ffv1.Encoder`` (its
+    version, coder, slice grid, keyframe interval); without them the
+    stream is cv2's."""
 
     def __init__(self, path: str, frame_size: tuple[int, int] = (640, 480),
-                 fps: float = 30.0, is_color: bool = True):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                 fps: float = 30.0, is_color: bool = True,
+                 codec: str = "FFV1", ffv1_options: dict | None = None):
+        if codec not in CODECS:
+            raise ValueError(f"codec {codec!r}: the writer writes "
+                             f"{' or '.join(CODECS)}")
         self.path = path
         self.width, self.height = frame_size
         self.is_color = is_color
+        self.codec = codec
+        self._ffv1 = (ffv1.Encoder(self.width, self.height, is_color,
+                                   **(ffv1_options or {}))
+                      if codec == "FFV1" else None)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self._scale, self._rate = _fps_fraction(fps)
-        self._index: list[tuple[int, int]] = []
+        self._index: list[tuple[int, int, bool]] = []
         self._largest = 0
         self.seconds = 0.0   # spent in write(): encoding and file writes
         self._f = open(path, "wb")
@@ -76,17 +99,19 @@ class VideoWriter:
         """RIFF, hdrl and movi headers; ``final`` counts the idx1 index."""
         w, h, n = self.width, self.height, len(self._index)
         bits = 24 if self.is_color else 8
+        fourcc = self.codec.encode()
+        extra = self._ffv1.extradata if self._ffv1 else b""
         us = round(1e6 * self._scale / self._rate)
         avih = struct.pack("<14I", us, 0, 0, AVIF_HASINDEX, n, 0, 1,
                            self._largest, w, h, 0, 0, 0, 0)
-        strh = struct.pack("<4s4sIHHIIIIIIiI4h", b"vids", b"MPNG", 0, 0, 0,
+        strh = struct.pack("<4s4sIHHIIIIIIiI4h", b"vids", fourcc, 0, 0, 0,
                            0, self._scale, self._rate, 0, n, self._largest,
                            -1, 0, 0, 0, w, h)
-        strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, bits, b"MPNG",
-                           w * h * bits // 8, 0, 0, 0, 0)
+        strf = struct.pack("<IiiHH4sIiiII", 40 + len(extra), w, h, 1, bits,
+                           fourcc, w * h * bits // 8, 0, 0, 0, 0) + extra
         strl = (b"strl" + _chunk(b"strh", strh) + _chunk(b"strf", strf))
         hdrl = b"hdrl" + _chunk(b"avih", avih) + _chunk(b"LIST", strl)
-        movi_size = 4 + sum(8 + s + (s & 1) for _, s in self._index)
+        movi_size = 4 + sum(8 + s + (s & 1) for _, s, _ in self._index)
         total = 4 + 8 + len(hdrl) + 8 + movi_size + (8 + 16 * n if final
                                                      else 0)
         return (b"RIFF" + struct.pack("<I", total) + b"AVI "
@@ -103,8 +128,11 @@ class VideoWriter:
             if f.shape != want or f.dtype != np.uint8:
                 raise ValueError(f"{self.path}: frame {f.shape} {f.dtype}, "
                                  f"expected {want} uint8")
-            data = encode_png(f[..., ::-1] if self.is_color else f,
-                              level=ZLIB_LEVEL)
+            if self._ffv1:
+                data, key = self._ffv1.encode(f)
+            else:
+                data, key = encode_png(f[..., ::-1] if self.is_color else f,
+                                       level=ZLIB_LEVEL), True
             pos = self._f.tell()
             n = len(self._index) + 1
             if pos + 8 + len(data) + 1 + 8 + 16 * n > RIFF_LIMIT:
@@ -114,7 +142,7 @@ class VideoWriter:
                     f"per file")
             self._f.write(b"00dc" + struct.pack("<I", len(data)) + data
                           + (b"\0" if len(data) & 1 else b""))
-            self._index.append((pos - self._movi, len(data)))
+            self._index.append((pos - self._movi, len(data), key))
             self._largest = max(self._largest, len(data))
         self.seconds += time.perf_counter() - t0
 
@@ -122,9 +150,9 @@ class VideoWriter:
         if self._f.closed:
             return
         try:
-            idx = b"".join(struct.pack("<4sIII", b"00dc", AVIIF_KEYFRAME,
-                                       off, size)
-                           for off, size in self._index)
+            idx = b"".join(struct.pack("<4sIII", b"00dc",
+                                       AVIIF_KEYFRAME if key else 0, off, size)
+                           for off, size, key in self._index)
             self._f.write(_chunk(b"idx1", idx))
             self._f.seek(0)
             self._f.write(self._headers(final=True))
@@ -183,7 +211,7 @@ def probe(path: str) -> AviInfo:
             raise IOError(f"could not open video {path}: no video stream")
         return AviInfo(info["width"], info["height"], info["fps"],
                        info.get("dmlh", info["length"]), info["fourcc"],
-                       info["movi"])
+                       info["movi"], info["extradata"])
 
 
 def _read_hdrl(f, start: int, end: int, info: dict) -> None:
@@ -205,6 +233,7 @@ def _read_hdrl(f, start: int, end: int, info: dict) -> None:
             w, h = struct.unpack("<ii", body[4:12])
             info["width"], info["height"] = w, abs(h)
             info["fourcc"] = body[16:20]
+            info["extradata"] = body[40:]
         elif fourcc == b"dmlh":
             info["dmlh"] = struct.unpack("<I", f.read(4))[0]
 
@@ -219,26 +248,43 @@ def _frame_chunks(path: str, info: AviInfo) -> Iterator[bytes]:
                     yield f.read(size)
 
 
-def _decode(data: bytes, path: str) -> np.ndarray:
+def _decode_png(data: bytes, path: str) -> np.ndarray:
     try:
         img = decode_png(data)
     except ValueError as e:
-        raise IOError(f"{path}: a frame is not a PNG ({e}); only PNG-coded "
-                      f"AVI (fourcc MPNG) is read, not FFV1") from e
+        raise IOError(f"{path}: a frame is not a PNG ({e})") from e
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=2)
     return np.ascontiguousarray(img[..., ::-1])
 
 
+def _decoder(path: str, info: AviInfo):
+    """The function that turns a frame's bytes into (H, W, 3) BGR."""
+    if info.fourcc == PNG_FOURCC:
+        return lambda data: _decode_png(data, path)
+    if info.fourcc == FFV1_FOURCC:
+        try:
+            dec = ffv1.Decoder(info.extradata, info.width, info.height)
+        except IOError as e:
+            raise IOError(f"{path}: {e}") from e
+
+        def decode(data):
+            try:
+                return dec.decode(data)
+            except IOError as e:
+                raise IOError(f"{path}: {e}") from e
+        return decode
+    raise IOError(f"{path}: frames coded as {info.fourcc!r}; the port reads "
+                  f"FFV1 and PNG-coded AVI (fourcc MPNG)")
+
+
 def read_frames(path: str, batch_size: int = 64) -> Iterator[np.ndarray]:
     """Yield (N, H, W, 3) uint8 BGR batches from a video file."""
     info = probe(path)
-    if info.fourcc != PNG_FOURCC:
-        raise IOError(f"{path}: frames coded as {info.fourcc!r}; only "
-                      f"PNG-coded AVI (fourcc MPNG) is read, not FFV1")
+    decode = _decoder(path, info)
     buf = []
     for data in _frame_chunks(path, info):
-        buf.append(_decode(data, path))
+        buf.append(decode(data))
         if len(buf) == batch_size:
             yield np.stack(buf)
             buf = []
@@ -248,11 +294,18 @@ def read_frames(path: str, batch_size: int = 64) -> Iterator[np.ndarray]:
 
 def read_paired_frames(path_a: str, path_b: str, batch_size: int = 64
                        ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-    """Yield paired batches from two equal-length videos (orig/annot)."""
-    for a, b in zip(read_frames(path_a, batch_size),
-                    read_frames(path_b, batch_size)):
-        n = min(len(a), len(b))
-        yield a[:n], b[:n]
+    """Yield paired batches from two equal-length videos (orig/annot).
+    The second video's batch decodes on a thread of its own while the
+    first's does (the codecs release the interpreter lock)."""
+    it_a, it_b = (read_frames(p, batch_size) for p in (path_a, path_b))
+    with ThreadPoolExecutor(1) as pool:
+        while True:
+            pending = pool.submit(next, it_b, None)
+            a, b = next(it_a, None), pending.result()
+            if a is None or b is None:
+                return
+            n = min(len(a), len(b))
+            yield a[:n], b[:n]
 
 
 # an MP4/QuickTime sample entry's fourcc -> the codec's name
@@ -282,8 +335,9 @@ def _mp4_boxes(f, end: int):
 
 def codec_of(path: str) -> str:
     """The codec of a video file's frames, named: an AVI's fourcc
-    (``MPNG`` is the one ``read_frames`` reads), or for an MP4/QuickTime
-    file the codec of its video sample entry (``H.264 (avc1)``, ...)."""
+    (``FFV1`` and ``MPNG`` are the ones ``read_frames`` reads), or for an
+    MP4/QuickTime file the codec of its video sample entry (``H.264
+    (avc1)``, ...)."""
     with open(path, "rb") as f:
         head = f.read(12)
         if head[:4] == b"RIFF" and head[8:] == b"AVI ":
@@ -321,14 +375,15 @@ class AsyncVideoWriter:
     """Threaded writer: enqueue batches, encode on a background thread.
 
     The reference's Recorder used the same queue+thread shape
-    (recorder.py:21-63).  zlib releases the interpreter lock while it
-    deflates, so several writers (a recording's orig and annot streams)
-    encode in parallel with each other and with the device.
+    (recorder.py:21-63).  The FFV1 codec (and zlib, for MPNG) releases the
+    interpreter lock while it codes, so several writers (a recording's
+    orig and annot streams) encode in parallel with each other and with
+    the device.
     """
 
     def __init__(self, path: str, frame_size=(640, 480), fps=30.0,
-                 is_color=True, maxsize: int = 8):
-        self._writer = VideoWriter(path, frame_size, fps, is_color)
+                 is_color=True, maxsize: int = 8, codec: str = "FFV1"):
+        self._writer = VideoWriter(path, frame_size, fps, is_color, codec)
         self.path = path
         self._q: queue.Queue = queue.Queue(maxsize=maxsize)
         self._err: BaseException | None = None

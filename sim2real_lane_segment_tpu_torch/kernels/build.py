@@ -1,12 +1,15 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native code and load it with ctypes: the CUDA kernels
+(``csrc/*.cu``, with nvcc) and the host codecs (``csrc/*.cpp``, with the
+host's C++ compiler).
 
 The sources under ``csrc/`` have a plain C interface, so one ``nvcc
--shared`` call per source builds them in seconds; nothing includes
-PyTorch's headers.  The build runs at first use, into ``build/
-torch_kernels/`` beside the package (listed in ``.gitignore``), keyed by
-a hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so
-an edited source or header rebuilds.  nvcc is
-found from ``CUDA_HOME`` or ``PATH``.  A failed build raises.
+-shared`` (or ``c++ -shared``) call per source builds them in seconds;
+nothing includes PyTorch's headers.  The build runs at first use, into
+``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
+keyed by a hash of the source, the shared ``csrc/*.cuh`` headers (for a
+``.cu``) and the flags, so an edited source or header rebuilds.  nvcc is
+found from ``CUDA_HOME`` or ``PATH``, the C++ compiler from ``CXX`` or
+``c++`` on ``PATH``.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -42,19 +46,44 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def find_cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("c++")
+    if not cxx:
+        raise RuntimeError("no C++ compiler: set CXX or put c++ on PATH")
+    return cxx
+
+
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu``, else ``csrc/<name>.cpp``."""
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.is_file() else CSRC / f"{name}.cpp"
+
+
+def _command(name: str, out: Path) -> list[str]:
+    src = _source(name)
+    if src.suffix == ".cu":
+        return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [find_cxx(), *CXX_FLAGS, "-o", str(out), str(src)]
+
+
 def _target(name: str) -> Path:
-    """The library path for ``csrc/<name>.cu``, keyed by the source, every
-    shared header under ``csrc/`` and the flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    """The library path for ``csrc/<name>.cu`` (or ``.cpp``), keyed by the
+    source, every shared header under ``csrc/`` (for a ``.cu``) and the
+    flags."""
+    src = _source(name)
+    digest = hashlib.sha256(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.name.encode() + b"\0" + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+    else:
+        digest.update(" ".join(CXX_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> None:
-    """Build the named sources that are not built yet: one nvcc each, all
-    started together.  Raises if any build fails."""
+    """Build the named sources that are not built yet: one compiler each,
+    all started together.  Raises if any build fails."""
     running = []
     for name in names:
         lib = _target(name)
@@ -62,17 +91,17 @@ def build(*names: str) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
         running.append((name, lib, tmp, time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            _command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
     failed = []
     for name, lib, tmp, t0, proc in running:
         out, err = proc.communicate()
         build_seconds[name] = time.perf_counter() - t0
         build_log[name] = out + err
         if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
+            failed.append(f"{_command(name, tmp)[0]} failed "
+                          f"({proc.returncode}) for {_source(name).name}:\n"
                           f"{err[-4000:]}")
         else:
             os.replace(tmp, lib)  # atomic: no process loads a partial file
@@ -81,7 +110,8 @@ def build(*names: str) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library built from ``csrc/<name>.cu``, built on first use."""
+    """The shared library built from ``csrc/<name>.cu`` (or ``.cpp``),
+    built on first use."""
     with _lock:
         if name not in _libs:
             build(name)

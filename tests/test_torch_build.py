@@ -36,3 +36,23 @@ def test_edits_change_the_target(csrc, edit):
     assert after["a"] != before["a"]
     # every source is keyed by every shared header
     assert (after["b"] != before["b"]) == (edit != "source")
+
+
+def test_host_sources_build_with_the_cxx_compiler(csrc):
+    """A ``.cpp`` builds with the host compiler (as ``csrc/ffv1.cpp``
+    does), keyed by its source and flags but not by the CUDA headers; a
+    source that does not compile raises."""
+    import ctypes
+
+    (csrc / "c.cpp").write_text('extern "C" int seven() { return 7; }\n')
+    target = build._target("c")
+    (csrc / "h.cuh").write_text("#pragma once\nint h3;\n")
+    assert build._target("c") == target
+    build.build("c")
+    assert ctypes.CDLL(str(target)).seven() == 7
+    assert not list(build.BUILD_DIR.glob("*.tmp"))
+    (csrc / "c.cpp").write_text('extern "C" int seven() { return 8; }\n')
+    assert build._target("c") != target
+    (csrc / "bad.cpp").write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="bad.cpp"):
+        build.build("bad")

@@ -2,11 +2,17 @@
 ``cli.datagen`` recordings labelled by the JAX ``postprocess`` and by the
 port's (the label videos equal frame for frame), ``preprocess_db`` of
 both packages over the same labelled videos (the same PNG pixels in the
-same splits), and the domain study's render of a missing domain at a
-small size.  ``random`` is seeded before each ``postprocess`` call, whose
-recording shuffle is unseeded in both packages."""
+same splits), the JAX package's own FFV1 recording (the committed fixture
+of ``scripts/make_ffv1_fixture.py``) through the port's ``postprocess``
+and the JAX postprocess output through the port's ``preprocess_db``, and
+the domain study's render of a missing domain at a small size.
+``random`` is seeded before each ``postprocess`` call, whose recording
+shuffle is unseeded in both packages."""
 import glob
+import hashlib
+import json
 import os
+import pathlib
 import random
 import shutil
 
@@ -25,6 +31,8 @@ from sim2real_lane_segment_tpu_torch.data.png import read_png
 torch.set_num_threads(2)
 
 H, W = 48, 64
+FIXTURE = (pathlib.Path(__file__).resolve().parents[1]
+           / "sim2real_lane_segment_tpu_torch" / "data" / "assets" / "ffv1")
 
 
 @pytest.fixture(scope="module")
@@ -56,6 +64,7 @@ def test_recordings_layout(recordings):
     for n in names:
         path = str(recordings / n)
         assert videoio.frame_count(path) == 6
+        assert videoio.codec_of(path) == "FFV1"
         f = cv2_frames(path)
         assert f.shape == (6, H, W, 3)
         np.testing.assert_array_equal(
@@ -94,11 +103,18 @@ def test_preprocess_db_matches_jax(recordings, tmp_path, extra):
                 *extra])
     preprocess_db.main(["--dbType", "sim", "--dataPath", str(tmp_path / "b"),
                         *extra], device="cpu")
+    assert same_trees(tmp_path / "a", tmp_path / "b") == [17, 3, 4]
+    assert not os.path.exists(tmp_path / "b" / "input")
+
+
+def same_trees(ref_root, port_root) -> list:
+    """Asserts equal file names and PNG pixels in the train/valid/test
+    splits of two ``preprocess_db`` trees; returns the split sizes."""
     split_sizes = []
     for split in ("train", "valid", "test"):
         for kind in ("input", "label"):
-            a = sorted(glob.glob(str(tmp_path / "a" / split / kind / "*")))
-            b = sorted(glob.glob(str(tmp_path / "b" / split / kind / "*")))
+            a = sorted(glob.glob(str(ref_root / split / kind / "*")))
+            b = sorted(glob.glob(str(port_root / split / kind / "*")))
             assert [os.path.basename(p) for p in a] == [
                 os.path.basename(p) for p in b]
             for pa, pb in zip(a, b):
@@ -106,8 +122,51 @@ def test_preprocess_db_matches_jax(recordings, tmp_path, extra):
                 got = read_png(pb, color=ref.ndim == 3)
                 np.testing.assert_array_equal(got, ref)
         split_sizes.append(len(a))
-    assert split_sizes == [17, 3, 4]   # 24 frames, 70/15/15
-    assert not os.path.exists(tmp_path / "b" / "input")
+    return split_sizes
+
+
+@pytest.fixture
+def jax_recording(tmp_path):
+    """The JAX package's datagen recording (FFV1, 16 frames at 160x120)."""
+    rec = tmp_path / "jax_rec"
+    rec.mkdir()
+    for name in ("000_orig.avi", "000_annot.avi"):
+        shutil.copyfile(FIXTURE / name, rec / name)
+    return rec
+
+
+def test_jax_recordings_through_port_postprocess(jax_recording, tmp_path):
+    """The port's postprocess labels the JAX package's recording into the
+    input and label videos the JAX postprocess writes, frame for frame
+    (and to the committed digests of them)."""
+    assert postprocess.main(["-id", str(jax_recording), "-od",
+                             str(tmp_path / "port"), "--batch_size", "6"],
+                            device="cpu") == 1
+    random.seed(1)
+    assert jpost.main(["-id", str(jax_recording), "-od",
+                       str(tmp_path / "jax")]) == 1
+    want = json.loads((FIXTURE / "digests.json").read_text())["postprocess"]
+    for kind in ("input", "label"):
+        path = str(tmp_path / "port" / kind / "000000.avi")
+        assert videoio.codec_of(path) == "FFV1"
+        got = np.concatenate(list(videoio.read_frames(path)))
+        np.testing.assert_array_equal(
+            got, cv2_frames(str(tmp_path / "jax" / kind / "000000.avi")))
+        assert [hashlib.sha256(f.tobytes()).hexdigest()
+                for f in got] == want[kind]
+
+
+def test_jax_postprocess_output_through_port_preprocess_db(jax_recording,
+                                                           tmp_path):
+    """The JAX postprocess output (cv2's FFV1) split by the port's
+    preprocess_db into the JAX preprocess_db's PNG tree."""
+    random.seed(2)
+    jpost.main(["-id", str(jax_recording), "-od", str(tmp_path / "a")])
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    jprep.main(["--dbType", "sim", "--dataPath", str(tmp_path / "a")])
+    preprocess_db.main(["--dbType", "sim", "--dataPath", str(tmp_path / "b")],
+                       device="cpu")
+    assert sum(same_trees(tmp_path / "a", tmp_path / "b")) == 16
 
 
 def test_record_domain_tiny(tmp_path, monkeypatch):
@@ -141,6 +200,8 @@ def test_record_domain_tiny(tmp_path, monkeypatch):
             assert lab.max() <= 3
     assert counts == [17, 3, 4]
     assert not os.path.exists("plain_raw") and os.path.isdir("plain_rec")
+    recorded = glob.glob("plain_rec/*.avi")
+    assert recorded and {videoio.codec_of(p) for p in recorded} == {"FFV1"}
 
 
 def test_clis_need_a_card_unless_cpu(tmp_path, monkeypatch):

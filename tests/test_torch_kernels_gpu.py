@@ -26,7 +26,8 @@ replay against the eager step, K5 under ``cli.postprocess``, and the
 renderer and the env on the card against the CPU, and
 ``cli.make_demo_video --fused`` through K4, and the two diagnostic
 variants of the tensor-core dense layer (``dense_layer(..., ablate=)``)
-beside the default kernel.
+beside the default kernel; and the JAX package's FFV1 recording decoded
+by the port's codec and labelled through K5.
 """
 import ctypes
 
@@ -1206,6 +1207,45 @@ def test_postprocess_on_the_card_launches_k5(cuda, tmp_path):
         a, b = (np.concatenate(list(videoio.read_frames(
             str(tmp_path / d / kind / "000000.avi")))) for d in ("gpu", "cpu"))
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_jax_ffv1_fixture_decodes_and_labels_on_the_card(cuda, tmp_path):
+    """The JAX package's committed FFV1 recording (``scripts/
+    make_ffv1_fixture.py``) decodes on the card's machine, which has no
+    cv2, to cv2's digests; ``cli.postprocess`` labels it through K5 (one
+    launch for its 16 pairs) into the input and label videos the JAX
+    postprocess wrote, by their digests."""
+    import hashlib
+    import json
+    import pathlib
+    import shutil
+
+    from sim2real_lane_segment_tpu_torch.cli import postprocess
+    from sim2real_lane_segment_tpu_torch.data import videoio
+    from sim2real_lane_segment_tpu_torch.kernels import labelgen as klg
+
+    fixture = (pathlib.Path(__file__).resolve().parents[1]
+               / "sim2real_lane_segment_tpu_torch" / "data" / "assets"
+               / "ffv1")
+    want = json.loads((fixture / "digests.json").read_text())
+
+    def digests(path):
+        return [hashlib.sha256(f.tobytes()).hexdigest() for f in
+                np.concatenate(list(videoio.read_frames(str(path))))]
+
+    rec = tmp_path / "rec"
+    rec.mkdir()
+    for name, frames in want["recording"].items():
+        assert digests(fixture / name) == frames
+        shutil.copyfile(fixture / name, rec / name)
+    klg.reset_launches()
+    assert postprocess.main(["-id", str(rec), "-od", str(tmp_path / "out")],
+                            device=cuda) == 1
+    assert klg.launches["labelgen"] == 1
+    for kind in ("input", "label"):
+        assert digests(tmp_path / "out" / kind / "000000.avi") == \
+            want["postprocess"][kind]
 
 
 @pytest.mark.gpu

@@ -4,7 +4,9 @@ the JAX package's, on the CPU.
 Maps, lane arrays, the procedural atlas, the shading hash and shade
 codes, the distorted ray grid and the meshes are held exactly; one
 physics step to a relative 1e-6; 32-step expert rollouts from the same
-spawns to POSE_TOL m and ANGLE_TOL rad; rendered frames from the same pose, DR
+spawns to POSE_TOL m and ANGLE_TOL rad, and each of their steps taken
+from JAX's own pose to STEP_POSE_TOL m and STEP_ANGLE_TOL rad; rendered
+frames from the same pose, DR
 draws and noise draws (JAX's, fed to the port) to RENDER_EQUAL of uint8
 values equal and RENDER_NEAR within one level.
 """
@@ -54,6 +56,9 @@ RENDER_NEAR = 0.9998
 # expert's feedback carries that on
 POSE_TOL = 1e-4
 ANGLE_TOL = 3e-4
+# one expert step from JAX's own pose
+STEP_POSE_TOL = 1e-4
+STEP_ANGLE_TOL = 1e-4
 STEP_RTOL = 1e-6
 
 
@@ -393,6 +398,32 @@ def test_spawns_and_rollout_poses():
                                    atol=POSE_TOL)
         np.testing.assert_allclose(ang.numpy(), np.asarray(ref.angle),
                                    atol=ANGLE_TOL)
+
+
+@pytest.mark.parametrize("name", ["loop_dyn_duckiebots", "zigzag", "4way",
+                                  "udem1"])
+def test_one_expert_step_from_jax_poses(name):
+    """Teacher-forced: each of JAX's 32 expert steps from 8 spawns is
+    taken again by the port from JAX's own pose before it, and lands
+    within STEP_POSE_TOL m and STEP_ANGLE_TOL rad of JAX's.  This holds
+    each single step, where the free-running gate above also holds the
+    drift that the expert's feedback carries on."""
+    m = jmaps.builtin_map(name)
+    la_j, la_t = jlanes.build_lane_arrays(m), tlanes.build_lane_arrays(m)
+    pj, aj = jrollout.sample_spawns(m, la_j, np.random.default_rng(6), 8)
+    ref = jrollout.expert_rollout(
+        jrender.build_scene(m, 0), la_j, jax.random.key(0), pj, aj,
+        tile_size=m.tile_size, n_steps=32, height=4, width=4)
+    pos_j, ang_j = np.asarray(ref.pos), np.asarray(ref.angle)  # (32, 8, ...)
+    before_pos = np.concatenate([np.asarray(pj)[None], pos_j[:-1]])
+    before_ang = np.concatenate([np.asarray(aj)[None], ang_j[:-1]])
+    pos, ang = trollout.step_poses(la_t, m.tile_size,
+                                   t(before_pos.reshape(-1, 2)),
+                                   t(before_ang.reshape(-1)), 1)
+    np.testing.assert_allclose(pos[0].numpy(), pos_j.reshape(-1, 2),
+                               atol=STEP_POSE_TOL)
+    np.testing.assert_allclose(ang[0].numpy(), ang_j.reshape(-1),
+                               atol=STEP_ANGLE_TOL)
 
 
 def test_rollout_batches_and_pair_alignment(monkeypatch):

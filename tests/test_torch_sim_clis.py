@@ -60,6 +60,7 @@ def test_basic_control_matches_jax(monkeypatch):
                              device="cpu")
     assert abs(got - ref) < TOTAL_REWARD_ATOL, (got, ref)
     assert videoio.frame_count("bc.avi") == 32
+    assert videoio.codec_of("bc.avi") == "FFV1"   # the JAX CLI's format
     assert videoio.probe("bc.avi")[:2] == (TINY[1], TINY[0])
 
 
@@ -119,6 +120,7 @@ def test_manual_control_records_pairs():
     assert sorted(os.listdir("rec")) == ["000_annot.avi", "000_orig.avi",
                                          "001_annot.avi", "001_orig.avi"]
     for seq, frames in (("000", 4), ("001", 2)):
+        assert videoio.codec_of(f"rec/{seq}_orig.avi") == "FFV1"
         orig = np.concatenate(list(videoio.read_frames(f"rec/{seq}_orig.avi")))
         annot = np.concatenate(list(videoio.read_frames(
             f"rec/{seq}_annot.avi")))
@@ -138,6 +140,7 @@ def test_train_imitation_then_enjoy():
                       "6", "--out", "enjoy.avi", *OBS], device="cpu")
     assert 1 <= out["steps"] <= 6 and np.isfinite(out["mean_return"])
     assert videoio.frame_count("enjoy.avi") == out["steps"]
+    assert videoio.codec_of("enjoy.avi") == "FFV1"
 
 
 def test_train_reinforcement_then_enjoy():

@@ -3,7 +3,7 @@ RGBA PNGs against the JAX package and cv2, on the CPU.
 
 - ``predict_video`` against JAX's on one PNG-in-AVI input, the ``tiny``
   FC-DenseNet in float32 with JAX's weights: the JAX output (FFV1) read
-  back with cv2, the port's (MPNG) with the port's reader; PIXEL_EQUAL of
+  back with cv2, the port's (FFV1) with the port's reader; PIXEL_EQUAL of
   the pixels equal.  The fused route (the K4 kernels' plain versions on
   the CPU) against the plain one, to the same bound.
 - ``comparison``: the header byte for byte equal to ``cv2.putText``'s;
@@ -128,10 +128,17 @@ def test_make_demo_video_main(tmp_path, tiny_weights, monkeypatch):
         num_cls=4, model=tiny_model()), TrainState(
             params=v["params"], batch_stats=v["batch_stats"],
             opt_state=None))
-    with pytest.raises(IOError, match="FFV1"):   # the JAX CLI's output
-        make_demo_video.main(["-t", "baseline", "--checkpointPath", "w.pt",
+    # the JAX CLI's output (cv2's FFV1) goes through the port's CLI
+    np.testing.assert_array_equal(
+        np.concatenate(list(videoio.read_frames("ffv1.avi"))),
+        cv2_frames("ffv1.avi"))
+    n = make_demo_video.main(["-t", "baseline", "--checkpointPath", "w.pt",
                               "--arch", "tiny", "--videoIns", "ffv1.avi",
                               "--videoOuts", "o.avi"], device="cpu")
+    assert n["frames"] == 5 and videoio.codec_of("o.avi") == "FFV1"
+    np.testing.assert_array_equal(
+        np.concatenate(list(videoio.read_frames("o.avi"))),
+        cv2_frames("o.avi"))
 
 
 def cv2_header():
