@@ -40,9 +40,10 @@ Phases:
    prints ptxas's registers and spills per kernel (the classifier's and
    K5's on a line of their own, and on another those of the kernels of
    the shared 3x3 body: serving's, K1's and the two ``--ablate``
-   variants) and counts the tensor-core instructions of the tensor-core
-   kernels (HGMMA, HMMA: the bf16 dense layer and its two variants,
-   TransitionDown, classifier, K1, K2, K3a and K3b; IMMA: K6's conv);
+   variants, each at growth 16 and 12) and counts the tensor-core
+   instructions of the tensor-core kernels (HGMMA, HMMA: the bf16 dense
+   layer and its two variants, TransitionDown, classifier, K1, K2, K3a
+   and K3b, the dense-layer ones per growth; IMMA: K6's conv);
 3. K4 against plain: all 11 dense blocks at their real widths (B=8,
    120x160), in float32 (TF32 off) and in bfloat16; every bfloat16 dense
    layer must take the tensor-core route, no float32 one (the routes as
@@ -257,6 +258,23 @@ Phases:
     every 12 frames; (d) ms per 480x640 frame of FFV1 encode and decode
     (4 slice threads) beside MPNG's (PNG, Sub, one thread; and Paeth's
     decode) on the host, and kB a frame.
+25. FCDenseNet57, whose growth-12 dense layers take the tensor cores in
+    bfloat16 (their weights padded to 16 zero columns): (a) K4 against
+    plain on all 11 blocks at B=8, f32 and bf16, each of the 44 bf16
+    dense layers on the tensor-core route and no f32 one; (b) one fused
+    train step at B=4 with every site against plain (49 K1, 5 K2, 44 K3a
+    and 11 K3b; a dropped channel at every dropout site, zero BN shifts),
+    every bf16 one on the tensor-core route; (c) ``cli.train --arch 57
+    --pallas_train`` (two B=32 steps on a 64/32/32 PNG tree), then
+    ``cli.test --arch 57 --fused`` on its test split and ``cli.serve
+    --arch 57 --fused`` behind the engine, the counts set to 0 just
+    before each and read just after (49/5/44/11 a step, 44/5/1 a
+    forward), no plain version called, served masks against the plain
+    module; (d) K4's dense layers per B=64 forward (per plane) and K1's
+    3x3, K2, K3a and K3b per B=32 step, each call against plain and
+    timed alone beside plain, cuDNN and the bound
+    (``growth_timing``; ``scripts/torch_growth_timing.py`` runs it on
+    another tree).  Its rows join the kernels line as ``*_g12``.
 
 It prints the seconds of each phase, one JSON line of per-kernel numbers,
 then, as its last line,
@@ -357,18 +375,22 @@ MIN_PAINTED_SHARE = 0.01
 # the bf16 kernels on the tensor cores: the TransitionDown forward's two
 # (serving, and K1 with one tap) and K2's dgrad (wgmma), K2's wgrad, the
 # 3x3 dense layer of serving and of K1, K3a's two kernels, K3b and the
-# classifier's bf16 instance (mma.sync); and K6's int8 conv (IMMA)
-MMA_KERNELS = ("td_fwd_small_kernel", "td_fwd_mma_kernel",
-               "bwd1x1_dgrad_mma_kernel", "bwd1x1_wgrad_mma_kernel",
-               "dense3x3_mma_kernel", "fwd3x3_mma_kernel",
-               "sum_dgrad_mma_kernel", "stage_own_mma_kernel",
-               "classifier_kernel", "dense3x3_no_taps_kernel",
-               "dense3x3_no_prep_kernel")
+# classifier's bf16 instance (mma.sync); and K6's int8 conv (IMMA).  The
+# dense-layer kernels have one instance per growth (12: FCDenseNet57; 16:
+# 67 and 103).
+GROWTH_KERNELS = ("dense3x3_mma_kernel", "fwd3x3_mma_kernel",
+                  "sum_dgrad_mma_kernel", "stage_own_mma_kernel",
+                  "dense3x3_no_taps_kernel", "dense3x3_no_prep_kernel")
+MMA_KERNELS = (("td_fwd_small_kernel", "td_fwd_mma_kernel",
+                "bwd1x1_dgrad_mma_kernel", "bwd1x1_wgrad_mma_kernel",
+                "classifier_kernel")
+               + tuple(f"{k}<{g}>" for k in GROWTH_KERNELS for g in (16, 12)))
 # the serving dense layer's two diagnostic variants (cli/serve_breakdown
 # --ablate) and K1's 3x3 forward, which shares their body: their ptxas
 # lines are printed on one line of their own
-SHARED_BODY = ("dense3x3_mma_kernel", "dense3x3_no_taps_kernel",
-               "dense3x3_no_prep_kernel", "fwd3x3_mma_kernel")
+SHARED_BODY = tuple(f"{k}<{g}>" for k in (
+    "dense3x3_mma_kernel", "dense3x3_no_taps_kernel",
+    "dense3x3_no_prep_kernel", "fwd3x3_mma_kernel") for g in (16, 12))
 IMMA_KERNELS = ("conv_i8_mma_kernel",)
 # dense layers of one FCDenseNet67 forward, all bf16 growth 16; conv sites
 # of the full-width LaneNetLite body, all on the int8 tensor cores
@@ -529,13 +551,20 @@ def card_label() -> str:
 
 def _entry_name(mangled: str) -> str:
     """The plain name of a kernel in one of this repo's anonymous
-    namespaces: the second length-prefixed name after ``_ZN``."""
+    namespaces: the second length-prefixed name after ``_ZN``; for the
+    dense-layer kernels (GROWTH_KERNELS) with their growth, the integer
+    template argument: ``fwd3x3_mma_kernel<12>``."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
     rest = mangled[m.end() + int(m.group(1)):]
     m = re.match(r"(\d+)", rest)
-    return rest[m.end():m.end() + int(m.group(1))] if m else mangled
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    arg = re.match(r"ILi(\d+)EE", rest[m.end() + int(m.group(1)):])
+    return (f"{name}<{arg.group(1)}>" if arg and name in GROWTH_KERNELS
+            else name)
 
 
 def ptxas_report(log: str) -> list:
@@ -595,8 +624,8 @@ def synthetic_frames(rng: np.random.Generator, n: int) -> np.ndarray:
     return x.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).numpy().copy()
 
 
-def seeded_state_dict(device) -> dict:
-    """FCDenseNet67 weights from SEED: He-normal convs, random BatchNorm
+def seeded_state_dict(device, arch=ARCH) -> dict:
+    """FCDenseNet``arch`` weights (default 67) from SEED: He-normal convs, random BatchNorm
     affine, and running statistics calibrated on synthetic frames (each
     BatchNorm gets the mean and variance of its input in one forward), so
     activations keep their scale through all 11 blocks."""
@@ -611,7 +640,7 @@ def seeded_state_dict(device) -> dict:
                                                              eval_batch)
 
     gen = torch.Generator().manual_seed(SEED)
-    model = build_model(ARCH, N_CLS, F32_POLICY)
+    model = build_model(arch, N_CLS, F32_POLICY)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -644,10 +673,10 @@ def seeded_state_dict(device) -> dict:
     return {k: v.cpu() for k, v in model.state_dict().items()}
 
 
-def make_model(sd, policy, device):
+def make_model(sd, policy, device, arch=ARCH):
     from sim2real_lane_segment_tpu_torch.cli.test import build_model
 
-    model = build_model(ARCH, N_CLS, policy)
+    model = build_model(arch, N_CLS, policy)
     model.load_state_dict(sd)
     return model.to(device).eval()
 
@@ -686,10 +715,12 @@ def capture_blocks(model, x, folded):
 # phases
 # ---------------------------------------------------------------------------
 
-def compare_blocks(sd, device, dtype_name, card):
+def compare_blocks(sd, device, dtype_name, card, arch=ARCH,
+                   dense_layers=DENSE_LAYERS):
     """Phase 3 for one dtype: every block, kernel chain against plain
     chain, and each entry point on identical inputs.  Returns the largest
-    isolated error per entry point."""
+    isolated error per entry point.  ``arch``'s forward runs
+    ``dense_layers`` dense layers (phase 25: FCDenseNet57's 44)."""
     import torch
 
     from sim2real_lane_segment_tpu_torch.core.dtypes import (DEFAULT_POLICY,
@@ -699,7 +730,7 @@ def compare_blocks(sd, device, dtype_name, card):
         fold_model
 
     policy = F32_POLICY if dtype_name == "float32" else DEFAULT_POLICY
-    model = make_model(sd, policy, device)
+    model = make_model(sd, policy, device, arch)
     folded = fold_model(model)
     frames = synthetic_frames(np.random.default_rng(SEED + 1), CHECK_BATCH)
     calls = capture_blocks(model, model_input(frames, device), folded)
@@ -764,11 +795,11 @@ def compare_blocks(sd, device, dtype_name, card):
     print(f"  {dtype_name} isolated entry points max|err|: "
           f"{json.dumps(errs)}  [{card}]")
     # each layer twice: in the block chain and on its own
-    expect = 2 * DENSE_LAYERS * (dtype_name == "bfloat16")
+    expect = 2 * dense_layers * (dtype_name == "bfloat16")
     print(f"  {dtype_name} dense layers on the tensor-core route "
           f"{kdb.mma_launches['dense_layer']} of "
           f"{kdb.launches['dense_layer']}, expected {expect}")
-    check(kdb.launches["dense_layer"] == 2 * DENSE_LAYERS
+    check(kdb.launches["dense_layer"] == 2 * dense_layers
           and kdb.mma_launches["dense_layer"] == expect,
           f"{dtype_name}: dense layers {kdb.launches['dense_layer']}, on the "
           f"tensor cores {kdb.mma_launches['dense_layer']}")
@@ -1187,11 +1218,13 @@ def _as_list(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
-def compare_train_kernels(sd, device, dtype_name, card):
+def compare_train_kernels(sd, device, dtype_name, card, arch=ARCH,
+                          per_step=TRAIN_LAUNCHES_PER_STEP):
     """Phase 6 for one dtype: one fused train step at B=4 through the plain
     versions; at every call, the kernel runs on the same operands and is
     held against the plain result.  Returns the largest max|err| per
-    kernel."""
+    kernel.  ``per_step``: ``arch``'s sites a step, every one of them on
+    the tensor cores in bfloat16."""
     import torch
 
     from sim2real_lane_segment_tpu_torch.core.dtypes import (DEFAULT_POLICY,
@@ -1203,7 +1236,7 @@ def compare_train_kernels(sd, device, dtype_name, card):
         weighted_cross_entropy
 
     policy = F32_POLICY if dtype_name == "float32" else DEFAULT_POLICY
-    model = make_model(sd, policy, device)
+    model = make_model(sd, policy, device, arch)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
@@ -1254,15 +1287,13 @@ def compare_train_kernels(sd, device, dtype_name, card):
         out, _ = fused_apply_train(model, x, masks)
         weighted_cross_entropy(out, y, N_CLS).backward()
     torch.cuda.synchronize()
-    expect = {k: v * (dtype_name == "bfloat16")
-              for k, v in TRAIN_MMA_PER_STEP.items()}
+    expect = {k: v * (dtype_name == "bfloat16") for k, v in per_step.items()}
     print(f"  {dtype_name} sites on the tensor-core route "
           f"{json.dumps(ktb.mma_launches)}, expected {json.dumps(expect)}")
     check(ktb.mma_launches == expect,
           f"{dtype_name}: tensor-core route taken at {ktb.mma_launches}")
-    check(sites == {k: v for k, v in TRAIN_LAUNCHES_PER_STEP.items()},
-          f"{dtype_name}: compared sites {sites}, expected "
-          f"{TRAIN_LAUNCHES_PER_STEP}")
+    check(sites == dict(per_step),
+          f"{dtype_name}: compared sites {sites}, expected {per_step}")
     print(f"  {dtype_name} train kernels max|err|: {json.dumps(errs)}  "
           f"[{card}]")
     return errs
@@ -2244,10 +2275,11 @@ def train_cli_checked(label, argv, passes, n_lab, card, batch=TRAIN_BATCH):
 
 
 def eval_fused_checked(label, module_type, weights, test_dir, n_test, card,
-                       arch=ARCH):
+                       arch=ARCH, per_forward=None):
     """``cli.test.main --fused`` on ``test_dir`` with K4's counts set to 0
     just before and read just after: the metrics, the confusion matrix's
-    pixel count and K4's launches per batch."""
+    pixel count and K4's launches per batch (``per_forward``, default
+    FCDenseNet67's 55/5/1)."""
     import torch
 
     from sim2real_lane_segment_tpu_torch.cli import test as test_cli
@@ -2265,8 +2297,8 @@ def eval_fused_checked(label, module_type, weights, test_dir, n_test, card,
           f"{label}: confusion matrix counts {res['confusion'].sum()} "
           f"pixels")
     batches = -(-n_test // TRAIN_BATCH)
-    expect = {"dense_layer": 55 * batches, "transition": 5 * batches,
-              "classifier": batches}
+    expect = {k: v * batches
+              for k, v in (per_forward or K4_PER_FORWARD).items()}
     check(dict(kdb.launches) == expect,
           f"{label}: cli.test --fused: K4 launches {kdb.launches}, "
           f"expected {expect}")
@@ -5060,6 +5092,332 @@ def ffv1_phase(device, card) -> dict:
     return {"k5_launches": k5}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: FCDenseNet57 (growth 12) on the tensor cores
+# ---------------------------------------------------------------------------
+
+ARCH57 = "57"
+# launches of FCDenseNet57: a forward's 44 dense layers, 5 TransitionDowns
+# and 1 classifier; a train step's 44 dense + 5 TD forwards, 5 TD
+# backwards, 44 stages and 11 block inputs
+K4_PER_FORWARD_57 = {"dense_layer": 44, "transition": 5, "classifier": 1}
+TRAIN_PER_STEP_57 = {"consumer_fwd": 49, "consumer_bwd": 5, "stage": 44,
+                     "final": 11}
+G12_SPLITS = (("train", 64), ("valid", 32), ("test", 32))
+# the kernels line's names of FCDenseNet57's rows
+G12_NAMES = {"dense_layer": "k4_dense_layer_g12",
+             **{k: f"{v[0]}_g12" for k, v in TRAIN_KERNELS.items()}}
+
+
+def _entry(name, source, replaces, launches, err, d):
+    """A kernels-line entry from timed sums ``d`` (ms, plain_ms,
+    library_ms, bytes, ops)."""
+    t_bytes = d["bytes"] / PEAK_BYTES * 1e3
+    t_ops = d["ops"] / PEAK_BF16_OPS * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": d["ms"], "plain_ms": d["plain_ms"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": d["library_ms"]}
+
+
+def growth_timing(sd, device, card, arch=ARCH57):
+    """Phase 25d: ``arch``'s K4 dense layers per B=64 forward (per plane,
+    beside one cuDNN conv on the activated operands) and its K1 (3x3 and
+    1x1 apart), K2, K3a and K3b per B=32 ``--pallas_train`` step, every
+    call timed alone (CUDA events) on the operands the path gives it, its
+    plain version and the bound beside.  Each dense layer and train site
+    is held against its plain version first.  It reads only what the port
+    had before growth 12 took the tensor cores, so that
+    ``scripts/torch_growth_timing.py`` runs it on an older tree too.
+    Returns ({"dense_layer" and each train wrapper: timed sums, calls, max
+    err, tensor-core launches}, the K1 3x3 sums)."""
+    import torch
+    import torch.nn.functional as F
+
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+    from sim2real_lane_segment_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+    from sim2real_lane_segment_tpu_torch.models.tiramisu_fused import \
+        fold_model
+    from sim2real_lane_segment_tpu_torch.train.supervised import \
+        SupervisedTrainer
+
+    def sums():
+        return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+                "ops": 0.0, "calls": 0, "err": 0.0, "mma": 0}
+
+    out = {k: sums() for k in ("dense_layer", *TRAIN_KERNELS)}
+    # serving: B=64, every block's dense layers on the plain chain's buffer
+    model = make_model(sd, DEFAULT_POLICY, device, arch)
+    folded = fold_model(model)
+    x = model_input(synthetic_frames(np.random.default_rng(SEED + 3),
+                                     TIME_BATCH), device)
+    d = out["dense_layer"]
+    planes = {}  # (h, w) -> [layers, kernel ms, cuDNN ms, GFLOP]
+    with torch.no_grad():
+        for name, segs, layers, kw in capture_blocks(model, x, folded):
+            feat = kdb.dense_block_plain(segs, layers, c_lo=0)
+            b, _, h, w = feat.shape
+            kdb.reset_launches()
+            acts = []
+            for lay in layers:
+                k, _, g = lay.weight.shape
+                buf = feat.clone()
+                kdb.dense_layer(buf, lay)
+                a, r = buf[:, k:k + g].float(), feat[:, k:k + g].float()
+                torch.testing.assert_close(
+                    a, r, **ISOLATED_TOL["bfloat16"],
+                    msg=f"{arch} B={TIME_BATCH} {name} layer at c={k}")
+                d["err"] = max(d["err"], (a - r).abs().max().item())
+                del buf
+                acts.append((kdb.bn_relu_plain(feat, lay.scale, lay.shift),
+                             lay.weight.reshape(k, 3, 3, g)
+                             .permute(3, 0, 1, 2).contiguous()))
+                d["bytes"] += (b * h * w * (k + g) * 2 + k * 9 * g * 2
+                               + 8 * k + 4 * g)
+                d["ops"] += 2.0 * b * h * w * k * 9 * g
+            d["calls"] += len(layers)
+            d["mma"] += kdb.mma_launches["dense_layer"]
+            ms = _time_ms(lambda: [kdb.dense_layer(feat, lay)
+                                   for lay in layers])
+            lib_ms = _time_ms(lambda: [F.conv2d(a, wo, padding=1)
+                                       for a, wo in acts])
+            d["ms"] += ms
+            d["library_ms"] += lib_ms
+            d["plain_ms"] += _time_ms(lambda: [kdb.dense_layer_plain(
+                feat, lay) for lay in layers])
+            p = planes.setdefault((h, w), [0, 0.0, 0.0, 0.0])
+            p[0] += len(layers)
+            p[1] += ms
+            p[2] += lib_ms
+            p[3] += sum(2.0 * b * h * w * lay.weight.shape[0] * 9
+                        * lay.weight.shape[2] for lay in layers) / 1e9
+            del feat, acts
+    print(f"timing: FCDenseNet{arch} k4_dense_layer per resolution, "
+          f"B={TIME_BATCH} (CUDA events; cuDNN conv on the activated "
+          f"operands)  [{card}]")
+    for (h, w), (n, ms, lib_ms, gflop) in planes.items():
+        print(f"  {h:3d}x{w:<3d} {n:2d} layers {gflop:7.1f} GFLOP: kernel "
+              f"{ms:8.3f} ms, cuDNN {lib_ms:8.3f} ms")
+    del model, folded, x
+
+    # training: one B=32 --pallas_train step recorded, each call again
+    rng = np.random.default_rng(SEED + 9)
+    images = synthetic_frames(rng, TRAIN_BATCH)
+    labels = rng.integers(0, N_CLS, (TRAIN_BATCH, H, W)).astype(np.uint8)
+    net = build_model(arch, N_CLS)
+    net.load_state_dict(sd)
+    trainer = SupervisedTrainer(num_cls=N_CLS, model=net, pallas_train=True)
+    masks = train_masks(trainer.model, TRAIN_BATCH, device, SEED + 10)
+    calls = []
+    real = {k: getattr(ktb, k) for k in TRAIN_KERNELS}
+
+    def recording(name):
+        def wrapper(*a, **kw):
+            res = real[name](*a, **kw)
+            calls.append((name, a, kw, res))
+            return res
+        return wrapper
+
+    ktb.reset_launches()
+    with mock.patch.multiple(ktb, **{k: recording(k)
+                                     for k in TRAIN_KERNELS}):
+        trainer.train_step(images, labels, 1e-3, masks=masks)
+    torch.cuda.synchronize()
+    for k in TRAIN_KERNELS:
+        out[k]["mma"] = ktb.mma_launches[k]
+    k1_3x3 = sums()
+    k1_3x3["mma"] = None  # the wrapper counts its 3x3 and 1x1 launches together
+    with torch.no_grad():
+        for name, a, kw, res in calls:
+            kw = {k: v for k, v in kw.items() if k != "out"}
+            e = out[name]
+            e["calls"] += 1
+            label = (f"{arch} bfloat16 B={TRAIN_BATCH} "
+                     f"{TRAIN_KERNELS[name][0]:16s} site {e['calls']:2d}")
+            e["err"] = max(e["err"], _hold_site(
+                label, _as_list(real[name](*a, **kw)),
+                _as_list(getattr(ktb, f"{name}_plain")(*a, **kw)),
+                TRAIN_REL_TOL["bfloat16"], card))
+        for name, a, kw, res in calls:
+            kw = {k: v for k, v in kw.items() if k != "out"}
+            e = out[name]
+            moved, ops = _train_cost(name, a, res)
+            ms = _time_ms(lambda: real[name](*a, **kw), 2)
+            plain_ms = _time_ms(
+                lambda: getattr(ktb, f"{name}_plain")(*a, **kw), 2)
+            lib = _train_library(name, a)
+            lib_ms = None if lib is None else _time_ms(lib, 2)
+            cells = [e]
+            if name == "consumer_fwd" and a[3].shape[1] == 9:
+                cells.append(k1_3x3)
+            for c in cells:
+                c["bytes"] += moved
+                c["ops"] += ops
+                c["ms"] += ms
+                c["plain_ms"] += plain_ms
+                c["library_ms"] = (None if lib_ms is None
+                                   else c["library_ms"] + lib_ms)
+                c["calls"] += c is k1_3x3
+    torch.cuda.synchronize()
+    for name, e in out.items():
+        lib = ("n/a" if e["library_ms"] is None
+               else f"{e['library_ms']:.3f} ms")
+        per = (f"B={TIME_BATCH} forward" if name == "dense_layer"
+               else f"B={TRAIN_BATCH} train step")
+        print(f"timing: FCDenseNet{arch} {G12_NAMES[name]} per {per} "
+              f"({e['calls']} launches, {e['mma']} on the tensor cores): "
+              f"kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, "
+              f"cuDNN yardstick {lib}, bound "
+              f"{max(e['bytes'] / PEAK_BYTES, e['ops'] / PEAK_BF16_OPS) * 1e3:.3f}"
+              f" ms ({e['ops'] / 1e9:.1f} GFLOP, {e['bytes'] / 1e9:.3f} GB), "
+              f"max|err| {e['err']:.3e}  [{card}]")
+    print(f"timing: FCDenseNet{arch} k1_consumer_fwd 3x3 alone: "
+          f"{k1_3x3['calls']} launches {k1_3x3['ms']:.3f} ms, cuDNN "
+          f"{k1_3x3['library_ms']:.3f} ms, bound "
+          f"{max(k1_3x3['bytes'] / PEAK_BYTES, k1_3x3['ops'] / PEAK_BF16_OPS) * 1e3:.3f}"
+          f" ms  [{card}]", flush=True)
+    return out, k1_3x3
+
+
+def growth12_paths(sd, card, tmp):
+    """Phase 25c: FCDenseNet57's paths on the card with K4's and K1-K3b's
+    counts set to 0 just before each and read just after, no plain version
+    called: ``cli.train --arch 57 --pallas_train`` (one epoch of two B=32
+    steps on a PNG tree), ``cli.test --arch 57 --fused`` on its test split
+    and ``cli.serve --arch 57 --fused`` behind the engine.  Returns the
+    launches {wrapper: count} of the train run and of the serving runs."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli import serve
+    from sim2real_lane_segment_tpu_torch.cli import train as train_cli
+    from sim2real_lane_segment_tpu_torch.cli.test import \
+        load_trainer_and_state
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+
+    root = os.path.join(tmp, "simData57")
+    write_png_tree(root, G12_SPLITS, seed=SEED + 25)
+    plain = {}
+    patches = (_plain_counting(ktb, [f"{k}_plain" for k in TRAIN_KERNELS],
+                               plain),
+               _plain_counting(kdb, ["dense_layer_plain", "transition_plain",
+                                     "classifier_plain"], plain))
+    with mock.patch.multiple(ktb, **patches[0]), \
+            mock.patch.multiple(kdb, **patches[1]):
+        ktb.reset_launches()
+        t0 = time.perf_counter()
+        res = train_cli.main(["--trainType", "sim", "--dataPath", root,
+                              "--arch", ARCH57, "--pallas_train",
+                              "--max_epochs", "1", "-b", str(TRAIN_BATCH),
+                              "--default_root_dir", tmp, "--seed",
+                              str(SEED)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train = dict(ktb.launches)
+        train_mma = dict(ktb.mma_launches)
+        steps = G12_SPLITS[0][1] // TRAIN_BATCH
+        expect = {k: v * steps for k, v in TRAIN_PER_STEP_57.items()}
+        print(f"growth 12: cli.train --arch 57 --pallas_train, {steps} "
+              f"steps of B={TRAIN_BATCH} in {wall:.1f} s: launches "
+              f"{json.dumps(train)}, on the tensor cores "
+              f"{json.dumps(train_mma)}, expected {json.dumps(expect)}  "
+              f"[{card}]")
+        check(train == expect and train_mma == expect,
+              "cli.train --arch 57: a K1-K3b site missing or off the "
+              "tensor-core route")
+        weights = os.path.join(res["out_dir"], "best_weights.pt")
+
+        eval_fused_checked("growth 12", "baseline", weights,
+                           os.path.join(root, "test"), G12_SPLITS[2][1],
+                           card, ARCH57, K4_PER_FORWARD_57)
+        test_mma = kdb.mma_launches["dense_layer"]
+        batches = -(-G12_SPLITS[2][1] // TRAIN_BATCH)
+        check(test_mma == K4_PER_FORWARD_57["dense_layer"] * batches,
+              f"cli.test --arch 57 --fused: {test_mma} dense layers on "
+              f"the tensor cores")
+
+        args = serve.parse_args(["--checkpointPath", weights, "--arch",
+                                 ARCH57, "--num_cls", str(N_CLS),
+                                 "--height", str(H), "--width", str(W),
+                                 "--fused"])
+        predict_fn, _, _ = serve.build_predict_fn(args)
+        requests = client_requests(np.random.default_rng(SEED + 26))[:2]
+        kdb.reset_launches()
+        replies, stats, _ = drive_engine(predict_fn, requests)
+        served = dict(kdb.launches)
+        served_mma = kdb.mma_launches["dense_layer"]
+    expect = {k: v * stats["batches"] for k, v in K4_PER_FORWARD_57.items()}
+    print(f"growth 12: cli.serve --arch 57 --fused behind the engine, "
+          f"{stats['batches']} batches: K4 launches {json.dumps(served)}, "
+          f"dense layers on the tensor cores {served_mma}, expected "
+          f"{json.dumps(expect)}; plain versions called {json.dumps(plain)}"
+          f"  [{card}]")
+    check(served == expect and served_mma == expect["dense_layer"],
+          "cli.serve --arch 57: K4 launches or route differ")
+    check(not any(plain.values()), "a plain version ran on an FCDenseNet57 "
+          "path")
+    ref = load_trainer_and_state("baseline", weights, num_cls=N_CLS,
+                                 arch=ARCH57, height=H, width=W)
+    same = total = 0
+    for reqs, outs in zip(requests, replies):
+        for frames, pred in zip(reqs, outs):
+            same += int((ref.predict_step(frames).cpu().numpy()
+                         == pred).sum())
+            total += pred.size
+    print(f"growth 12: served masks against the plain module (bf16) "
+          f"{same / total:.6f} over {total} pixels  [{card}]")
+    check(same / total >= MIN_PIXEL_AGREEMENT,
+          f"FCDenseNet57 pixel agreement {same / total}")
+    return train, {"dense_layer": served["dense_layer"]}
+
+
+def growth12_phase(device, card) -> list:
+    """Phase 25: FCDenseNet57, whose growth-12 dense layers take the
+    tensor cores in bfloat16: (a) K4 against plain on all 11 blocks, B=8,
+    f32 and bf16; (b) one fused B=4 train step with every K1-K3b site
+    against plain (a dropped channel at every dropout site, zero BN
+    shifts); (c) its train, test and serve paths through the kernels alone;
+    (d) the timings.  Returns the kernels-line entries of its rows."""
+    t0 = time.perf_counter()
+    sd = seeded_state_dict(device, ARCH57)
+    errs = {"dense_layer": 0.0, **{k: 0.0 for k in TRAIN_KERNELS}}
+    for dtype_name in ("float32", "bfloat16"):
+        e = compare_blocks(sd, device, dtype_name, card, ARCH57,
+                           K4_PER_FORWARD_57["dense_layer"])
+        errs["dense_layer"] = max(errs["dense_layer"], e["dense_layer"])
+        for k, v in compare_train_kernels(sd, device, dtype_name, card,
+                                          ARCH57, TRAIN_PER_STEP_57).items():
+            errs[k] = max(errs[k], v)
+    print(f"growth 12: (a), (b) done in {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = {}
+        for counts in growth12_paths(sd, card, tmp):
+            launches.update(counts)
+    print(f"growth 12: (c) done in {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]", flush=True)
+    timed, _ = growth_timing(sd, device, card, ARCH57)
+    check(timed["dense_layer"]["mma"] == timed["dense_layer"]["calls"]
+          == K4_PER_FORWARD_57["dense_layer"],
+          f"B={TIME_BATCH}: {timed['dense_layer']['mma']} of "
+          f"{timed['dense_layer']['calls']} dense layers on the tensor cores")
+    check(all(timed[k]["mma"] == TRAIN_PER_STEP_57[k] for k in TRAIN_KERNELS),
+          "B=32: a train site off the tensor-core route")
+    entries = []
+    for name, d in timed.items():
+        source, replaces = ((SOURCE, REPLACES) if name == "dense_layer"
+                            else (TRAIN_SOURCE, TRAIN_KERNELS[name][1]))
+        entries.append(_entry(G12_NAMES[name], source, replaces,
+                              launches[name], max(errs[name], d["err"]), d))
+    print(f"growth 12: phase 25 done in {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]", flush=True)
+    return entries
+
+
 def main() -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -5296,6 +5654,10 @@ def main() -> None:
         if k["name"] == "k5_labelgen":
             k["launches_ffv1_fixture"] = ffv1["k5_launches"]
     lap(24)
+
+    # phase 25: FCDenseNet57, growth 12, on the tensor cores
+    kernels += growth12_phase(device, card)
+    lap(25)
     print(f"phases: seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} in all  [{card}]", flush=True)
 

@@ -25,7 +25,8 @@ power limit.  ``--ablate SUBSTR`` also times the levels whose name holds
 SUBSTR with their dense layers as the two diagnostic variants of the
 tensor-core layer (``dense_layer(..., ablate=)``: the centre tap alone;
 x without BN + ReLU), wrong math at the same launches; a level off that
-route (growth other than 16) is skipped with its reason.
+route (float32, or a growth other than 12 or 16) is skipped with its
+reason.
 
 Runs on the card unless given ``--device cpu`` (or ``main(...,
 device="cpu")``), where the times are the host's.
@@ -50,6 +51,11 @@ H100_PEAK_GBPS = 3350.0
 FULL_RUNS = 3   # timed runs of the full forward: the median and the spread
 HEIGHT, WIDTH = 120, 160   # the frames the JAX CLI times
 K, ITERS = 8, 4            # calls a timed run, and runs (``_time_scan``)
+# the hold put before a timed loop on the card (``_time_scan``): its first
+# length, the longest it is stretched to, the tries, and the clock that turns
+# seconds into spin cycles (no lower than one H100's top SM clock, 1.98 GHz,
+# so a hold lasts at least as long as asked)
+HOLD_S, HOLD_MAX_S, HOLD_TRIES, HOLD_CLOCK_HZ = 0.005, 0.5, 4, 2.0e9
 
 
 def _leaves(tree) -> list:
@@ -91,10 +97,17 @@ def _time_scan(fn, args, k=8, iters=4, with_floor=False):
 
     On a card the calls run back to back between two CUDA events, after
     one untimed call of the same loop body (which builds the kernels and
-    sets up cuDNN).  Every call's outputs are consumed whole: a
-    position-weighted sum of ``abs`` rows of every element of every output,
-    added into one device scalar, which is read once at the end and must
-    be finite.  The inputs are consumed the same way in every call, and
+    sets up cuDNN).  The events time the device's work alone, as the JAX
+    harness's scan does: a spin kernel (``torch.cuda._sleep``) holds the
+    stream while the host queues the whole loop, so the host's launch cost
+    and its jitter stay out of the reading.  Where the host was still
+    queueing when the hold ended, the loop is run again behind a hold of
+    twice the host's queueing time, up to ``HOLD_TRIES`` runs; a loop that
+    takes the host more than ``HOLD_MAX_S / 2`` to queue is read as it ran
+    (the device is then busy with it anyway).  Every call's outputs are
+    consumed whole: a position-weighted sum of ``abs`` rows of every
+    element of every output, added into one device scalar, which is read
+    once at the end and must be finite.  The inputs are consumed the same way in every call, and
     the floor is the same loop with ``fn`` left out, so the floor holds
     the harness's own cost and a floor-subtracted time keeps about one
     read of ``fn``'s outputs.  Eager PyTorch eliminates no work, so unlike
@@ -115,12 +128,21 @@ def _time_scan(fn, args, k=8, iters=4, with_floor=False):
         acc = torch.zeros((), dtype=torch.float32, device=dev)
         acc = body(acc, run_fn)  # warm-up
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0.record()
-            for _ in range(n):
-                acc = body(acc, run_fn)
-            t1.record()
+            hold = HOLD_S
+            for _ in range(HOLD_TRIES):
+                torch.cuda.synchronize(dev)
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                torch.cuda._sleep(int(hold * HOLD_CLOCK_HZ))
+                t0.record()
+                h0 = time.perf_counter()
+                for _ in range(n):
+                    acc = body(acc, run_fn)
+                t1.record()
+                queued = time.perf_counter() - h0
+                if not t0.query() or 2 * queued > HOLD_MAX_S:
+                    break   # queued ahead of the device, or too long to hold
+                hold = 2 * queued
             total = float(acc)
             dt = t0.elapsed_time(t1) / 1e3 / n
         else:

@@ -456,9 +456,10 @@ __device__ __forceinline__ void store_chunks_bn(const uint4 (&raw)[LOADS], int i
 //
 // Warp w of C3_WARPS owns the tile's pixel rows w, w + C3_WARPS, ...: one
 // row of 16 pixels is one m16 (or, in the weight cotangent, one k16) step.
-// Weights [rows][9][16] (tap = ky * 3 + kx, 16 outputs) are copied as they
-// lie in device memory, one 288-byte row per channel, into rows C3_WLD
-// elements apart (304 bytes: conflict-free for ldmatrix).
+// Weights [rows][9][16] (tap = ky * 3 + kx, 16 outputs; growth 12 padded
+// with four zero columns) are copied as they lie in device memory, one
+// 288-byte row per channel, into rows C3_WLD elements apart (304 bytes:
+// conflict-free for ldmatrix).
 // ---------------------------------------------------------------------------
 
 constexpr int C3_TH = 12;
@@ -468,7 +469,7 @@ constexpr int C3_HPX = (C3_TH + 2) * C3_HW;  // halo pixels: 252
 constexpr int C3_WARPS = 6;
 constexpr int C3_THREADS = 32 * C3_WARPS;
 constexpr int C3_MT = C3_TH / C3_WARPS;    // pixel rows per warp
-constexpr int C3_N = 16;                   // outputs of a dense layer
+constexpr int C3_N = 16;                   // a dense layer's outputs, padded
 constexpr int C3_WROW = 9 * C3_N;          // one channel's weights
 constexpr int C3_WLD = C3_WROW + 8;
 
@@ -614,7 +615,8 @@ __device__ __forceinline__ void stage_px_tile(u16* dst, u16* rawdst, int ld, int
 }
 
 // Copies weight rows [r0, r0 + rows) of a [R][9][16] bf16 matrix (16-byte
-// aligned) into dst rows C3_WLD apart with cp.async; rows >= R are zero.
+// aligned; a growth-12 layer's with zero columns 12-15) into dst rows
+// C3_WLD apart with cp.async; rows >= R are zero.
 // The caller commits and waits.
 template <int THREADS>
 __device__ __forceinline__ void load_w3_rows(u16* dst, const u16* wt, int R, int r0,

@@ -1,5 +1,5 @@
-// The bf16 3x3 dense-layer forward of FC-DenseNet (growth 16) on Hopper
-// tensor cores, shared by the serving forward (csrc/dense_block.cu,
+// The bf16 3x3 dense-layer forward of FC-DenseNet (growth G, 12 or 16) on
+// Hopper tensor cores, shared by the serving forward (csrc/dense_block.cu,
 // dense3x3_mma_kernel) and the training forward K1 (csrc/train_block.cu,
 // fwd3x3_mma_kernel).  The epilogue is a template parameter:
 //   MASK = false: out = T(D + bias)           (serving, K4)
@@ -8,7 +8,7 @@
 // with D[pixel, o] = sum_{k, tap} a[pixel + tap, k] W[k, tap, o] in f32 and
 // a = T(relu(x * scale + shift)), zero outside the image.
 //
-// Replaces, for bfloat16 with 16 outputs, the dense layers of the TPU
+// Replaces, for bfloat16 with 12 or 16 outputs, the dense layers of the TPU
 // kernels K4 (sim2real_lane_segment_tpu/models/tiramisu_pallas.py,
 // _packed_block_kernel / _dense_block_kernel, pallas_call at :701 and
 // :739) and K1 (models/tiramisu_train_pallas.py, _fwd_kernel, :187).
@@ -25,10 +25,20 @@
 // fed by ldmatrix over [halo pixel][channel] shared-memory tiles
 // (bnrelu_mma.cuh): a tap is a whole-row offset, so one staged tile with
 // its one-pixel halo serves all nine taps.  A block owns a 12 x 16 pixel
-// tile of one image and all 16 outputs; it walks its input channels in
+// tile of one image and all G outputs; it walks its input channels in
 // chunks of 32 through two buffers (BN + ReLU + rounding once per staged
 // value; the next chunk's x in flight in registers while this one is
 // multiplied; weights by cp.async as they lie in memory).
+//
+// Growth 12 (FCDenseNet57): mma.sync has no n4 shape, so the product keeps
+// its two n8 tiles and columns 12-15 of the second are dead (16/12 of the
+// tensor-core work; the products are a tenth of a level's time).  The
+// weights come padded to [K][9][16] with zero columns (kernels/
+// dense_block.pad_growth, made where the layout copy is made), so a row
+// stays 288 bytes for 16-byte cp.async; the epilogue stores, masks and
+// parks outputs n < G only.  A layer's input then has 48 + 12 j channels,
+// rarely a multiple of 16 or of 8: px_load and px_store zero the channels
+// past K inside a partial 8-channel group, load_w3_rows the rows past K.
 //
 // Small planes: at 15x20 and below a B=64 forward has 64-256 tiles, fewer
 // blocks than two per SM, each walking up to 19 chunks in turn.  There the
@@ -117,11 +127,13 @@ constexpr int NO_TAPS = 1;
 constexpr int NO_PREP = 2;
 
 // The body of both kernels.  X: channels [0, K) of image b at X + b *
-// x_bstride; wt [K][9][16] (16-byte aligned); out: channels [0, 16) of
-// image b at out + b * out_bstride (in place: the caller's buffer past
-// channel K); mask [B][16] (MASK only); pair: mma::c3_pair_loads.
-// Grid: (tiles, B, S), clusters of (1, 1, S) when S > 1.
-template <bool MASK, int ABLATE = ABLATE_NONE>
+// x_bstride; wt [K][9][16] (16-byte aligned; columns G-15 zero); out:
+// channels [0, G) of image b at out + b * out_bstride (in place: the
+// caller's buffer past channel K); mask [B][G] (MASK only); pair:
+// mma::c3_pair_loads.  Grid: (tiles, B, S), clusters of (1, 1, S) when
+// S > 1.  G = 16 compiles to the code it had before G was a parameter:
+// every `G == mma::C3_N ||` below folds to true.
+template <int G, bool MASK, int ABLATE = ABLATE_NONE>
 __device__ __forceinline__ void fwd3x3_body(const mma::u16* X, ll x_bstride, int K, int H,
                                             int W, const float* __restrict__ scale,
                                             const float* __restrict__ shift,
@@ -129,6 +141,7 @@ __device__ __forceinline__ void fwd3x3_body(const mma::u16* X, ll x_bstride, int
                                             const float* __restrict__ bias,
                                             const float* __restrict__ mask, mma::u16* out,
                                             ll out_bstride, int pair) {
+  static_assert(G == 12 || G == mma::C3_N, "growth 12 or 16");
   extern __shared__ __align__(128) unsigned char smem[];
   mma::u16* sA = reinterpret_cast<mma::u16*>(smem);   // [2][halo px][LD]
   mma::u16* sW = sA + 2 * SA;                          // [2][KC][C3_WLD]
@@ -204,7 +217,7 @@ __device__ __forceinline__ void fwd3x3_body(const mma::u16* X, ll x_bstride, int
   mma::u16* ob = out + b * out_bstride;
   auto epilogue = [&](float d, int n) {
     const float y = __fadd_rn(d, bias[n]);
-    return mma::to_bf(MASK ? __fmul_rn(y, mask[b * mma::C3_N + n]) : y);
+    return mma::to_bf(MASK ? __fmul_rn(y, mask[b * G + n]) : y);
   };
   if (splits == 1) {
 #pragma unroll
@@ -216,7 +229,8 @@ __device__ __forceinline__ void fwd3x3_body(const mma::u16* X, ll x_bstride, int
         for (int e = 0; e < 4; ++e) {
           const int gx = tx0 + ln.g + 8 * (e / 2);
           const int n = 8 * nt + 2 * ln.t + (e & 1);
-          if (gy < H && gx < W) ob[(ll)n * hw + gy * W + gx] = epilogue(acc[m][nt][e], n);
+          if ((G == mma::C3_N || n < G) && gy < H && gx < W)
+            ob[(ll)n * hw + gy * W + gx] = epilogue(acc[m][nt][e], n);
         }
     }
     return;
@@ -233,12 +247,13 @@ __device__ __forceinline__ void fwd3x3_body(const mma::u16* X, ll x_bstride, int
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int n = 8 * nt + 2 * ln.t + (e & 1);
-        red[n * TILE_PX + y * mma::C3_TW + ln.g + 8 * (e / 2)] = acc[m][nt][e];
+        if (G == mma::C3_N || n < G)
+          red[n * TILE_PX + y * mma::C3_TW + ln.g + 8 * (e / 2)] = acc[m][nt][e];
       }
   }
   cluster_sync();  // every rank's sums are parked
   const uint32_t red_sm = mma::smem_u32(red);
-  for (int i = cluster_rank() * mma::C3_THREADS + tid; i < mma::C3_N * TILE_PX;
+  for (int i = cluster_rank() * mma::C3_THREADS + tid; i < G * TILE_PX;
        i += splits * mma::C3_THREADS) {
     float d = ld_cluster(red_sm + 4u * i, 0);
     for (int r = 1; r < splits; ++r) d = __fadd_rn(d, ld_cluster(red_sm + 4u * i, r));

@@ -16,8 +16,8 @@
 // epilogue takes the per-pixel L2 norm of F in f32, rounds F/norm to T,
 // and writes (Wc . F/norm + b) * (1/T_softmax) as f32 logits, 8 rows.
 //
-// The bf16 dense layers with growth 16 (every FCDenseNet67 and
-// FCDenseNet103 site) run on the tensor cores: dense3x3_mma_kernel, the
+// The bf16 dense layers with growth 12 or 16 (every FCDenseNet57, 67 and
+// 103 site) run on the tensor cores: dense3x3_mma_kernel<G>, the
 // shared 3x3 forward body of dense3x3_mma.cuh (mma.sync m16n8k16 over
 // [halo pixel][channel] tiles, a 12 x 16 pixel tile and 32-channel chunks,
 // the channel loop split across a thread-block cluster at small planes)
@@ -36,7 +36,7 @@
 //
 // The CUDA-core conv kernel below (conv_bnrelu_kernel) serves float32, the
 // parity control (TF32 would not hold the TransitionDown to 1e-5), and
-// other growth rates (FCDenseNet57's 12).
+// other growth rates (the test-only tiny net's 4).
 // What bounds it: at FCDenseNet67, 120x160, the 55 dense layers are 13.7
 // GFLOP per frame; one layer launch reads c_j channels and writes 16, 144
 // operations per bf16 byte moved, below the H100's ~295 bf16 tensor-core
@@ -425,56 +425,64 @@ cudaError_t launch_conv(const void* in, long long in_bstride, int B, int K,
   return cudaGetLastError();
 }
 
-// The bf16 dense layer with growth 16: the shared body, serving's epilogue
+// The bf16 dense layer with growth G (12 or 16): the shared body, serving's
+// epilogue
+template <int G>
 __global__ void __launch_bounds__(s2r_mma::C3_THREADS, 3)
 dense3x3_mma_kernel(const s2r_mma::u16* X, long long x_bstride, int K, int H, int W,
                     const float* __restrict__ scale, const float* __restrict__ shift,
                     const s2r_mma::u16* __restrict__ wt, const float* __restrict__ bias,
                     const float* __restrict__ mask, s2r_mma::u16* out,
                     long long out_bstride, int pair) {
-  s2r_d3::fwd3x3_body<false>(X, x_bstride, K, H, W, scale, shift, wt, bias, mask, out,
-                             out_bstride, pair);
+  s2r_d3::fwd3x3_body<G, false>(X, x_bstride, K, H, W, scale, shift, wt, bias, mask, out,
+                                out_bstride, pair);
 }
 
 // Its two diagnostic variants (s2r_d3::NO_TAPS, NO_PREP): the same launch,
 // one cost removed.
+template <int G>
 __global__ void __launch_bounds__(s2r_mma::C3_THREADS, 3)
 dense3x3_no_taps_kernel(const s2r_mma::u16* X, long long x_bstride, int K, int H, int W,
                         const float* __restrict__ scale, const float* __restrict__ shift,
                         const s2r_mma::u16* __restrict__ wt, const float* __restrict__ bias,
                         const float* __restrict__ mask, s2r_mma::u16* out,
                         long long out_bstride, int pair) {
-  s2r_d3::fwd3x3_body<false, s2r_d3::NO_TAPS>(X, x_bstride, K, H, W, scale, shift, wt, bias,
-                                              mask, out, out_bstride, pair);
+  s2r_d3::fwd3x3_body<G, false, s2r_d3::NO_TAPS>(X, x_bstride, K, H, W, scale, shift, wt,
+                                                 bias, mask, out, out_bstride, pair);
 }
 
+template <int G>
 __global__ void __launch_bounds__(s2r_mma::C3_THREADS, 3)
 dense3x3_no_prep_kernel(const s2r_mma::u16* X, long long x_bstride, int K, int H, int W,
                         const float* __restrict__ scale, const float* __restrict__ shift,
                         const s2r_mma::u16* __restrict__ wt, const float* __restrict__ bias,
                         const float* __restrict__ mask, s2r_mma::u16* out,
                         long long out_bstride, int pair) {
-  s2r_d3::fwd3x3_body<false, s2r_d3::NO_PREP>(X, x_bstride, K, H, W, scale, shift, wt, bias,
-                                              mask, out, out_bstride, pair);
+  s2r_d3::fwd3x3_body<G, false, s2r_d3::NO_PREP>(X, x_bstride, K, H, W, scale, shift, wt,
+                                                 bias, mask, out, out_bstride, pair);
 }
 
-// mode: s2r_d3::ABLATE_NONE (the dense layer), NO_TAPS or NO_PREP.
-cudaError_t launch_dense_mma(int mode, const void* in, long long in_bstride, int B, int K,
-                             int H, int W, const float* scale, const float* shift,
+// g: the growth, 12 or 16 (else cudaErrorInvalidValue).  mode:
+// s2r_d3::ABLATE_NONE (the dense layer), NO_TAPS or NO_PREP.
+cudaError_t launch_dense_mma(int g, int mode, const void* in, long long in_bstride, int B,
+                             int K, int H, int W, const float* scale, const float* shift,
                              const void* wt, const float* bias, void* out,
                              long long out_bstride, int* splits, cudaStream_t stream) {
-  static decltype(&dense3x3_mma_kernel) const kernels[] = {
-      dense3x3_mma_kernel, dense3x3_no_taps_kernel, dense3x3_no_prep_kernel};
-  static bool ready[3] = {false, false, false};  // the shared-memory limits, set once
-  if (mode < s2r_d3::ABLATE_NONE || mode > s2r_d3::NO_PREP) return cudaErrorInvalidValue;
-  if (!ready[mode]) {
+  static decltype(&dense3x3_mma_kernel<16>) const kernels[2][3] = {
+      {dense3x3_mma_kernel<12>, dense3x3_no_taps_kernel<12>, dense3x3_no_prep_kernel<12>},
+      {dense3x3_mma_kernel<16>, dense3x3_no_taps_kernel<16>, dense3x3_no_prep_kernel<16>}};
+  static bool ready[2][3] = {};  // the shared-memory limits, set once
+  if (mode < s2r_d3::ABLATE_NONE || mode > s2r_d3::NO_PREP || (g != 12 && g != 16))
+    return cudaErrorInvalidValue;
+  const int gi = g == 16;
+  if (!ready[gi][mode]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernels[mode], cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM);
+        kernels[gi][mode], cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM);
     if (e != cudaSuccess) return e;
-    ready[mode] = true;
+    ready[gi][mode] = true;
   }
-  return s2r_d3::launch_fwd3x3(kernels[mode], in, in_bstride, B, K, H, W, scale, shift, wt,
-                               bias, nullptr, out, out_bstride, stream, splits);
+  return s2r_d3::launch_fwd3x3(kernels[gi][mode], in, in_bstride, B, K, H, W, scale, shift,
+                               wt, bias, nullptr, out, out_bstride, stream, splits);
 }
 
 template <typename T>
@@ -508,8 +516,10 @@ cudaError_t launch_classifier(const void* in, long long in_bstride, int B,
 // cudaError_t of its launch (0 on success); an unknown dtype or tap count
 // returns cudaErrorInvalidValue.  Dispatch (takes_mma_dense in
 // kernels/dense_block.py states it for the CPU tests): a bfloat16 dense
-// layer with 16 outputs runs on the tensor cores (dense3x3_mma_kernel; its
-// weight must be 16-byte aligned, else cudaErrorMisalignedAddress), a
+// layer with 12 or 16 outputs runs on the tensor cores
+// (dense3x3_mma_kernel<N>; its weight is [K][9][16], rows 288 bytes apart
+// and columns N-15 zero, and must be 16-byte aligned, else
+// cudaErrorMisalignedAddress), a
 // bfloat16 TransitionDown too (td_fwd_mma_kernel) when its x tile fits in
 // shared memory (C <= 768: every FCDenseNet57/67/103 site); float32, other
 // growth rates and a wider TransitionDown on the CUDA cores.  *route
@@ -528,7 +538,7 @@ extern "C" int s2r_conv_bnrelu(int dtype, int taps, const void* in,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *route = 0;
-  const bool dense_mma = dtype == 1 && taps == 9 && N == s2r_mma::C3_N;
+  const bool dense_mma = dtype == 1 && taps == 9 && (N == 12 || N == s2r_mma::C3_N);
   if (mode != 0 && !dense_mma) return cudaErrorInvalidValue;
   if (dtype == 0 && taps == 9)
     return launch_conv<float, 9>(in, in_bstride, B, K, H, W, scale, shift, wt,
@@ -537,8 +547,8 @@ extern "C" int s2r_conv_bnrelu(int dtype, int taps, const void* in,
     return launch_conv<float, 1>(in, in_bstride, B, K, H, W, scale, shift, wt,
                                  bias, N, out, out_bstride, round_first, s);
   if (dense_mma)
-    return launch_dense_mma(mode, in, in_bstride, B, K, H, W, scale, shift, wt, bias, out,
-                            out_bstride, route, s);
+    return launch_dense_mma(N, mode, in, in_bstride, B, K, H, W, scale, shift, wt, bias,
+                            out, out_bstride, route, s);
   if (dtype == 1 && taps == 9)
     return launch_conv<__nv_bfloat16, 9>(in, in_bstride, B, K, H, W, scale,
                                          shift, wt, bias, N, out, out_bstride,

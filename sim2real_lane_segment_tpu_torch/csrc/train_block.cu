@@ -47,9 +47,9 @@
 // K2 in bfloat16 with one tap (the TransitionDown backward, the only K2 of
 // the fused train step) runs on the tensor cores instead:
 // bwd1x1_dgrad_mma_kernel and bwd1x1_wgrad_mma_kernel, noted below.  So do
-// K1, K3a and K3b in bfloat16 with 16 outputs (every dense layer of
-// FCDenseNet67): fwd3x3_mma_kernel, sum_dgrad_mma_kernel and
-// stage_own_mma_kernel, noted below, and K1 with one tap, through the
+// K1, K3a and K3b in bfloat16 with 12 or 16 outputs (every dense layer of
+// FCDenseNet57, 67 and 103): fwd3x3_mma_kernel, sum_dgrad_mma_kernel and
+// stage_own_mma_kernel, templates on the growth G, noted below, and K1 with one tap, through the
 // TransitionDown product of td_fwd_mma.cuh.  The kernels above them stay
 // for float32 and for the shapes the tensor-core kernels do not take.
 
@@ -968,9 +968,9 @@ cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
 }
 
 // ---------------------------------------------------------------------------
-// K1 (3x3), K3a and K3b, bfloat16, 16 outputs, on the tensor cores.
+// K1 (3x3), K3a and K3b, bfloat16, growth G = 12 or 16, on the tensor cores.
 //
-// Replace, for the bf16 dense layers (growth 16), the TPU kernels K1
+// Replace, for the bf16 dense layers (growth 12 and 16), the TPU kernels K1
 // (tiramisu_train_pallas.py _fwd_kernel, pallas_call at :187), K3a
 // (_stage_kernel, pallas_call at :759) and K3b (_final_kernel, :854).
 //
@@ -1017,6 +1017,14 @@ cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
 // - Sums over the batch are per-block partials (one row per split, in item
 //   order) and per-tile partials for dbias, added by stage_reduce_kernel
 //   in a fixed order: deterministic, no atomics; one reduce launch a stage.
+// Growth 12 (FCDenseNet57) runs the same code with G = 12: the products
+// keep 16 columns (mma.sync has no n4; the weights come padded to
+// [K][9][16] with zero columns, kernels/train_block.py), so the forward's
+// and the weight cotangent's columns 12-15 are dead and neither stored nor
+// reduced; on the k side of the input cotangent a layer's 12 cotangent
+// channels fill a 16-row k slot whose rows 12-15 are staged as zeros
+// (stage_px_tile with nvalid = G), one k16 step a tap as at 16.  Stored
+// cotangents, masks and dW are [.][G]: a layer's G channels, unpadded.
 // The 3x5 bottleneck and the other small planes leave most of a 12 x 16
 // tile idle (one image a tile, no packing): they hold 2% of the work.  Of
 // these kernels only the forward splits its channel loop there.
@@ -1047,23 +1055,26 @@ int ow_units(int C) {
 }
 
 // K1's 3x3 forward: the shared body of dense3x3_mma.cuh with the mask
+template <int G>
 __global__ void __launch_bounds__(mma::C3_THREADS, 3)
 fwd3x3_mma_kernel(const mma::u16* X, ll x_bstride, int K, int H, int W,
                   const float* __restrict__ scale, const float* __restrict__ shift,
                   const mma::u16* __restrict__ wt, const float* __restrict__ bias,
                   const float* __restrict__ mask, mma::u16* out, ll out_bstride,
                   int pair) {
-  s2r_d3::fwd3x3_body<true>(X, x_bstride, K, H, W, scale, shift, wt, bias, mask, out,
-                            out_bstride, pair);
+  s2r_d3::fwd3x3_body<G, true>(X, x_bstride, K, H, W, scale, shift, wt, bias, mask, out,
+                               out_bstride, pair);
 }
 
-// K3a's rebuild of dy_j (C = 16, ext and mask given, groups = 1) and K3b
+// K3a's rebuild of dy_j (C = G, ext and mask given, groups = 1) and K3b
 // (C = c_in, neither): out = T((ext + sum_l dA_l relu'(z_l) scale_l) * mask)
 // over channels [0, C) of X.  A block owns a pixel tile of one image and
 // `groups` consecutive 16-channel groups from blockIdx.z * groups on.  The
-// layers' G tiles are staged once per block, ns = min(nl, GP_L) at a time;
-// each group's weight rows stream through two buffers.  More layers than
-// GP_L need groups = 1 (the sums then stay in registers across the rounds).
+// layers' G tiles ([B][G] planes each) are staged once per block, ns =
+// min(nl, GP_L) at a time; each group's weight rows stream through two
+// buffers.  More layers than GP_L need groups = 1 (the sums then stay in
+// registers across the rounds).
+template <int G>
 __global__ void __launch_bounds__(mma::C3_THREADS, 2)
 sum_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int H, int W,
                      const float* __restrict__ ext, int nl, Layers L,
@@ -1105,8 +1116,8 @@ sum_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int H, int W,
     for (int i = 0; i < n_here; ++i)
       mma::stage_px_tile<false, false, 2, mma::C3_THREADS>(
           sG + i * GP_SG, nullptr, GP_LD, mma::C3_N / 8,
-          static_cast<const mma::u16*>(L.g[l0 + i]) + (ll)b * mma::C3_N * hw, hw, H, W,
-          ty0, tx0, mma::C3_N, nullptr, nullptr, pair);
+          static_cast<const mma::u16*>(L.g[l0 + i]) + (ll)b * G * hw, hw, H, W, ty0, tx0,
+          G, nullptr, nullptr, pair);
     for (int cg = cg_begin; cg < cg_end; ++cg) {
       const int buf = (cg - cg_begin) & 1;
       const int c0 = cg * mma::C3_N;
@@ -1219,10 +1230,11 @@ sum_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int H, int W,
   }
 }
 
+template <int G>
 __global__ void __launch_bounds__(mma::C3_THREADS, 2)
 stage_own_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int H, int W,
                      const float* __restrict__ scale, const float* __restrict__ shift,
-                     const mma::u16* __restrict__ wt, const mma::u16* __restrict__ G,
+                     const mma::u16* __restrict__ wt, const mma::u16* __restrict__ gp,
                      int nu, int S, float* __restrict__ part, int pair_x, int pair_g) {
   extern __shared__ __align__(128) unsigned char smem[];
   mma::u16* sX = reinterpret_cast<mma::u16*>(smem);   // x:  [halo px][OW_LD]
@@ -1242,7 +1254,7 @@ stage_own_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int H, int W
   const int per = (items + S - 1) / S;
   const int i_begin = min(items, split * per);
   const int i_end = min(items, i_begin + per);
-  const ll MW = (ll)C * (mma::C3_WROW + 2);            // a partial row: dW, dscale, dshift
+  const ll MW = (ll)C * (9 * G + 2);                   // a partial row: dW, dscale, dshift
 
   mma::load_w3_rows<mma::C3_THREADS>(sW, wt, C, k0, nu * 16);
   mma::cp_async_commit();
@@ -1270,8 +1282,8 @@ stage_own_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int H, int W
         sA, sX, OW_LD, 2 * nu, X + b * x_bstride + (ll)k0 * hw, hw, H, W, ty0, tx0,
         C - k0, scale + k0, shift + k0, pair_x);
     mma::stage_px_tile<false, false, 2, mma::C3_THREADS>(
-        sG, nullptr, GP_LD, mma::C3_N / 8, G + (ll)b * mma::C3_N * hw, hw, H, W, ty0, tx0,
-        mma::C3_N, nullptr, nullptr, pair_g);
+        sG, nullptr, GP_LD, mma::C3_N / 8, gp + (ll)b * G * hw, hw, H, W, ty0, tx0, G,
+        nullptr, nullptr, pair_g);
     mma::cp_async_wait<0>();
     __syncthreads();
 
@@ -1385,7 +1397,8 @@ stage_own_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int H, int W
         for (int e = 0; e < 4; ++e) {
           const int k = k0 + 16 * mt + ln.g + 8 * (e / 2);
           const int o = 8 * nt + 2 * ln.t + (e & 1);
-          if (k < C) prow[((ll)k * 9 + ky * 3 + kx) * mma::C3_N + o] = accw[q][kx][nt][e];
+          if (k < C && (G == mma::C3_N || o < G))
+            prow[((ll)k * 9 + ky * 3 + kx) * G + o] = accw[q][kx][nt][e];
         }
   }
   __syncthreads();  // red is complete (and zeroed, for a block without items)
@@ -1395,33 +1408,40 @@ stage_own_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int H, int W
       v += red[(w * OW_KC + tid) * 2];
       z += red[(w * OW_KC + tid) * 2 + 1];
     }
-    prow[(ll)C * mma::C3_WROW + k0 + tid] = v;
-    prow[(ll)C * mma::C3_WROW + C + k0 + tid] = z;
+    prow[(ll)C * 9 * G + k0 + tid] = v;
+    prow[(ll)C * 9 * G + C + k0 + tid] = z;
   }
 }
 
 // One launch for a stage's sums: out[m] = sum_s part[s][m] for m < M (dW,
-// dscale, dshift), and out[M + n] = sum_r part_gp[n * P + r] (dbias).
+// dscale, dshift), and out[M + n] = sum_r part_gp[n * P + r] for n < G
+// (dbias).
 __global__ void __launch_bounds__(THREADS)
 stage_reduce_kernel(const float* __restrict__ part, int S, ll M,
-                    const float* __restrict__ part_gp, int P, int row_blocks,
+                    const float* __restrict__ part_gp, int P, int G, int row_blocks,
                     float* __restrict__ out) {
   if ((int)blockIdx.x < row_blocks)
     reduce_rows_body(part, S, M, out, blockIdx.x);
   else
-    reduce_cols_body(part_gp, P, mma::C3_N, out + M, blockIdx.x - row_blocks);
+    reduce_cols_body(part_gp, P, G, out + M, blockIdx.x - row_blocks);
+}
+
+template <int G>
+cudaError_t setup_growth() {
+  S2R_TRY(cudaFuncSetAttribute(fwd3x3_mma_kernel<G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM));
+  S2R_TRY(cudaFuncSetAttribute(sum_dgrad_mma_kernel<G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, GP_SMEM));
+  return cudaFuncSetAttribute(stage_own_mma_kernel<G>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, OW_SMEM);
 }
 
 // The shared-memory limits of every tensor-core kernel, set once when the
 // library loads (s2r_train_init): no launch calls cudaFuncSetAttribute, so
 // a launch inside a CUDA-graph capture records kernels only.
 cudaError_t setup_all() {
-  S2R_TRY(cudaFuncSetAttribute(fwd3x3_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM));
-  S2R_TRY(cudaFuncSetAttribute(sum_dgrad_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, GP_SMEM));
-  S2R_TRY(cudaFuncSetAttribute(stage_own_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, OW_SMEM));
+  S2R_TRY(setup_growth<12>());
+  S2R_TRY(setup_growth<16>());
   S2R_TRY(cudaFuncSetAttribute(bwd1x1_dgrad_mma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, B1_SMEM_MAX));
   S2R_TRY(cudaFuncSetAttribute(bwd1x1_wgrad_mma_kernel,
@@ -1430,16 +1450,18 @@ cudaError_t setup_all() {
   return s2r_td::td_setup(&sms);
 }
 
-// K1, bf16, 3x3, 16 outputs
+// K1, bf16, 3x3, G outputs
+template <int G>
 cudaError_t fwd3x3_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
                        const float* scale, const float* shift, const void* wt,
                        const float* bias, const float* mask, void* out,
                        ll out_bstride, cudaStream_t s) {
-  return s2r_d3::launch_fwd3x3(fwd3x3_mma_kernel, X, x_bstride, B, K, H, W, scale, shift,
+  return s2r_d3::launch_fwd3x3(fwd3x3_mma_kernel<G>, X, x_bstride, B, K, H, W, scale, shift,
                                wt, bias, mask, out, out_bstride, s);
 }
 
 // the summed input cotangent over channels [0, C) of X (K3a's rebuild, K3b)
+template <int G>
 cudaError_t sum_dgrad_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
                           const float* ext, int nl, const Layers& L,
                           const float* mask, void* out, float* part_gp,
@@ -1456,16 +1478,18 @@ cudaError_t sum_dgrad_mma(const void* X, ll x_bstride, int B, int C, int H, int 
   const int groups = (ncg + zb - 1) / zb;
   zb = (ncg + groups - 1) / groups;
   const int ns = std::max(1, std::min(nl, GP_L));
-  bool pair = true;  // every layer's G is a contiguous [B, 16, H, W]
+  bool pair = true;  // every layer's G is a contiguous [B, G, H, W]
   for (int l = 0; l < nl; ++l) pair = pair && mma::c3_pair_loads(W, 0, L.g[l]);
-  sum_dgrad_mma_kernel<<<dim3(tiles, B, zb), mma::C3_THREADS, gp_smem(ns), s>>>(
+  sum_dgrad_mma_kernel<G><<<dim3(tiles, B, zb), mma::C3_THREADS, gp_smem(ns), s>>>(
       static_cast<const mma::u16*>(X), x_bstride, C, H, W, ext, nl, L, mask,
       static_cast<mma::u16*>(out), part_gp, groups, ns, pair);
   return cudaGetLastError();
 }
 
-// K3a, bf16, 16 outputs.  res: [K * 144 dW | K dscale | K dshift | 16 dbias];
-// scratch part_gp [16][B * tiles] (tiles of 12 x 16 pixels), part_w [S][K * 146].
+// K3a, bf16, G outputs.  res: [K * 9G dW | K dscale | K dshift | G dbias];
+// scratch part_gp [G][B * tiles] (tiles of 12 x 16 pixels), part_w
+// [S][K * (9G + 2)].
+template <int G>
 cudaError_t stage_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
                       const void* Y, ll y_bstride, const float* ext, int nl,
                       const Layers& L, const void* wt, const float* scale,
@@ -1474,22 +1498,25 @@ cudaError_t stage_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
                       cudaStream_t s) {
   if (!mma::aligned16(wt) || S < 1) return cudaErrorMisalignedAddress;
   const int tiles = mma::c3_tiles(H, W);
-  S2R_TRY(sum_dgrad_mma(Y, y_bstride, B, mma::C3_N, H, W, ext, nl, L, mask, gp_out,
-                        part_gp, s));
+  S2R_TRY(sum_dgrad_mma<G>(Y, y_bstride, B, G, H, W, ext, nl, L, mask, gp_out, part_gp,
+                           s));
   const int nu = ow_units(K);
   const int chunks = (K + 16 * nu - 1) / (16 * nu);
-  stage_own_mma_kernel<<<dim3(chunks, S), mma::C3_THREADS, OW_SMEM, s>>>(
+  stage_own_mma_kernel<G><<<dim3(chunks, S), mma::C3_THREADS, OW_SMEM, s>>>(
       static_cast<const mma::u16*>(X), x_bstride, K, B, H, W, scale, shift,
       static_cast<const mma::u16*>(wt), static_cast<const mma::u16*>(gp_out), nu, S,
       part_w, mma::c3_pair_loads(W, x_bstride, X), mma::c3_pair_loads(W, 0, gp_out));
   S2R_TRY(cudaGetLastError());
-  const ll M = (ll)K * (mma::C3_WROW + 2);
+  const ll M = (ll)K * (9 * G + 2);
   const int row_blocks = (int)((M + 31) / 32);
-  const int col_blocks = (mma::C3_N + WARPS - 1) / WARPS;
+  const int col_blocks = (G + WARPS - 1) / WARPS;
   stage_reduce_kernel<<<row_blocks + col_blocks, THREADS, 0, s>>>(
-      part_w, S, M, part_gp, B * tiles, row_blocks, res);
+      part_w, S, M, part_gp, B * tiles, G, row_blocks, res);
   return cudaGetLastError();
 }
+
+// the growths the tensor-core dense-layer kernels are built for
+bool mma_growth(int g) { return g == 12 || g == mma::C3_N; }
 
 Layers make_layers(int n, const void* const* gps, const void* const* ws,
                    const float* const* scs, const float* const* shs) {
@@ -1528,12 +1555,13 @@ cudaError_t stage(const void* X, ll x_bstride, int B, int K, int H, int W,
 //   part_gp  [B * N] floats (bwd) or [B * tiles * G] (stage)
 //   part_ss  [2 * B * tiles * K]   part_w [S * K * taps * N]
 // Dispatch (mirrored by takes_mma_fwd, takes_mma_bwd and takes_mma_stage in
-// kernels/train_block.py): bfloat16 fwd with 9 taps and N = 16, or one tap
-// and K <= 768, and bfloat16 stage and final with G = 16 run on the tensor
-// cores.
-// That stage wants dw, dscale, dshift, dbias contiguous in this order,
-// part_gp [16 * B * t3] and part_w [S * K * 146] with t3 = ceil(H/12) *
-// ceil(W/16), and leaves part_ss unused.  Everything else runs the
+// kernels/train_block.py): bfloat16 fwd with 9 taps and N = 12 or 16, or
+// one tap and K <= 768, and bfloat16 stage and final with G = 12 or 16 run
+// on the tensor cores.  Their 3x3 weights (wt, w_slices) are [.][9][16],
+// rows 288 bytes apart, columns N-15 (G-15) zero.
+// That stage wants dw [K * 9 * G], dscale, dshift, dbias contiguous in this
+// order, part_gp [G * B * t3] and part_w [S * K * (9G + 2)] with t3 =
+// ceil(H/12) * ceil(W/16), and leaves part_ss unused.  Everything else runs the
 // CUDA-core kernels,
 // with tiles = ceil(H/16) * ceil(W/16), except for bfloat16 bwd with one
 // tap and N <= 624 (bwd1x1_mma): part_gp [B * t1 * N], part_ss
@@ -1553,10 +1581,11 @@ extern "C" int s2r_train_fwd(int dtype, int taps, const void* X, ll x_bstride,
   if (dtype == 0 && taps == 1)
     return fwd<float, 1>(X, x_bstride, B, K, H, W, scale, shift, wt, bias, mask, N,
                          out, out_bstride, s);
-  if (dtype == 1 && taps == 9 && N == mma::C3_N) {
+  if (dtype == 1 && taps == 9 && mma_growth(N)) {
     *route = 1;
-    return fwd3x3_mma(X, x_bstride, B, K, H, W, scale, shift, wt, bias, mask, out,
-                      out_bstride, s);
+    return (N == 12 ? fwd3x3_mma<12> : fwd3x3_mma<16>)(X, x_bstride, B, K, H, W, scale,
+                                                      shift, wt, bias, mask, out,
+                                                      out_bstride, s);
   }
   if (dtype == 1 && taps == 9)
     return fwd<__nv_bfloat16, 9>(X, x_bstride, B, K, H, W, scale, shift, wt, bias,
@@ -1619,14 +1648,15 @@ extern "C" int s2r_train_stage(int dtype, const void* X, ll x_bstride, int B,
     return stage<float>(X, x_bstride, B, K, H, W, Y, y_bstride, G, ext, nl, L, wt,
                         scale, shift, mask, gp_out, dw, dscale, dshift, dbias,
                         part_gp, part_ss, part_w, S, s);
-  if (dtype == 1 && G == mma::C3_N) {
+  if (dtype == 1 && mma_growth(G)) {
     // one result buffer: dW, dscale, dshift, dbias in this order
-    if (dscale != dw + (ll)K * mma::C3_WROW || dshift != dscale + K ||
-        dbias != dshift + K)
+    if (dscale != dw + (ll)K * 9 * G || dshift != dscale + K || dbias != dshift + K)
       return cudaErrorInvalidValue;
     *route = 1;
-    return stage_mma(X, x_bstride, B, K, H, W, Y, y_bstride, ext, nl, L, wt, scale,
-                     shift, mask, gp_out, dw, part_gp, part_w, S, s);
+    return (G == 12 ? stage_mma<12> : stage_mma<16>)(X, x_bstride, B, K, H, W, Y,
+                                                    y_bstride, ext, nl, L, wt, scale,
+                                                    shift, mask, gp_out, dw, part_gp,
+                                                    part_w, S, s);
   }
   if (dtype == 1)
     return stage<__nv_bfloat16>(X, x_bstride, B, K, H, W, Y, y_bstride, G, ext, nl,
@@ -1649,10 +1679,10 @@ extern "C" int s2r_train_final(int dtype, const void* X, ll x_bstride, int B,
   if (dtype == 0)
     return launch_dgrad<float, 9, true>(X, x_bstride, B, K, H, W, G, nl, L,
                                         nullptr, nullptr, dseg, nullptr, nullptr, s);
-  if (dtype == 1 && G == mma::C3_N) {
+  if (dtype == 1 && mma_growth(G)) {
     *route = 1;
-    return sum_dgrad_mma(X, x_bstride, B, K, H, W, nullptr, nl, L, nullptr, dseg,
-                         nullptr, s);
+    return (G == 12 ? sum_dgrad_mma<12> : sum_dgrad_mma<16>)(
+        X, x_bstride, B, K, H, W, nullptr, nl, L, nullptr, dseg, nullptr, s);
   }
   if (dtype == 1)
     return launch_dgrad<__nv_bfloat16, 9, true>(X, x_bstride, B, K, H, W, G, nl, L,

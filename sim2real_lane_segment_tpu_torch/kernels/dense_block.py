@@ -14,10 +14,15 @@ into the first channels (the virtual concat) and runs three entry points:
 - ``classifier``: per-pixel L2 norm in f32, ``F/norm`` rounded, 1x1 conv
   to 8 (padded) rows in f32, ``(. + b) * (1/temperature)``, f32 logits.
 
-A bfloat16 ``dense_layer`` with growth 16 (``takes_mma_dense``: every
-FCDenseNet67 and FCDenseNet103 site), a bfloat16 ``transition`` and the
-product of a bfloat16 ``classifier`` run on the tensor cores; float32 and
-other growth rates on the CUDA cores.  The classifier stages all channels
+A bfloat16 ``dense_layer`` with growth 12 or 16 (``takes_mma_dense``:
+every FCDenseNet57, FCDenseNet67 and FCDenseNet103 site), a bfloat16
+``transition`` and the product of a bfloat16 ``classifier`` run on the
+tensor cores; float32 and other growth rates (the test-only tiny net's 4)
+on the CUDA cores.  The tensor-core dense layer reads its weight as
+``[c_j, 9, 16]`` rows of 288 bytes: at growth 12 the folded weight is the
+``[c_j, 9, 12]`` view of such a buffer whose columns 12-15 are zero
+(``pad_growth``, made once at fold time), and the wrapper refuses any
+other layout there (``mma_layout``).  The classifier stages all channels
 of ``CLS_PIXELS`` pixels in shared memory (``classifier_smem`` bytes a
 block) and reads each feature once.  At small planes the tensor-core dense
 layer splits its channel loop across a cluster of ``dense_splits`` blocks.
@@ -55,9 +60,11 @@ ABLATIONS = {"no_taps": 1, "no_prep": 2}
 ablate_launches = {k: 0 for k in ABLATIONS}
 mma_splits: dict[int, int] = {}
 
-# the tensor-core dense layer (csrc/dense3x3_mma.cuh): growth, pixel tile,
-# channels per chunk, most blocks in a split and the blocks per SM it aims at
-MMA_GROWTH = 16
+# the tensor-core dense layer (csrc/dense3x3_mma.cuh): the growths it is
+# built for, the width its weight rows are padded to, pixel tile, channels
+# per chunk, most blocks in a split and the blocks per SM it aims at
+MMA_GROWTHS = (12, 16)
+MMA_WIDTH = 16
 MMA_TILE = (12, 16)
 MMA_CHUNK = 32
 MAX_SPLITS = 8
@@ -81,7 +88,31 @@ def reset_launches() -> None:
 def takes_mma_dense(dtype: torch.dtype, g: int) -> bool:
     """Whether ``dense_layer`` takes the tensor-core kernel: the C
     library's rule, stated for the CPU tests."""
-    return dtype == torch.bfloat16 and g == MMA_GROWTH
+    return dtype == torch.bfloat16 and g in MMA_GROWTHS
+
+
+def pad_growth(rows: torch.Tensor, dtype: torch.dtype | None = None
+               ) -> torch.Tensor:
+    """``[c, taps, g]`` weight rows (any strides) in ``dtype`` (default:
+    theirs) as the ``[c, taps, g]`` view of a zeroed ``[c, taps,
+    MMA_WIDTH]`` buffer: the layout the tensor-core 3x3 kernels read (one
+    288-byte row a channel, 16-byte aligned for cp.async; columns g-15
+    zero).  One fill and one copy, which replace the copy that lays the
+    rows out.  At g = MMA_WIDTH the rows come back contiguous."""
+    c, taps, g = rows.shape
+    dtype = rows.dtype if dtype is None else dtype
+    if g == MMA_WIDTH:
+        return rows.to(dtype).contiguous()
+    buf = torch.zeros(c, taps, MMA_WIDTH, dtype=dtype, device=rows.device)
+    buf[:, :, :g] = rows
+    return buf[:, :, :g]
+
+
+def mma_layout(weight: torch.Tensor) -> bool:
+    """Whether ``weight`` [c, taps, g] lies as ``pad_growth`` lays it out:
+    rows ``taps * MMA_WIDTH`` elements apart, a tap ``MMA_WIDTH``."""
+    return (weight.dim() == 3 and weight.shape[2] <= MMA_WIDTH
+            and weight.stride() == (weight.shape[1] * MMA_WIDTH, MMA_WIDTH, 1))
 
 
 def dense_splits(b: int, h: int, w: int, c: int, sms: int) -> int:
@@ -110,7 +141,8 @@ def classifier_smem(c: int, dtype: torch.dtype) -> int:
 
 class FoldedLayer(NamedTuple):
     """One DenseLayer with its BatchNorm folded: ``scale``/``shift`` [c_j]
-    f32, ``weight`` [c_j, 9, g] in the compute dtype (tap = ky*3+kx),
+    f32, ``weight`` [c_j, 9, g] in the compute dtype (tap = ky*3+kx;
+    contiguous, or where ``takes_mma_dense`` the ``pad_growth`` layout),
     ``bias`` [g] f32."""
     scale: torch.Tensor
     shift: torch.Tensor
@@ -230,12 +262,17 @@ def _check_feat(feat: torch.Tensor) -> None:
 
 
 def _check_operand(t: torch.Tensor, feat: torch.Tensor, dtype, shape,
-                   what: str, name: str) -> None:
+                   what: str, name: str, padded: bool = False) -> None:
+    """``padded``: the ``pad_growth`` layout instead of contiguous."""
+    layout = mma_layout(t) if padded else t.is_contiguous()
     if not (t.device == feat.device and t.dtype == dtype
-            and t.shape == shape and t.is_contiguous()):
+            and t.shape == shape and layout):
+        want = (f"rows padded to {MMA_WIDTH} columns (pad_growth)" if padded
+                else "contiguous")
         raise ValueError(
-            f"{what} {name}: expected contiguous {dtype} {tuple(shape)} on "
-            f"{feat.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            f"{what} {name}: expected {want} {dtype} {tuple(shape)} on "
+            f"{feat.device}, got {t.dtype} {tuple(t.shape)} strides "
+            f"{t.stride()} on {t.device}")
 
 
 def _conv(feat, scale, shift, weight, bias, taps, out, round_first,
@@ -248,7 +285,8 @@ def _conv(feat, scale, shift, weight, bias, taps, out, round_first,
     _check_operand(scale, feat, torch.float32, (k,), what, "scale")
     _check_operand(shift, feat, torch.float32, (k,), what, "shift")
     _check_operand(weight, feat, feat.dtype, (k, taps, n) if taps > 1
-                   else (k, n), what, "weight")
+                   else (k, n), what, "weight",
+                   taps > 1 and takes_mma_dense(feat.dtype, n))
     _check_operand(bias, feat, torch.float32, (n,), what, "bias")
     _require(k <= c_total, f"{what}: reads {k} of {c_total} channels")
     lib = _lib()
@@ -272,14 +310,17 @@ def dense_layer(feat: torch.Tensor, layer: FoldedLayer,
                 ablate: str | None = None) -> None:
     """Append one dense layer's ``g`` channels to ``feat`` in place: reads
     channels [0, c_j), writes [c_j, c_j + g).  ``ablate``: a diagnostic
-    variant (``ABLATIONS``) of the tensor-core layer."""
+    variant (``ABLATIONS``) of the tensor-core layer.  The kernel on the
+    tensor-core route takes the weight in the ``pad_growth`` layout; the
+    plain version takes either layout and reads the [c_j, 9, g] view."""
     k, _, g = layer.weight.shape
     if ablate is not None:
         _require(ablate in ABLATIONS,
                  f"ablate {ablate!r} is not one of {sorted(ABLATIONS)}")
         _require(takes_mma_dense(feat.dtype, g),
                  f"ablate is a tensor-core-route diagnostic (bfloat16, "
-                 f"growth {MMA_GROWTH}); this layer is {feat.dtype} with "
+                 f"growth {' or '.join(map(str, MMA_GROWTHS))}); this layer "
+                 f"is {feat.dtype} with "
                  f"growth {g}, which runs on the CUDA cores")
     if not feat.is_cuda:
         return dense_layer_plain(feat, layer, ablate)

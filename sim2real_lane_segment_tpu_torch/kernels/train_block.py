@@ -24,10 +24,18 @@ BN ``scale``/``shift`` and ``bias`` f32, dropout ``mask`` f32 ``[B, n]``
   scale_l)`` over all of the block's layers.
 
 ``relu'(z) = (z > 0) + 0.5 (z == 0)``: the tie rule of ``jnp.maximum``.
-In bfloat16, K1 (3x3 with 16 outputs, or one tap), K2 with one tap, and
-K3a and K3b with 16 outputs run on the tensor cores (``takes_mma_fwd``,
-``takes_mma_bwd``, ``takes_mma_stage``): every site of FCDenseNet67.
-Float32 and the other shapes run on the CUDA cores.
+In bfloat16, K1 (3x3 with 12 or 16 outputs, or one tap), K2 with one tap,
+and K3a and K3b with 12 or 16 outputs run on the tensor cores
+(``takes_mma_fwd``, ``takes_mma_bwd``, ``takes_mma_stage``): every site of
+FCDenseNet57, 67 and 103 but FCDenseNet103's last TransitionDown
+backward (656 outputs).  Float32 and the other shapes run on the CUDA
+cores.  The tensor-core 3x3 kernels read their weights (K1's ``weight``,
+K3a's ``weight`` and ``w_slices``, K3b's ``w_slices``) in the layout of
+``dense_block.pad_growth``: [c, 9, g] views of rows padded to 16 columns
+with zeros, which ``models/tiramisu_train_fused.conv_weight_rows`` makes
+in the per-step re-layout; their wrappers refuse any other layout there.
+The plain versions take either layout and read the [c, 9, g] view; K2
+takes contiguous weights.
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; a failed build or launch raises.  ``launches`` counts wrapper
 calls that launched a kernel (CUDA tensors only), ``mma_launches`` those
@@ -48,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .dense_block import MMA_WIDTH, mma_layout
 
 launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0, "final": 0}
 
@@ -218,12 +227,17 @@ def _check_view(t: torch.Tensor, channels: int, name: str) -> None:
 
 
 def _check_operand(t: torch.Tensor, ref: torch.Tensor, dtype, shape,
-                   name: str) -> None:
+                   name: str, padded: bool = False) -> None:
+    """``padded``: the ``pad_growth`` layout instead of contiguous."""
+    layout = mma_layout(t) if padded else t.is_contiguous()
     if not (t.device == ref.device and t.dtype == dtype
-            and t.shape == shape and t.is_contiguous()):
+            and t.shape == shape and layout):
+        want = (f"rows padded to {MMA_WIDTH} columns (pad_growth)" if padded
+                else "contiguous")
         raise ValueError(
-            f"{name}: expected contiguous {dtype} {tuple(shape)} on "
-            f"{ref.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            f"{name}: expected {want} {dtype} {tuple(shape)} on "
+            f"{ref.device}, got {t.dtype} {tuple(t.shape)} strides "
+            f"{t.stride()} on {t.device}")
 
 
 def n_tiles(h: int, w: int) -> int:
@@ -259,9 +273,11 @@ def mma_wgrad_splits(c: int, n: int, b: int, h: int, w: int) -> int:
 
 # K1, K3a and K3b in bf16 run on the tensor cores (fwd3x3_mma_kernel,
 # sum_dgrad_mma_kernel, stage_own_mma_kernel in csrc/train_block.cu; K1
-# with one tap through csrc/td_fwd_mma.cuh): 12x16 pixel tiles, 16 outputs
-# (FC-DenseNet's growth rate), own-layer chunks of up to 64 channels
-MMA3_TILE_H, MMA3_TILE_W, MMA3_N, MMA3_CHUNK = 12, 16, 16, 64
+# with one tap through csrc/td_fwd_mma.cuh): 12x16 pixel tiles, growth 12
+# or 16 (FCDenseNet57's; 67's and 103's), own-layer chunks of up to 64
+# channels
+MMA3_TILE_H, MMA3_TILE_W, MMA3_CHUNK = 12, 16, 64
+MMA3_GROWTHS = (12, 16)
 MMA_FWD1_MAX_C = 768   # one tap: the x tile must fit in shared memory
 
 
@@ -270,13 +286,13 @@ def takes_mma_fwd(dtype: torch.dtype, taps: int, c: int, n: int) -> bool:
     dispatches by the same rule)."""
     if dtype != torch.bfloat16:
         return False
-    return n == MMA3_N if taps == 9 else c <= MMA_FWD1_MAX_C
+    return n in MMA3_GROWTHS if taps == 9 else c <= MMA_FWD1_MAX_C
 
 
 def takes_mma_stage(dtype: torch.dtype, g: int) -> bool:
     """Whether ``stage`` and ``final`` launch the tensor-core kernels (the
     C side dispatches by the same rule)."""
-    return dtype == torch.bfloat16 and g == MMA3_N
+    return dtype == torch.bfloat16 and g in MMA3_GROWTHS
 
 
 def mma3_tiles(h: int, w: int) -> int:
@@ -316,7 +332,9 @@ def _ptrs(ts: Sequence[torch.Tensor]):
 def consumer_fwd(x: torch.Tensor, scale, shift, weight, bias, mask,
                  out: torch.Tensor | None = None) -> torch.Tensor:
     """K1.  Returns ``out`` (written in place; a [B, n, H, W] view whose
-    batch stride may differ) or a new [B, n, H, W] tensor."""
+    batch stride may differ) or a new [B, n, H, W] tensor.  ``weight``: in
+    the ``pad_growth`` layout where ``takes_mma_fwd`` with 9 taps, else
+    contiguous."""
     if not x.is_cuda:
         return consumer_fwd_plain(x, scale, shift, weight, bias, mask, out)
     c, taps, n = weight.shape
@@ -324,7 +342,8 @@ def consumer_fwd(x: torch.Tensor, scale, shift, weight, bias, mask,
     b, _, h, w = x.shape
     _check_operand(scale, x, torch.float32, (c,), "scale")
     _check_operand(shift, x, torch.float32, (c,), "shift")
-    _check_operand(weight, x, x.dtype, (c, taps, n), "weight")
+    _check_operand(weight, x, x.dtype, (c, taps, n), "weight",
+                   taps == 9 and takes_mma_fwd(x.dtype, taps, c, n))
     _check_operand(bias, x, torch.float32, (n,), "bias")
     _check_operand(mask, x, torch.float32, (b, n), "mask")
     _require(taps in (1, 9), f"taps {taps} is not 1 or 9")
@@ -394,14 +413,15 @@ def consumer_bwd(x: torch.Tensor, scale, shift, weight, mask, dy):
     return dseg, dscale, dshift, dw, dbias
 
 
-def _check_later(x, gps, w_slices, sc_slices, sh_slices, rows, g):
+def _check_later(x, gps, w_slices, sc_slices, sh_slices, rows, g, padded):
     b, _, h, w = x.shape
     _require(len(gps) == len(w_slices) == len(sc_slices) == len(sh_slices)
              <= MAX_LAYERS, f"at most {MAX_LAYERS} layers, equal counts")
     for i, (gp, wl, sc, sh) in enumerate(zip(gps, w_slices, sc_slices,
                                              sh_slices)):
         _check_operand(gp, x, x.dtype, (b, g, h, w), f"g_pre {i}")
-        _check_operand(wl, x, x.dtype, (rows, 9, g), f"weight rows {i}")
+        _check_operand(wl, x, x.dtype, (rows, 9, g), f"weight rows {i}",
+                       padded)
         _check_operand(sc, x, torch.float32, (rows,), f"scale rows {i}")
         _check_operand(sh, x, torch.float32, (rows,), f"shift rows {i}")
 
@@ -413,8 +433,10 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
     output [B, g, H, W]; ``ext``: f32 cotangent of ``y`` from outside the
     block; per later layer l: ``gps[l]`` its stored g_pre, ``w_slices[l]``
     the y_j rows of its weight [g, 9, g] and its BN scale/shift on them.
-    Returns (g_pre_j [B, g, H, W], dW [c_j, 9, g] f32, dscale, dshift,
-    dbias)."""
+    Where ``takes_mma_stage``, ``weight`` and ``w_slices`` are in the
+    ``pad_growth`` layout (slices of it), else contiguous.  Returns
+    (g_pre_j [B, g, H, W], dW [c_j, 9, g] f32 (contiguous, unpadded),
+    dscale, dshift, dbias)."""
     if not x.is_cuda:
         return stage_plain(x, y, ext, gps, w_slices, scale, shift, sc_slices,
                            sh_slices, weight, mask)
@@ -428,9 +450,10 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
     _check_operand(ext, x, torch.float32, (b, g, h, w), "ext")
     _check_operand(scale, x, torch.float32, (c,), "scale")
     _check_operand(shift, x, torch.float32, (c,), "shift")
-    _check_operand(weight, x, x.dtype, (c, 9, g), "weight")
+    mma = takes_mma_stage(x.dtype, g)
+    _check_operand(weight, x, x.dtype, (c, 9, g), "weight", mma)
     _check_operand(mask, x, torch.float32, (b, g), "mask")
-    _check_later(x, gps, w_slices, sc_slices, sh_slices, g, g)
+    _check_later(x, gps, w_slices, sc_slices, sh_slices, g, g, mma)
     f32 = torch.float32
     gp = _empty((b, g, h, w), x.dtype, x)
     # the four f32 results share one allocation (dW, dscale, dshift, dbias
@@ -439,7 +462,6 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
     dw, dscale, dshift, dbias = _empty((c * 9 * g + 2 * c + g,), f32,
                                        x).split((c * 9 * g, c, c, g))
     dw = dw.view(c, 9, g)
-    mma = takes_mma_stage(x.dtype, g)
     if mma:
         splits = mma_stage_splits(c, b, h, w)
         sizes = (g * b * mma3_tiles(h, w), 0, splits * c * (9 * g + 2))
@@ -471,14 +493,17 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
 def final(x: torch.Tensor, gps: Sequence[torch.Tensor],
           w_slices: Sequence[torch.Tensor], sc_slices, sh_slices):
     """K3b: the cotangent of a block's input channels [0, c_in) (``c_in =
-    w_slices[0].shape[0]``) from all of its layers' stored g_pre."""
+    w_slices[0].shape[0]``) from all of its layers' stored g_pre.  Where
+    ``takes_mma_stage``, ``w_slices`` are slices of the ``pad_growth``
+    layout, else contiguous."""
     if not x.is_cuda:
         return final_plain(x, gps, w_slices, sc_slices, sh_slices)
     _require(len(gps) >= 1, "final needs at least one layer")
     c, _, g = w_slices[0].shape
     _check_view(x, c, "block input")
     b, _, h, w = x.shape
-    _check_later(x, gps, w_slices, sc_slices, sh_slices, c, g)
+    _check_later(x, gps, w_slices, sc_slices, sh_slices, c, g,
+                 takes_mma_stage(x.dtype, g))
     dseg = _empty((b, c, h, w), x.dtype, x)
     lib = _lib()
     route = _I(0)

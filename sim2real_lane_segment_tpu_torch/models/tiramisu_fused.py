@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.dense_block import (FoldedClassifier, FoldedLayer,
-                                   FoldedTransition, dense_block)
+                                   FoldedTransition, dense_block, pad_growth,
+                                   takes_mma_dense)
 from .tiramisu import (EPS, DenseBlock, FCDenseNet, TransitionDown,
                        transition_up)
 
@@ -38,13 +39,17 @@ def _fold_bn(bn) -> tuple[torch.Tensor, torch.Tensor]:
 @torch.no_grad()
 def fold_block_params(block: DenseBlock, dtype: torch.dtype) -> list[FoldedLayer]:
     """Per layer: BN folded to (scale, shift), conv OIHW [g, c_j, 3, 3] ->
-    [c_j, 9, g] in ``dtype`` (tap = ky*3+kx), bias f32."""
+    [c_j, 9, g] in ``dtype`` (tap = ky*3+kx; where the layer takes the
+    tensor cores, in the padded layout they read: ``pad_growth``), bias
+    f32."""
     folded = []
     for layer in block.layers():
         scale, shift = _fold_bn(layer.BatchNorm_0)
         w = layer.Conv_0.weight.detach()  # [g, c_j, 3, 3]
         g, k = w.shape[:2]
-        wk = w.permute(1, 2, 3, 0).reshape(k, 9, g).to(dtype).contiguous()
+        rows = w.permute(1, 2, 3, 0).reshape(k, 9, g)
+        wk = (pad_growth(rows, dtype) if takes_mma_dense(dtype, g)
+              else rows.to(dtype).contiguous())
         folded.append(FoldedLayer(scale, shift, wk,
                                   layer.Conv_0.bias.detach().float()))
     return folded

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import train_block as ktb
+from ..kernels.dense_block import MMA_WIDTH, pad_growth
 from ..parallel import dp
 from .tiramisu import (EPS, DenseBlock, FCDenseNet, batch_stats,
                        dropout_sites, grad_reverse, max_pool2, running_update,
@@ -50,11 +51,33 @@ def fold_affine(gamma, beta, mu, var) -> tuple[torch.Tensor, torch.Tensor]:
     return scale, beta - mu * scale
 
 
+class _PadGrowth(torch.autograd.Function):
+    """``pad_growth(rows, dtype)``, whose backward hands the [c, taps, g]
+    cotangent back cast to the rows' dtype: one launch, as the cast of the
+    copy it replaces (autograd's own would also scatter it into a padded
+    buffer and slice it out again)."""
+
+    @staticmethod
+    def forward(ctx, rows, dtype):
+        ctx.rows_dtype = rows.dtype
+        return pad_growth(rows, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.rows_dtype), None
+
+
 def conv_weight_rows(conv: torch.nn.Conv2d, dtype) -> torch.Tensor:
-    """OIHW conv weight -> the kernels' [c_in, taps, c_out] in ``dtype``."""
+    """OIHW conv weight -> the kernels' [c_in, taps, c_out] in ``dtype``:
+    contiguous, or where the consumer takes a tensor-core 3x3 kernel
+    (``ktb.takes_mma_fwd``) in the padded layout those read
+    (``pad_growth``; growth 16 is contiguous already)."""
     w = conv.weight
     o, c, kh, kw = w.shape
-    return w.permute(1, 2, 3, 0).reshape(c, kh * kw, o).to(dtype).contiguous()
+    rows = w.permute(1, 2, 3, 0).reshape(c, kh * kw, o)
+    if kh * kw == 9 and o < MMA_WIDTH and ktb.takes_mma_fwd(dtype, 9, c, o):
+        return _PadGrowth.apply(rows, dtype)
+    return rows.to(dtype).contiguous()
 
 
 def head(model: FCDenseNet, feats: torch.Tensor,
@@ -87,8 +110,9 @@ class Consumer(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale, shift, weight, mask = ctx.saved_tensors
+        # K2's 3x3 kernels read contiguous rows, not the padded layout
         dseg, dscale, dshift, dw, dbias = ktb.consumer_bwd(
-            x, scale, shift, weight, mask, dy.contiguous())
+            x, scale, shift, weight.contiguous(), mask, dy.contiguous())
         return dseg, dscale, dshift, dw.to(weight.dtype), dbias, None
 
 

@@ -151,7 +151,7 @@ def _layer(dtype, g, c=24, seed=0):
 
 @pytest.mark.parametrize("mode", ["no_taps", "no_prep"])
 @pytest.mark.parametrize("dtype,g", [(torch.float32, 16),
-                                     (torch.bfloat16, 12),
+                                     (torch.bfloat16, 4),
                                      (torch.float32, 4)])
 def test_ablate_raises_off_the_tensor_core_route(mode, dtype, g):
     feat = torch.randn(1, 24 + g, 6, 8).to(dtype)
@@ -335,10 +335,18 @@ def test_serve_breakdown_cli_on_cpu(capsys, small):
 
 
 def test_serve_breakdown_57_skips_ablation_with_its_reason(capsys, small):
+    """FCDenseNet57's bf16 growth-12 layers take the tensor cores, so their
+    levels are ablated now; a level off that route (float32 here) is still
+    skipped, with the reason the wrapper gives."""
     res = sb.main(["--arch", "57", "-b", "1", "--ablate", "32x32"],
                   device="cpu")
-    assert "no_taps_ms" not in res["levels"][0]
-    assert "ablate skipped for 32x32" in capsys.readouterr().out
+    assert "no_taps_ms" in res["levels"][0]
+    assert "no_prep_ms" in res["levels"][0]
+    assert "ablate skipped" not in capsys.readouterr().out
+    seg = torch.zeros(1, 8, 4, 6)
+    with pytest.raises(ValueError, match="runs on the CUDA cores"):
+        sb.ablated_block([seg], [_layer(torch.float32, 12, c=8)], "no_taps",
+                         c_lo=0)
 
 
 def test_level_bytes_are_the_ports_traffic():

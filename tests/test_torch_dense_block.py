@@ -175,16 +175,19 @@ def _dense_sites(arch, h=120, w=160):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_takes_mma_dense_at_every_site(arch, dtype):
-    """bf16 growth 16 (FCDenseNet67 and 103) takes the tensor cores at
-    every site; float32 (the parity control) and growth 12 (57) never."""
+    """bf16 takes the tensor cores at every site of all three archs
+    (growth 12 in 57, 16 in 67 and 103); float32 (the parity control)
+    never, nor another growth."""
     sites = _dense_sites(arch)
     assert len(sites) == N_SITES[arch]
-    want = dtype == torch.bfloat16 and arch != "57"
+    want = dtype == torch.bfloat16
     assert all(kdb.takes_mma_dense(dtype, g) == want for _, _, g in sites)
+    assert {g for _, _, g in sites} == {12 if arch == "57" else 16}
+    assert not kdb.takes_mma_dense(dtype, G)
 
 
 @pytest.mark.parametrize("b", [1, 8, 32, 64])
-@pytest.mark.parametrize("arch", ["67", "103"])
+@pytest.mark.parametrize("arch", ["57", "67", "103"])
 def test_dense_splits_fill_the_card(arch, b):
     """The split is the least that gives two blocks per SM, within one
     portable cluster and at least one 32-channel chunk per block."""

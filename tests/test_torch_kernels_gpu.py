@@ -12,7 +12,9 @@ package, so it also runs where only PyTorch is installed:
 Shapes cross the kernels' tiles with ragged remainders: K4's CUDA-core
 16x16 pixel tiles and 16-channel groups, the bf16 tensor-core dense
 layer's 12x16 pixel tiles, 32-channel chunks and channel-loop splits of
-1-8 blocks (K4 and K1 share it), the bf16 TransitionDown kernels'
+1-8 blocks (K4 and K1 share it; at growth 16 and at FCDenseNet57's 12,
+whose input widths are rarely a multiple of 8), the bf16 TransitionDown
+kernels'
 128-pixel tiles and 16-channel tensor-core steps (forward and K2), K6's
 int8 tensor-core 16x8 pixel tiles (halo 1, 2 and 4), 32-channel k steps
 and 128-output slices, its CUDA-core 64-pixel rows and 64-channel output
@@ -71,9 +73,11 @@ def _operands(case, dtype, device, seed=0):
     layers = []
     for j in range(n):
         k = c + j * g
+        wk = t(rng.normal(0, (2 / (9 * k)) ** 0.5, (k, 9, g)), dtype)
+        if kdb.takes_mma_dense(dtype, g):  # the layout fold_model makes
+            wk = kdb.pad_growth(wk)
         layers.append(kdb.FoldedLayer(
-            t(rng.uniform(0.5, 1.5, k)), t(rng.normal(0, 0.3, k)),
-            t(rng.normal(0, (2 / (9 * k)) ** 0.5, (k, 9, g)), dtype),
+            t(rng.uniform(0.5, 1.5, k)), t(rng.normal(0, 0.3, k)), wk,
             t(rng.normal(0, 0.1, g))))
     ct = c + n * g
     td = kdb.FoldedTransition(
@@ -130,30 +134,37 @@ def test_new_features_and_segments(cuda, dtype):
 # (B, H, W, c_j) for the bf16 tensor-core dense layer: the small planes
 # (3x5, 7x10, 15x20) and an odd 26x35, c_j ragged against the 32-channel
 # chunk (40, 88) and the widest FCDenseNet67 site (592), batches that are
-# no multiple of anything, and splits of 2, 3, 5 and 8 blocks
+# no multiple of anything, and splits of 2, 3, 5 and 8 blocks; growth 16
 MMA_DENSE_CASES = [(3, 3, 5, 592), (5, 7, 10, 88), (3, 15, 20, 40),
                    (1, 26, 35, 88), (64, 3, 5, 592), (64, 7, 10, 448),
                    (7, 15, 20, 592), (2, 120, 160, 48)]
+# growth 12 (FCDenseNet57): c_j 60 and 84 (neither a multiple of 8 nor of
+# 16), 228 (the widest down-path site), the odd 7x33, 15x20, a split
+# plane (7x10 at B=64) and the 120x160 level
+MMA_DENSE_G12_CASES = [(3, 7, 33, 60), (2, 15, 20, 84), (64, 7, 10, 84),
+                       (64, 7, 10, 228), (2, 120, 160, 60), (5, 3, 5, 84)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", MMA_DENSE_CASES)
-def test_mma_dense_layer_matches_plain(cuda, case):
+@pytest.mark.parametrize("g,case", [(16, c) for c in MMA_DENSE_CASES]
+                         + [(12, c) for c in MMA_DENSE_G12_CASES])
+def test_mma_dense_layer_matches_plain(cuda, case, g):
     """One layer on the tensor cores against the plain version, in a
     buffer wider than the layer writes; the other channels keep their
     bits, a second run gives the same bits (the split's sums are added in
     a fixed order), and the C library reports the split ``dense_splits``
-    gives for this card."""
+    gives for this card.  Growth 12 reads its weight padded to 16 zero
+    columns (``pad_growth``) and writes 12 channels."""
     b, h, w, c = case
     gen = torch.Generator().manual_seed(c + h)
-    feat = torch.randn(b, c + 16 + 8, h, w, generator=gen).to(
+    feat = torch.randn(b, c + g + 8, h, w, generator=gen).to(
         cuda, torch.bfloat16)
     lay = kdb.FoldedLayer(
         (torch.rand(c, generator=gen) + 0.5).to(cuda),
         (torch.randn(c, generator=gen) * 0.3).to(cuda),
-        (torch.randn(c, 9, 16, generator=gen) * (2 / (9 * c)) ** 0.5).to(
-            cuda, torch.bfloat16),
-        (torch.randn(16, generator=gen) * 0.1).to(cuda))
+        kdb.pad_growth((torch.randn(c, 9, g, generator=gen)
+                        * (2 / (9 * c)) ** 0.5).to(cuda, torch.bfloat16)),
+        (torch.randn(g, generator=gen) * 0.1).to(cuda))
     kdb.reset_launches()
     out, again, ref = feat.clone(), feat.clone(), feat.clone()
     kdb.dense_layer(out, lay)
@@ -167,9 +178,61 @@ def test_mma_dense_layer_matches_plain(cuda, case):
     assert kdb._lib().s2r_dense_splits(b, h, w, c) == splits
     assert torch.equal(out, again)
     assert torch.equal(out[:, :c], feat[:, :c])
-    assert torch.equal(out[:, c + 16:], feat[:, c + 16:])
+    assert torch.equal(out[:, c + g:], feat[:, c + g:])
     torch.testing.assert_close(out.float(), ref.float(),
                                **TOLS[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_growth12_route(cuda):
+    """bf16 growth 12 reports the tensor cores in serving (K4) and in
+    training (K1, K3a, K3b); float32 growth 12 does not; a bf16 growth-12
+    weight that is not in the padded layout raises (no fallback)."""
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+    b, h, w, c, g = 2, 15, 20, 60, 12
+    for dtype, mma in ((torch.bfloat16, 1), (torch.float32, 0)):
+        x, scale, shift, weight, bias, mask = _train_operands(
+            (b, h, w, c, g), dtype, cuda, 11)
+        feat = torch.zeros(b, c + g, h, w, device=cuda, dtype=dtype)
+        feat[:, :c] = x
+        kdb.reset_launches()
+        kdb.dense_layer(feat, kdb.FoldedLayer(scale, shift, weight, bias))
+        buf = feat.clone()
+        ktb.reset_launches()
+        ktb.consumer_fwd(buf, scale, shift, weight, bias, mask,
+                         out=buf[:, c:])
+        later = (torch.randn(b, g, h, w, device=cuda).to(dtype),)
+        ktb.stage(buf, buf[:, c:], torch.randn(b, g, h, w, device=cuda),
+                  later, (weight[:g],), scale, shift, (scale[:g],),
+                  (shift[:g],), weight, mask)
+        ktb.final(buf, later, (weight,), (scale,), (shift,))
+        torch.cuda.synchronize()
+        assert kdb.mma_launches == {"dense_layer": mma}
+        assert ktb.mma_launches == {"consumer_fwd": mma, "consumer_bwd": 0,
+                                    "stage": mma, "final": mma}
+        assert kdb.mma_layout(weight) == (dtype == torch.bfloat16)
+    flat = weight.to(torch.bfloat16).contiguous()  # [c, 9, 12], unpadded
+    feat = feat.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="pad_growth"):
+        kdb.dense_layer(feat, kdb.FoldedLayer(scale, shift, flat, bias))
+    with pytest.raises(ValueError, match="pad_growth"):
+        ktb.consumer_fwd(feat, scale, shift, flat, bias, mask)
+
+
+@pytest.mark.gpu
+def test_time_scan_reads_a_light_call_above_its_floor(cuda):
+    """``cli/serve_breakdown._time_scan`` times the device's work alone: a
+    call far lighter on the card than its launch cost on the host (one
+    scale of a 7x10 plane of 448 channels at B=128, as the smallest
+    TransitionDown row of ``train_breakdown``) reads above its floor in
+    each of ten runs of four calls."""
+    from sim2real_lane_segment_tpu_torch.cli import serve_breakdown as sb
+
+    a = torch.randn(128, 448, 7, 10, device=cuda).to(torch.bfloat16)
+    for _ in range(10):
+        dt, floor = sb._time_scan(lambda t: t * 2, (a,), k=2, iters=2,
+                                  with_floor=True)
+        assert dt > floor > 0
 
 
 @pytest.mark.gpu
@@ -302,8 +365,12 @@ from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb  # noqa: 
 # ones take the tensor-core K1 and K3a in bf16: FCDenseNet67 widths (48,
 # 88, 592: one to ten own-layer chunks, ragged against 32 and 64) on the
 # small planes, which cross the 12x16 pixel tile with ragged remainders.
+# The g = 12 ones (FCDenseNet57) too, at c 60 and 84 (neither a multiple of
+# 8 nor of 16; 84 takes two own-layer chunks) on 7x33, 15x20 and a B=64
+# 7x10.
 TRAIN_CASES = [(2, 15, 20, 40, 16), (3, 7, 33, 24, 4), (2, 15, 20, 48, 16),
-               (2, 7, 10, 88, 16), (3, 3, 5, 592, 16), (1, 26, 35, 88, 16)]
+               (2, 7, 10, 88, 16), (3, 3, 5, 592, 16), (1, 26, 35, 88, 16),
+               (2, 15, 20, 60, 12), (3, 7, 33, 84, 12), (64, 7, 10, 84, 12)]
 # TransitionDown widths (taps 1, n = c) on the tensor-core K2's ragged
 # pixel tiles
 TD_TRAIN_CASES = [(2, 15, 20, 128, 16), (2, 7, 10, 128, 16),
@@ -336,10 +403,21 @@ def _train_operands(case, dtype, device, seed, taps=9, n=None):
     shift = r(c, s=0.3)
     shift[1] = 0
     weight = r(c, taps, n, s=0.3).to(dtype)
+    if taps == 9 and n < 16 and ktb.takes_mma_fwd(dtype, taps, c, n):
+        weight = kdb.pad_growth(weight)  # as conv_weight_rows lays it out
     bias = r(n, s=0.1)
     mask = ((torch.rand(b, n, generator=gen) > 0.3).float() / 0.8).to(device)
     mask[:, 0] = 0                   # dropped for the whole batch
     return x, scale, shift, weight, bias, mask
+
+
+def _rows(w, dtype):
+    """Weight rows [c, 9, g] in ``dtype`` as the fused block lays them out:
+    padded (``pad_growth``) where the tensor-core stage reads them."""
+    g = w.shape[2]
+    if g < 16 and ktb.takes_mma_stage(dtype, g):
+        return kdb.pad_growth(w, dtype)
+    return w.to(dtype)
 
 
 def _close_all(outs, refs, dtype, what):
@@ -359,12 +437,13 @@ def test_consumer_kernels_match_plain(cuda, case, taps, dtype):
     dy = torch.randn(b, n, h, w, device=cuda).to(dtype)
     ktb.reset_launches()
     y = ktb.consumer_fwd(x, scale, shift, weight, bias, mask)
-    outs = ktb.consumer_bwd(x, scale, shift, weight, mask, dy)
+    # K2's 3x3 kernels take contiguous rows (Consumer.backward's copy)
+    outs = ktb.consumer_bwd(x, scale, shift, weight.contiguous(), mask, dy)
     torch.cuda.synchronize()
     assert ktb.launches["consumer_fwd"] == 1
     assert ktb.launches["consumer_bwd"] == 1
     assert ktb.mma_launches["consumer_fwd"] == int(
-        dtype == torch.bfloat16 and (taps == 1 or n == 16))
+        dtype == torch.bfloat16 and (taps == 1 or n in (12, 16)))
     _close_all([y], [ktb.consumer_fwd_plain(x, scale, shift, weight, bias,
                                             mask)], dtype, "K1")
     _close_all(outs, ktb.consumer_bwd_plain(x, scale, shift, weight, mask,
@@ -386,7 +465,8 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
     ext = torch.randn(b, g, h, w, device=cuda)
     gps = [torch.randn(b, g, h, w, device=cuda).to(dtype)
            for _ in range(n_later)]
-    wls = [(torch.randn(g, 9, g, device=cuda) * 0.3).to(dtype)
+    # the later layers' y_j rows: slices of their padded rows at growth 12
+    wls = [_rows(torch.randn(g + c, 9, g, device=cuda) * 0.3, dtype)[c:]
            for _ in range(n_later)]
     scs = [torch.rand(g, device=cuda) + 0.5 for _ in range(n_later)]
     shs = [torch.randn(g, device=cuda) * 0.3 for _ in range(n_later)]
@@ -397,7 +477,7 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
     outs = ktb.stage(*args)
     torch.cuda.synchronize()
     assert ktb.mma_launches["stage"] == int(dtype == torch.bfloat16
-                                            and g == 16)
+                                            and g in (12, 16))
     _close_all(outs, ktb.stage_plain(*args), dtype, "K3a")
     again = ktb.stage(*args)  # fixed-order sums: the same bits
     torch.cuda.synchronize()
@@ -405,7 +485,7 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
 
     n = 3 + n_later  # up to eight layers: more than are staged at once
     gps = [torch.randn(b, g, h, w, device=cuda).to(dtype) for _ in range(n)]
-    wls = [(torch.randn(c, 9, g, device=cuda) * 0.3).to(dtype)
+    wls = [_rows(torch.randn(c + g, 9, g, device=cuda) * 0.3, dtype)[:c]
            for _ in range(n)]
     scs = [torch.rand(c, device=cuda) + 0.5 for _ in range(n)]
     shs = [torch.randn(c, device=cuda) * 0.3 for _ in range(n)]
@@ -415,14 +495,15 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
     out = ktb.final(buf, gps, wls, scs, shs)
     torch.cuda.synchronize()
     assert ktb.mma_launches["final"] == int(dtype == torch.bfloat16
-                                            and g == 16)
+                                            and g in (12, 16))
     _close_all([out], [ktb.final_plain(buf, gps, wls, scs, shs)], dtype,
                "K3b")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [TRAIN_CASES[0], TRAIN_CASES[3]])
+@pytest.mark.parametrize("case", [TRAIN_CASES[0], TRAIN_CASES[3],
+                                  TRAIN_CASES[6], TRAIN_CASES[8]])
 def test_consumer_fwd_writes_in_place(cuda, case, dtype):
     """K1 as the dense block calls it: the input is channels [0, c) of a
     wider buffer and the output its channels [c, c + g)."""

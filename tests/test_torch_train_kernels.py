@@ -245,9 +245,61 @@ def test_every_fcdensenet67_site_takes_the_tensor_cores(site):
         assert chunks * splits >= min(132, chunks * items)
 
 
+def _fcdensenet57_sites():
+    """(c, h, w) of FCDenseNet57's 44 dense layers (growth 12, four a
+    block) and 5 TransitionDowns at 120x160, in forward order."""
+    res = [(120, 160), (60, 80), (30, 40), (15, 20), (7, 10)]
+    dense, td, c, skips = [], [], 48, []
+    for h, w in res:
+        dense += [(c + 12 * j, h, w) for j in range(4)]
+        c += 48
+        skips.append(c)
+        td.append((c, h, w))
+    dense += [(c + 12 * j, 3, 5) for j in range(4)]
+    for (h, w), skip in zip(reversed(res), reversed(skips)):
+        dense += [(48 + skip + 12 * j, h, w) for j in range(4)]
+    return dense, td
+
+
+DENSE_SITES_57, TD_SITES_57 = _fcdensenet57_sites()
+
+
+def test_fcdensenet57_site_list():
+    """Against the model's own layers: 44 + 5 sites, c_j 48 + 12 j."""
+    from sim2real_lane_segment_tpu_torch.models.tiramisu import fcdensenet57
+    fe = fcdensenet57(4).featureExtractor
+    names = ([f"denseDown{i}" for i in range(5)] + ["bottleneck"]
+             + [f"denseUp{i}" for i in range(5)])
+    assert [c for c, _, _ in DENSE_SITES_57] == [
+        lay.Conv_0.in_channels for n in names
+        for lay in getattr(fe, n).layers()]
+    assert [c for c, _, _ in TD_SITES_57] == [
+        getattr(fe, f"transDown{i}").Conv_0.in_channels for i in range(5)]
+    assert sum(c % 8 != 0 for c, _, _ in DENSE_SITES_57) == 22
+
+
+@pytest.mark.parametrize("site", DENSE_SITES_57 + TD_SITES_57,
+                         ids=lambda s: "c%d_%dx%d" % s)
+def test_every_fcdensenet57_site_takes_the_tensor_cores(site):
+    """All 44 + 5 K1 sites and all 44 K3a and K3b sites of FCDenseNet57 in
+    bfloat16, growth 12 (half of them at c_j no multiple of 8); none in
+    float32."""
+    c, h, w = site
+    taps, n = (9, 12) if site in DENSE_SITES_57 else (1, c)
+    assert ktb.takes_mma_fwd(torch.bfloat16, taps, c, n)
+    assert not ktb.takes_mma_fwd(torch.float32, taps, c, n)
+    if taps == 9:
+        assert ktb.takes_mma_stage(torch.bfloat16, n)
+        assert not ktb.takes_mma_stage(torch.float32, n)
+        chunks, units = ktb.mma_stage_chunks(c)
+        assert 1 <= units <= 4 and (chunks - 1) * units * 16 < c
+        assert chunks * units * 16 >= c
+        assert chunks * ktb.mma_stage_splits(c, 32, h, w) <= 264
+
+
 @pytest.mark.parametrize("dtype,taps,c,n,expect", [
     (torch.bfloat16, 9, 48, 16, True), (torch.bfloat16, 9, 24, 4, False),
-    (torch.bfloat16, 9, 48, 12, False), (torch.bfloat16, 9, 48, 32, False),
+    (torch.bfloat16, 9, 48, 12, True), (torch.bfloat16, 9, 48, 32, False),
     (torch.bfloat16, 1, 768, 768, True), (torch.bfloat16, 1, 784, 16, False),
     (torch.float32, 9, 48, 16, False), (torch.float32, 1, 128, 128, False)])
 def test_tensor_core_fwd_dispatch(dtype, taps, c, n, expect):
@@ -256,7 +308,7 @@ def test_tensor_core_fwd_dispatch(dtype, taps, c, n, expect):
 
 @pytest.mark.parametrize("dtype,g,expect", [
     (torch.bfloat16, 16, True), (torch.bfloat16, 4, False),
-    (torch.bfloat16, 12, False), (torch.bfloat16, 32, False),
+    (torch.bfloat16, 12, True), (torch.bfloat16, 32, False),
     (torch.float32, 16, False)])
 def test_tensor_core_stage_dispatch(dtype, g, expect):
     assert ktb.takes_mma_stage(dtype, g) is expect
