@@ -48,6 +48,11 @@ Phases:
    120x160), in float32 (TF32 off) and in bfloat16; every bfloat16 dense
    layer must take the tensor-core route, no float32 one (the routes as
    the C library reports them with each launch);
+3b. the TransitionDown sites: each of FCDenseNet67's, 57's and 103's five
+   (C = 96 to 656, 120x160 to 7x10; seeded operands, B=32, a z == 0
+   plane and a dropped channel) through serving's forward, K1 with one
+   tap and K2 against their plain versions, K2 twice (its sums bit-equal),
+   every launch on the tensor-core route as the C library reports it;
 4. serve: 4 client threads x 8 requests of 1-16 frames through the engine
    (max_batch=64); checks every reply, the kernels' launch counts (every
    dense layer on the tensor cores), and pixel agreement with the plain
@@ -79,7 +84,12 @@ Phases:
    plain version (bfloat16; K3a twice, bit-equal), the B=32 step against
    the plain autograd step, and each train kernel's time per step beside
    its plain version, a cuDNN yardstick and its bound (K1 also split into
-   its 3x3 and 1x1 launches); fails if K3a or K1 exceeds MAX_STEP_MS;
+   its 3x3 and 1x1 launches); each TransitionDown site (K1 with one tap,
+   K2; phase 5: serving's forward) is timed as device time alone
+   (``_held_ms``: CUDA events around calls queued behind a spin kernel)
+   on a line of its own with its plane, C, N, cuDNN's time on the same
+   operands, its bound and bytes, and the kernels line's entry lists the
+   sites; fails if K3a or K1 exceeds MAX_STEP_MS;
 10. K6 against plain: the student's int8 body at full width, B=8 and
     B=64 (more (image, tile) items than persistent blocks), calibrated as
     ``cli.serve --int8`` does; every conv site's int8 codes equal, logits
@@ -270,7 +280,8 @@ Phases:
     --arch 57 --fused`` behind the engine, the counts set to 0 just
     before each and read just after (49/5/44/11 a step, 44/5/1 a
     forward), no plain version called, served masks against the plain
-    module; (d) K4's dense layers per B=64 forward (per plane) and K1's
+    module; (d) K4's dense layers and TransitionDowns per B=64 forward
+    (per plane; each TransitionDown site on a line of its own) and K1's
     3x3, K2, K3a and K3b per B=32 step, each call against plain and
     timed alone beside plain, cuDNN and the bound
     (``growth_timing``; ``scripts/torch_growth_timing.py`` runs it on
@@ -381,9 +392,9 @@ MIN_PAINTED_SHARE = 0.01
 GROWTH_KERNELS = ("dense3x3_mma_kernel", "fwd3x3_mma_kernel",
                   "sum_dgrad_mma_kernel", "stage_own_mma_kernel",
                   "dense3x3_no_taps_kernel", "dense3x3_no_prep_kernel")
-MMA_KERNELS = (("td_fwd_small_kernel", "td_fwd_mma_kernel",
-                "bwd1x1_dgrad_mma_kernel", "bwd1x1_wgrad_mma_kernel",
-                "classifier_kernel")
+MMA_KERNELS = (("td_fwd_kernel", "td_fwd_tma_kernel", "bwd1x1_dgrad_mma_kernel",
+                "bwd1x1_wgrad_mma_kernel", "bwd1x1_dgrad_tma_kernel",
+                "bwd1x1_wgrad_tma_kernel", "classifier_kernel")
                + tuple(f"{k}<{g}>" for k in GROWTH_KERNELS for g in (16, 12)))
 # the serving dense layer's two diagnostic variants (cli/serve_breakdown
 # --ablate) and K1's 3x3 forward, which shares their body: their ptxas
@@ -1087,9 +1098,14 @@ def timing_phase(sd, device, card, launches, errs):
             e["ops"] += 2.0 * b * hw * c * n
             a = kdb.bn_relu_plain(feat, td.scale, td.shift)
             wo = td.weight.t()[:, :, None, None].contiguous()
-            e["ms"] += _time_ms(lambda: kdb.transition(feat, td))
+            # device time alone, the host's launch cost held out
+            row = td_site_row("transition", b, c, n, h, w,
+                              _held_ms(lambda: kdb.transition(feat, td)),
+                              _held_ms(lambda: F.conv2d(a, wo)), card)
+            e.setdefault("sites", []).append(row)
+            e["ms"] += row["ms"]
             e["plain_ms"] += _time_ms(lambda: kdb.transition_plain(feat, td))
-            e["library_ms"] += _time_ms(lambda: F.conv2d(a, wo))
+            e["library_ms"] += row["library_ms"]
         # the classifier against plain on this block's features at B=64
         held = cls if cls is not None else _seeded_classifier(
             feat.shape[1], device, SEED + 50 + i)
@@ -1149,6 +1165,8 @@ def timing_phase(sd, device, card, launches, errs):
             "plain_ms": e["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": e["library_ms"]}
+        if "sites" in e:
+            entry["sites"] = e["sites"]
         kernels.append(entry)
         lib = ("n/a" if e["library_ms"] is None
                else f"{e['library_ms']:.3f} ms")
@@ -1587,6 +1605,11 @@ def _train_library(name, args):
         [True, True, False])
 
 
+def _td_site(name, args) -> bool:
+    """Whether a recorded K1 or K2 call is a TransitionDown (one tap)."""
+    return name in ("consumer_fwd", "consumer_bwd") and args[3].shape[1] == 1
+
+
 def train_timing(sd, device, card, launches, errs):
     """Phase 9: B=32.  Returns the kernels line entries of K1-K3b."""
     import torch
@@ -1672,15 +1695,25 @@ def train_timing(sd, device, card, launches, errs):
             moved, ops = _train_cost(name, a, out)
             d["bytes"] += moved
             d["ops"] += ops
-            ms = _time_ms(lambda: real[name](*a, **kw), 2)
+            lib = _train_library(name, a)
+            if _td_site(name, a):
+                # a TransitionDown: device time alone, per site
+                c, _, n = a[3].shape
+                bb, _, h, w = a[0].shape
+                row = td_site_row(name, bb, c, n, h, w,
+                                  _held_ms(lambda: real[name](*a, **kw)),
+                                  _held_ms(lib), card)
+                d.setdefault("sites", []).append(row)
+                ms, lib_ms = row["ms"], row["library_ms"]
+            else:
+                ms = _time_ms(lambda: real[name](*a, **kw), 2)
+                lib_ms = None if lib is None else _time_ms(lib, 2)
             d["ms"] += ms
             d["plain_ms"] += _time_ms(
                 lambda: getattr(ktb, f"{name}_plain")(*a, **kw), 2)
-            lib = _train_library(name, a)
             if lib is None:
                 d["library_ms"] = None
             else:
-                lib_ms = _time_ms(lib, 2)
                 d["library_ms"] += lib_ms
                 if name == "consumer_fwd":
                     cell = k1_split[a[3].shape[1]]
@@ -1700,6 +1733,8 @@ def train_timing(sd, device, card, launches, errs):
                  "plain_ms": d["plain_ms"], "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "library_ms": d["library_ms"]}
+        if "sites" in d:
+            entry["sites"] = d["sites"]
         kernels.append(entry)
         lib = ("n/a" if d["library_ms"] is None
                else f"{d['library_ms']:.3f} ms")
@@ -3342,9 +3377,8 @@ def distill_phase(sd, device, card, tmp):
             "unl": lambda: tr.train_step_unl(images, labels, unl, lr,
                                              generator=gen)}
     names = port_kernel_names()
-    k4_names = {"dense3x3_mma_kernel", "td_fwd_small_kernel",
-                "td_fwd_mma_kernel", "classifier_kernel",
-                "conv_bnrelu_kernel"} & names
+    k4_names = {"dense3x3_mma_kernel", "td_fwd_kernel", "td_fwd_tma_kernel",
+                "classifier_kernel", "conv_bnrelu_kernel"} & names
     x64 = torch.cat([x, x])
     ms = {"lab": _time_ms(step["lab"]), "unl": _time_ms(step["unl"]),
           "teacher32": _time_ms(lambda: tr.teacher_logits(x)),
@@ -5106,6 +5140,7 @@ TRAIN_PER_STEP_57 = {"consumer_fwd": 49, "consumer_bwd": 5, "stage": 44,
 G12_SPLITS = (("train", 64), ("valid", 32), ("test", 32))
 # the kernels line's names of FCDenseNet57's rows
 G12_NAMES = {"dense_layer": "k4_dense_layer_g12",
+             "transition": "k4_transition_g12",
              **{k: f"{v[0]}_g12" for k, v in TRAIN_KERNELS.items()}}
 
 
@@ -5123,16 +5158,18 @@ def _entry(name, source, replaces, launches, err, d):
 
 
 def growth_timing(sd, device, card, arch=ARCH57):
-    """Phase 25d: ``arch``'s K4 dense layers per B=64 forward (per plane,
-    beside one cuDNN conv on the activated operands) and its K1 (3x3 and
-    1x1 apart), K2, K3a and K3b per B=32 ``--pallas_train`` step, every
-    call timed alone (CUDA events) on the operands the path gives it, its
-    plain version and the bound beside.  Each dense layer and train site
+    """Phase 25d: ``arch``'s K4 dense layers and TransitionDowns per B=64
+    forward (per plane, beside one cuDNN conv on the activated operands)
+    and its K1 (3x3 and 1x1 apart), K2, K3a and K3b per B=32
+    ``--pallas_train`` step, every call timed alone (CUDA events; a
+    TransitionDown site's device time behind a hold, ``_held_ms``, on a
+    line of its own) on the operands the path gives it, its plain version
+    and the bound beside.  Each dense layer, TransitionDown and train site
     is held against its plain version first.  It reads only what the port
     had before growth 12 took the tensor cores, so that
     ``scripts/torch_growth_timing.py`` runs it on an older tree too.
-    Returns ({"dense_layer" and each train wrapper: timed sums, calls, max
-    err, tensor-core launches}, the K1 3x3 sums)."""
+    Returns ({"dense_layer", "transition" and each train wrapper: timed
+    sums, calls, max err, tensor-core launches}, the K1 3x3 sums)."""
     import torch
     import torch.nn.functional as F
 
@@ -5149,7 +5186,7 @@ def growth_timing(sd, device, card, arch=ARCH57):
         return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
                 "ops": 0.0, "calls": 0, "err": 0.0, "mma": 0}
 
-    out = {k: sums() for k in ("dense_layer", *TRAIN_KERNELS)}
+    out = {k: sums() for k in ("dense_layer", "transition", *TRAIN_KERNELS)}
     # serving: B=64, every block's dense layers on the plain chain's buffer
     model = make_model(sd, DEFAULT_POLICY, device, arch)
     folded = fold_model(model)
@@ -5195,6 +5232,33 @@ def growth_timing(sd, device, card, arch=ARCH57):
             p[2] += lib_ms
             p[3] += sum(2.0 * b * h * w * lay.weight.shape[0] * 9
                         * lay.weight.shape[2] for lay in layers) / 1e9
+            td = kw.get("td")
+            if td is not None:  # the TransitionDown on the same buffer
+                e = out["transition"]
+                c, n = td.weight.shape
+                kdb.reset_launches()
+                e["err"] = max(e["err"], _hold_site(
+                    f"{arch} bfloat16 B={TIME_BATCH} k4_transition    "
+                    f"{h}x{w} C={c}", [kdb.transition(feat, td)],
+                    [kdb.transition_plain(feat, td)],
+                    TRAIN_REL_TOL["bfloat16"], card))
+                e["calls"] += 1
+                e["mma"] += kdb.mma_launches.get("transition", 0)
+                a = kdb.bn_relu_plain(feat, td.scale, td.shift)
+                wo = td.weight.t()[:, :, None, None].contiguous()
+                row = td_site_row(
+                    "transition", b, c, n, h, w,
+                    _held_ms(lambda: kdb.transition(feat, td)),
+                    _held_ms(lambda: F.conv2d(a, wo)), card,
+                    f"FCDenseNet{arch} ")
+                e.setdefault("sites", []).append(row)
+                e["ms"] += row["ms"]
+                e["library_ms"] += row["library_ms"]
+                e["plain_ms"] += _time_ms(lambda: kdb.transition_plain(feat,
+                                                                       td))
+                e["bytes"] += td_bytes("transition", b, c, n, h, w)
+                e["ops"] += 2.0 * b * h * w * c * n
+                del a
             del feat, acts
     print(f"timing: FCDenseNet{arch} k4_dense_layer per resolution, "
           f"B={TIME_BATCH} (CUDA events; cuDNN conv on the activated "
@@ -5246,11 +5310,21 @@ def growth_timing(sd, device, card, arch=ARCH57):
             kw = {k: v for k, v in kw.items() if k != "out"}
             e = out[name]
             moved, ops = _train_cost(name, a, res)
-            ms = _time_ms(lambda: real[name](*a, **kw), 2)
             plain_ms = _time_ms(
                 lambda: getattr(ktb, f"{name}_plain")(*a, **kw), 2)
             lib = _train_library(name, a)
-            lib_ms = None if lib is None else _time_ms(lib, 2)
+            if _td_site(name, a):
+                # a TransitionDown: device time alone, per site
+                c, _, n = a[3].shape
+                bb, _, h, w = a[0].shape
+                row = td_site_row(name, bb, c, n, h, w,
+                                  _held_ms(lambda: real[name](*a, **kw)),
+                                  _held_ms(lib), card, f"FCDenseNet{arch} ")
+                e.setdefault("sites", []).append(row)
+                ms, lib_ms = row["ms"], row["library_ms"]
+            else:
+                ms = _time_ms(lambda: real[name](*a, **kw), 2)
+                lib_ms = None if lib is None else _time_ms(lib, 2)
             cells = [e]
             if name == "consumer_fwd" and a[3].shape[1] == 9:
                 cells.append(k1_3x3)
@@ -5266,7 +5340,7 @@ def growth_timing(sd, device, card, arch=ARCH57):
     for name, e in out.items():
         lib = ("n/a" if e["library_ms"] is None
                else f"{e['library_ms']:.3f} ms")
-        per = (f"B={TIME_BATCH} forward" if name == "dense_layer"
+        per = (f"B={TIME_BATCH} forward" if name in K4_PER_FORWARD_57
                else f"B={TRAIN_BATCH} train step")
         print(f"timing: FCDenseNet{arch} {G12_NAMES[name]} per {per} "
               f"({e['calls']} launches, {e['mma']} on the tensor cores): "
@@ -5372,7 +5446,7 @@ def growth12_paths(sd, card, tmp):
           f"{same / total:.6f} over {total} pixels  [{card}]")
     check(same / total >= MIN_PIXEL_AGREEMENT,
           f"FCDenseNet57 pixel agreement {same / total}")
-    return train, {"dense_layer": served["dense_layer"]}
+    return train, {k: served[k] for k in ("dense_layer", "transition")}
 
 
 def growth12_phase(device, card) -> list:
@@ -5384,11 +5458,13 @@ def growth12_phase(device, card) -> list:
     (d) the timings.  Returns the kernels-line entries of its rows."""
     t0 = time.perf_counter()
     sd = seeded_state_dict(device, ARCH57)
-    errs = {"dense_layer": 0.0, **{k: 0.0 for k in TRAIN_KERNELS}}
+    errs = {"dense_layer": 0.0, "transition": 0.0,
+            **{k: 0.0 for k in TRAIN_KERNELS}}
     for dtype_name in ("float32", "bfloat16"):
         e = compare_blocks(sd, device, dtype_name, card, ARCH57,
                            K4_PER_FORWARD_57["dense_layer"])
-        errs["dense_layer"] = max(errs["dense_layer"], e["dense_layer"])
+        for k in ("dense_layer", "transition"):
+            errs[k] = max(errs[k], e[k])
         for k, v in compare_train_kernels(sd, device, dtype_name, card,
                                           ARCH57, TRAIN_PER_STEP_57).items():
             errs[k] = max(errs[k], v)
@@ -5407,15 +5483,249 @@ def growth12_phase(device, card) -> list:
           f"{timed['dense_layer']['calls']} dense layers on the tensor cores")
     check(all(timed[k]["mma"] == TRAIN_PER_STEP_57[k] for k in TRAIN_KERNELS),
           "B=32: a train site off the tensor-core route")
+    check(timed["transition"]["mma"] == timed["transition"]["calls"]
+          == K4_PER_FORWARD_57["transition"],
+          f"B={TIME_BATCH}: {timed['transition']['mma']} of "
+          f"{timed['transition']['calls']} TransitionDowns on the tensor "
+          f"cores")
     entries = []
     for name, d in timed.items():
-        source, replaces = ((SOURCE, REPLACES) if name == "dense_layer"
+        source, replaces = ((SOURCE, REPLACES) if name in K4_PER_FORWARD_57
                             else (TRAIN_SOURCE, TRAIN_KERNELS[name][1]))
         entries.append(_entry(G12_NAMES[name], source, replaces,
                               launches[name], max(errs[name], d["err"]), d))
+        if "sites" in d:
+            entries[-1]["sites"] = d["sites"]
     print(f"growth 12: phase 25 done in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]", flush=True)
     return entries
+
+
+# ---------------------------------------------------------------------------
+# the TransitionDown sites (phase 3b; per-site lines of phases 5, 9 and 25)
+# ---------------------------------------------------------------------------
+
+TD_ARCHS = ("67", "57", "103")
+TD_CHECK_BATCH = 32   # phase 3b: the train step's batch
+TD_REPS = 20          # held calls a timed site
+TD_NAMES = {"transition": "k4_transition", "consumer_fwd": "k1_consumer_fwd",
+            "consumer_bwd": "k2_consumer_bwd"}
+
+
+def _held_ms(fn, reps=TD_REPS):
+    """Device ms per call of ``fn``: CUDA events around ``reps`` calls that
+    the host queued behind a spin kernel holding the stream (the hold of
+    ``cli/serve_breakdown._time_scan``), so that the host's launch cost
+    stays out of the reading.  Where the host was still queueing when the
+    hold ended, the loop runs again behind a hold of twice its queueing
+    time, up to ``HOLD_TRIES`` runs."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.cli.serve_breakdown import (
+        HOLD_CLOCK_HZ, HOLD_MAX_S, HOLD_S, HOLD_TRIES)
+
+    fn()  # warm-up
+    hold = HOLD_S
+    for _ in range(HOLD_TRIES):
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(int(hold * HOLD_CLOCK_HZ))
+        t0.record()
+        h0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        queued = time.perf_counter() - h0
+        if not t0.query() or 2 * queued > HOLD_MAX_S:
+            break
+        hold = 2 * queued
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def td_sites(arch) -> list:
+    """[(C, N, H, W)] of ``arch``'s five TransitionDowns on H x W frames,
+    in forward order, read from the model."""
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+    from sim2real_lane_segment_tpu_torch.models.tiramisu import \
+        TransitionDown
+
+    tds = [m.Conv_0 for m in build_model(arch, N_CLS).modules()
+           if isinstance(m, TransitionDown)]
+    sites, h, w = [], H, W
+    for conv in tds:
+        sites.append((conv.in_channels, conv.out_channels, h, w))
+        h, w = h // 2, w // 2
+    return sites
+
+
+def td_operands(c, n, b, h, w, device, seed) -> dict:
+    """One TransitionDown site's operands from ``seed``: bf16 x [B, C, H,
+    W] (channel 1 zero with a zero shift, so z == 0 on a whole plane),
+    f32 BN scale and shift, a bf16 He-normal weight [C, N] (and its [C, 1,
+    N] view for K1 and K2), f32 bias, a dropout mask [B, N] (channel 0
+    dropped for the whole batch) and a bf16 cotangent dy [B, N, H, W]."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen) * s
+
+    x = r(b, c, h, w)
+    x[:, 1] = 0
+    shift = r(c, s=0.3)
+    shift[1] = 0
+    mask = (torch.rand(b, n, generator=gen) > 0.2).float() / 0.8
+    mask[:, 0] = 0
+    ops = {"x": x.to(torch.bfloat16), "scale": torch.rand(c, generator=gen)
+           + 0.5, "shift": shift,
+           "weight": r(c, n, s=(2.0 / c) ** 0.5).to(torch.bfloat16),
+           "bias": r(n, s=0.1), "mask": mask,
+           "dy": r(b, n, h, w).to(torch.bfloat16)}
+    ops = {k: v.to(device) for k, v in ops.items()}
+    ops["w3"] = ops["weight"][:, None, :]
+    return ops
+
+
+def _td_calls(o):
+    """{wrapper: (kernel call, plain call, cuDNN yardstick)} of one site's
+    operands ``o``: serving's TransitionDown, K1 with one tap and K2."""
+    import torch
+    import torch.nn.functional as F
+
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+
+    td = kdb.FoldedTransition(o["scale"], o["shift"], o["weight"], o["bias"])
+    a = _bn_act(o["x"], o["scale"], o["shift"])
+    w4 = o["weight"].t()[:, :, None, None].contiguous()
+    fwd = (o["x"], o["scale"], o["shift"], o["w3"], o["bias"], o["mask"])
+    bwd = (o["x"], o["scale"], o["shift"], o["w3"], o["mask"], o["dy"])
+    g = (o["dy"].float() * o["mask"][:, :, None, None]).to(o["x"].dtype)
+    return {
+        "transition": (lambda: kdb.transition(o["x"], td),
+                       lambda: kdb.transition_plain(o["x"], td),
+                       lambda: F.conv2d(a, w4)),
+        "consumer_fwd": (lambda: ktb.consumer_fwd(*fwd),
+                         lambda: ktb.consumer_fwd_plain(*fwd),
+                         lambda: F.conv2d(a, w4)),
+        "consumer_bwd": (lambda: ktb.consumer_bwd(*bwd),
+                         lambda: ktb.consumer_bwd_plain(*bwd),
+                         lambda: torch.ops.aten.convolution_backward(
+                             g, a, w4, None, [1, 1], [0, 0], [1, 1], False,
+                             [0, 0], 1, [True, True, False]))}
+
+
+def td_bytes(name, b, c, n, h, w) -> float:
+    """Bytes one bf16 TransitionDown call must move: every input read once,
+    every output written once (serving: x, W, scale, shift, bias in, out;
+    K1 also the mask; K2: x, W, scale, shift, mask, dy in, dseg and the f32
+    dscale, dshift, dW, dbias out)."""
+    small = c * n * 2 + 8 * c + 4 * n
+    if name == "transition":
+        return b * h * w * (c + n) * 2 + small
+    if name == "consumer_fwd":
+        return b * h * w * (c + n) * 2 + small + 4 * b * n
+    return (b * h * w * (2 * c + n) * 2 + c * n * 2 + 8 * c + 4 * b * n
+            + 4 * (2 * c + c * n + n))
+
+
+def td_site_row(name, b, c, n, h, w, ms, lib_ms, card, label="") -> dict:
+    """One site's timing as a kernels-line row, printed on a line of its
+    own: plane, C, N, kernel and cuDNN ms, bound ms and GB."""
+    moved = td_bytes(name, b, c, n, h, w)
+    ops = 2.0 * b * h * w * c * n * (2 if name == "consumer_bwd" else 1)
+    bound = max(moved / PEAK_BYTES, ops / PEAK_BF16_OPS) * 1e3
+    row = {"plane": f"{h}x{w}", "c": c, "n": n, "batch": b, "ms": ms,
+           "library_ms": lib_ms, "bound_ms": bound, "gb": moved / 1e9}
+    print(f"  td site {label}{TD_NAMES[name]} B={b} {h}x{w} C={c} N={n}: "
+          f"kernel {ms:.4f} ms, cuDNN {lib_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({moved / 1e9:.4f} GB)  [{card}]", flush=True)
+    return row
+
+
+def td_check_sites(arch, device, card, batch=TD_CHECK_BATCH,
+                   require_mma=True) -> dict:
+    """Phase 3b for ``arch``: at each TransitionDown site, at ``batch``,
+    serving's forward, K1 with one tap and K2 against their plain versions
+    on seeded operands, K2 run twice (its sums in a fixed order: the same
+    bits), and each launch's route as the C library reports it (with
+    ``require_mma``, every one on the tensor cores).  Returns the largest
+    max|err| per wrapper."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+
+    errs = {k: 0.0 for k in TD_NAMES}
+    tol = TRAIN_REL_TOL["bfloat16"]
+    for i, (c, n, h, w) in enumerate(td_sites(arch)):
+        o = td_operands(c, n, batch, h, w, device, SEED + 60 + i)
+        calls = _td_calls(o)
+        kdb.reset_launches()
+        ktb.reset_launches()
+        with torch.no_grad():
+            for name, (kernel, plain, _) in calls.items():
+                outs = _as_list(kernel())
+                label = (f"FCDenseNet{arch} {TD_NAMES[name]:16s} B={batch} "
+                         f"{h}x{w} C={c} N={n}")
+                errs[name] = max(errs[name], _hold_site(
+                    label, outs, _as_list(plain()), tol, card))
+                if name == "consumer_bwd":
+                    again = _as_list(kernel())
+                    check(all(torch.equal(p, q) for p, q in zip(outs, again)),
+                          f"{label}: two runs differ (a sum in no fixed "
+                          f"order)")
+        torch.cuda.synchronize()
+        routes = {"transition": kdb.mma_launches.get("transition"),
+                  "consumer_fwd": ktb.mma_launches["consumer_fwd"],
+                  "consumer_bwd": ktb.mma_launches["consumer_bwd"]}
+        print(f"  FCDenseNet{arch} {h}x{w} C={c} N={n}: launches on the "
+              f"tensor-core route {json.dumps(routes)} (K2 twice)  [{card}]")
+        if require_mma:
+            check(routes == {"transition": 1, "consumer_fwd": 1,
+                             "consumer_bwd": 2},
+                  f"FCDenseNet{arch} {h}x{w} C={c}: a TransitionDown launch "
+                  f"left the tensor-core route")
+    return errs
+
+
+def td_time_sites(arch, device, card) -> dict:
+    """Every TransitionDown site of ``arch`` timed alone by ``_held_ms``:
+    serving's forward at B=64, K1 with one tap and K2 at B=32, each beside
+    its cuDNN yardstick on the activated operands (conv2d; K2:
+    ``convolution_backward`` on the rounded g_pre) and its bound.  Returns
+    {wrapper: [site rows]}."""
+    rows = {k: [] for k in TD_NAMES}
+    for i, (c, n, h, w) in enumerate(td_sites(arch)):
+        for batch, names in ((TIME_BATCH, ("transition",)),
+                             (TRAIN_BATCH, ("consumer_fwd", "consumer_bwd"))):
+            o = td_operands(c, n, batch, h, w, device, SEED + 70 + i)
+            calls = _td_calls(o)
+            for name in names:
+                kernel, _, lib = calls[name]
+                rows[name].append(td_site_row(
+                    name, batch, c, n, h, w, _held_ms(kernel), _held_ms(lib),
+                    card, f"FCDenseNet{arch} "))
+            del o, calls
+    return rows
+
+
+def td_phase(device, card) -> dict:
+    """Phase 3b: every TransitionDown site of FCDenseNet67, 57 and 103
+    (``td_check_sites``), before any timing.  Returns the largest max|err|
+    per wrapper."""
+    t0 = time.perf_counter()
+    errs = {k: 0.0 for k in TD_NAMES}
+    for arch in TD_ARCHS:
+        for k, v in td_check_sites(arch, device, card).items():
+            errs[k] = max(errs[k], v)
+    print(f"td: phase 3b, the TransitionDown sites of FCDenseNet"
+          f"{'/'.join(TD_ARCHS)} held against plain in "
+          f"{time.perf_counter() - t0:.1f} s; max|err| {json.dumps(errs)}  "
+          f"[{card}]", flush=True)
+    return errs
 
 
 def main() -> None:
@@ -5500,6 +5810,15 @@ def main() -> None:
 
     lap(3)
 
+    # phase 3b: every TransitionDown site of FCDenseNet67, 57 and 103
+    # (serving's forward, K1 with one tap, K2) against plain, before any
+    # timing
+    td_errs = td_phase(device, card)
+    errs["bfloat16"]["transition"] = max(errs["bfloat16"]["transition"],
+                                         td_errs["transition"])
+
+    lap("3b")
+
     # phase 4: serve end to end
     launches, fps = serve_phase(sd, device, card)
 
@@ -5520,6 +5839,8 @@ def main() -> None:
                                                        dtype_name, card)
     print(f"compare: train kernels done in {time.perf_counter() - t0:.1f} s"
           f"  [{card}]", flush=True)
+    for k in ("consumer_fwd", "consumer_bwd"):
+        train_errs["bfloat16"][k] = max(train_errs["bfloat16"][k], td_errs[k])
 
     lap(6)
 

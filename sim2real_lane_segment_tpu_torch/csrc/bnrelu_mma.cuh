@@ -1,15 +1,17 @@
 // Shared device code for the bf16 tensor-core kernels on Hopper: BN + ReLU
-// staging of NCHW channel rows into bf16 shared-memory tiles, wgmma
-// (m64n128k16) on tiles in shared memory, a 64x32 warp tile of mma.sync
-// m16n8k16 products fed by ldmatrix (bf16 in, f32 sums), and, at the end,
-// the [pixel][channel] staging and tap addressing of the 3x3 dense layers.
+// of packed bf16 values, copies of NCHW channel rows over flat pixels (all
+// images as one axis) into shared-memory chunks, wgmma (m64n128k16) on
+// tiles in shared memory, a 64x32 warp tile of mma.sync m16n8k16 products
+// fed by ldmatrix (bf16 in, f32 sums), and, at the end, the
+// [pixel][channel] staging and tap addressing of the 3x3 dense layers.
 //
-// Used by td_fwd_small_kernel and td_fwd_mma_kernel (csrc/td_fwd_mma.cuh),
-// by the 3x3 dense-layer forward of csrc/dense3x3_mma.cuh (serving's
-// dense3x3_mma_kernel and K1's fwd3x3_mma_kernel), by
-// bwd1x1_dgrad_mma_kernel (wgmma) and bwd1x1_wgrad_mma_kernel (mma.sync)
-// and by sum_dgrad_mma_kernel and stage_own_mma_kernel (mma.sync) in
-// csrc/train_block.cu.
+// Used by td_fwd_tma_kernel and td_fwd_kernel (csrc/td_fwd_mma.cuh), by
+// the 3x3 dense-layer forward of csrc/dense3x3_mma.cuh (serving's
+// dense3x3_mma_kernel and K1's fwd3x3_mma_kernel), by K2's
+// bwd1x1_{dgrad,wgrad}_{tma,mma}_kernel (wgmma) and by sum_dgrad_mma_kernel
+// and stage_own_mma_kernel (mma.sync) in csrc/train_block.cu.  The TMA,
+// mbarrier, stmatrix and register-A wgmma helpers serve the *_tma_kernel
+// pipelines.
 //
 // Row-major shared-memory tiles for ldmatrix have a row stride (ld) of a
 // multiple of 64 elements plus 8: a row then starts 16 bytes further along
@@ -86,6 +88,33 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// Register fences for the asynchronous products: a wgmma reads its A
+// registers and writes its accumulators after the instruction has issued,
+// so each is pinned in place (an empty asm that "changes" it) after the
+// wait, so that the compiler neither reuses an A register for other values
+// nor reads an accumulator before the product has completed.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Stores four 8x8 bf16 matrices transposed: lane 8j + r gives the address
+// of row r of matrix j as stored (16 bytes); each lane holds, in register
+// j, elements (lane / 4, 2 (lane % 4) .. +1) of matrix j before the
+// transpose (the layout of an mma accumulator fragment, packed to bf16).
+__device__ __forceinline__ void stsm_x4_t(uint32_t addr, uint32_t r0, uint32_t r1,
+                                          uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3) : "memory");
 }
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
@@ -189,9 +218,9 @@ __device__ __forceinline__ int swz_off(int row, int col) {
   return row * 128 + ((((col >> 3) ^ (row & 7)) << 3) | (col & 7));
 }
 
-// How copy_rows_async moves a channel row: 16-byte cp.async (hw % 8 == 0
-// and the rows 16-byte aligned), 4-byte cp.async (hw even, rows 4-byte
-// aligned) or plain loads and stores (odd hw).
+// How a kernel moves the 16-byte chunks of an NCHW stack: 16-byte
+// cp.async (hw % 8 == 0 and the images 16-byte aligned), 4-byte cp.async
+// (hw even, 4-byte aligned) or plain loads and stores (odd hw).
 enum RowCopy { kCopy16 = 0, kCopy4 = 1, kCopySync = 2 };
 
 __host__ __forceinline__ int row_copy_mode(int hw, ll bstride, const void* base) {
@@ -201,82 +230,89 @@ __host__ __forceinline__ int row_copy_mode(int hw, ll bstride, const void* base)
   return kCopySync;
 }
 
-// Copies channel rows [0, rows) of x (row r at x + r * hw; rows >= nvalid
-// are zero) over pixels [p0, p0 + COLS) into dst[r][c] (row stride ld),
-// zeros past hw, by `mode` (RowCopy).  The caller commits and waits.
-template <int COLS, int THREADS>
-__device__ __forceinline__ void copy_rows_async(u16* dst, int ld, int rows, const u16* x,
-                                                int hw, int nvalid, int p0, int mode) {
-  constexpr int VPR = COLS / 8;
-  for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    const int p = p0 + c;
-    u16* d = dst + r * ld + c;
-    const u16* src = x + (ll)r * hw + p;
-    const bool row_ok = r < nvalid;
-    if (mode == kCopy16) {
-      const bool ok = row_ok && p < hw;
-      cp_async16(d, ok ? src : x, ok ? 16 : 0);
-    } else if (mode == kCopy4) {
+// Flat pixels.  The tensor-core TransitionDown kernels (forward and K2)
+// tile the pixels of all images as one axis of B * hw positions, so a
+// small plane fills a 64- or 128-pixel tile across images: position f is
+// pixel f % hw of image f / hw.  With kCopy16 an 8-pixel chunk (f a
+// multiple of 8) lies in one image; otherwise positions are walked one by
+// one across the image boundary.
+
+// Copies channel rows k0 .. k0+ROWS-1 of an NCHW stack over the COLS
+// positions from f0 into a shared tile, element (r, c) at dst + off(r, c)
+// (8 consecutive c of a row contiguous), zeros past `total` positions and
+// for rows >= nvalid, by threads 0 .. THREADS-1: neighbouring lanes take
+// neighbouring positions, 16 bytes a lane (kCopy16), 4 (kCopy4) or 2 (plain
+// loads and stores, kCopySync), each lane's image and pixel found once.
+// The caller commits (or arrives on the barrier that waits for the copies).
+template <int ROWS, int COLS, int THREADS, typename Off>
+__device__ __forceinline__ void flat_tile_async(u16* dst, Off off, const u16* x, ll bstride,
+                                                int hw, int k0, int nvalid, int f0,
+                                                int total, int mode) {
+  const int tid = threadIdx.x;
+  const int per = mode == kCopy16 ? 8 : mode == kCopy4 ? 2 : 1;  // positions a copy
+  const int lanes = COLS / per;                                  // copies a row
+  const int c = (tid % lanes) * per;
+  const int f = f0 + c;
+  const int b = f < total ? f / hw : 0;
+  const u16* src = x + b * bstride + (f - b * hw);
+  for (int r = tid / lanes; r < ROWS; r += THREADS / lanes) {
+    const bool ok = f < total && k0 + r < nvalid;
+    u16* d = dst + off(r, c);
+    const u16* sr = src + (ll)(k0 + r) * hw;
+    if (mode == kCopy16) cp_async16(d, ok ? sr : x, ok ? 16 : 0);
+    else if (mode == kCopy4) cp_async4(d, ok ? sr : x, ok ? 4 : 0);
+    else *d = ok ? *sr : (u16)0;
+  }
+}
+
+// Stores the 8 bf16 values at src to positions f .. f+7 of channel row
+// `row` (image b at x + b * bstride), none at or past `total`.  vec: hw %
+// 8 == 0 and the images 16-byte aligned (one 16-byte store).
+__device__ __forceinline__ void flat_chunk_store(u16* x, ll bstride, int hw, int row,
+                                                 int f, int total, const u16* src,
+                                                 bool vec) {
+  if (f >= total) return;
+  int b = f / hw, p = f - b * hw;
+  if (vec) {
+    *reinterpret_cast<uint4*>(x + b * bstride + (ll)row * hw + p) =
+        *reinterpret_cast<const uint4*>(src);
+    return;
+  }
+  for (int e = 0; e < 8 && f + e < total; ++e) {
+    x[b * bstride + (ll)row * hw + p] = src[e];
+    if (++p == hw) {
+      p = 0;
+      ++b;
+    }
+  }
+}
+
+// T(v * m) on the 8 packed bf16 values of positions f .. f+7 of output
+// row n, m the dropout mask of each position's image (mask[b * N + n]),
+// 0 past `total`; *sum receives the sum of the unrounded products.
+__device__ __forceinline__ uint4 mask8(uint4 v, const float* __restrict__ mask, int N,
+                                       int n, int f, int hw, int total, float* sum) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t o[4];
+  int b = f / hw, p = f - b * hw;
+  float s = 0.f;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const bool ok = row_ok && p + 2 * q < hw;
-        cp_async4(d + 2 * q, ok ? src + 2 * q : x, ok ? 4 : 0);
+  for (int q = 0; q < 4; ++q) {
+    float g[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float x = e ? hi_f(w[q]) : lo_f(w[q]);
+      g[e] = f + 2 * q + e < total ? __fmul_rn(x, mask[b * N + n]) : 0.f;
+      s += g[e];
+      if (++p == hw) {
+        p = 0;
+        ++b;
       }
-    } else {
-      __align__(16) u16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = (row_ok && p + e < hw) ? src[e] : (u16)0;
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(v);
     }
+    o[q] = pack_bf16x2(g[0], g[1]);
   }
-}
-
-// Raw bf16 bits of pixels p .. p+7 of one channel row (zeros past hw).
-// vec: the row and p are 16-byte aligned.
-__device__ __forceinline__ uint4 load_px8(const u16* row, int p, int hw, bool vec) {
-  if (vec && p + 8 <= hw) return __ldg(reinterpret_cast<const uint4*>(row + p));
-  __align__(16) u16 v[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = p + e < hw ? row[p + e] : (u16)0;
-  return *reinterpret_cast<const uint4*>(v);
-}
-
-// Stages channel rows [0, rows) of x (row r at x + r * hw; rows >= nvalid
-// are zero) over pixels [p0, p0 + COLS) into dst[r][c] (row stride ld):
-// BN = true: T(relu(x * scale[r] + shift[r])); false: x as it is.  Pixels
-// at or past hw read as zero (with BN, as T(relu(shift))).  Eight 16-byte
-// loads per thread are in flight before any is used.  vec: hw % 8 == 0
-// and x 16-byte aligned.
-template <bool BN, int COLS, int THREADS>
-__device__ __forceinline__ void stage_rows(u16* dst, int ld, int rows, const u16* x,
-                                           int hw, int nvalid, int p0,
-                                           const float* scale, const float* shift,
-                                           bool vec) {
-  constexpr int VPR = COLS / 8;
-  const int total = rows * VPR;
-  constexpr int LOADS = 8;
-  for (int i0 = threadIdx.x; i0 < total; i0 += LOADS * THREADS) {
-    uint4 raw[LOADS];
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int i = i0 + u * THREADS;
-      const int r = i / VPR;
-      raw[u] = make_uint4(0, 0, 0, 0);
-      if (i < total && r < nvalid)
-        raw[u] = load_px8(x + (ll)r * hw, p0 + (i % VPR) * 8, hw, vec);
-    }
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int i = i0 + u * THREADS;
-      if (i >= total) break;
-      const int r = i / VPR;
-      const int c = (i % VPR) * 8;
-      *reinterpret_cast<uint4*>(dst + r * ld + c) =
-          BN && r < nvalid ? bn_relu8(raw[u], scale[r], shift[r]) : raw[u];
-    }
-  }
+  *sum = s;
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -322,6 +358,19 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* smem, uint32_t lbo_byt
 __device__ __forceinline__ int sw128_off(int row, int col) {  // in elements
   return ((row >> 3) * 2 + (col >> 6)) * 512 + (row & 7) * 64 +
          ((((col >> 3) & 7) ^ (row & 7)) << 3) + (col & 7);
+}
+
+// A K-major operand in the 128-byte swizzled layout: rows (its M or N
+// index) of 64 K-elements, 128 bytes each, in 1024-byte atoms of 8 rows;
+// 16-byte chunk j of row r at (r / 8) * 1024 + (r % 8) * 128 + (j ^ r % 8)
+// * 16 bytes (chunk j holds K-elements 8j .. 8j+7).  Descriptor: stride
+// byte offset 1024 (the next 8 rows), leading byte offset unused (one atom
+// spans the K of a k16 step); the k16 step kk starts 2 kk bytes further
+// (the swizzle is applied to the address bits, so the atom must start
+// 1024-byte aligned).  Eight threads writing one row's chunks hit
+// distinct banks.
+__device__ __forceinline__ int kmaj_off(int row, int j) {  // in elements
+  return (row >> 3) * 512 + (row & 7) * 64 + ((j ^ (row & 7)) << 3);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -380,6 +429,134 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128] with A in registers (four
+// words a lane, the layout of mma.m16n8k16's A fragment for each warp's 16
+// rows) and B in shared memory; TB = 1: B is MN-major.  The A registers
+// must not change until the product has completed (wgmma_wait).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+        "n"(TB));
+}
+
+// ---------------------------------------------------------------------------
+// TMA (cp.async.bulk.tensor) into shared memory, completion counted on an
+// mbarrier in shared memory (the async proxy: no proxy fence before a wgmma
+// reads what it wrote).  A box of 64 elements (128 bytes) x 64 rows loaded
+// with the 128-byte swizzle lands as eight 1024-byte atoms of 8 rows,
+// 16-byte chunk c of row r at (c ^ r % 8) * 16 within its row.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar))
+               : "memory");
+}
+// Waits until the phase of parity `parity` has completed.  A wait that
+// outlasts about a second of spinning traps (a launch error, not a hang).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  for (long long spin = 0; !done; ++spin) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (spin > (1ll << 24)) __trap();
+  }
+}
+// arrives on the mbarrier once this thread's earlier cp.async copies have
+// landed (the barrier's count includes this arrival)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// TMA store of a box from shared memory (read through the async proxy:
+// fence_async_smem after the generic writes that filled it); positions past
+// the tensor's ends are not written.  Bulk groups: commit, then wait until
+// at most N groups are still reading shared memory (or, _all, done).
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(map), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// a barrier over the `count` threads of the block's consumer warpgroups
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // The ROWS x (8 * C8) tile at (r0, c0) of a row-major [R][Cg] bf16 matrix
 // into a core-order tile, zeros outside; cp.async when vec (Cg % 8 == 0,
 // g 16-byte aligned), else plain loads and stores.
@@ -404,41 +581,6 @@ __device__ __forceinline__ void load_tile_core(u16* s, const u16* g, int R, int 
     }
   }
 }
-
-// Register staging of an x tile of 128 pixels into a 128-byte swizzled
-// tile (sw128_off).  Chunk i is row i / 16, pixels 8 (i % 16) .. +7: a
-// warp reads two whole 256-byte rows.  load_chunks fetches a thread's
-// chunks i0, i0 + THREADS, ... (LOADS of them, all in flight);
-// store_chunks_bn writes them as T(relu(x * scale[row] + shift[row])),
-// zeros for rows >= nvalid.
-template <int THREADS, int LOADS>
-__device__ __forceinline__ void load_chunks(uint4 (&raw)[LOADS], int i0, int total,
-                                            const u16* x, int hw, int nvalid, int p0,
-                                            bool vec) {
-#pragma unroll
-  for (int u = 0; u < LOADS; ++u) {
-    const int i = i0 + u * THREADS;
-    const int r = i / 16;
-    raw[u] = make_uint4(0, 0, 0, 0);
-    if (i < total && r < nvalid)
-      raw[u] = load_px8(x + (ll)r * hw, p0 + 8 * (i % 16), hw, vec);
-  }
-}
-
-template <int THREADS, int LOADS>
-__device__ __forceinline__ void store_chunks_bn(const uint4 (&raw)[LOADS], int i0,
-                                                int total, u16* dst, int nvalid,
-                                                const float* scale, const float* shift) {
-#pragma unroll
-  for (int u = 0; u < LOADS; ++u) {
-    const int i = i0 + u * THREADS;
-    if (i >= total) break;
-    const int r = i / 16;
-    *reinterpret_cast<uint4*>(dst + sw128_off(r, 8 * (i % 16))) =
-        r < nvalid ? bn_relu8(raw[u], scale[r], shift[r]) : make_uint4(0, 0, 0, 0);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // 3x3 dense layers on mma.sync: shared staging and tap addressing.

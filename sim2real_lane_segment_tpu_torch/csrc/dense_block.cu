@@ -22,9 +22,9 @@
 // [halo pixel][channel] tiles, a 12 x 16 pixel tile and 32-channel chunks,
 // the channel loop split across a thread-block cluster at small planes)
 // with serving's epilogue T(D + bias); its note is in that header.  The
-// bf16 TransitionDown (td_fwd_small_kernel, td_fwd_mma_kernel) runs on the
-// tensor cores too; the kernels and their note are in td_fwd_mma.cuh,
-// which the training forward shares.
+// bf16 TransitionDown (td_fwd_tma_kernel, td_fwd_kernel) runs on the tensor cores too; the
+// kernel and its note are in td_fwd_mma.cuh, which the training forward
+// shares.
 //
 // The classifier tail (classifier_kernel) does 18 operations per feature
 // it reads (the square, the scale and 8 multiply-adds), 9 per bf16 byte, so
@@ -520,8 +520,8 @@ cudaError_t launch_classifier(const void* in, long long in_bstride, int B,
 // (dense3x3_mma_kernel<N>; its weight is [K][9][16], rows 288 bytes apart
 // and columns N-15 zero, and must be 16-byte aligned, else
 // cudaErrorMisalignedAddress), a
-// bfloat16 TransitionDown too (td_fwd_mma_kernel) when its x tile fits in
-// shared memory (C <= 768: every FCDenseNet57/67/103 site); float32, other
+// bfloat16 TransitionDown too (launch_td_mma) with C <= 768 inputs (every
+// FCDenseNet57/67/103 site; K1's one-tap rule, takes_mma_fwd); float32, other
 // growth rates and a wider TransitionDown on the CUDA cores.  *route
 // receives the route taken: 0 for the CUDA cores, 1 for the tensor-core
 // TransitionDown, and for the tensor-core dense layer the blocks S >= 1
@@ -553,7 +553,7 @@ extern "C" int s2r_conv_bnrelu(int dtype, int taps, const void* in,
     return launch_conv<__nv_bfloat16, 9>(in, in_bstride, B, K, H, W, scale,
                                          shift, wt, bias, N, out, out_bstride,
                                          round_first, s);
-  if (dtype == 1 && taps == 1 && s2r_td::td_smem(K, N) <= s2r_td::TD_SMEM_MAX) {
+  if (dtype == 1 && taps == 1 && K <= s2r_td::TD_MAX_K) {
     *route = 1;
     return s2r_td::launch_td_mma(in, in_bstride, B, K, H, W, scale, shift, wt,
                                  bias, N, out, out_bstride, round_first, nullptr,

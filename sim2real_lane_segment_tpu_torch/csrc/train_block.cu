@@ -45,8 +45,9 @@
 // on this code as the parity control (TF32 would not hold it to 1e-4).
 //
 // K2 in bfloat16 with one tap (the TransitionDown backward, the only K2 of
-// the fused train step) runs on the tensor cores instead:
-// bwd1x1_dgrad_mma_kernel and bwd1x1_wgrad_mma_kernel, noted below.  So do
+// the fused train step, any width) runs on the tensor cores instead:
+// bwd1x1_dgrad_mma_kernel and bwd1x1_wgrad_mma_kernel (wgmma) and one
+// bwd1x1_reduce_kernel, noted below.  So do
 // K1, K3a and K3b in bfloat16 with 12 or 16 outputs (every dense layer of
 // FCDenseNet57, 67 and 103): fwd3x3_mma_kernel, sum_dgrad_mma_kernel and
 // stage_own_mma_kernel, templates on the growth G, noted below, and K1 with one tap, through the
@@ -524,18 +525,7 @@ __device__ __forceinline__ void reduce_cols_body(const float* __restrict__ part,
   if (lane == 0) out[m] = v;
 }
 
-__global__ void __launch_bounds__(THREADS)
-reduce_cols_kernel(const float* __restrict__ part, int P, int M,
-                   float* __restrict__ out) {
-  reduce_cols_body(part, P, M, out, blockIdx.x);
-}
-
 int n_tiles(int H, int W) { return ((H + TH - 1) / TH) * ((W + TW - 1) / TW); }
-
-cudaError_t reduce_cols(const float* part, int P, int M, float* out, cudaStream_t s) {
-  reduce_cols_kernel<<<(M + WARPS - 1) / WARPS, THREADS, 0, s>>>(part, P, M, out);
-  return cudaGetLastError();
-}
 
 cudaError_t reduce_rows(const float* part, int P, ll M, float* out, cudaStream_t s) {
   const unsigned blocks = (unsigned)((M + 31) / 32);
@@ -637,334 +627,816 @@ cudaError_t bwd(const void* X, ll x_bstride, int B, int K, int H, int W,
 // limit: per B=32 FCDenseNet67 step its five launches must move 0.76 GB
 // (0.23 ms at 3.35 TB/s) for 87 GFLOP (0.09 ms at 989 TFLOP/s).
 //
-// What the design does about it:
-// - bwd1x1_dgrad_mma_kernel: a block owns 128 consecutive pixels of one
-//   image and one 128-channel chunk of x (the chunks of a tile are
-//   neighbouring blocks).  It stages G = T(dy * mask) for all N outputs
-//   as a 128-byte-swizzled tile (the first chunk's block also writes G to
-//   gbuf for the wgrad pass and per-tile sums of dy * mask for dbias),
-//   streams 64-column slices of W through a two-deep cp.async ring and
-//   multiplies with wgmma (m64n128k16, bf16 in, f32 sums; two warpgroups
-//   of 64 channels): D[k, p] = W[k, n] G[n, p], W K-major, G MN-major.
-//   The epilogue reads the x tile into shared memory with coalesced
-//   loads, writes dseg = T(dz * scale) back the same way, and per-tile
-//   sums of dz * x and dz.
+// What the design does about it: three launches, the two products as
+// persistent pipelined wgmma kernels, G rebuilt from dy and the mask
+// wherever it is staged (no round trip through device memory), and one
+// launch for every sum.  On the planes TMA can address (hw % 8 == 0, C and
+// N <= TD_MAX_K, N % 8 == 0: 120x160, 60x80, 30x40) the products are the
+// warp-specialized bwd1x1_dgrad_tma_kernel and bwd1x1_wgrad_tma_kernel
+// (noted below with them); elsewhere (15x20, 7x10 and odd shapes) the two
+// cp.async kernels here, over flat pixels (all images as one axis, as
+// td_fwd_mma.cuh tiles them), two blocks per SM with a three-stage ring of
+// 32 KB stages two ahead across item boundaries, each stage converted in
+// place (BN + ReLU, or dy * mask and rounding) and multiplied while the
+// next one is converted:
+// - bwd1x1_dgrad_mma_kernel: a block walks (128-position tile, 128-channel
+//   chunk of x) items, the chunks of a tile on neighbouring blocks.  An
+//   item streams G in 64-output slices (dy 128-byte swizzled, the weight's
+//   128 x 64 slice from L2 in core order), so N has no cap: D[k, p] = W[k,
+//   n] G[n, p], W K-major, G MN-major (m64n128k16; two warpgroups of 64
+//   channels).  Its last stage brings the x tile, on which the epilogue
+//   writes dseg = T(dz * scale) in place, dz = dA * relu'(z), and adds
+//   the tile's sums of dz * x and dz to the block's per-channel sums.
 // - bwd1x1_wgrad_mma_kernel: a block owns a 128 x 128 tile of dW and a
-//   contiguous range of 128-pixel slices (split S ways to fill the 132
-//   SMs); it stages a (BN + ReLU applied while staging) and G for each
-//   slice and contracts over pixels: D[k, n] = a[k, p] G[n, p]^T.
-// - Every batch sum is a per-tile or per-split partial added by
-//   reduce_rows in a fixed order: deterministic, no atomics.
-// x is read twice and G makes one round trip through device memory:
-// about twice the bound's bytes when C = N.
+//   contiguous range of 64-position slices (split S ways to fill the
+//   card); per slice it stages x as a and dy as G, both K-major (pixels
+//   contiguous) in the 128-byte swizzled layout, and contracts over
+//   pixels: D[k, n] = a[k, p] G[n, p]^T.  The blocks of the first channel
+//   tile also sum dy * mask (unrounded) per output for dbias.
+// - bwd1x1_reduce_kernel adds the partial sums (dW per split, dscale and
+//   dshift per dgrad block, dbias per split) in a fixed order: two runs
+//   give the same bits, no atomics.
+// On either route x and dy are each read twice (once per product kernel):
+// 1.6 times the bound's bytes when C = N.
 // ---------------------------------------------------------------------------
 namespace mma = s2r_mma;
 
-constexpr int B1_TP = 128;               // pixels per dgrad block
-constexpr int B1_KM = 128;               // x channels per dgrad chunk
-constexpr int B1_NS = 64;                // outputs per weight slice
-constexpr int B1_SLICE = B1_KM * B1_NS;
-constexpr int B1_PS = 128;               // pixels per wgrad slice
-constexpr int B1_LDP = B1_PS + 8;
-constexpr int B1_STAGES = 2;             // weight slices in flight
+constexpr int B1_TP = 128;               // positions per dgrad tile
+constexpr int B1_KM = 128;               // x channels per dgrad item, dW tile side
+constexpr int B1_NS = 64;                // outputs per G slice
+constexpr int B1_WP = 64;                // positions per wgrad slice
+constexpr int B1_HALF = 8192;            // elements in half a stage (16 KB)
+constexpr int B1_STAGE = 2 * B1_HALF;    // 32 KB
+constexpr int B1_STAGES = 3;             // ring stages: two in flight
 constexpr int B1_THREADS = 256;          // two warpgroups
-constexpr int B1_LOADS = 8;              // dy chunks a thread has in flight
-constexpr int B1_MAX_N = 624;            // G's tile fits in shared memory
-constexpr int B1_SMEM_MAX = 232448;      // an H100 block's shared-memory limit
+constexpr int B1_BLOCKS = 264;           // dgrad blocks: two per SM of an H100
+constexpr size_t B1_SMEM = (size_t)B1_STAGES * B1_STAGE * 2 + 1024;  // 1024-byte alignment
+constexpr int B1_SMEM_MAX = 232448 - B1_KM * 2 * 4;  // an H100 block's, less the
+                                                     // dgrad's static sums
 
-size_t b1_dgrad_smem(int N) {  // with room to align G's tile to 1024 bytes
-  const size_t np = (size_t)(N + 15) / 16 * 16;
-  return 2 * (np * B1_TP + B1_STAGES * B1_SLICE) + 4 * (B1_KM * 2) + 1024;
+__device__ __forceinline__ mma::u16* ring_base(unsigned char* smem) {
+  return reinterpret_cast<mma::u16*>(smem + ((1024 - (mma::smem_u32(smem) & 1023)) & 1023));
 }
 
+// Per block: part_ss[blockIdx.x] [2][C] = the sums of dz * x and of dz
+// over its items' pixels (zeros for channels it did not see).  Dynamic
+// shared memory: B1_SMEM + 8 C bytes.
 __global__ void __launch_bounds__(B1_THREADS, 2)
-bwd1x1_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int hw,
+bwd1x1_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int hw, int B,
                         const float* __restrict__ scale,
                         const float* __restrict__ shift,
                         const mma::u16* __restrict__ wt,
                         const float* __restrict__ mask, int N,
-                        const mma::u16* __restrict__ dy, mma::u16* gbuf,
-                        mma::u16* dseg, float* __restrict__ part_gp,
-                        float* __restrict__ part_ds, float* __restrict__ part_dh,
-                        int vec_dy, int vec_w, int vec_x, int vec_dseg) {
+                        const mma::u16* __restrict__ dy, mma::u16* dseg,
+                        float* __restrict__ part_ss, int x_mode, int dy_mode, int vec_w,
+                        int vec_dseg) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int np = (N + 15) / 16 * 16;
-  mma::u16* sG = reinterpret_cast<mma::u16*>(           // G: [np][128], sw128
-      smem + ((1024 - (mma::smem_u32(smem) & 1023)) & 1023));
-  mma::u16* sW = sG + np * B1_TP;                      // [STAGES][KM][64], core order
-  float* red = reinterpret_cast<float*>(sW + B1_STAGES * B1_SLICE);  // [KM][2]
-
+  __shared__ float red[B1_KM][2];
+  mma::u16* ring = ring_base(smem);
+  float* acc = reinterpret_cast<float*>(ring + B1_STAGES * B1_STAGE);  // [2][C]
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
   const int wg = tid / 128;                            // x channels 64 wg .. +63
+  const int total = B * hw;
   const int nch = (C + B1_KM - 1) / B1_KM;
-  const int tile = blockIdx.x / nch;
-  const int k0 = (blockIdx.x % nch) * B1_KM;           // this block's x channels
-  const bool first = k0 == 0;                          // writes G and dbias sums
-  const int b = blockIdx.y;
-  const ll row = (ll)b * (gridDim.x / nch) + tile;  // this tile's partial sums
-  const ll P = (ll)(gridDim.x / nch) * gridDim.y;      // at part[m * P + row]
-  const int p0 = tile * B1_TP;
+  const int items = (total + B1_TP - 1) / B1_TP * nch;
+  const int np = (N + 15) / 16 * 16;
   const int nks = (np + B1_NS - 1) / B1_NS;
+  const int per = nks + 1;                             // G slices, then the x tile
+  const int mine = items > (int)blockIdx.x ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int stages = mine * per;
+  const ll dy_bstride = (ll)N * hw;
+  for (int i = tid; i < 2 * C; i += B1_THREADS) acc[i] = 0.f;
 
-  auto load_slice = [&](int ks) {
-    if (ks < nks)
-      mma::load_tile_core<B1_KM, B1_NS / 8, B1_THREADS>(
-          sW + (ks % B1_STAGES) * B1_SLICE, wt, C, N, k0, ks * B1_NS, vec_w);
-    mma::cp_async_commit();  // an empty group past the last slice
+  auto issue = [&](int s) {
+    if (s < stages) {
+      const int item = blockIdx.x + (s / per) * gridDim.x;
+      const int q = s % per;
+      const int k0 = item % nch * B1_KM;
+      mma::u16* st = ring + (s % B1_STAGES) * B1_STAGE;
+      const int f0 = item / nch * B1_TP;
+      if (q < nks) {
+        // dy rows q*64 .. +63 (sw128, MN-major) and W[k0 .. +127][q*64 .. +63]
+        mma::flat_tile_async<B1_NS, B1_TP, B1_THREADS>(
+            st, [](int r, int c) { return mma::sw128_off(r, c); }, dy, dy_bstride, hw,
+            q * B1_NS, N, f0, total, dy_mode);
+        mma::load_tile_core<B1_KM, B1_NS / 8, B1_THREADS>(st + B1_HALF, wt, C, N, k0,
+                                                         q * B1_NS, vec_w);
+      } else {
+        // the x tile [128][128] (swz_off), the whole stage
+        mma::flat_tile_async<B1_KM, B1_TP, B1_THREADS>(
+            st, [](int r, int c) { return mma::swz_off(r, c); }, X, x_bstride, hw, k0, C,
+            f0, total, x_mode);
+      }
+    }
+    mma::cp_async_commit();  // an empty group past the last stage
   };
-  load_slice(0);
+  for (int s = 0; s < B1_STAGES - 1; ++s) issue(s);
 
-  // G = T(dy * mask) for all N outputs of the tile into sG (a warp reads
-  // two whole 256-byte rows); the first chunk's block also writes G to
-  // gbuf and the tile's sums of dy * mask (unrounded) for dbias
-  {
-    const mma::u16* dyb = dy + (ll)b * N * hw;
-    mma::u16* gb = gbuf + (ll)b * N * hw;
-    const int total = np * 16;  // a multiple of the block size
-    for (int i0 = tid; i0 < total; i0 += B1_LOADS * B1_THREADS) {
-      uint4 raw[B1_LOADS];
-      mma::load_chunks<B1_THREADS, B1_LOADS>(raw, i0, total, dyb, hw, N, p0, vec_dy);
-#pragma unroll
-      for (int u = 0; u < B1_LOADS; ++u) {
-        const int i = i0 + u * B1_THREADS;
-        if (i >= total) break;  // uniform across the block
-        const int n = i / 16;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  float d[64];
+  for (int s = 0; s < stages; ++s) {
+    const int item = blockIdx.x + (s / per) * gridDim.x;
+    const int q = s % per;
+    const int p0 = item / nch * B1_TP;
+    const int k0 = item % nch * B1_KM;
+    const bool live = k0 + 64 * wg < C;                // warpgroup-uniform
+    mma::u16* st = ring + (s % B1_STAGES) * B1_STAGE;
+    mma::cp_async_wait<B1_STAGES - 2>();
+    __syncthreads();
+    if (q < nks) {
+      // G = T(dy * mask) in place; rows past N are zero, as their W columns
+      for (int i = tid; i < B1_NS * 16; i += B1_THREADS) {
+        const int r = i / 16;
         const int c = (i % 16) * 8;
-        const float m = n < N ? mask[b * N + n] : 0.f;
-        const uint32_t w[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
-        uint32_t o[4];
-        float sum = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = p0 + c + 2 * q;
-          const float f0 = p < hw ? __fmul_rn(mma::lo_f(w[q]), m) : 0.f;
-          const float f1 = p + 1 < hw ? __fmul_rn(mma::hi_f(w[q]), m) : 0.f;
-          o[q] = mma::pack_bf16x2(f0, f1);
-          sum += f0;
-          sum += f1;
+        const int n = q * B1_NS + r;
+        uint4* cell = reinterpret_cast<uint4*>(st + mma::sw128_off(r, c));
+        float unused;
+        *cell = n < N ? mma::mask8(*cell, mask, N, n, p0 + c, hw, total, &unused)
+                      : make_uint4(0, 0, 0, 0);
+      }
+      mma::fence_async_smem();
+      mma::wgmma_wait0();  // the previous slice's products
+      __syncthreads();
+      issue(s + B1_STAGES - 1);  // into the previous stage
+      if (live) {
+        // D[k, p] = W[k, n] G[n, p]: W K-major (rows k), G MN-major (pixels)
+        const int kk_end = min(B1_NS, np - q * B1_NS);
+        mma::wgmma_fence();
+        for (int kk = 0; kk < kk_end; kk += 16) {
+          const uint64_t da = mma::gmma_desc(
+              st + B1_HALF + mma::core_off(64 * wg, kk / 8, B1_NS / 8), 128,
+              B1_NS / 8 * 128);
+          const uint64_t db = mma::gmma_desc(st + mma::sw128_off(kk, 0), 1024, 2048, 1);
+          mma::wgmma_m64n128k16<0, 1>(d, da, db, q > 0 || kk > 0);
         }
-        const uint4 v = make_uint4(o[0], o[1], o[2], o[3]);
-        *reinterpret_cast<uint4*>(sG + mma::sw128_off(n, c)) = v;
-        if (first && n < N) {
-          mma::u16* dst = gb + (ll)n * hw + p0 + c;
-          if (vec_dy && p0 + c + 8 <= hw) {
-            *reinterpret_cast<uint4*>(dst) = v;
-          } else {
-            const mma::u16* e8 = reinterpret_cast<const mma::u16*>(&v);
-            for (int e = 0; e < 8 && p0 + c + e < hw; ++e) dst[e] = e8[e];
+        mma::wgmma_commit();
+      }
+      continue;
+    }
+    // the x stage: dz = dA * relu'(z), dseg = T(dz * scale) in place of x,
+    // the tile's sums of dz * x and dz per channel
+    mma::wgmma_wait0();
+    __syncthreads();
+    issue(s + B1_STAGES - 1);
+    mma::u16* sX = st;
+    if (live) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int kl = 64 * wg + 16 * ((tid / 32) % 4) + g + 8 * h;
+        const int k = min(k0 + kl, C - 1);  // rows past C are not stored
+        const float sc = scale[k];
+        const float sf = shift[k];
+        float sd = 0.f, sh = 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int pl = 8 * i + 2 * t;
+          uint32_t* cell = reinterpret_cast<uint32_t*>(sX + mma::swz_off(kl, pl));
+          const uint32_t x2 = *cell;
+          const float xf[2] = {mma::lo_f(x2), mma::hi_f(x2)};
+          float o[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dz = (p0 + pl + e < total)
+                ? __fmul_rn(d[4 * i + 2 * h + e], relu_d(affine(xf[e], sc, sf)))
+                : 0.f;
+            o[e] = __fmul_rn(dz, sc);
+            sd += __fmul_rn(dz, xf[e]);
+            sh += dz;
           }
+          *cell = mma::pack_bf16x2(o[0], o[1]);
         }
-        // the 16 lanes of one output row: fixed-order tree
+        sd += __shfl_xor_sync(0xffffffffu, sd, 1);
+        sh += __shfl_xor_sync(0xffffffffu, sh, 1);
+        sd += __shfl_xor_sync(0xffffffffu, sd, 2);
+        sh += __shfl_xor_sync(0xffffffffu, sh, 2);
+        if (t == 0) {  // one warp owns the whole row
+          red[kl][0] = sd;
+          red[kl][1] = sh;
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < B1_KM && k0 + tid < C) {  // items in a fixed order per block
+      acc[k0 + tid] += red[tid][0];
+      acc[C + k0 + tid] += red[tid][1];
+    }
+    const int rows = min(B1_KM, C - k0);
+    for (int i = tid; i < rows * 16; i += B1_THREADS) {
+      const int r = i / 16;
+      const int c = (i % 16) * 8;
+      mma::flat_chunk_store(dseg, (ll)C * hw, hw, k0 + r, p0 + c, total,
+                            sX + mma::swz_off(r, c), vec_dseg);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * C; i += B1_THREADS)
+    part_ss[(ll)blockIdx.x * 2 * C + i] = acc[i];
+}
+
+// Block (x, y, z): dW[128 x, .. +127][128 y, .. +127] over the z-th of S
+// ranges of 64-position slices into part_w[z] [C][N]; the blocks with x
+// = 0 also write part_gb[z] [N], the range's sums of dy * mask.
+__global__ void __launch_bounds__(B1_THREADS, 2)
+bwd1x1_wgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int hw, int B,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ shift,
+                        const float* __restrict__ mask, int N,
+                        const mma::u16* __restrict__ dy, int S,
+                        float* __restrict__ part_w, float* __restrict__ part_gb,
+                        int x_mode, int dy_mode) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mma::u16* ring = ring_base(smem);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;                            // x channels 64 wg .. +63
+  const int k0 = blockIdx.x * B1_KM;
+  const int n0 = blockIdx.y * B1_KM;
+  const int total = B * hw;
+  const int slices = (total + B1_WP - 1) / B1_WP;
+  const int per = (slices + S - 1) / S;
+  const int first = min(slices, (int)blockIdx.z * per);
+  const int stages = min(slices, first + per) - first;
+  const ll dy_bstride = (ll)N * hw;
+  const int j = tid % 8;  // this thread's 8 positions of each of its rows
+  const int r_0 = tid / 8;  // its rows r_0 + 32 u, u < 4
+
+  auto issue = [&](int s) {
+    if (s < stages) {
+      mma::u16* st = ring + (s % B1_STAGES) * B1_STAGE;
+      const int f0 = (first + s) * B1_WP;
+      const auto off = [](int r, int c) { return mma::kmaj_off(r, c / 8) + c % 8; };
+      mma::flat_tile_async<B1_KM, B1_WP, B1_THREADS>(st, off, X, x_bstride, hw, k0, C,
+                                                     f0, total, x_mode);
+      mma::flat_tile_async<B1_KM, B1_WP, B1_THREADS>(st + B1_HALF, off, dy, dy_bstride,
+                                                     hw, n0, N, f0, total, dy_mode);
+    }
+    mma::cp_async_commit();
+  };
+  for (int s = 0; s < B1_STAGES - 1; ++s) issue(s);
+
+  const bool live = k0 + 64 * wg < C;                 // warpgroup-uniform
+  float gsum[4] = {0.f, 0.f, 0.f, 0.f};                // dbias over this thread's chunks
+  float d[64];
+  for (int s = 0; s < stages; ++s) {
+    mma::u16* st = ring + (s % B1_STAGES) * B1_STAGE;
+    mma::cp_async_wait<B1_STAGES - 2>();
+    __syncthreads();
+    // a = T(relu(x * scale + shift)) and G = T(dy * mask) in place; rows
+    // past C or N are zero
+    const int f = (first + s) * B1_WP + 8 * j;
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if (first && lane % 16 == 0 && n < N) part_gp[n * P + row] = sum;
+    for (int u = 0; u < 4; ++u) {
+      const int r = r_0 + 32 * u;
+      uint4* ca = reinterpret_cast<uint4*>(st + mma::kmaj_off(r, j));
+      uint4* cg = reinterpret_cast<uint4*>(st + B1_HALF + mma::kmaj_off(r, j));
+      const int k = k0 + r;
+      const int n = n0 + r;
+      *ca = k < C ? mma::bn_relu8(*ca, scale[k], shift[k]) : make_uint4(0, 0, 0, 0);
+      float sum = 0.f;
+      *cg = n < N ? mma::mask8(*cg, mask, N, n, f, hw, total, &sum) : make_uint4(0, 0, 0, 0);
+      gsum[u] += sum;
+    }
+    mma::fence_async_smem();
+    mma::wgmma_wait0();  // the previous slice's products
+    __syncthreads();
+    issue(s + B1_STAGES - 1);
+    if (live) {
+      // D[k, n] = a[k, p] G[n, p]^T: both K-major (pixels contiguous)
+      mma::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < B1_WP; kk += 16) {
+        const uint64_t da = mma::gmma_desc(st + mma::kmaj_off(64 * wg, 0) + kk, 16, 1024, 1);
+        const uint64_t db = mma::gmma_desc(st + B1_HALF + kk, 16, 1024, 1);
+        mma::wgmma_m64n128k16<0, 0>(d, da, db, s > 0 || kk > 0);
+      }
+      mma::wgmma_commit();
+    }
+  }
+  mma::wgmma_wait0();
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  if (live && stages > 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 64 * wg + 16 * ((tid / 32) % 4) + g + 8 * h;
+      if (k >= C) continue;
+      float* dst = part_w + ((ll)blockIdx.z * C + k) * N;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int n = n0 + 8 * i + 2 * t;
+        if (n < N) dst[n] = d[4 * i + 2 * h];
+        if (n + 1 < N) dst[n + 1] = d[4 * i + 2 * h + 1];
+      }
+    }
+  } else if (live) {  // an empty range: its partial sums are zero
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 64 * wg + 16 * ((tid / 32) % 4) + g + 8 * h;
+      if (k >= C) continue;
+      float* dst = part_w + ((ll)blockIdx.z * C + k) * N;
+      for (int i = 0; i < 16; ++i) {
+        const int n = n0 + 8 * i + 2 * t;
+        if (n < N) dst[n] = 0.f;
+        if (n + 1 < N) dst[n + 1] = 0.f;
       }
     }
   }
+  if (blockIdx.x == 0) {
+    // the 8 lanes of one row: a fixed-order tree
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float v = gsum[u];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      const int n = n0 + r_0 + 32 * u;
+      if (j == 0 && n < N) part_gb[(ll)blockIdx.z * N + n] = v;
+    }
+  }
+}
 
-  // D[k, p] = W[k, n] G[n, p]: W K-major (rows k), G MN-major (pixels)
-  const bool live = k0 + 64 * wg < C;                  // warpgroup-uniform
+// ---------------------------------------------------------------------------
+// K2 on the aligned sites (hw % 8 == 0, every operand 16-byte aligned, C
+// and N <= TD_MAX_K: 120x160, 60x80, 30x40): the two products as
+// warp-specialized TMA pipelines, as td_fwd_tma_kernel (td_fwd_mma.cuh).
+// One thread of the first warpgroup loads 32 KB stages (four 64 x 64
+// boxes, 128-byte swizzle) into a four-stage ring, counted on "full"
+// mbarriers; two consumer warpgroups multiply and release each stage on
+// its "empty" mbarrier.
+// - bwd1x1_dgrad_tma_kernel: items (image, 128-pixel tile, 128-channel
+//   chunk); per 64-output slice a stage holds dy (two pixel halves) and
+//   W[k0 .. +127][n .. +63] (K-major); the consumers read G^T = T(dy *
+//   mask)^T as A fragments (ldmatrix transposed, the mask and the rounding
+//   in registers) and multiply D[p, k] = G^T[p, n] W^T[n, k] (wgmma, A
+//   from registers).  The item's last stage brings the x tile; the
+//   epilogue forms dz = D relu'(z), stores dseg = T(dz scale) through two
+//   output tiles that TMA stores take in turns, and adds the tile's sums
+//   of dz x and dz (a fixed tree over the pixels) to the block's
+//   per-channel sums.
+// - bwd1x1_wgrad_tma_kernel: a block owns a 128 x 128 tile of dW and a
+//   range of (image, 64-pixel slice) items; per slice a stage holds x and
+//   dy (two 64-row halves each).  The consumers turn dy into G = T(dy *
+//   mask) in place (with the dbias sums), fence and meet, then multiply
+//   D[k, n] = a[k, p] G[n, p]^T with a = T(relu(x scale + shift)) as A
+//   fragments (ldmatrix, BN in registers) and G K-major from the stage.
+// ---------------------------------------------------------------------------
+constexpr int KT_STAGES = 4;
+constexpr int KT_THREADS = 384;
+constexpr int KT_BOX = 64 * 64;
+constexpr int KT_STAGE = 4 * KT_BOX;
+constexpr int KT_RING = KT_STAGES * KT_STAGE;
+constexpr int KT_OUT = 128 * 128;
+constexpr int KT_PAD = s2r_td::TD_MAX_K + 128;       // per-channel arrays, zero past C
+constexpr size_t KT_DGRAD_SMEM = 2 * ((size_t)KT_RING + 2 * KT_OUT) +
+                                 4 * (4 * KT_PAD + 8 * 128 * 2) + 16 * KT_STAGES + 1024;
+constexpr size_t KT_WGRAD_SMEM = 2 * (size_t)KT_RING + 4 * 2 * KT_PAD +
+                                 16 * KT_STAGES + 1024;
+
+__device__ __forceinline__ void kt_barriers(uint64_t* full, uint64_t* empty) {
+  for (int i = 0; i < KT_STAGES; ++i) {
+    mma::mbar_init(full + i, 1);
+    mma::mbar_init(empty + i, 2);
+  }
+  mma::mbar_fence_init();
+}
+
+// Per block: part_ss[blockIdx.x] [2][C], the sums of dz * x and of dz over
+// its items' pixels (zeros for channels it did not see).
+__global__ void __launch_bounds__(KT_THREADS, 1)
+bwd1x1_dgrad_tma_kernel(const __grid_constant__ CUtensorMap map_dy,
+                        const __grid_constant__ CUtensorMap map_w,
+                        const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_dseg, int C, int hw, int B,
+                        const float* __restrict__ scale, const float* __restrict__ shift,
+                        const float* __restrict__ mask, int N,
+                        float* __restrict__ part_ss) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mma::u16* ring = ring_base(smem);
+  mma::u16* sO = ring + KT_RING;                       // two dseg tiles
+  float* ssc = reinterpret_cast<float*>(sO + 2 * KT_OUT);
+  float* ssh = ssc + KT_PAD;
+  float* acc = ssh + KT_PAD;                           // [2][KT_PAD]: sums of dz x, dz
+  float* red = acc + 2 * KT_PAD;                       // [8 warps][128][2]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 8 * 128 * 2);
+  uint64_t* empty = full + KT_STAGES;
+  const int tid = threadIdx.x;
+  const int tiles = (hw + 127) / 128;
+  const int nch = (C + 127) / 128;
+  const int items = B * tiles * nch;
+  const int nks = (N + 63) / 64;
+  const int per = nks + 1;                             // G slices, then the x tile
+  const int mine = items > (int)blockIdx.x ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int stages = mine * per;
+  for (int i = tid; i < KT_PAD; i += KT_THREADS) {
+    ssc[i] = i < C ? scale[i] : 0.f;
+    ssh[i] = i < C ? shift[i] : 0.f;
+    acc[i] = 0.f;
+    acc[KT_PAD + i] = 0.f;
+  }
+  if (tid == 0) kt_barriers(full, empty);
+  __syncthreads();
+
+  if (tid < 128) {
+    if (tid == 0) {
+      for (int s = 0; s < stages; ++s) {
+        const int st = s % KT_STAGES;
+        if (s >= KT_STAGES) mma::mbar_wait(empty + st, (s / KT_STAGES - 1) & 1);
+        const int item = blockIdx.x + (s / per) * gridDim.x;
+        const int q = s % per;
+        const int k0 = item % nch * 128;
+        const int tile = item / nch;
+        const int b = tile / tiles;
+        const int p0 = tile % tiles * 128;
+        mma::u16* sx = ring + st * KT_STAGE;
+        mma::mbar_expect_tx(full + st, 2 * KT_STAGE);
+        if (q < nks) {
+          mma::tma_load_3d(sx, &map_dy, full + st, p0, 64 * q, b);
+          mma::tma_load_3d(sx + KT_BOX, &map_dy, full + st, p0 + 64, 64 * q, b);
+          mma::tma_load_2d(sx + 2 * KT_BOX, &map_w, full + st, 64 * q, k0);
+          mma::tma_load_2d(sx + 3 * KT_BOX, &map_w, full + st, 64 * q, k0 + 64);
+        } else {  // box (kh, ph) at (2 kh + ph) boxes
+          for (int j = 0; j < 4; ++j)
+            mma::tma_load_3d(sx + j * KT_BOX, &map_x, full + st, p0 + 64 * (j % 2),
+                             k0 + 64 * (j / 2), b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int ct = tid - 128;
+  const int cw = ct / 128;                             // pixels 64 cw .. +63 of a tile
+  const int wq = (ct / 32) % 4;
+  const int lane = ct % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int lrow = (lane % 8) + 8 * (lane >> 4);
+  const int lchunk = 2 * wq + ((lane >> 3) & 1);
   float d[64];
-  for (int ks = 0; ks < nks; ++ks) {
-    load_slice(ks + 1);
-    mma::cp_async_wait<1>();
-    mma::fence_async_smem();
-    __syncthreads();
-    if (live) {
-      const mma::u16* ws = sW + (ks % B1_STAGES) * B1_SLICE;
-      const int kk_end = min(B1_NS, np - ks * B1_NS);
+  for (int s = 0; s < stages; ++s) {
+    const int st = s % KT_STAGES;
+    const int item = blockIdx.x + (s / per) * gridDim.x;
+    const int q = s % per;
+    const int k0 = item % nch * 128;
+    const int tile = item / nch;
+    const int b = tile / tiles;
+    const int p0 = tile % tiles * 128;
+    mma::mbar_wait(full + st, (s / KT_STAGES) & 1);
+    const mma::u16* sx = ring + st * KT_STAGE;
+    if (q < nks) {
+      // G^T[p, n] for n = 64 q + 16 u ..: the dy box read transposed, times
+      // the mask of (b, n), rounded
+      uint32_t a[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = 16 * u + lrow;
+        mma::ldsm_x4_t(a[u], mma::smem_u32(sx + cw * KT_BOX) + r * 128 +
+                                 ((lchunk ^ (r & 7)) << 4));
+        const int n = 64 * q + 16 * u + 2 * t;
+        const float* mb = mask + (ll)b * N;
+        const float m0 = n < N ? __ldg(mb + n) : 0.f;
+        const float m1 = n + 1 < N ? __ldg(mb + n + 1) : 0.f;
+        const float m8 = n + 8 < N ? __ldg(mb + n + 8) : 0.f;
+        const float m9 = n + 9 < N ? __ldg(mb + n + 9) : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          a[u][e] = mma::pack_bf16x2(__fmul_rn(mma::lo_f(a[u][e]), e < 2 ? m0 : m8),
+                                     __fmul_rn(mma::hi_f(a[u][e]), e < 2 ? m1 : m9));
+      }
       mma::wgmma_fence();
-      for (int kk = 0; kk < kk_end; kk += 16) {
-        const uint64_t da = mma::gmma_desc(
-            ws + mma::core_off(64 * wg, kk / 8, B1_NS / 8), 128, B1_NS / 8 * 128);
-        const uint64_t db = mma::gmma_desc(sG + mma::sw128_off(ks * B1_NS + kk, 0),
-                                           1024, 2048, 1);
-        mma::wgmma_m64n128k16<0, 1>(d, da, db, ks > 0 || kk > 0);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        // W[k, n], rows k0 .. k0 + 127 of both boxes, K-major (n contiguous)
+        const uint64_t db = mma::gmma_desc(sx + 2 * KT_BOX + 16 * u, 16, 1024, 1);
+        mma::wgmma_m64n128k16_rs<0>(d, a[u], db, q > 0 || u > 0);
       }
       mma::wgmma_commit();
       mma::wgmma_wait0();
+      mma::fence_regs(a);
+      mma::fence_acc(d);
+      if (ct % 128 == 0) mma::mbar_arrive(empty + st);
+      continue;
     }
-    __syncthreads();  // a later load overwrites this slice's buffer
-  }
-
-  // epilogue, through a [KM][128] swizzled tile in the weight ring's
-  // space: x in with coalesced loads, dseg = T(dz * scale) out in its
-  // place, dz = dA * relu'(z); per-tile sums of dz * x and dz
-  mma::u16* sX = sW;
-  const int total = B1_KM * 16;
-  const mma::u16* xb = X + b * x_bstride + (ll)k0 * hw;
-  for (int i0 = tid; i0 < total; i0 += B1_LOADS * B1_THREADS) {
-    uint4 raw[B1_LOADS];
-    mma::load_chunks<B1_THREADS, B1_LOADS>(raw, i0, total, xb, hw, C - k0, p0, vec_x);
+    // the x stage: dz = D relu'(z), dseg = T(dz scale) into an output tile
+    // (two take turns under the TMA stores), the tile's sums of dz x and dz
+    // per channel: over a warp's 16 pixels by a fixed shuffle tree, over
+    // the 8 warps in order
+    mma::u16* so = sO + (s / per % 2) * KT_OUT;
+    if (ct == 0) mma::bulk_wait_read<1>();  // the store two items back has read it
+    mma::named_sync(1, 256);                // so and red are free
+    const int w8 = ct / 32;
+    const int pst = 64 * cw + 16 * wq + 8 * ((lane >> 3) & 1);
 #pragma unroll
-    for (int u = 0; u < B1_LOADS; ++u) {
-      const int i = i0 + u * B1_THREADS;
-      if (i < total)
-        *reinterpret_cast<uint4*>(sX + mma::swz_off(i / 16, (i % 16) * 8)) = raw[u];
-    }
-  }
-  __syncthreads();
-  const int g = lane / 4;
-  const int t = lane % 4;
-  if (live) {
+    for (int i = 0; i < 16; i += 2) {
+      // x at this lane's D positions of channel blocks i and i + 1: the x
+      // box [64 k][64 p] read transposed, as the G fragments are
+      uint32_t xr[4];
+      const int xrow = 8 * i % 64 + lrow;
+      mma::ldsm_x4_t(xr, mma::smem_u32(sx + (2 * (8 * i / 64) + cw) * KT_BOX) + xrow * 128 +
+                             ((lchunk ^ (xrow & 7)) << 4));
+      uint32_t r[4];  // matrix j: channels 8 (i + j / 2) .., pixels 8 (j & 1) ..
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kl = 64 * wg + 16 * ((tid / 32) % 4) + g + 8 * h;
-      const int k = min(k0 + kl, C - 1);  // rows past C are not stored
-      const float sc = scale[k];
-      const float sf = shift[k];
-      float sd = 0.f, sh = 0.f;
+      for (int ii = 0; ii < 2; ++ii) {
+        float o[4], sd[2] = {0.f, 0.f}, sh[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int pl = 8 * i + 2 * t;
-        uint32_t* cell = reinterpret_cast<uint32_t*>(sX + mma::swz_off(kl, pl));
-        const uint32_t x2 = *cell;
-        const float xf[2] = {mma::lo_f(x2), mma::hi_f(x2)};
-        float o[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float dz = (p0 + pl + e < hw)
-              ? __fmul_rn(d[4 * i + 2 * h + e], relu_d(affine(xf[e], sc, sf)))
-              : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int k = 8 * (i + ii) + 2 * t + (e & 1);
+          const int p = 64 * cw + 16 * wq + g + 8 * (e >> 1);
+          const uint32_t w2 = xr[2 * ii + (e >> 1)];
+          const float xf = (e & 1) ? mma::hi_f(w2) : mma::lo_f(w2);
+          const float sc = ssc[k0 + k];
+          const float dz = p0 + p < hw
+              ? __fmul_rn(d[4 * (i + ii) + e], relu_d(affine(xf, sc, ssh[k0 + k]))) : 0.f;
           o[e] = __fmul_rn(dz, sc);
-          sd += __fmul_rn(dz, xf[e]);
-          sh += dz;
+          sd[e & 1] += __fmul_rn(dz, xf);
+          sh[e & 1] += dz;
         }
-        *cell = mma::pack_bf16x2(o[0], o[1]);
+        r[2 * ii] = mma::pack_bf16x2(o[0], o[1]);
+        r[2 * ii + 1] = mma::pack_bf16x2(o[2], o[3]);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            sd[c] += __shfl_xor_sync(0xffffffffu, sd[c], off);
+            sh[c] += __shfl_xor_sync(0xffffffffu, sh[c], off);
+          }
+          if (g == 0) {
+            const int k = 8 * (i + ii) + 2 * t + c;
+            red[(w8 * 128 + k) * 2] = sd[c];
+            red[(w8 * 128 + k) * 2 + 1] = sh[c];
+          }
+        }
       }
-      sd += __shfl_xor_sync(0xffffffffu, sd, 1);
-      sh += __shfl_xor_sync(0xffffffffu, sh, 1);
-      sd += __shfl_xor_sync(0xffffffffu, sd, 2);
-      sh += __shfl_xor_sync(0xffffffffu, sh, 2);
-      if (t == 0) {  // one warp owns the whole row
-        red[kl * 2] = sd;
-        red[kl * 2 + 1] = sh;
+      const int krow = 8 * (i + (lane >> 4)) + (lane & 7);
+      const int row = krow % 64;
+      mma::stsm_x4_t(mma::smem_u32(so + (krow / 64 * 2 + pst / 64) * KT_BOX + row * 64 +
+                                   ((((pst % 64) >> 3) ^ (row & 7)) << 3)),
+                     r[0], r[1], r[2], r[3]);
+    }
+    mma::fence_async_smem();
+    mma::named_sync(1, 256);  // x read, the tile and red written
+    if (ct % 128 == 0) mma::mbar_arrive(empty + st);
+    if (ct == 0) {
+      for (int j = 0; j < 4; ++j)
+        mma::tma_store_3d(&map_dseg, so + j * KT_BOX, p0 + 64 * (j % 2), k0 + 64 * (j / 2), b);
+      mma::bulk_commit();
+    }
+    if (ct < 128 && k0 + ct < C) {  // the 8 warps in order, items in order
+      float v = 0.f, z = 0.f;
+      for (int w = 0; w < 8; ++w) {
+        v += red[(w * 128 + ct) * 2];
+        z += red[(w * 128 + ct) * 2 + 1];
       }
+      acc[k0 + ct] += v;
+      acc[KT_PAD + k0 + ct] += z;
     }
   }
-  __syncthreads();
-  if (tid < B1_KM && k0 + tid < C) {
-    part_ds[(k0 + tid) * P + row] = red[tid * 2];
-    part_dh[(k0 + tid) * P + row] = red[tid * 2 + 1];
-  }
-  const int rows = min(B1_KM, C - k0);
-  mma::u16* db = dseg + ((ll)b * C + k0) * hw;
-  for (int i = tid; i < rows * 16; i += B1_THREADS) {
-    const int r = i / 16;
-    const int c = (i % 16) * 8;
-    const int p = p0 + c;
-    const mma::u16* src = sX + mma::swz_off(r, c);
-    mma::u16* dst = db + (ll)r * hw + p;
-    if (vec_dseg && p + 8 <= hw) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < 8 && p + e < hw; ++e) dst[e] = src[e];
-    }
+  if (ct == 0) mma::bulk_wait_all();
+  mma::named_sync(1, 256);
+  for (int i = ct; i < C; i += 256) {
+    part_ss[(ll)blockIdx.x * 2 * C + i] = acc[i];
+    part_ss[(ll)blockIdx.x * 2 * C + C + i] = acc[KT_PAD + i];
   }
 }
 
-__global__ void __launch_bounds__(B1_THREADS, 2)
-bwd1x1_wgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int hw,
-                        const float* __restrict__ scale,
-                        const float* __restrict__ shift,
-                        const mma::u16* __restrict__ G, int N, int S,
-                        float* __restrict__ part, int vec_x, int vec_g) {
+// Block (x, y, z): dW[128 x .. +127][128 y .. +127] over the z-th of S
+// ranges of (image, 64-pixel slice) items into part_w[z] [C][N]; the
+// blocks with x = 0 also write part_gb[z] [N], the range's sums of dy *
+// mask.
+__global__ void __launch_bounds__(KT_THREADS, 1)
+bwd1x1_wgrad_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                        const __grid_constant__ CUtensorMap map_dy, int C, int hw, int B,
+                        const float* __restrict__ scale, const float* __restrict__ shift,
+                        const float* __restrict__ mask, int N, int S,
+                        float* __restrict__ part_w, float* __restrict__ part_gb) {
   extern __shared__ __align__(128) unsigned char smem[];
-  mma::u16* sA = reinterpret_cast<mma::u16*>(smem);   // [KM][LDP]
-  mma::u16* sG = sA + B1_KM * B1_LDP;                  // [KM][LDP]
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int k0 = blockIdx.x * B1_KM;
-  const int n0 = blockIdx.y * B1_KM;
-  const int split = blockIdx.z;
-  const int ptiles = (hw + B1_PS - 1) / B1_PS;
-  const int items = B * ptiles;
+  mma::u16* ring = ring_base(smem);
+  float* ssc = reinterpret_cast<float*>(ring + KT_RING);
+  float* ssh = ssc + KT_PAD;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ssh + KT_PAD);
+  uint64_t* empty = full + KT_STAGES;
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * 128;
+  const int n0 = blockIdx.y * 128;
+  const int slices = (hw + 63) / 64;                   // per image
+  const int items = B * slices;
   const int per = (items + S - 1) / S;
-  const int i_begin = min(items, split * per);
-  const int i_end = min(items, i_begin + per);
-  const int am0 = (warp / 4) * 64;   // x channels
-  const int bn0 = (warp % 4) * 32;   // outputs
-  const bool live = k0 + am0 < C && n0 + bn0 < N;
-  const uint32_t a_sm = mma::smem_u32(sA);
-  const uint32_t g_sm = mma::smem_u32(sG);
-  float acc[4][4][4];
-  mma::zero_acc(acc);
-  for (int it = i_begin; it < i_end; ++it) {
-    const int b = it / ptiles;
-    const int pp = (it % ptiles) * B1_PS;
-    mma::stage_rows<true, B1_PS, B1_THREADS>(sA, B1_LDP, B1_KM,
-                                             X + b * x_bstride + (ll)k0 * hw, hw,
-                                             C - k0, pp, scale + k0, shift + k0,
-                                             vec_x);
-    mma::stage_rows<false, B1_PS, B1_THREADS>(sG, B1_LDP, B1_KM,
-                                              G + ((ll)b * N + n0) * hw, hw,
-                                              N - n0, pp, nullptr, nullptr, vec_g);
-    __syncthreads();
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < B1_PS; kk += 16)
-        mma::warp_mma_k16<false, false>(acc, a_sm, B1_LDP, am0, kk, g_sm, B1_LDP,
-                                        bn0, kk);
-    }
-    __syncthreads();
+  const int first = min(items, (int)blockIdx.z * per);
+  const int stages = min(items, first + per) - first;
+  for (int i = tid; i < KT_PAD; i += KT_THREADS) {
+    ssc[i] = i < C ? scale[i] : 0.f;
+    ssh[i] = i < C ? shift[i] : 0.f;
   }
-  if (!live) return;
+  if (tid == 0) kt_barriers(full, empty);
+  __syncthreads();
+
+  if (tid < 128) {
+    if (tid == 0) {
+      for (int s = 0; s < stages; ++s) {
+        const int st = s % KT_STAGES;
+        if (s >= KT_STAGES) mma::mbar_wait(empty + st, (s / KT_STAGES - 1) & 1);
+        const int b = (first + s) / slices;
+        const int p0 = (first + s) % slices * 64;
+        mma::u16* sx = ring + st * KT_STAGE;
+        mma::mbar_expect_tx(full + st, 2 * KT_STAGE);
+        mma::tma_load_3d(sx, &map_x, full + st, p0, k0, b);
+        mma::tma_load_3d(sx + KT_BOX, &map_x, full + st, p0, k0 + 64, b);
+        mma::tma_load_3d(sx + 2 * KT_BOX, &map_dy, full + st, p0, n0, b);
+        mma::tma_load_3d(sx + 3 * KT_BOX, &map_dy, full + st, p0, n0 + 64, b);
+      }
+    }
+    return;
+  }
+
+  const int ct = tid - 128;
+  const int cw = ct / 128;                             // channels 64 cw .. +63
+  const int wq = (ct / 32) % 4;
+  const int lane = ct % 32;
   const int g = lane / 4;
   const int t = lane % 4;
+  // ldmatrix (not transposed) of a[k][p]: this lane's row (a channel) and
+  // the half of the 16-pixel step it addresses
+  const int lrow = 16 * wq + (lane % 8) + 8 * ((lane >> 3) & 1);
+  const int lhalf = lane >> 4;
+  const int ka = k0 + 64 * cw + 16 * wq + g;           // this lane's two channels
+  const float sa = ssc[ka], sb = ssc[ka + 8], ha = ssh[ka], hb = ssh[ka + 8];
+  // the in-place G: this thread's rows (outputs) cj + 32 u of the two
+  // boxes, 8-pixel chunk jj
+  const int jj = ct % 8;
+  const int cj = ct / 8;
+  float gsum[4] = {0.f, 0.f, 0.f, 0.f};
+  float d[64];
+  for (int s = 0; s < stages; ++s) {
+    const int st = s % KT_STAGES;
+    const int b = (first + s) / slices;
+    const int p0 = (first + s) % slices * 64;
+    mma::mbar_wait(full + st, (s / KT_STAGES) & 1);
+    mma::u16* sx = ring + st * KT_STAGE;
+    mma::u16* sg = sx + 2 * KT_BOX;                    // [128 n][64 p], K-major
+    const int valid = min(8, hw - (p0 + 8 * jj));  // pixels of this chunk in the image
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int u = 0; u < 4; ++u) {
+      const int row = cj + 32 * u;
+      const int n = n0 + row;
+      uint4* cell = reinterpret_cast<uint4*>(sg + row * 64 + ((jj ^ (row & 7)) << 3));
+      const float m = n < N ? __ldg(mask + (ll)b * N + n) : 0.f;
+      const uint4 v = *cell;
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+      uint32_t o[4];
+      float sum = 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int k = k0 + am0 + 16 * mt + g + 8 * h;
-      if (k >= C) continue;
-      float* dst = part + ((ll)split * C + k) * N;
+      for (int q = 0; q < 4; ++q) {
+        const float g0 = 2 * q < valid ? __fmul_rn(mma::lo_f(w[q]), m) : 0.f;
+        const float g1 = 2 * q + 1 < valid ? __fmul_rn(mma::hi_f(w[q]), m) : 0.f;
+        o[q] = mma::pack_bf16x2(g0, g1);
+        sum += g0;
+        sum += g1;
+      }
+      *cell = make_uint4(o[0], o[1], o[2], o[3]);
+      gsum[u] += sum;
+    }
+    mma::fence_async_smem();
+    mma::named_sync(1, 256);
+    uint32_t a[4][4];
+    const mma::u16* sa_box = sx + cw * KT_BOX;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = n0 + bn0 + 8 * nt + 2 * t;
-        if (n < N) dst[n] = acc[mt][nt][2 * h];
-        if (n + 1 < N) dst[n + 1] = acc[mt][nt][2 * h + 1];
+    for (int u = 0; u < 4; ++u) {
+      const int chunk = 2 * u + lhalf;
+      mma::ldsm_x4(a[u], mma::smem_u32(sa_box) + lrow * 128 + ((chunk ^ (lrow & 7)) << 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sl = (e & 1) ? sb : sa, hl = (e & 1) ? hb : ha;
+        a[u][e] = mma::pack_bf16x2_relu(__fadd_rn(__fmul_rn(mma::lo_f(a[u][e]), sl), hl),
+                                        __fadd_rn(__fmul_rn(mma::hi_f(a[u][e]), sl), hl));
       }
     }
+    mma::wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint64_t db = mma::gmma_desc(sg + 16 * u, 16, 1024, 1);
+      mma::wgmma_m64n128k16_rs<0>(d, a[u], db, s > 0 || u > 0);
+    }
+    mma::wgmma_commit();
+    mma::wgmma_wait0();
+    mma::fence_regs(a);
+    mma::fence_acc(d);
+    if (ct % 128 == 0) mma::mbar_arrive(empty + st);  // the producer waits for both
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = k0 + 64 * cw + 16 * wq + g + 8 * h;
+    if (k >= C) continue;
+    float* dst = part_w + ((ll)blockIdx.z * C + k) * N;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int n = n0 + 8 * i + 2 * t;
+      const float v0 = stages > 0 ? d[4 * i + 2 * h] : 0.f;
+      const float v1 = stages > 0 ? d[4 * i + 2 * h + 1] : 0.f;
+      if (n < N) dst[n] = v0;
+      if (n + 1 < N) dst[n + 1] = v1;
+    }
+  }
+  if (blockIdx.x == 0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float v = gsum[u];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      const int n = n0 + cj + 32 * u;
+      if (jj == 0 && n < N) part_gb[(ll)blockIdx.z * N + n] = v;
+    }
+  }
 }
 
-// K2 for bf16 and one tap.  Scratch: part_gp [N][P], part_ss [2][C][P]
-// (column-major: reduce_cols), part_w [S][C * N], with P = B * ceil(H*W /
-// 128); gbuf [B, N, H, W].
+// One launch for K2's sums, each over its partial rows in a fixed order:
+// dw[m] = sum_s part_w[s][m] (S rows, C*N columns), dss = [dscale | dshift]
+// over part_ss's R rows of 2C, dbias over part_gb's S rows of N.
+__global__ void __launch_bounds__(THREADS)
+bwd1x1_reduce_kernel(const float* __restrict__ part_w, int S, ll CN,
+                     const float* __restrict__ part_ss, int R, int C2,
+                     const float* __restrict__ part_gb, int N, float* __restrict__ dw,
+                     float* __restrict__ dss, float* __restrict__ dbias, int wb, int sb) {
+  const int blk = blockIdx.x;
+  if (blk < wb)
+    reduce_rows_body(part_w, S, CN, dw, blk);
+  else if (blk < wb + sb)
+    reduce_rows_body(part_ss, R, C2, dss, blk - wb);
+  else
+    reduce_rows_body(part_gb, S, N, dbias, blk - wb - sb);
+}
+
+// K2 for bf16 and one tap.  dshift must follow dscale (one [2C] block).
+// Scratch: part_gb [S][N], part_ss [R][2C] with R = min(ceil(B H W / 128)
+// ceil(C / 128), B1_BLOCKS), part_w [S][C * N].
 cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
                        const float* scale, const float* shift, const void* wt,
                        const float* mask, int N, const void* dy, void* dseg,
                        float* dscale, float* dshift, float* dw, float* dbias,
-                       void* gbuf, float* part_gp, float* part_ss, float* part_w,
-                       int S, cudaStream_t s) {
+                       float* part_gb, float* part_ss, float* part_w, int S,
+                       cudaStream_t s) {
+  if (dshift != dscale + C || S < 1 || B1_SMEM + 8 * (size_t)C > (size_t)B1_SMEM_MAX)
+    return cudaErrorInvalidValue;
   const int hw = H * W;
-  const int tiles = (hw + B1_TP - 1) / B1_TP;
-  const int P = B * tiles;
-  const size_t smem = b1_dgrad_smem(N);
-  const int vec_dy = hw % 8 == 0 && mma::aligned16(dy) && mma::aligned16(gbuf);
-  const int vec_w = N % 8 == 0 && mma::aligned16(wt);
-  const int vec_x = hw % 8 == 0 && x_bstride % 8 == 0 && mma::aligned16(X);
-  const int vec_dseg = hw % 8 == 0 && mma::aligned16(dseg);
-  float* part_ds = part_ss;
-  float* part_dh = part_ss + (ll)P * C;
-  const int nch = (C + B1_KM - 1) / B1_KM;
-  bwd1x1_dgrad_mma_kernel<<<dim3(tiles * nch, B), B1_THREADS, smem, s>>>(
-      static_cast<const mma::u16*>(X), x_bstride, C, hw, scale, shift,
-      static_cast<const mma::u16*>(wt), mask, N, static_cast<const mma::u16*>(dy),
-      static_cast<mma::u16*>(gbuf), static_cast<mma::u16*>(dseg), part_gp, part_ds,
-      part_dh, vec_dy, vec_w, vec_x, vec_dseg);
-  S2R_TRY(cudaGetLastError());
-  const int vec_g = hw % 8 == 0 && mma::aligned16(gbuf);
-  const dim3 grid((C + B1_KM - 1) / B1_KM, (N + B1_KM - 1) / B1_KM, S);
-  const int wsmem = 2 * 2 * B1_KM * B1_LDP;
-  bwd1x1_wgrad_mma_kernel<<<grid, B1_THREADS, wsmem, s>>>(
-      static_cast<const mma::u16*>(X), x_bstride, C, B, hw, scale, shift,
-      static_cast<const mma::u16*>(gbuf), N, S, part_w, vec_x, vec_g);
-  S2R_TRY(cudaGetLastError());
-  S2R_TRY(reduce_cols(part_gp, P, N, dbias, s));
-  S2R_TRY(reduce_cols(part_ds, P, C, dscale, s));
-  S2R_TRY(reduce_cols(part_dh, P, C, dshift, s));
-  return reduce_rows(part_w, S, (ll)C * N, dw, s);
+  const int total = B * hw;
+  const int items = (total + B1_TP - 1) / B1_TP * ((C + B1_KM - 1) / B1_KM);
+  const int R = std::min(items, B1_BLOCKS);
+  int sms = 0;
+  S2R_TRY(s2r_td::td_setup(&sms));
+  int rows = R;       // part_ss rows written
+  int splits = S;     // part_w and part_gb rows written
+  if (hw % 8 == 0 && x_bstride % 8 == 0 && C <= s2r_td::TD_MAX_K &&
+      N <= s2r_td::TD_MAX_K && N % 8 == 0 && mma::aligned16(X) && mma::aligned16(dy) &&
+      mma::aligned16(wt) && mma::aligned16(dseg)) {
+    CUtensorMap mdy, mw, mx, mds;
+    const cuuint64_t yd[3] = {(cuuint64_t)hw, (cuuint64_t)N, (cuuint64_t)B};
+    const cuuint64_t ys[2] = {(cuuint64_t)hw * 2, (cuuint64_t)N * hw * 2};
+    const cuuint64_t wd[2] = {(cuuint64_t)N, (cuuint64_t)C};
+    const cuuint64_t ws[1] = {(cuuint64_t)N * 2};
+    const cuuint64_t xd[3] = {(cuuint64_t)hw, (cuuint64_t)C, (cuuint64_t)B};
+    const cuuint64_t xs[2] = {(cuuint64_t)hw * 2, (cuuint64_t)x_bstride * 2};
+    const cuuint64_t ds[2] = {(cuuint64_t)hw * 2, (cuuint64_t)C * hw * 2};
+    if (!s2r_td::td_map(&mdy, dy, 3, yd, ys) || !s2r_td::td_map(&mw, wt, 2, wd, ws) ||
+        !s2r_td::td_map(&mx, X, 3, xd, xs) || !s2r_td::td_map(&mds, dseg, 3, xd, ds))
+      return cudaErrorInvalidValue;
+    const int titems = B * ((hw + 127) / 128) * ((C + 127) / 128);
+    rows = std::min(std::min(titems, sms), R);
+    bwd1x1_dgrad_tma_kernel<<<rows, KT_THREADS, KT_DGRAD_SMEM, s>>>(
+        mdy, mw, mx, mds, C, hw, B, scale, shift, mask, N, part_ss);
+    S2R_TRY(cudaGetLastError());
+    // one block per SM: one wave of splits (the rows of part_w the reduce adds)
+    const int ctiles = (C + 127) / 128 * ((N + 127) / 128);
+    splits = std::max(1, std::min(S, (sms + ctiles - 1) / ctiles));
+    const dim3 grid((C + 127) / 128, (N + 127) / 128, splits);
+    bwd1x1_wgrad_tma_kernel<<<grid, KT_THREADS, KT_WGRAD_SMEM, s>>>(
+        mx, mdy, C, hw, B, scale, shift, mask, N, splits, part_w, part_gb);
+    S2R_TRY(cudaGetLastError());
+  } else {
+    const int x_mode = mma::row_copy_mode(hw, x_bstride, X);
+    const int dy_mode = mma::row_copy_mode(hw, (ll)N * hw, dy);
+    const int vec_w = N % 8 == 0 && mma::aligned16(wt);
+    const int vec_dseg = hw % 8 == 0 && mma::aligned16(dseg);
+    bwd1x1_dgrad_mma_kernel<<<R, B1_THREADS, B1_SMEM + 8 * (size_t)C, s>>>(
+        static_cast<const mma::u16*>(X), x_bstride, C, hw, B, scale, shift,
+        static_cast<const mma::u16*>(wt), mask, N, static_cast<const mma::u16*>(dy),
+        static_cast<mma::u16*>(dseg), part_ss, x_mode, dy_mode, vec_w, vec_dseg);
+    S2R_TRY(cudaGetLastError());
+    const dim3 grid((C + B1_KM - 1) / B1_KM, (N + B1_KM - 1) / B1_KM, S);
+    bwd1x1_wgrad_mma_kernel<<<grid, B1_THREADS, B1_SMEM, s>>>(
+        static_cast<const mma::u16*>(X), x_bstride, C, hw, B, scale, shift, mask, N,
+        static_cast<const mma::u16*>(dy), S, part_w, part_gb, x_mode, dy_mode);
+    S2R_TRY(cudaGetLastError());
+  }
+  const ll CN = (ll)C * N;
+  const int wb = (int)((CN + 31) / 32);
+  const int sb = (2 * C + 31) / 32;
+  const int nb = (N + 31) / 32;
+  bwd1x1_reduce_kernel<<<wb + sb + nb, THREADS, 0, s>>>(part_w, splits, CN, part_ss, rows,
+                                                        2 * C, part_gb, N, dw, dscale,
+                                                        dbias, wb, sb);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1029,7 +1501,6 @@ cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
 // tile idle (one image a tile, no packing): they hold 2% of the work.  Of
 // these kernels only the forward splits its channel loop there.
 // ---------------------------------------------------------------------------
-constexpr int TD_MAX_K = 768;  // K1 with one tap: the x tile of td_fwd_mma.cuh fits
 using mma::C3_MT;
 constexpr int GP_L = 5;                               // layers staged at once
 constexpr int GP_LD = mma::C3_N + 8;
@@ -1445,7 +1916,13 @@ cudaError_t setup_all() {
   S2R_TRY(cudaFuncSetAttribute(bwd1x1_dgrad_mma_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, B1_SMEM_MAX));
   S2R_TRY(cudaFuncSetAttribute(bwd1x1_wgrad_mma_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, B1_SMEM_MAX));
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B1_SMEM));
+  S2R_TRY(cudaFuncSetAttribute(bwd1x1_dgrad_tma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)KT_DGRAD_SMEM));
+  S2R_TRY(cudaFuncSetAttribute(bwd1x1_wgrad_tma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)KT_WGRAD_SMEM));
   int sms = 0;
   return s2r_td::td_setup(&sms);
 }
@@ -1564,8 +2041,9 @@ cudaError_t stage(const void* X, ll x_bstride, int B, int K, int H, int W,
 // ceil(H/12) * ceil(W/16), and leaves part_ss unused.  Everything else runs the
 // CUDA-core kernels,
 // with tiles = ceil(H/16) * ceil(W/16), except for bfloat16 bwd with one
-// tap and N <= 624 (bwd1x1_mma): part_gp [B * t1 * N], part_ss
-// [2 * B * t1 * K], part_w [S * K * N] with t1 = ceil(H*W / 128).
+// tap (bwd1x1_mma, any N), which leaves gbuf unused and wants dscale and
+// dshift contiguous: part_gp [S * N], part_ss [R * 2K], part_w [S * K * N]
+// with R = min(ceil(B*H*W / 128) * ceil(K / 128), 264).
 
 extern "C" int s2r_train_fwd(int dtype, int taps, const void* X, ll x_bstride,
                              int B, int K, int H, int W, const float* scale,
@@ -1590,7 +2068,7 @@ extern "C" int s2r_train_fwd(int dtype, int taps, const void* X, ll x_bstride,
   if (dtype == 1 && taps == 9)
     return fwd<__nv_bfloat16, 9>(X, x_bstride, B, K, H, W, scale, shift, wt, bias,
                                  mask, N, out, out_bstride, s);
-  if (dtype == 1 && taps == 1 && K <= TD_MAX_K) {
+  if (dtype == 1 && taps == 1 && K <= s2r_td::TD_MAX_K) {
     *route = 1;
     return s2r_td::launch_td_mma(X, x_bstride, B, K, H, W, scale, shift, wt, bias, N,
                                  out, out_bstride, 0, mask, s);
@@ -1617,14 +2095,12 @@ extern "C" int s2r_train_bwd(int dtype, int taps, const void* X, ll x_bstride,
   if (dtype == 0 && taps == 9) return S2R_BWD(float, 9);
   if (dtype == 0 && taps == 1) return S2R_BWD(float, 1);
   if (dtype == 1 && taps == 9) return S2R_BWD(__nv_bfloat16, 9);
-  if (dtype == 1 && taps == 1 && N <= B1_MAX_N) {
+#undef S2R_BWD
+  if (dtype == 1 && taps == 1) {
     *route = 1;
     return bwd1x1_mma(X, x_bstride, B, K, H, W, scale, shift, wt, mask, N, dy,
-                      dseg, dscale, dshift, dw, dbias, gbuf, part_gp, part_ss,
-                      part_w, S, s);
+                      dseg, dscale, dshift, dw, dbias, part_gp, part_ss, part_w, S, s);
   }
-  if (dtype == 1 && taps == 1) return S2R_BWD(__nv_bfloat16, 1);
-#undef S2R_BWD
   return cudaErrorInvalidValue;
 }
 

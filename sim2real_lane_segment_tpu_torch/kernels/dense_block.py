@@ -31,9 +31,9 @@ launch; ``takes_mma_dense`` and ``dense_splits`` state its rules for the
 CPU tests.  Each wrapper takes a CPU tensor to its plain version and a CUDA
 tensor to its kernel; a failed build or launch raises.  ``launches``
 counts kernel launches per entry point (CUDA tensors only),
-``mma_launches`` the dense-layer launches that the C library reports on
-the tensor cores, and ``mma_splits`` those by the blocks that split their
-channel loop.
+``mma_launches`` the dense-layer and TransitionDown launches that the C
+library reports on the tensor cores, and ``mma_splits`` the dense layers'
+by the blocks that split their channel loop.
 
 ``dense_layer(..., ablate=)`` runs a diagnostic variant of the tensor-core
 dense layer (``cli/serve_breakdown --ablate``): ``"no_taps"`` multiplies
@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from . import build
 
 launches = {"dense_layer": 0, "transition": 0, "classifier": 0}
-mma_launches = {"dense_layer": 0}
+mma_launches = {"dense_layer": 0, "transition": 0}
 # the diagnostic variants of the tensor-core dense layer, by their C mode
 ABLATIONS = {"no_taps": 1, "no_prep": 2}
 ablate_launches = {k: 0 for k in ABLATIONS}
@@ -344,8 +344,8 @@ def transition(feat: torch.Tensor, td: FoldedTransition) -> torch.Tensor:
     b, _, h, w = feat.shape
     out = torch.empty(b, td.weight.shape[1], h, w, dtype=feat.dtype,
                       device=feat.device)
-    _conv(feat, td.scale, td.shift, td.weight, td.bias, 1, out, 1,
-          "transition")
+    mma_launches["transition"] += _conv(feat, td.scale, td.shift, td.weight,
+                                        td.bias, 1, out, 1, "transition")
     return out
 
 

@@ -24,11 +24,10 @@ BN ``scale``/``shift`` and ``bias`` f32, dropout ``mask`` f32 ``[B, n]``
   scale_l)`` over all of the block's layers.
 
 ``relu'(z) = (z > 0) + 0.5 (z == 0)``: the tie rule of ``jnp.maximum``.
-In bfloat16, K1 (3x3 with 12 or 16 outputs, or one tap), K2 with one tap,
-and K3a and K3b with 12 or 16 outputs run on the tensor cores
+In bfloat16, K1 (3x3 with 12 or 16 outputs, or one tap), K2 with one tap
+(any width) and K3a and K3b with 12 or 16 outputs run on the tensor cores
 (``takes_mma_fwd``, ``takes_mma_bwd``, ``takes_mma_stage``): every site of
-FCDenseNet57, 67 and 103 but FCDenseNet103's last TransitionDown
-backward (656 outputs).  Float32 and the other shapes run on the CUDA
+FCDenseNet57, 67 and 103.  Float32 and the other shapes run on the CUDA
 cores.  The tensor-core 3x3 kernels read their weights (K1's ``weight``,
 K3a's ``weight`` and ``w_slices``, K3b's ``w_slices``) in the layout of
 ``dense_block.pad_growth``: [c, 9, g] views of rows padded to 16 columns
@@ -252,23 +251,34 @@ def wgrad_splits(c: int, n: int, b: int, h: int, w: int) -> int:
 
 
 # K2 in bf16 with one tap runs on the tensor cores (bwd1x1_mma in
-# csrc/train_block.cu): 128-pixel tiles, 128x128 weight-cotangent tiles,
-# up to 624 outputs
-MMA_TILE, MMA_MAX_N = 128, 624
+# csrc/train_block.cu) at any width: the pixels of all images as one axis,
+# 128-position dgrad tiles of 128 channels, 64-position wgrad slices,
+# 128x128 weight-cotangent tiles, at most 264 dgrad blocks (two per SM of
+# an H100)
+MMA_TILE, MMA_SLICE, MMA_BLOCKS = 128, 64, 264
 
 
 def takes_mma_bwd(dtype: torch.dtype, taps: int, n: int) -> bool:
     """Whether ``consumer_bwd`` launches the tensor-core 1x1 backward (the
-    C side dispatches by the same rule)."""
-    return dtype == torch.bfloat16 and taps == 1 and n <= MMA_MAX_N
+    C side dispatches by the same rule): every width ``n``."""
+    return dtype == torch.bfloat16 and taps == 1
+
+
+def mma_dgrad_blocks(c: int, b: int, h: int, w: int) -> int:
+    """The tensor-core input cotangent's persistent blocks, each with a
+    row of per-channel partial sums: one per (128-position tile, 128-channel
+    chunk) item, at most ``MMA_BLOCKS``."""
+    items = math.ceil(b * h * w / MMA_TILE) * math.ceil(c / MMA_TILE)
+    return min(items, MMA_BLOCKS)
 
 
 def mma_wgrad_splits(c: int, n: int, b: int, h: int, w: int) -> int:
-    """Pixel-range splits of the tensor-core weight cotangent: two blocks
-    per SM of an H100 (264), at most one split per 128-pixel slice."""
+    """Position-range splits of the tensor-core weight cotangent: two
+    blocks per SM of an H100 (264), at most one split per 64-position
+    slice of the B*H*W positions."""
     tiles = math.ceil(c / MMA_TILE) * math.ceil(n / MMA_TILE)
-    items = b * math.ceil(h * w / MMA_TILE)
-    return max(1, min(items, math.ceil(264 / tiles)))
+    items = math.ceil(b * h * w / MMA_SLICE)
+    return max(1, min(items, math.ceil(MMA_BLOCKS / tiles)))
 
 
 # K1, K3a and K3b in bf16 run on the tensor cores (fwd3x3_mma_kernel,
@@ -382,17 +392,18 @@ def consumer_bwd(x: torch.Tensor, scale, shift, weight, mask, dy):
     _require(taps in (1, 9), f"taps {taps} is not 1 or 9")
     f32 = torch.float32
     dseg = _empty((b, c, h, w), x.dtype, x)
-    gbuf = _empty((b, n, h, w), x.dtype, x)
     # the four f32 results share one allocation and the partial sums
     # another: each torch.empty costs microseconds of host time per step
     res = _empty((2 * c + c * taps * n + n,), f32, x)
     dscale, dshift, dw, dbias = res.split((c, c, c * taps * n, n))
     dw = dw.view(c, taps, n)
     if takes_mma_bwd(x.dtype, taps, n):
-        rows = b * math.ceil(h * w / MMA_TILE)
+        gbuf = None  # G is rebuilt from dy and the mask where it is staged
         splits = mma_wgrad_splits(c, n, b, h, w)
-        sizes = (rows * n, 2 * rows * c, splits * c * n)
+        sizes = (splits * n, 2 * mma_dgrad_blocks(c, b, h, w) * c,
+                 splits * c * n)
     else:
+        gbuf = _empty((b, n, h, w), x.dtype, x)
         splits = wgrad_splits(c, n, b, h, w)
         sizes = (b * n, 2 * b * n_tiles(h, w) * c, splits * c * taps * n)
     part_gp, part_ss, part_w = _empty((sum(sizes),), f32, x).split(sizes)
@@ -404,7 +415,8 @@ def consumer_bwd(x: torch.Tensor, scale, shift, weight, mask, dy):
             w, scale.data_ptr(), shift.data_ptr(), weight.data_ptr(),
             mask.data_ptr(), n, dy.data_ptr(), dseg.data_ptr(),
             dscale.data_ptr(), dshift.data_ptr(), dw.data_ptr(),
-            dbias.data_ptr(), gbuf.data_ptr(), part_gp.data_ptr(),
+            dbias.data_ptr(), None if gbuf is None else gbuf.data_ptr(),
+            part_gp.data_ptr(),
             part_ss.data_ptr(), part_w.data_ptr(), splits,
             ctypes.byref(route), _stream())
     _check(lib, err, "consumer_bwd")

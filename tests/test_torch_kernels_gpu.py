@@ -110,7 +110,8 @@ def test_kernels_match_plain(cuda, case, dtype):
     assert kdb.launches == {"dense_layer": n, "transition": 2,
                             "classifier": 1}
     assert kdb.mma_launches == {
-        "dense_layer": n * kdb.takes_mma_dense(dtype, case[4])}
+        "dense_layer": n * kdb.takes_mma_dense(dtype, case[4]),
+        "transition": 2 * (dtype == torch.bfloat16)}
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
     torch.testing.assert_close(td_k.float(), ref_td.float(), **TOLS[dtype])
     torch.testing.assert_close(logits, kdb.classifier_plain(feat, cls),
@@ -127,7 +128,8 @@ def test_new_features_and_segments(cuda, dtype):
     out = kdb.dense_block(segs, layers, c_lo=x.shape[1])
     ref = kdb.dense_block_plain([x], layers, c_lo=x.shape[1])
     assert kdb.mma_launches == {
-        "dense_layer": len(layers) * (dtype == torch.bfloat16)}
+        "dense_layer": len(layers) * (dtype == torch.bfloat16),
+        "transition": 0}
     torch.testing.assert_close(out.float(), ref.float(), **TOLS[dtype])
 
 
@@ -173,7 +175,7 @@ def test_mma_dense_layer_matches_plain(cuda, case, g):
     torch.cuda.synchronize()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     splits = kdb.dense_splits(b, h, w, c, sms)
-    assert kdb.mma_launches == {"dense_layer": 2}
+    assert kdb.mma_launches == {"dense_layer": 2, "transition": 0}
     assert kdb.mma_splits == {splits: 2}
     assert kdb._lib().s2r_dense_splits(b, h, w, c) == splits
     assert torch.equal(out, again)
@@ -207,7 +209,7 @@ def test_growth12_route(cuda):
                   (shift[:g],), weight, mask)
         ktb.final(buf, later, (weight,), (scale,), (shift,))
         torch.cuda.synchronize()
-        assert kdb.mma_launches == {"dense_layer": mma}
+        assert kdb.mma_launches == {"dense_layer": mma, "transition": 0}
         assert ktb.mma_launches == {"consumer_fwd": mma, "consumer_bwd": 0,
                                     "stage": mma, "final": mma}
         assert kdb.mma_layout(weight) == (dtype == torch.bfloat16)
@@ -266,7 +268,7 @@ def test_ablated_dense_layer_launches_beside_the_default(cuda, case, mode):
     torch.cuda.synchronize()
     assert torch.equal(buf, first)
     assert kdb.ablate_launches == {m: int(m == mode) for m in kdb.ABLATIONS}
-    assert kdb.mma_launches == {"dense_layer": 2}
+    assert kdb.mma_launches == {"dense_layer": 2, "transition": 0}
     assert torch.isfinite(ablated.float()).all()
     assert torch.equal(ablated[:, :c], feat[:, :c])
     ref = feat.clone()
@@ -528,6 +530,80 @@ def test_train_wrappers_reject_bad_operands(cuda):
         ktb.consumer_fwd(x, scale.cpu(), shift, weight, bias, mask)
     with pytest.raises(ValueError):  # channels are not contiguous planes
         ktb.consumer_fwd(x.transpose(2, 3), scale, shift, weight, bias, mask)
+
+
+# (B, H, W, C, N, spare) for the bf16 TransitionDown kernels, serving's
+# forward, K1 with one tap and K2, whose tiles run over the B*H*W positions
+# of all images: C and N not multiples of 16 (40 -> 24, 88 -> 60), H*W
+# not a multiple of 8 (7x10, 15x20, and an odd 3x5 and 7x33), H*W < 128
+# with B > 1 (a tile spans images), FCDenseNet67's last site at B=64 and
+# FCDenseNet103's (656) beside the old cap (624), and the first site's
+# 120x160.  The planes with H*W % 8 == 0 (8x16, 30x40, 60x80, 120x160;
+# C ragged against the 64-channel slices) take the TMA kernel, the others
+# the flat one.  spare: channels the buffer holds past C (x is a channel
+# view with a wider batch stride).
+TD_CASES = [(2, 15, 20, 40, 24, 0), (3, 7, 10, 88, 60, 8),
+            (5, 3, 5, 20, 36, 0), (2, 7, 33, 128, 208, 16),
+            (64, 7, 10, 448, 448, 0), (32, 7, 10, 656, 656, 0),
+            (2, 15, 20, 624, 624, 0), (4, 7, 10, 656, 656, 16),
+            (2, 120, 160, 128, 128, 0), (2, 8, 16, 40, 24, 0),
+            (3, 30, 40, 208, 208, 0), (2, 60, 80, 96, 96, 8),
+            (2, 30, 40, 656, 656, 0)]
+
+
+def _td_operands(case, device, seed):
+    b, h, w, c, n, spare = case
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen) * s
+
+    buf = r(b, c + spare, h, w)
+    buf[:, 1] = 0                    # z == 0 on a whole plane
+    shift = r(c, s=0.3)
+    shift[1] = 0
+    mask = (torch.rand(b, n, generator=gen) > 0.3).float() / 0.7
+    mask[:, 0] = 0                   # dropped for the whole batch
+    ops = dict(buf=buf.to(torch.bfloat16),
+               scale=torch.rand(c, generator=gen) + 0.5, shift=shift,
+               weight=r(c, n, s=(2 / c) ** 0.5).to(torch.bfloat16),
+               bias=r(n, s=0.1), mask=mask,
+               dy=r(b, n, h, w).to(torch.bfloat16))
+    ops = {k: v.to(device) for k, v in ops.items()}
+    ops["x"] = ops["buf"][:, :c]
+    return ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TD_CASES, ids=lambda c: "b%d_%dx%d_c%d_n%d_s%d" % c)
+def test_transition_down_kernels_match_plain(cuda, case):
+    """Serving's TransitionDown (T(T(sum) + T(bias))), K1 with one tap
+    (T((sum + bias) * mask)) and K2 against their plain versions, each
+    launch on the tensor-core route as the C library reports it, and K2's
+    sums the same bits over two runs (fixed order, no atomics)."""
+    o = _td_operands(case, cuda, 21)
+    x, w3 = o["x"], o["weight"][:, None, :]
+    td = kdb.FoldedTransition(o["scale"], o["shift"], o["weight"], o["bias"])
+    fwd = (x, o["scale"], o["shift"], w3, o["bias"], o["mask"])
+    bwd = (x, o["scale"], o["shift"], w3, o["mask"], o["dy"])
+    kdb.reset_launches()
+    ktb.reset_launches()
+    serving = kdb.transition(x.contiguous(), td)
+    y = ktb.consumer_fwd(*fwd)
+    outs = ktb.consumer_bwd(*bwd)
+    again = ktb.consumer_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert kdb.mma_launches["transition"] == 1
+    assert ktb.mma_launches["consumer_fwd"] == 1
+    assert ktb.mma_launches["consumer_bwd"] == 2
+    errs = {"serving": [_rel_err(serving, kdb.transition_plain(x.contiguous(),
+                                                               td))],
+            "K1": [_rel_err(y, ktb.consumer_fwd_plain(*fwd))],
+            "K2": [_rel_err(a, b) for a, b in
+                   zip(outs, ktb.consumer_bwd_plain(*bwd))]}
+    assert all(e <= TRAIN_REL[torch.bfloat16] for v in errs.values()
+               for e in v), errs
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
 
 
 # ---------------------------------------------------------------------------

@@ -174,20 +174,34 @@ def test_wgrad_splits_fill_the_card_and_stay_in_range():
 
 @pytest.mark.parametrize("dtype,taps,n,expect", [
     (torch.bfloat16, 1, 128, True), (torch.bfloat16, 1, 624, True),
-    (torch.bfloat16, 1, 640, False), (torch.bfloat16, 9, 16, False),
-    (torch.float32, 1, 128, False)])
+    (torch.bfloat16, 1, 640, True), (torch.bfloat16, 1, 656, True),
+    (torch.bfloat16, 9, 16, False), (torch.float32, 1, 128, False)])
 def test_tensor_core_bwd_dispatch(dtype, taps, n, expect):
-    """bf16 1x1 backwards up to 624 outputs take the tensor-core K2 (the C
-    side dispatches by the same rule and sizes its scratch by it)."""
+    """bf16 1x1 backwards of any width take the tensor-core K2, FCDenseNet103's
+    656 outputs too (the C side dispatches by the same rule and sizes its
+    scratch by it)."""
     assert ktb.takes_mma_bwd(dtype, taps, n) is expect
 
 
 def test_tensor_core_wgrad_splits_fill_the_card():
-    # the first TransitionDown at B=32: one 128x128 tile, 4,800 slices
+    # the first TransitionDown at B=32: one 128x128 tile, 9,600 slices of
+    # 64 of the 614,400 positions
     assert ktb.mma_wgrad_splits(128, 128, 32, 120, 160) == 264
-    # the last: 16 tiles of the 448x448 cotangent, 32 slices
+    # the last: 16 tiles of the 448x448 cotangent, 35 slices of 2,240
     assert ktb.mma_wgrad_splits(448, 448, 32, 7, 10) == 17
+    # FCDenseNet103's last: 36 tiles of the 656x656 cotangent
+    assert ktb.mma_wgrad_splits(656, 656, 32, 7, 10) == 8
     assert ktb.mma_wgrad_splits(16, 16, 1, 8, 8) == 1   # one slice only
+    # one 7x10 image is two slices: positions, not images, are split
+    assert ktb.mma_wgrad_splits(448, 448, 1, 7, 10) == 2
+
+
+def test_tensor_core_dgrad_blocks_fill_the_card():
+    # 4,800 tiles of 128 positions at 120x160, B=32: at most 264 blocks
+    assert ktb.mma_dgrad_blocks(128, 32, 120, 160) == 264
+    # FCDenseNet103's last at B=32: 18 tiles x 6 channel chunks
+    assert ktb.mma_dgrad_blocks(656, 32, 7, 10) == 108
+    assert ktb.mma_dgrad_blocks(16, 1, 3, 5) == 1
 
 
 # ---------------------------------------------------------------------------
