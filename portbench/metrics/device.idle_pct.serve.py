@@ -1,0 +1,9 @@
+"""Share of the profiled stretch of a serving window in which no
+operation ran on the device."""
+
+
+def read(rec):
+    t = rec.get("trace")
+    if rec.get("kind") != "serve" or not t or not t["kernels"]:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
