@@ -5765,8 +5765,9 @@ def main() -> None:
     build.build(*sources, "ffv1")
     for name in sources + ("ffv1",):
         build.load(name)
-    nvcc = {k: v for k, v in build.build_seconds.items() if k in sources}
-    cxx = build.build_seconds.get("ffv1")
+    built = build.build_seconds()
+    nvcc = {k: v for k, v in built.items() if k in sources}
+    cxx = built.get("ffv1")
     print(f"build: {', '.join(sources)} and ffv1 in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {json.dumps(nvcc)} s; "
           f"ffv1 with {build.find_cxx()}: "

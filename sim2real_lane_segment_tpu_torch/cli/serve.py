@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core import runtime
+from ..core.tracing import span
 from . import common
 
 log = logging.getLogger(__name__)
@@ -56,6 +57,13 @@ def calibration_frames(args, device) -> torch.Tensor:
         for p in paths])
 
 
+def _to_host(masks: torch.Tensor) -> np.ndarray:
+    """The class maps as host numpy: ``.cpu()`` waits for the forward's
+    tail on a card, then copies back (the ``serve.download`` span)."""
+    with span("serve.download"):
+        return masks.cpu().numpy()
+
+
 def build_predict_fn(args, device=None):
     """Returns (predict_fn, height, width): uint8 NHW3 numpy -> uint8 NHW
     numpy.  ``device`` defaults to ``cuda`` and raises without a card.
@@ -70,9 +78,8 @@ def build_predict_fn(args, device=None):
     if not args.int8:
         predict = (trainer.predict_step_fused if getattr(args, "fused", False)
                    else trainer.predict_step)
-        # .cpu() waits for the device: the engine gets host numpy
-        return (lambda frames: predict(frames).cpu().numpy(),
-                args.height, args.width)
+        return (lambda frames: _to_host(predict(frames)), args.height,
+                args.width)
 
     if args.arch != "lite":
         raise SystemExit("--int8 requires --arch lite (models/lanenet_int8)")
@@ -96,8 +103,7 @@ def build_predict_fn(args, device=None):
             return torch.argmax(int8_apply(qn, normalized(frames)),
                                 dim=-1).to(torch.uint8)
 
-    return (lambda frames: predict(frames).cpu().numpy(),
-            args.height, args.width)
+    return lambda frames: _to_host(predict(frames)), args.height, args.width
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -10,6 +10,11 @@ keyed by a hash of the source, the shared ``csrc/*.cuh`` headers (for a
 ``.cu``) and the flags, so an edited source or header rebuilds.  nvcc is
 found from ``CUDA_HOME`` or ``PATH``, the C++ compiler from ``CXX`` or
 ``c++`` on ``PATH``.  A failed build raises.
+
+Each compiler's run is one ``setup.build`` span (``core.tracing``) and
+each first ``load`` of a library one ``setup.load`` span (the build if
+one is missing, then the ``dlopen``), both with the library's name
+(``lib``); ``build_seconds()`` reads the ``setup.build`` spans.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import threading
 import time
 from pathlib import Path
 
+from ..core import tracing
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
@@ -32,8 +39,14 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-build_seconds: dict[str, float] = {}
 build_log: dict[str, str] = {}
+
+
+def build_seconds() -> dict[str, float]:
+    """Seconds of each library's build (its ``setup.build`` span), by
+    library name, while the ring holds the span."""
+    return {s.attrs["lib"]: s.seconds for s in tracing.spans()
+            if s.name == "setup.build"}
 
 
 def find_nvcc() -> str:
@@ -91,13 +104,13 @@ def build(*names: str) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        running.append((name, lib, tmp, time.perf_counter(), subprocess.Popen(
+        running.append((name, lib, tmp, time.monotonic_ns(), subprocess.Popen(
             _command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True)))
     failed = []
     for name, lib, tmp, t0, proc in running:
         out, err = proc.communicate()
-        build_seconds[name] = time.perf_counter() - t0
+        tracing.record("setup.build", t0, time.monotonic_ns(), lib=name)
         build_log[name] = out + err
         if proc.returncode != 0:
             failed.append(f"{_command(name, tmp)[0]} failed "
@@ -114,8 +127,9 @@ def load(name: str) -> ctypes.CDLL:
     built on first use."""
     with _lock:
         if name not in _libs:
-            build(name)
-            _libs[name] = ctypes.CDLL(str(_target(name)))
+            with tracing.span("setup.load", lib=name):
+                build(name)
+                _libs[name] = ctypes.CDLL(str(_target(name)))
         return _libs[name]
 
 

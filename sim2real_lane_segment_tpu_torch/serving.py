@@ -15,6 +15,14 @@ numpy batch to a uint8 ``(N, H, W)`` numpy class map.  It must hand back
 host numpy (``cli.serve.build_predict_fn`` copies the device result with
 ``.cpu()``, which waits for the device); anything else fails the batch.
 ``zmq`` is imported only by the socket functions.
+
+Each batch's cycle is four spans (``core.tracing``), all carrying the
+batch's id: ``engine.gather`` (from taking its first request to the
+batch closing; ``requests``, ``frames``), ``engine.assemble``
+(concatenation and padding; ``padded``, the bucket), ``engine.predict``
+(the ``predict_fn`` call; ``requests``, and ``wait_ns``: the sum over
+them of the time from their submission to this span's start) and
+``engine.reply`` (slicing the result and waking the callers).
 """
 from __future__ import annotations
 
@@ -26,20 +34,22 @@ import time
 
 import numpy as np
 
+from .core.tracing import span
+
 log = logging.getLogger(__name__)
 
 
 class _Pending:
     """One submitted request: input frames + a waitable result slot."""
 
-    __slots__ = ("frames", "event", "result", "error", "t_submit")
+    __slots__ = ("frames", "event", "result", "error", "t_submit_ns")
 
     def __init__(self, frames: np.ndarray):
         self.frames = frames
         self.event = threading.Event()
         self.result: np.ndarray | None = None
         self.error: BaseException | None = None
-        self.t_submit = time.monotonic()
+        self.t_submit_ns = time.monotonic_ns()
 
     def wait(self, timeout: float | None = None) -> np.ndarray:
         if not self.event.wait(timeout):
@@ -72,8 +82,10 @@ class BatchingEngine:
         self.max_wait = max_wait_ms / 1e3
         self._queue: queue.Queue[_Pending | None] = queue.Queue()
         self._held: _Pending | None = None  # overflow from the last drain
-        self.stats = {"frames": 0, "batches": 0, "padded_frames": 0,
-                      "latency_sum_s": 0.0, "latency_max_s": 0.0}
+        self.stats = {"frames": 0, "batches": 0, "requests": 0,
+                      "padded_frames": 0, "latency_sum_s": 0.0,
+                      "latency_max_s": 0.0}
+        self._batch_id = 0
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="batching-engine")
         self._thread.start()
@@ -111,30 +123,32 @@ class BatchingEngine:
     def _drain(self) -> list[_Pending] | None:
         """Collect requests up to max_batch frames or max_wait; None = stop."""
         if self._held is not None:
-            batch, total = [self._held], self._held.frames.shape[0]
-            self._held = None
+            first, self._held = self._held, None
         else:
             first = self._queue.get()
             if first is None:
                 return None
+        self._batch_id += 1
+        with span("engine.gather", batch=self._batch_id) as s:
             batch, total = [first], first.frames.shape[0]
-        deadline = time.monotonic() + self.max_wait
-        while total < self.max_batch:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                break
-            try:
-                nxt = self._queue.get(timeout=left)
-            except queue.Empty:
-                break
-            if nxt is None:
-                self._queue.put(None)  # re-post the stop sentinel
-                break
-            if total + nxt.frames.shape[0] > self.max_batch:
-                self._held = nxt  # goes into the next batch
-                break
-            batch.append(nxt)
-            total += nxt.frames.shape[0]
+            deadline = time.monotonic() + self.max_wait
+            while total < self.max_batch:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=left)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._queue.put(None)  # re-post the stop sentinel
+                    break
+                if total + nxt.frames.shape[0] > self.max_batch:
+                    self._held = nxt  # goes into the next batch
+                    break
+                batch.append(nxt)
+                total += nxt.frames.shape[0]
+            s.attrs.update(requests=len(batch), frames=total)
         return batch
 
     def _loop(self) -> None:
@@ -142,41 +156,48 @@ class BatchingEngine:
             batch = self._drain()
             if batch is None:
                 return
-            frames = np.concatenate([p.frames for p in batch])
-            n = frames.shape[0]
-            cap = _bucket(n, self.max_batch)
-            if cap > n:
-                frames = np.concatenate(
-                    [frames, np.zeros((cap - n, *frames.shape[1:]),
-                                      np.uint8)])
+            bid = self._batch_id
+            with span("engine.assemble", batch=bid) as s:
+                frames = np.concatenate([p.frames for p in batch])
+                n = frames.shape[0]
+                cap = s.attrs["padded"] = _bucket(n, self.max_batch)
+                if cap > n:
+                    frames = np.concatenate(
+                        [frames, np.zeros((cap - n, *frames.shape[1:]),
+                                          np.uint8)])
             try:
-                masks = self.predict_fn(frames)
+                with span("engine.predict", batch=bid,
+                          requests=len(batch)) as s:
+                    s.attrs["wait_ns"] = sum(s.t0 - p.t_submit_ns
+                                             for p in batch)
+                    masks = self.predict_fn(frames)
                 if not isinstance(masks, np.ndarray):
                     raise TypeError(
                         "predict_fn must return a host numpy array, got "
                         f"{type(masks).__name__}")
-                masks = masks[:n]
-                off = 0
-                for p in batch:
-                    k = p.frames.shape[0]
-                    p.result = masks[off:off + k]
-                    off += k
-                    p.event.set()
+                with span("engine.reply", batch=bid):
+                    masks = masks[:n]
+                    off = 0
+                    for p in batch:
+                        k = p.frames.shape[0]
+                        p.result = masks[off:off + k]
+                        off += k
+                        p.event.set()
             except BaseException as e:  # surface device errors to callers
                 for p in batch:
                     p.error = e
                     p.event.set()
                 log.exception("batch of %d frames failed", n)
                 continue
-            now = time.monotonic()
+            now = time.monotonic_ns()
             self.stats["frames"] += n
             self.stats["batches"] += 1
+            self.stats["requests"] += len(batch)
             self.stats["padded_frames"] += cap - n
-            lat = max(now - p.t_submit for p in batch)
-            self.stats["latency_sum_s"] += sum(
-                now - p.t_submit for p in batch)
+            lat = [(now - p.t_submit_ns) * 1e-9 for p in batch]
+            self.stats["latency_sum_s"] += sum(lat)
             self.stats["latency_max_s"] = max(
-                self.stats["latency_max_s"], lat)
+                self.stats["latency_max_s"], max(lat))
 
 
 # -- ZMQ front-end -----------------------------------------------------------
@@ -243,7 +264,7 @@ def serve_inference(engine: BatchingEngine, *, host: str = "0.0.0.0",
             s = dict(engine.stats)
             s["mean_batch"] = s["frames"] / max(s["batches"], 1)
             s["mean_latency_ms"] = 1e3 * s["latency_sum_s"] / max(
-                s["frames"], 1)
+                s["requests"], 1)
             s["ok"] = True
             sock.send_multipart([ident, json.dumps(s).encode()])
         else:

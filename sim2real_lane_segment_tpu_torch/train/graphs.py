@@ -18,13 +18,17 @@ there is no quiet retreat to the eager step.
 
 ``replays`` and ``captures`` count, process-wide, the replays and the
 captures since ``reset_counts``: a replay runs no Python, so the kernel
-wrappers' launch counters move at the capture only.
+wrappers' launch counters move at the capture only.  ``StepGraph``'s
+construction is one ``train.capture`` span (``core.tracing``), its eager
+warm-up steps one ``train.warmup`` inside it.
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
 import torch
+
+from ..core.tracing import span
 
 counts = {"captures": 0, "replays": 0}
 
@@ -41,11 +45,15 @@ class StepGraph:
 
     def __init__(self, body: Callable[[], torch.Tensor],
                  state: Sequence[torch.Tensor]):
+        with span("train.capture"):
+            self._capture(body, state)
+
+    def _capture(self, body, state) -> None:
         with torch.no_grad():
             saved = [t.detach().clone() for t in state]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), span("train.warmup"):
             for _ in range(WARMUP_STEPS):
                 body()
         torch.cuda.current_stream().wait_stream(side)

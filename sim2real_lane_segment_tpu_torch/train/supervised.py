@@ -45,6 +45,15 @@ running statistics) is captured once as a CUDA graph (``train.graphs``)
 and replayed once a step; the draws are made outside it, in the same
 order, and written into its static buffers.  A failed capture or replay
 raises.  On the CPU the same steps run eagerly.
+
+Spans (``core.tracing``): ``run_scan_chunk`` is one ``train.chunk``, and
+each of its steps a ``train.draw`` (the step's draws) then, on a card,
+``train.stage`` (its indices and draws written into the graph's static
+buffers) and ``train.replay`` (the replay's enqueue), or on the CPU
+``train.step``; each carries the step's index (``steps_run`` at its
+start).  ``predict_step_fused`` is ``serve.upload`` (the frames to the
+device) and ``serve.launch`` (normalisation, the fused forward and the
+argmax, enqueued).
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ from torch import nn
 
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ..core.runtime import resolve_device
+from ..core.tracing import span
 from ..data.device_cache import to_device_index
 from ..models.tiramisu import (FCDenseNet, apply_batch_stats,
                                draw_drop_masks, fcdensenet67, grad_reverse,
@@ -115,6 +125,7 @@ class SupervisedTrainer:
         self.graph: StepGraph | None = None
         self._static = None
         self._graph_key = None
+        self.steps_run = 0  # steps run through run_scan_chunk
 
     # -- state ----------------------------------------------------------
 
@@ -290,20 +301,28 @@ class SupervisedTrainer:
         ``masks_g``, ``masks_f``).  On a card every step is one replay of
         the captured step.  Returns ``{name: [K] tensor}`` on the device,
         one column of one [K, n] tensor per logged scalar."""
-        self._set_epoch_rates(epoch)
-        idx = to_device_index(idx_chunk, self.device)
-        logs = torch.empty(len(idx), len(self.scan_logs), device=self.device)
-        for k in range(len(idx)):
-            inputs = self._scan_draw(generator, idx.shape[-1],
-                                     draws[k] if draws is not None else {})
-            if self.device.type == "cuda":
-                logs[k].copy_(self._replay(arrays, idx[k], inputs))
-            else:
-                logs[k] = self._scan_step(arrays, idx[k], inputs)
-        self._folded = None
-        return dict(zip(self.scan_logs, logs.unbind(1)))
+        with span("train.chunk", step=self.steps_run, steps=len(idx_chunk)):
+            self._set_epoch_rates(epoch)
+            idx = to_device_index(idx_chunk, self.device)
+            logs = torch.empty(len(idx), len(self.scan_logs),
+                               device=self.device)
+            for k in range(len(idx)):
+                step = self.steps_run
+                with span("train.draw", step=step):
+                    inputs = self._scan_draw(
+                        generator, idx.shape[-1],
+                        draws[k] if draws is not None else {})
+                if self.device.type == "cuda":
+                    logs[k].copy_(self._replay(arrays, idx[k], inputs, step))
+                else:
+                    with span("train.step", step=step):
+                        logs[k] = self._scan_step(arrays, idx[k], inputs)
+                self.steps_run += 1
+            self._folded = None
+            return dict(zip(self.scan_logs, logs.unbind(1)))
 
-    def _replay(self, arrays, idx: torch.Tensor, inputs) -> torch.Tensor:
+    def _replay(self, arrays, idx: torch.Tensor, inputs,
+                step: int) -> torch.Tensor:
         """Write a step's inputs into the graph's static buffers and
         replay it; capture it first if there is none for these arrays,
         this batch and these optimizers."""
@@ -320,9 +339,11 @@ class SupervisedTrainer:
                 self._written())
             self._static, self._graph_key = (static_idx, static), key
         static_idx, static = self._static
-        static_idx.copy_(idx)
-        _copy_static(static, inputs)
-        return self.graph.replay()
+        with span("train.stage", step=step):
+            static_idx.copy_(idx)
+            _copy_static(static, inputs)
+        with span("train.replay", step=step):
+            return self.graph.replay()
 
     @torch.inference_mode()
     def eval_step(self, images, labels) -> dict:
@@ -359,9 +380,12 @@ class SupervisedTrainer:
             return self.predict_step(images)
         if self._folded is None:
             self._folded = fold_model(self.model)
-        out = fused_apply(self.model, self._input(images), self._folded,
-                          use_softmax=False)
-        return torch.argmax(out, dim=1).to(torch.uint8)
+        with span("serve.upload"):
+            images = self._to_device(images)
+        with span("serve.launch"):
+            out = fused_apply(self.model, self._batch(images, None)[0],
+                              self._folded, use_softmax=False)
+            return torch.argmax(out, dim=1).to(torch.uint8)
 
 
 def to_device(a, device) -> torch.Tensor | None:

@@ -224,6 +224,44 @@ def test_zmq_round_trip_and_array_framing():
         b.close(0)
 
 
+def test_zmq_stats_mean_latency_is_per_request():
+    """Two-frame requests: the mean latency is over requests, each at
+    least the predictor's 20 ms (over frames it read half that)."""
+    zmq = pytest.importorskip("zmq")
+
+    def predict(frames):
+        time.sleep(0.02)
+        return frames[..., 0]
+
+    eng = BatchingEngine(predict, height=H, width=W, max_batch=8,
+                         max_wait_ms=1.0)
+    res = zmq.Context.instance().socket(zmq.REP)
+    port = res.bind_to_random_port("tcp://127.0.0.1")
+    res.close(0)
+    time.sleep(0.05)
+    ready = threading.Event()
+    srv = threading.Thread(target=serve_inference, kwargs=dict(
+        engine=eng, host="127.0.0.1", port=port, ready=ready, warmup=False),
+        daemon=True)
+    srv.start()
+    assert ready.wait(10)
+    cli = SegmentationClient("127.0.0.1", port, timeout_s=30)
+    try:
+        for seed in range(3):
+            cli.predict(rand_frames(2, seed=seed))
+        s = cli.stats()
+    finally:
+        assert cli.close_server()["ok"]
+        srv.join(timeout=10)
+        assert not srv.is_alive()
+        cli.close()
+        eng.close()
+    assert (s["requests"], s["frames"]) == (3, 6)
+    assert s["mean_latency_ms"] == pytest.approx(
+        1e3 * s["latency_sum_s"] / 3)
+    assert s["mean_latency_ms"] >= 20.0
+
+
 # -- without a card -----------------------------------------------------------
 
 def test_entry_points_need_a_card_unless_cpu(monkeypatch, weights):
