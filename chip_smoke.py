@@ -72,7 +72,11 @@ Phases:
    consumer sites, 55 stages, 11 block inputs) in float32 and bfloat16,
    with a channel of every dropout site dropped for the whole batch and
    zero BN shifts, so z == 0 planes occur; every bfloat16 site must take
-   the tensor-core route, no float32 one;
+   the tensor-core route, no float32 one, and every K3a launch the folded
+   form (the statistics' cotangent as ``c0``, ``c1``);
+6b. K3a's folded load at every dense-layer site of FCDenseNet67 and 57
+   (B=8, seeded operands) against plain in float32 and bfloat16, and K3b
+   bit-equal to K3a's sum with no outside cotangent (``folded_stage_phase``);
 7. gradients: plain autograd and ``fused_apply_train`` (both backward
    routes) in float32 against the plain train forward plus autograd in
    float64, whole model, B=4, with the bfloat16 fused step as a control;
@@ -1289,7 +1293,7 @@ def compare_train_kernels(sd, device, dtype_name, card, arch=ARCH,
     def stage(*args):
         k = kernel["stage"](*args)
         p = plain["stage"](*args)
-        hold("stage", k, p, (tuple(args[9].shape), len(args[3])))
+        hold("stage", k, p, (tuple(args[11].shape), len(args[5])))
         return p
 
     def final(*args):
@@ -1307,14 +1311,130 @@ def compare_train_kernels(sd, device, dtype_name, card, arch=ARCH,
     torch.cuda.synchronize()
     expect = {k: v * (dtype_name == "bfloat16") for k, v in per_step.items()}
     print(f"  {dtype_name} sites on the tensor-core route "
-          f"{json.dumps(ktb.mma_launches)}, expected {json.dumps(expect)}")
+          f"{json.dumps(ktb.mma_launches)}, expected {json.dumps(expect)}; "
+          f"K3a with the statistics' cotangent folded in "
+          f"{json.dumps(ktb.folded)}")
     check(ktb.mma_launches == expect,
           f"{dtype_name}: tensor-core route taken at {ktb.mma_launches}")
+    check(ktb.folded["stage_folded"] == per_step["stage"],
+          f"{dtype_name}: {ktb.folded} of {per_step['stage']} K3a launches "
+          f"took the folded form")
     check(sites == dict(per_step),
           f"{dtype_name}: compared sites {sites}, expected {per_step}")
     print(f"  {dtype_name} train kernels max|err|: {json.dumps(errs)}  "
           f"[{card}]")
     return errs
+
+
+FOLD_BATCH = 8  # phase 6b's batch
+
+
+def dense_sites(arch) -> list:
+    """(c_j, g, H, W, layers after it in its block) of every dense layer of
+    ``arch`` on H x W frames, in forward order, from the model's modules."""
+    from sim2real_lane_segment_tpu_torch.cli.test import build_model
+
+    model = build_model(arch, N_CLS)
+    fe = model.featureExtractor
+    n = len(model.down_blocks)
+    blocks = ([(f"denseDown{i}", i) for i in range(n)] + [("bottleneck", n)]
+              + [(f"denseUp{i}", n - 1 - i) for i in range(n)])
+    sites = []
+    for name, level in blocks:
+        layers = getattr(fe, name).layers()
+        sites += [(lay.Conv_0.in_channels, lay.Conv_0.out_channels,
+                   H >> level, W >> level, len(layers) - 1 - j)
+                  for j, lay in enumerate(layers)]
+    return sites
+
+
+def folded_stage_phase(device, card) -> None:
+    """Phase 6b: K3a with the cotangent of the BatchNorm statistics folded
+    into its load (``dy``, a channel slice of a block cotangent, and
+    ``c0``, ``c1``) at every dense-layer site of FCDenseNet67 and
+    FCDenseNet57, B=8, seeded operands with z == 0 planes and a channel
+    dropped for the whole batch, against its plain version in float32 and
+    bfloat16 (TRAIN_REL_TOL); and K3b, which runs the same sum kernel with
+    no outside cotangent, bit for bit against K3a's rebuild of the same
+    layers' sum from a zero ``dy``, zero ``c0``, ``c1`` and a unit mask."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
+    from sim2real_lane_segment_tpu_torch.kernels.dense_block import \
+        pad_growth
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    b = FOLD_BATCH
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(device)
+
+    for arch in (ARCH, ARCH57):
+        sites = dense_sites(arch)
+        for dtype in (torch.float32, torch.bfloat16):
+            dtype_name = str(dtype).split(".")[-1]
+
+            def rows(w):  # as conv_weight_rows lays them out
+                if ktb.takes_mma_stage(dtype, w.shape[2]):
+                    return pad_growth(w, dtype)
+                return w.to(dtype).contiguous()
+
+            worst = 0.0
+            ktb.reset_launches()
+            for c, g, h, w, n_later in sites:
+                buf = r(b, c + g, h, w).to(dtype)
+                buf[:, 1] = 0       # z == 0 on a plane (zero shift)
+                buf[:, c + 2] = 0   # and on a y channel of later layers
+                y = buf[:, c:]
+                dy = r(b, c + g, h, w).to(dtype)[:, c:]
+                c0, c1 = r(2, g, s=0.5)
+                scale = (torch.rand(c, generator=gen) + 0.5).to(device)
+                shift = r(c, s=0.3)
+                shift[1] = 0
+                weight = rows(r(c, 9, g, s=0.3))
+                mask = ((torch.rand(b, g, generator=gen) > 0.3).float()
+                        / 0.8).to(device)
+                mask[:, 0] = 0
+                gps = [r(b, g, h, w).to(dtype) for _ in range(n_later)]
+                wls = [rows(r(c + g, 9, g, s=0.3))[c:]
+                       for _ in range(n_later)]
+                scs = [(torch.rand(g, generator=gen) + 0.5).to(device)
+                       for _ in range(n_later)]
+                shs = [r(g, s=0.3) for _ in range(n_later)]
+                for sh in shs:
+                    sh[2] = 0
+                args = (buf, y, dy, c0, c1, gps, wls, scale, shift, scs, shs,
+                        weight, mask)
+                outs, refs = ktb.stage(*args), ktb.stage_plain(*args)
+                rel = max(_rel(a, p) for a, p in zip(outs, refs))
+                check(rel <= TRAIN_REL_TOL[dtype_name],
+                      f"{arch} {dtype_name} K3a site c{c} {h}x{w} with "
+                      f"{n_later} later layers: max|err|/max|ref| {rel:.2e}")
+                worst = max(worst, rel)
+                if n_later:
+                    zero = torch.zeros(g, device=device)
+                    k3a = ktb.stage(buf, y, torch.zeros_like(dy), zero, zero,
+                                    gps, wls, scale, shift, scs, shs, weight,
+                                    torch.ones(b, g, device=device))[0]
+                    k3b = ktb.final(y, gps, wls, scs, shs)
+                    check(torch.equal(k3a, k3b),
+                          f"{arch} {dtype_name} site c{c} {h}x{w}: K3b "
+                          f"differs from K3a's sum with no outside cotangent")
+            torch.cuda.synchronize()
+            calls = len(sites) + sum(n > 0 for *_, n in sites)
+            mma = calls * (dtype == torch.bfloat16)
+            print(f"  {dtype_name} FCDenseNet{arch}: K3a's folded load at "
+                  f"{len(sites)} dense-layer sites, B={b}, worst "
+                  f"max|err|/max|ref| {worst:.2e}; K3b bit-equal at "
+                  f"{calls - len(sites)} sites; launches "
+                  f"{json.dumps(ktb.launches)}, tensor cores "
+                  f"{json.dumps(ktb.mma_launches)}, "
+                  f"{json.dumps(ktb.folded)}  [{card}]")
+            check(ktb.launches["stage"] == calls
+                  and ktb.folded["stage_folded"] == calls
+                  and ktb.mma_launches["stage"] == mma,
+                  f"{arch} {dtype_name}: K3a launches {ktb.launches}, "
+                  f"{ktb.mma_launches}, {ktb.folded}")
 
 
 def check_model_grads(sd, device, card):
@@ -1555,10 +1675,12 @@ def _train_cost(name, args, out):
                  + nb(shift) + nb(mask) + nb(dy) + sum(nb(t) for t in out))
         return moved, 4.0 * b * h * w * c * taps * n
     if name == "stage":
-        (x, y, ext, gps, wls, scale, shift, scs, shs, weight, mask) = args
+        (x, y, dy, c0, c1, gps, wls, scale, shift, scs, shs, weight,
+         mask) = args
         b, _, h, w = x.shape
         c, _, g = weight.shape
-        moved = (b * c * h * w * x.element_size() + nb(y) + nb(ext)
+        moved = (b * c * h * w * x.element_size() + nb(y) + nb(dy)
+                 + nb(c0) + nb(c1)
                  + sum(nb(t) for t in list(gps) + list(wls) + list(scs)
                        + list(shs)) + nb(scale) + nb(shift) + nb(weight)
                  + nb(mask) + sum(nb(t) for t in out))
@@ -1585,8 +1707,8 @@ def _train_library(name, args):
     if name == "final":
         return None
     if name == "stage":
-        x, scale, shift, weight, mask = args[0], args[5], args[6], args[9], \
-            args[10]
+        x, scale, shift, weight, mask = args[0], args[7], args[8], \
+            args[11], args[12]
         g = ktb.stage(*args)[0]
     else:
         x, scale, shift, weight, mask = args[:5] if name == "consumer_bwd" \
@@ -2542,7 +2664,7 @@ def cache_equivalence(card, sim_weights):
                     wall = time.perf_counter() - t0
                     runs[cache] = (res["out_dir"], wall, dict(ktb.launches),
                                    dict(ktb.mma_launches),
-                                   dict(graphs.counts))
+                                   dict(graphs.counts), dict(ktb.folded))
             rows = {}
             for cache, (out, *_) in runs.items():
                 with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -2572,7 +2694,8 @@ def cache_equivalence(card, sim_weights):
                   f"{runs[False][1]:.1f} s without --device_cache, "
                   f"{runs[True][1]:.1f} s with it (validation, test and "
                   f"checkpoints included); {counts['replays']} graph "
-                  f"replays, {counts['captures']} capture(s); logged "
+                  f"replays, {counts['captures']} capture(s), K3a "
+                  f"{json.dumps(runs[True][5])} at capture; logged "
                   f"{', '.join(k[6:] for k in keys)} equal: {same_rows}; "
                   f"final state bit-equal: {bit_equal} (max rel err "
                   f"{json.dumps(errs)})  [{card}]")
@@ -2589,6 +2712,9 @@ def cache_equivalence(card, sim_weights):
                   f"{regime}: launches at capture differ")
             check(runs[True][3] == mma_at_capture,
                   f"{regime}: a launch left the tensor-core route")
+            check(runs[True][5]["stage_folded"] == at_capture["stage"],
+                  f"{regime}: a K3a launch at capture took a summed outside "
+                  f"cotangent ({runs[True][5]})")
             check(runs[False][2] == {k: v * steps
                                      for k, v in per_step.items()},
                   f"{regime}: eager launch counts differ")
@@ -5844,6 +5970,12 @@ def main() -> None:
         train_errs["bfloat16"][k] = max(train_errs["bfloat16"][k], td_errs[k])
 
     lap(6)
+
+    # phase 6b: K3a's folded load at every dense-layer site of 67 and 57,
+    # and K3b bit for bit, before any timing
+    folded_stage_phase(device, card)
+
+    lap("6b")
 
     # phase 7: whole-model gradients against plain autograd
     check_model_grads(sd, device, card)

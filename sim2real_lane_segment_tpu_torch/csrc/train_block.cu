@@ -21,7 +21,10 @@
 //   dscale = sum dz*X,  dshift = sum dz,  dbias = sum g_pre,  dseg = T(dz*scale)
 //   K3a: dy_j = ext + sum_l dA_l * relu'(z_l) * scale_l over the later
 //        layers l (their stored G_l against the y_j rows of W_l), then
-//        g_pre = dy_j * mask and the K2 sums on G = T(g_pre);
+//        g_pre = dy_j * mask and the K2 sums on G = T(g_pre), where
+//        ext = dy + T(c0 + c1 * y_j) is formed as it loads: the cotangent
+//        of y_j from outside the block with its BatchNorm statistics'
+//        cotangent folded in, per channel an affine map of y_j (Outer);
 //   K3b: dseg = T(sum_l dA_l * relu'(z_l) * scale_l) over a block's layers.
 //
 // Reductions over the batch: the TPU grid walks the batch in order and
@@ -247,10 +250,32 @@ struct Layers {
   const float* sh[MAXL];   // [C] f32: its shift
 };
 
+// K3a's cotangent of y from outside the block, ext = dy + T(c0 + c1 * y):
+// dy is [B, C, H, W] in T with batch stride bstride (a channel slice of
+// the block's cotangent buffer), and c0, c1 [C] f32 the cotangent of y's
+// BatchNorm statistics pulled back onto y.  dy == nullptr (K2, K3b): no
+// outside cotangent, the sums start at 0.
+struct Outer {
+  const void* dy;
+  ll bstride;
+  const float* c0;
+  const float* c1;
+};
+
+// ext at channel n, in-plane position p of image b, for y's value yv there;
+// the statistics' term is rounded to T before the add, as the cotangent
+// autograd hands back in y's dtype would be
+template <typename T>
+__device__ __forceinline__ float outer_ext(const Outer& o, int b, int n, ll hw, ll p,
+                                           float yv) {
+  const float v = to_f<T>(static_cast<const T*>(o.dy)[b * o.bstride + n * hw + p]);
+  return __fadd_rn(v, round_to<T>(affine(yv, o.c1[n], o.c0[n])));
+}
+
 template <typename T, int TAPS, bool SUM>
 __global__ void __launch_bounds__(THREADS)
 dgrad_kernel(const T* X, ll x_bstride, int C, int H, int W, int N, int nl,
-             Layers L, const float* __restrict__ ext,
+             Layers L, Outer ext,
              const float* __restrict__ mask, T* out,
              float* __restrict__ part_a, float* __restrict__ part_b) {
   constexpr int R = TAPS == 9 ? 1 : 0;
@@ -282,8 +307,8 @@ dgrad_kernel(const T* X, ll x_bstride, int C, int H, int W, int N, int nl,
 #pragma unroll
   for (int k = 0; k < KC; ++k) {
     xv[k] = (inside && k < kc) ? to_f<T>(X[b * x_bstride + (c0 + k) * hw + pix]) : 0.f;
-    tot[k] = (SUM && ext != nullptr && inside && k < kc)
-                 ? ext[((ll)b * C + c0 + k) * hw + pix] : 0.f;
+    tot[k] = (SUM && ext.dy != nullptr && inside && k < kc)
+                 ? outer_ext<T>(ext, b, c0 + k, hw, pix, xv[k]) : 0.f;
   }
 
   for (int l = 0; l < nl; ++l) {
@@ -535,7 +560,7 @@ cudaError_t reduce_rows(const float* part, int P, ll M, float* out, cudaStream_t
 
 template <typename T, int TAPS, bool SUM>
 cudaError_t launch_dgrad(const void* X, ll x_bstride, int B, int C, int H, int W,
-                         int N, int nl, const Layers& L, const float* ext,
+                         int N, int nl, const Layers& L, const Outer& ext,
                          const float* mask, void* out, float* part_a,
                          float* part_b, cudaStream_t s) {
   const dim3 grid(n_tiles(H, W), (C + KC - 1) / KC, B);
@@ -590,7 +615,7 @@ cudaError_t own_layer(const void* X, ll x_bstride, int B, int K, int H, int W,
   float* part_ds = part_ss;
   float* part_dh = part_ss + (ll)P * K;
   S2R_TRY((launch_dgrad<T, TAPS, false>(X, x_bstride, B, K, H, W, N, 1, L,
-                                        nullptr, nullptr, dseg, part_ds,
+                                        Outer{}, nullptr, dseg, part_ds,
                                         part_dh, s)));
   S2R_TRY((launch_wgrad<T, TAPS>(X, x_bstride, B, K, H, W, scale, shift, G, N,
                                  S, part_w, s)));
@@ -1473,7 +1498,8 @@ cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
 //   at a time (the G tiles are staged as stored, no conversion, once per
 //   block and up to five layers at once), then in f32 tot += dA_l relu'(z_l)
 //   scale_l.  K3a: the 16 channels of y_j; g_pre = (ext + tot) * mask is
-//   stored rounded, with its per-tile sums for dbias.  K3b: the block's
+//   stored rounded, with its per-tile sums for dbias; ext is formed from
+//   dy, c0, c1 and the y_j value already in registers (Outer).  K3b: the block's
 //   c_in input channels in groups of 16 inside the block (weight rows
 //   stream through two cp.async buffers), T(tot) stored.
 // - stage_own_mma_kernel (K3a, own layer): a block owns a chunk of up to 64
@@ -1537,7 +1563,7 @@ fwd3x3_mma_kernel(const mma::u16* X, ll x_bstride, int K, int H, int W,
                                out_bstride, pair);
 }
 
-// K3a's rebuild of dy_j (C = G, ext and mask given, groups = 1) and K3b
+// K3a's rebuild of dy_j (C = G, ext.dy and mask given, groups = 1) and K3b
 // (C = c_in, neither): out = T((ext + sum_l dA_l relu'(z_l) scale_l) * mask)
 // over channels [0, C) of X.  A block owns a pixel tile of one image and
 // `groups` consecutive 16-channel groups from blockIdx.z * groups on.  The
@@ -1548,7 +1574,7 @@ fwd3x3_mma_kernel(const mma::u16* X, ll x_bstride, int K, int H, int W,
 template <int G>
 __global__ void __launch_bounds__(mma::C3_THREADS, 2)
 sum_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int H, int W,
-                     const float* __restrict__ ext, int nl, Layers L,
+                     Outer ext, int nl, Layers L,
                      const float* __restrict__ mask, mma::u16* out,
                      float* __restrict__ part_gp, int groups, int ns, int pair) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1603,9 +1629,11 @@ sum_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int H, int W,
               const int gx = tx0 + ln.g + 8 * (e / 2);
               const int n = c0 + 8 * nt + 2 * ln.t + (e & 1);
               const bool in = gy < H && gx < W && n < C;
-              const ll pix = (ll)n * hw + gy * W + gx;
-              xv[m][nt][e] = in ? mma::bf(X[b * x_bstride + pix]) : 0.f;
-              tot[m][nt][e] = (in && ext != nullptr) ? ext[(ll)b * C * hw + pix] : 0.f;
+              const ll p = gy * W + gx;
+              xv[m][nt][e] = in ? mma::bf(X[b * x_bstride + (ll)n * hw + p]) : 0.f;
+              tot[m][nt][e] = (in && ext.dy != nullptr)
+                                  ? outer_ext<__nv_bfloat16>(ext, b, n, hw, p, xv[m][nt][e])
+                                  : 0.f;
             }
         }
       }
@@ -1940,7 +1968,7 @@ cudaError_t fwd3x3_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
 // the summed input cotangent over channels [0, C) of X (K3a's rebuild, K3b)
 template <int G>
 cudaError_t sum_dgrad_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
-                          const float* ext, int nl, const Layers& L,
+                          const Outer& ext, int nl, const Layers& L,
                           const float* mask, void* out, float* part_gp,
                           cudaStream_t s) {
   for (int l = 0; l < nl; ++l)
@@ -1968,7 +1996,7 @@ cudaError_t sum_dgrad_mma(const void* X, ll x_bstride, int B, int C, int H, int 
 // [S][K * (9G + 2)].
 template <int G>
 cudaError_t stage_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
-                      const void* Y, ll y_bstride, const float* ext, int nl,
+                      const void* Y, ll y_bstride, const Outer& ext, int nl,
                       const Layers& L, const void* wt, const float* scale,
                       const float* shift, const float* mask, void* gp_out,
                       float* res, float* part_gp, float* part_w, int S,
@@ -2009,7 +2037,7 @@ Layers make_layers(int n, const void* const* gps, const void* const* ws,
 
 template <typename T>
 cudaError_t stage(const void* X, ll x_bstride, int B, int K, int H, int W,
-                  const void* Y, ll y_bstride, int G, const float* ext, int nl,
+                  const void* Y, ll y_bstride, int G, const Outer& ext, int nl,
                   const Layers& L, const void* wt, const float* scale,
                   const float* shift, const float* mask, void* gp_out,
                   float* dw, float* dscale, float* dshift, float* dbias,
@@ -2044,6 +2072,8 @@ cudaError_t stage(const void* X, ll x_bstride, int B, int K, int H, int W,
 // tap (bwd1x1_mma, any N), which leaves gbuf unused and wants dscale and
 // dshift contiguous: part_gp [S * N], part_ss [R * 2K], part_w [S * K * N]
 // with R = min(ceil(B*H*W / 128) * ceil(K / 128), 264).
+// stage's outside cotangent of Y is dy + T(c0 + c1 * Y) (Outer): dy in the
+// dtype with batch stride dy_bstride, c0 and c1 [G] f32.
 
 extern "C" int s2r_train_fwd(int dtype, int taps, const void* X, ll x_bstride,
                              int B, int K, int H, int W, const float* scale,
@@ -2106,7 +2136,9 @@ extern "C" int s2r_train_bwd(int dtype, int taps, const void* X, ll x_bstride,
 
 extern "C" int s2r_train_stage(int dtype, const void* X, ll x_bstride, int B,
                                int K, int H, int W, const void* Y,
-                               ll y_bstride, int G, const float* ext, int nl,
+                               ll y_bstride, int G, const void* dy,
+                               ll dy_bstride, const float* c0,
+                               const float* c1, int nl,
                                const void* const* gps,
                                const void* const* w_slices,
                                const float* const* scs,
@@ -2117,9 +2149,11 @@ extern "C" int s2r_train_stage(int dtype, const void* X, ll x_bstride, int B,
                                float* part_gp, float* part_ss, float* part_w,
                                int S, int* route, void* stream) {
   *route = 0;
-  if (nl < 0 || nl > MAXL) return cudaErrorInvalidValue;
+  if (nl < 0 || nl > MAXL || dy == nullptr || c0 == nullptr || c1 == nullptr)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Layers L = make_layers(nl, gps, w_slices, scs, shs);
+  const Outer ext = {dy, dy_bstride, c0, c1};
   if (dtype == 0)
     return stage<float>(X, x_bstride, B, K, H, W, Y, y_bstride, G, ext, nl, L, wt,
                         scale, shift, mask, gp_out, dw, dscale, dshift, dbias,
@@ -2154,15 +2188,15 @@ extern "C" int s2r_train_final(int dtype, const void* X, ll x_bstride, int B,
   const Layers L = make_layers(nl, gps, w_slices, scs, shs);
   if (dtype == 0)
     return launch_dgrad<float, 9, true>(X, x_bstride, B, K, H, W, G, nl, L,
-                                        nullptr, nullptr, dseg, nullptr, nullptr, s);
+                                        Outer{}, nullptr, dseg, nullptr, nullptr, s);
   if (dtype == 1 && mma_growth(G)) {
     *route = 1;
     return (G == 12 ? sum_dgrad_mma<12> : sum_dgrad_mma<16>)(
-        X, x_bstride, B, K, H, W, nullptr, nl, L, nullptr, dseg, nullptr, s);
+        X, x_bstride, B, K, H, W, Outer{}, nl, L, nullptr, dseg, nullptr, s);
   }
   if (dtype == 1)
     return launch_dgrad<__nv_bfloat16, 9, true>(X, x_bstride, B, K, H, W, G, nl, L,
-                                                nullptr, nullptr, dseg, nullptr,
+                                                Outer{}, nullptr, dseg, nullptr,
                                                 nullptr, s);
   return cudaErrorInvalidValue;
 }

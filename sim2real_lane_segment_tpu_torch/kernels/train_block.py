@@ -19,7 +19,11 @@ BN ``scale``/``shift`` and ``bias`` f32, dropout ``mask`` f32 ``[B, n]``
 - ``stage`` (K3a): one stage of the fused reverse sweep over a dense
   block: ``dy_j = ext + sum_l dA_l * relu'(z_l) * scale_l`` rebuilt from
   the later layers' stored ``g_pre``, then ``g_pre_j = T(dy_j*mask)`` and
-  the K2 sums (no ``dseg``);
+  the K2 sums (no ``dseg``).  ``ext = dy + T(c0 + c1*y_j)`` is formed
+  where it is loaded: ``dy`` the cotangent of y_j from outside the block
+  (a channel slice of the block's cotangent, y's dtype), ``c0``, ``c1``
+  the cotangent of y_j's batch statistics as a per-channel affine map of
+  y_j (``models.tiramisu.stats_cotangent``);
 - ``final`` (K3b): the block-input cotangent ``T(sum_l dA_l * relu'(z_l) *
   scale_l)`` over all of the block's layers.
 
@@ -58,6 +62,10 @@ from . import build
 from .dense_block import MMA_WIDTH, mma_layout
 
 launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0, "final": 0}
+# K3a launches that took the folded form (the statistics' cotangent as
+# ``c0``, ``c1``, not summed into the outside cotangent first): every one,
+# since ``stage`` takes no other; counted to show the form in use
+folded = {"stage_folded": 0}
 
 TILE = 16        # the kernels' pixel tile and channel group
 MAX_LAYERS = 16  # layers one stage or final launch may read
@@ -67,7 +75,7 @@ mma_launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0, "final": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, mma_launches):
+    for counts in (launches, mma_launches, folded):
         for k in counts:
             counts[k] = 0
 
@@ -145,11 +153,18 @@ def _later_terms(acc, xv, gps, w_slices, sc_slices, sh_slices):
     return acc
 
 
-def stage_plain(x, y, ext, gps, w_slices, scale, shift, sc_slices, sh_slices,
-                weight, mask):
+def outer_cotangent(y, dy, c0, c1):
+    """K3a's ``ext``: ``dy + T(c0 + c1*y)`` in f32.  The statistics' term is
+    rounded to y's dtype, as autograd would hand it back there."""
+    corr = _col(c0) + _col(c1) * y.to(torch.float32)
+    return dy.to(torch.float32) + corr.to(y.dtype).to(torch.float32)
+
+
+def stage_plain(x, y, dy, c0, c1, gps, w_slices, scale, shift, sc_slices,
+                sh_slices, weight, mask):
     x = x[:, :weight.shape[0]]
-    dy = _later_terms(ext.to(torch.float32), y.to(torch.float32), gps,
-                      w_slices, sc_slices, sh_slices)
+    dy = _later_terms(outer_cotangent(y, dy, c0, c1), y.to(torch.float32),
+                      gps, w_slices, sc_slices, sh_slices)
     gpre = dy * mask[:, :, None, None]
     gp = gpre.to(x.dtype)
     _, dw, dscale, dshift = _own_layer_plain(x, scale, shift, weight,
@@ -185,7 +200,7 @@ def _lib() -> ctypes.CDLL:
     lib.s2r_train_bwd.argtypes = ([_I, _I, _P, _L, _I, _I, _I, _I, _P, _P, _P,
                                    _P, _I, _P] + [_P] * 9 + [_I, _IP, _P])
     lib.s2r_train_stage.argtypes = ([_I, _P, _L, _I, _I, _I, _I, _P, _L, _I,
-                                     _P, _I, _PP, _PP, _PP, _PP]
+                                     _P, _L, _P, _P, _I, _PP, _PP, _PP, _PP]
                                     + [_P] * 12 + [_I, _IP, _P])
     lib.s2r_train_final.argtypes = [_I, _P, _L, _I, _I, _I, _I, _I, _I, _PP,
                                     _PP, _PP, _PP, _P, _IP, _P]
@@ -438,20 +453,24 @@ def _check_later(x, gps, w_slices, sc_slices, sh_slices, rows, g, padded):
         _check_operand(sh, x, torch.float32, (rows,), f"shift rows {i}")
 
 
-def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
+def stage(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
+          c0: torch.Tensor, c1: torch.Tensor,
           gps: Sequence[torch.Tensor], w_slices: Sequence[torch.Tensor],
           scale, shift, sc_slices, sh_slices, weight, mask):
     """K3a for layer j.  ``x``: its input (channels [0, c_j)); ``y``: its
-    output [B, g, H, W]; ``ext``: f32 cotangent of ``y`` from outside the
-    block; per later layer l: ``gps[l]`` its stored g_pre, ``w_slices[l]``
-    the y_j rows of its weight [g, 9, g] and its BN scale/shift on them.
+    output [B, g, H, W]; ``dy``: the cotangent of ``y`` from outside the
+    block, [B, g, H, W] in y's dtype, only its batch stride free; ``c0``,
+    ``c1``: f32 [g], the cotangent of y's batch statistics pulled back onto
+    y as ``c0 + c1*y``; per later layer l:
+    ``gps[l]`` its stored g_pre, ``w_slices[l]`` the y_j rows of its
+    weight [g, 9, g] and its BN scale/shift on them.
     Where ``takes_mma_stage``, ``weight`` and ``w_slices`` are in the
     ``pad_growth`` layout (slices of it), else contiguous.  Returns
     (g_pre_j [B, g, H, W], dW [c_j, 9, g] f32 (contiguous, unpadded),
     dscale, dshift, dbias)."""
     if not x.is_cuda:
-        return stage_plain(x, y, ext, gps, w_slices, scale, shift, sc_slices,
-                           sh_slices, weight, mask)
+        return stage_plain(x, y, dy, c0, c1, gps, w_slices, scale, shift,
+                           sc_slices, sh_slices, weight, mask)
     c, taps, g = weight.shape
     _require(taps == 9, "stage takes 3x3 dense layers")
     _check_view(x, c, "stage input")
@@ -459,7 +478,11 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
     _check_view(y, g, "stage output")
     _require(y.dtype == x.dtype and tuple(y.shape) == (b, g, h, w),
              "stage output shape or dtype")
-    _check_operand(ext, x, torch.float32, (b, g, h, w), "ext")
+    _check_view(dy, g, "stage outside cotangent")
+    _require(dy.dtype == x.dtype and tuple(dy.shape) == (b, g, h, w),
+             "stage outside cotangent shape or dtype")
+    _check_operand(c0, x, torch.float32, (g,), "c0")
+    _check_operand(c1, x, torch.float32, (g,), "c1")
     _check_operand(scale, x, torch.float32, (c,), "scale")
     _check_operand(shift, x, torch.float32, (c,), "shift")
     mma = takes_mma_stage(x.dtype, g)
@@ -487,7 +510,8 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
     with build.on_device(x.device):
         err = lib.s2r_train_stage(
             _DTYPE_CODE[x.dtype], x.data_ptr(), x.stride(0), b, c, h, w,
-            y.data_ptr(), y.stride(0), g, ext.data_ptr(), len(gps),
+            y.data_ptr(), y.stride(0), g, dy.data_ptr(), dy.stride(0),
+            c0.data_ptr(), c1.data_ptr(), len(gps),
             ctypes.cast(_ptrs(gps), _PP), ctypes.cast(_ptrs(w_slices), _PP),
             ctypes.cast(_ptrs(sc_slices), _PP),
             ctypes.cast(_ptrs(sh_slices), _PP), weight.data_ptr(),
@@ -499,6 +523,7 @@ def stage(x: torch.Tensor, y: torch.Tensor, ext: torch.Tensor,
     _check(lib, err, "stage")
     launches["stage"] += 1
     mma_launches["stage"] += route.value
+    folded["stage_folded"] += 1
     return gp, dw, dscale, dshift, dbias
 
 

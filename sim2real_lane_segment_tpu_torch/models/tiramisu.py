@@ -45,16 +45,46 @@ from ..parallel import dp
 EPS = 1e-5
 
 
+def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``batch_stats`` before the clamp: (mu, E[x^2] - mu^2)."""
+    xf = at_least_f32(x)
+    mu, sq = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+    if dp.current() is not None:
+        mu, sq = dp.all_mean(torch.stack([mu, sq])).unbind()
+    return mu, sq - mu * mu
+
+
 def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel batch mean and biased variance over (N, H, W), f32:
     ``max(E[x^2] - mu^2, 0)``, Flax's train-mode formula.  In a
     data-parallel step (``parallel.dp``) the batch is the global one: the
     ranks' means of x and x^2 are averaged."""
-    xf = at_least_f32(x)
-    mu, sq = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
-    if dp.current() is not None:
-        mu, sq = dp.all_mean(torch.stack([mu, sq])).unbind()
-    return mu, torch.clamp(sq - mu * mu, min=0.0)
+    mu, d = batch_moments(x)
+    return mu, torch.clamp(d, min=0.0)
+
+
+def stats_cotangent(mu: torch.Tensor, pass2: torch.Tensor,
+                    dmu: torch.Tensor, dvar: torch.Tensor,
+                    count: int) -> torch.Tensor:
+    """``batch_stats``' vector-Jacobian product as a per-channel affine map
+    of its input: the cotangents ``dmu``, ``dvar`` of (mu, var) pull back
+    onto x as ``c0 + c1 * x``.  Returns the rows (c0, c1), [2, C].
+
+    ``pass2``: twice the variance clamp's pass mask (2 where ``E[x^2] -
+    mu^2 >= 0``, ``torch.clamp``'s rule, else 0); ``count``: the values of
+    a channel that this rank's means are over.  With ``v = dvar`` where
+    the clamp passed: E[x^2] takes v and mu takes ``dmu - 2 mu v``, and
+    each mean hands its cotangent to every value over ``count``.  In a
+    data-parallel step the ranks' cotangents are summed first, as
+    ``all_mean``'s backward sums them (one collective)."""
+    coef = mu.new_empty((2, mu.shape[0]))
+    torch.mul(dvar, pass2, out=coef[1])                       # 2 v
+    torch.addcmul(dmu, coef[1], mu, value=-1.0, out=coef[0])  # dmu - 2 mu v
+    world = dp.current()
+    if world is not None:
+        coef = dp.all_sum(coef)
+        count *= world.size
+    return coef.div_(count)
 
 
 def running_update(bn: nn.BatchNorm2d, mu: torch.Tensor,

@@ -21,9 +21,11 @@ The BatchNorm statistics stay differentiable glue outside the kernels, as
 in JAX: batch statistics (``tiramisu.batch_stats``, over the global
 batch in a data-parallel step), the fold to a per-channel affine
 (``fold_affine``) and their gradients are PyTorch autograd.  Inside
-``FusedBlock.backward`` the fold's and the statistics' vector-Jacobian
-products come from ``torch.autograd.grad``; no BatchNorm backward is
-written by hand.  Dropout masks are operands (``tiramisu.drop_masks``).
+``FusedBlock.backward`` the fold's vector-Jacobian product comes from
+``torch.autograd.grad``; the statistics' is a per-channel affine map of
+each layer's output (``tiramisu.stats_cotangent``), which K3a adds to the
+layer's outside cotangent as it loads it.  Dropout masks are operands
+(``tiramisu.drop_masks``).
 Other glue stays plain PyTorch, as XLA ran it outside the Pallas kernels:
 the first conv, the 2x2 max-pool (``tiramisu.max_pool2``), the
 stride-2 transposed conv and the L2-normalized classifier head.
@@ -36,9 +38,9 @@ import torch.nn.functional as F
 from ..kernels import train_block as ktb
 from ..kernels.dense_block import MMA_WIDTH, pad_growth
 from ..parallel import dp
-from .tiramisu import (EPS, DenseBlock, FCDenseNet, batch_stats,
-                       dropout_sites, grad_reverse, max_pool2, running_update,
-                       transition_up)
+from .tiramisu import (EPS, DenseBlock, FCDenseNet, batch_moments,
+                       batch_stats, dropout_sites, grad_reverse, max_pool2,
+                       running_update, stats_cotangent, transition_up)
 
 
 # ---------------------------------------------------------------------------
@@ -152,23 +154,27 @@ class FusedBlock(torch.autograd.Function):
         for s in segs:  # the virtual concat
             buf[:, off:off + s.shape[1]].copy_(s)
             off += s.shape[1]
-        mus, vars_ = [mu_in], [var_in]
+        mus, vars_, diffs = [mu_in], [var_in], []
         for j in range(n):
             c_j = c_in + j * g
             scale, shift = fold_affine(gammas[j], betas[j], torch.cat(mus),
                                        torch.cat(vars_))
             y = ktb.consumer_fwd(buf, scale, shift, weights[j], biases[j],
                                  masks[j], out=buf[:, c_j:c_j + g])
-            mu, var = batch_stats(y)
+            mu, diff = batch_moments(y)
             mus.append(mu)
-            vars_.append(var)
+            vars_.append(torch.clamp(diff, min=0.0))
+            diffs.append(diff)
         mu_all, var_all = torch.cat(mus), torch.cat(vars_)
+        # twice the variance clamp's pass mask of the new channels: the
+        # clamped variance cannot tell E[y^2] - mu^2 < 0 from == 0
+        pass2 = 2.0 * (torch.cat(diffs) >= 0)
         ctx.seg_chans = [s.shape[1] for s in segs]
         ctx.n = n
         # the data-parallel world of the statistics, for the backward's
         # (autograd may run it on a thread of its own)
         ctx.world = dp.current()
-        ctx.save_for_backward(buf, mu_all, var_all, *gammas, *betas,
+        ctx.save_for_backward(buf, mu_all, var_all, pass2, *gammas, *betas,
                               *weights, *masks)
         return buf, mu_all[c_in:], var_all[c_in:]
 
@@ -180,11 +186,13 @@ class FusedBlock(torch.autograd.Function):
     @staticmethod
     def _backward(ctx, dbuf, dmu_new, dvar_new):
         n = ctx.n
-        buf, mu_all, var_all, *rest = ctx.saved_tensors
+        buf, mu_all, var_all, pass2, *rest = ctx.saved_tensors
         gammas, betas, weights, masks = _split(rest, [n] * 4)
         c_in = sum(ctx.seg_chans)
         g = weights[0].shape[2]
         ys = [buf[:, c_in + j * g:c_in + (j + 1) * g] for j in range(n)]
+        count = buf.shape[0] * buf.shape[2] * buf.shape[3]
+        dbuf = dbuf.contiguous()  # K3a reads channel slices of it
 
         # the folds, recomputed with their graphs for the vjps
         folds, fold_in = [], []
@@ -208,18 +216,15 @@ class FusedBlock(torch.autograd.Function):
         g_pres = [None] * n
         dgammas, dbetas, dweights, dbiases = ([None] * n for _ in range(4))
         for j in reversed(range(n)):
-            lo = c_in + j * g
-            # the statistics of y_j: their cotangents pull back into a
-            # [B, g, H, W] term
-            with torch.enable_grad():
-                yv = ys[j].detach().requires_grad_()
-                mu, var = batch_stats(yv)
-                (corr,) = torch.autograd.grad(
-                    (mu, var), yv, (acc_dmu[lo:lo + g], acc_dvar[lo:lo + g]))
-            ext = dbuf[:, lo:lo + g].to(torch.float32) + corr.to(torch.float32)
+            lo, hi = c_in + j * g, c_in + (j + 1) * g
+            # the cotangents of y_j's statistics pull back onto y_j as
+            # c0 + c1 * y_j, which K3a adds to its outside cotangent
+            c0, c1 = stats_cotangent(mu_all[lo:hi], pass2[lo - c_in:hi - c_in],
+                                     acc_dmu[lo:hi], acc_dvar[lo:hi], count)
             later = range(j + 1, n)
             gp, dw, dsc, dsh, db = ktb.stage(
-                buf, ys[j], ext.contiguous(), [g_pres[l] for l in later],
+                buf, ys[j], dbuf[:, lo:hi], c0, c1,
+                [g_pres[l] for l in later],
                 [weights[l][lo:lo + g] for l in later], scales[j], shifts[j],
                 [scales[l][lo:lo + g] for l in later],
                 [shifts[l][lo:lo + g] for l in later], weights[j], masks[j])

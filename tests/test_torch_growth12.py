@@ -100,18 +100,19 @@ def test_padded_weights_through_the_plain_versions_are_exact():
         return feat
     both(k4)
     both(lambda w: ktb.consumer_fwd(x, sc[0], sh[0], w[0], bias, mask))
-    ext = _rand(gen, B, G, H, W)
+    dy = _rand(gen, B, G, H, W)
     gps = [_rand(gen, B, G, H, W) for _ in range(2)]
+    c0, c1 = _rand(gen, 2, G, s=0.1)
     lo = C
-    both(lambda w: ktb.stage(x, x[:, lo:lo + G], ext, gps,
+    both(lambda w: ktb.stage(x, x[:, lo:lo + G], dy, c0, c1, gps,
                              [w[1][lo:lo + G], w[2][lo:lo + G]], sc[0], sh[0],
                              [sc[1][lo:lo + G], sc[2][lo:lo + G]],
                              [sh[1][lo:lo + G], sh[2][lo:lo + G]], w[0],
                              mask))
     both(lambda w: ktb.final(x, gps + [gps[0]], [v[:C] for v in w],
                              [s[:C] for s in sc], [s[:C] for s in sh]))
-    _, dw, *_ = ktb.stage(x, x[:, lo:lo + G], ext, [], [], sc[0], sh[0], [],
-                          [], pads[0], mask)
+    _, dw, *_ = ktb.stage(x, x[:, lo:lo + G], dy, c0, c1, [], [], sc[0],
+                          sh[0], [], [], pads[0], mask)
     assert dw.shape == (C, 9, G)
 
 

@@ -204,9 +204,10 @@ def test_growth12_route(cuda):
         ktb.consumer_fwd(buf, scale, shift, weight, bias, mask,
                          out=buf[:, c:])
         later = (torch.randn(b, g, h, w, device=cuda).to(dtype),)
-        ktb.stage(buf, buf[:, c:], torch.randn(b, g, h, w, device=cuda),
-                  later, (weight[:g],), scale, shift, (scale[:g],),
-                  (shift[:g],), weight, mask)
+        dy = torch.randn(b, g, h, w, device=cuda).to(dtype)
+        c0, c1 = torch.randn(2, g, device=cuda)
+        ktb.stage(buf, buf[:, c:], dy, c0, c1, later, (weight[:g],), scale,
+                  shift, (scale[:g],), (shift[:g],), weight, mask)
         ktb.final(buf, later, (weight,), (scale,), (shift,))
         torch.cuda.synchronize()
         assert kdb.mma_launches == {"dense_layer": mma, "transition": 0}
@@ -361,6 +362,7 @@ def test_classifier_rejects_a_buffer_too_wide(cuda):
 # ---------------------------------------------------------------------------
 
 from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb  # noqa: E402
+from torch_sites import DENSE_SITES, DENSE_SITES_57  # noqa: E402
 
 # (B, H, W, c, g): ragged against the 16x16 tiles and 16-channel groups.
 # The g = 4 case must take the CUDA-core route in both dtypes; the g = 16
@@ -464,7 +466,10 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
     buf[:, :c] = x
     buf[:, c + 2] = 0
     y = buf[:, c:]
-    ext = torch.randn(b, g, h, w, device=cuda)
+    # the outside cotangent: a channel slice of the block's, in y's dtype,
+    # and the statistics' term c0 + c1*y
+    dy = torch.randn(b, c + g, h, w, device=cuda).to(dtype)[:, c:]
+    c0, c1 = torch.randn(2, g, device=cuda) * 0.5
     gps = [torch.randn(b, g, h, w, device=cuda).to(dtype)
            for _ in range(n_later)]
     # the later layers' y_j rows: slices of their padded rows at growth 12
@@ -474,12 +479,14 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
     shs = [torch.randn(g, device=cuda) * 0.3 for _ in range(n_later)]
     for sh in shs:
         sh[2] = 0
-    args = (buf, y, ext, gps, wls, scale, shift, scs, shs, weight, mask)
+    args = (buf, y, dy, c0, c1, gps, wls, scale, shift, scs, shs, weight,
+            mask)
     ktb.reset_launches()
     outs = ktb.stage(*args)
     torch.cuda.synchronize()
     assert ktb.mma_launches["stage"] == int(dtype == torch.bfloat16
                                             and g in (12, 16))
+    assert ktb.folded == {"stage_folded": 1}
     _close_all(outs, ktb.stage_plain(*args), dtype, "K3a")
     again = ktb.stage(*args)  # fixed-order sums: the same bits
     torch.cuda.synchronize()
@@ -500,6 +507,67 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
                                             and g in (12, 16))
     _close_all([out], [ktb.final_plain(buf, gps, wls, scs, shs)], dtype,
                "K3b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", ["67", "57"])
+def test_folded_stage_at_every_dense_site(cuda, model, dtype):
+    """K3a with the statistics' cotangent folded into its load at every
+    dense-layer site of FCDenseNet67 (55) and FCDenseNet57 (44), B=4, with
+    as many later layers as the site has in its block, against its plain
+    version; and K3b, which runs the same sum kernel with no outside
+    cotangent, bit for bit against K3a's sum of the same later layers from
+    a zero ``dy``, zero ``c0``, ``c1`` and a unit mask."""
+    sites, per_block = ((DENSE_SITES, 5) if model == "67"
+                        else (DENSE_SITES_57, 4))
+    g = 16 if model == "67" else 12
+    b = 4
+    gen = torch.Generator().manual_seed(int(model))
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(cuda)
+
+    ktb.reset_launches()
+    calls = 0
+    for i, (c, h, w) in enumerate(sites):
+        n_later = per_block - 1 - i % per_block
+        buf = r(b, c + g, h, w).to(dtype)
+        buf[:, 1] = 0        # z == 0 on a plane (zero shift)
+        buf[:, c + 2] = 0    # and on a y channel of the later layers
+        y = buf[:, c:]
+        dy = r(b, c + g, h, w).to(dtype)[:, c:]
+        c0, c1 = r(2, g, s=0.5)
+        scale = (torch.rand(c, generator=gen) + 0.5).to(cuda)
+        shift = r(c, s=0.3)
+        shift[1] = 0
+        weight = _rows(r(c, 9, g, s=0.3), dtype)
+        mask = ((torch.rand(b, g, generator=gen) > 0.3).float()
+                / 0.8).to(cuda)
+        mask[:, 0] = 0
+        gps = [r(b, g, h, w).to(dtype) for _ in range(n_later)]
+        wls = [_rows(r(c + g, 9, g, s=0.3), dtype)[c:]
+               for _ in range(n_later)]
+        scs = [(torch.rand(g, generator=gen) + 0.5).to(cuda)
+               for _ in range(n_later)]
+        shs = [r(g, s=0.3) for _ in range(n_later)]
+        for sh in shs:
+            sh[2] = 0
+        args = (buf, y, dy, c0, c1, gps, wls, scale, shift, scs, shs, weight,
+                mask)
+        _close_all(ktb.stage(*args), ktb.stage_plain(*args), dtype,
+                   f"K3a site {i} c{c} {h}x{w}")
+        calls += 1
+        if n_later:
+            zero = torch.zeros(g, device=cuda)
+            k3a = ktb.stage(buf, y, torch.zeros_like(dy), zero, zero, gps,
+                            wls, scale, shift, scs, shs, weight,
+                            torch.ones(b, g, device=cuda))[0]
+            assert torch.equal(k3a, ktb.final(y, gps, wls, scs, shs)), i
+            calls += 1
+    torch.cuda.synchronize()
+    assert ktb.launches["stage"] == ktb.folded["stage_folded"] == calls
+    assert ktb.mma_launches["stage"] == calls * (dtype == torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -877,7 +945,7 @@ import contextlib  # noqa: E402
 from unittest import mock  # noqa: E402
 
 from sim2real_lane_segment_tpu_torch.models.tiramisu import (  # noqa: E402
-    FCDenseNet, drop_masks)
+    DenseLayer, FCDenseNet, drop_masks)
 from sim2real_lane_segment_tpu_torch.ops import augment as aug  # noqa: E402
 from sim2real_lane_segment_tpu_torch.train.mme import MMETrainer  # noqa: E402
 
@@ -1052,9 +1120,18 @@ def _check_graphed_vs_eager(cuda, regime, graphed, eager):
         arrays = arrays + (views[1].images,)
         idx = np.stack([idx, rng.integers(0, 12, (3, 4))], axis=1)
     graphs.reset_counts()
+    ktb.reset_launches()
     logs = graphed.run_scan_chunk(arrays, idx, torch.Generator().manual_seed(
         2), 1)
     assert graphs.counts == {"captures": 1, "replays": 3}
+    # the kernels launch at the capture only (its warm-up steps and the
+    # captured one): one K3a a dense layer a pass, each with the
+    # statistics' cotangent folded in
+    dense = sum(isinstance(m, DenseLayer) for m in graphed.model.modules())
+    passes = 2 if regime == "mme" else 1
+    k3a = (dense * passes * (graphs.WARMUP_STEPS + 1)
+           if graphed.pallas_train else 0)
+    assert ktb.launches["stage"] == ktb.folded["stage_folded"] == k3a
     gen = torch.Generator().manual_seed(2)
     ref = []
     for row in idx:

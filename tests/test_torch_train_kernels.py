@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from test_torch_common import from_cm, to_cm, wf_rows
+from torch_sites import (DENSE_SITES, DENSE_SITES_57, TD_SITES,
+                         TD_SITES_57)
 
 from sim2real_lane_segment_tpu.models.tiramisu_train_pallas import (
     _Cfg, _consumer_bwd_call, _consumer_fwd, _final_call, _FinalCfg,
@@ -112,8 +114,11 @@ def test_stage_matches_jax(size, n_later):
     c = sum(SEGS)
     x, scale, shift, weight, _, mask = _operands(rng, c, G, h, w, 9)
     y = rng.normal(size=(B, G, h, w)).astype(np.float32)
-    ext = rng.normal(size=(B, G, h, w)).astype(np.float32)
+    dy = rng.normal(size=(B, G, h, w)).astype(np.float32)
     gps, wls, scs, shs = _later(rng, n_later, h, w, y)
+    # the statistics' cotangent as c0 + c1*y; JAX takes the sum as ext
+    c0, c1 = rng.normal(0, 0.1, (2, G)).astype(np.float32)
+    ext = dy + (c0[:, None, None] + c1[:, None, None] * y)
 
     cfg = _StageCfg(h, w, SEGS, G, n_later, "float32", True)
     gp_r, dwf_r, dsc_r, dsh_r, db_r = _stage_call(
@@ -122,9 +127,9 @@ def test_stage_matches_jax(size, n_later):
         shift[:, None], [s[:, None] for s in scs], [s[:, None] for s in shs],
         mask[..., None])
     gp, dw, dsc, dsh, db = ktb.stage(
-        _t(x), _t(y), _t(ext), [_t(g) for g in gps], [_t(wl) for wl in wls],
-        _t(scale), _t(shift), [_t(s) for s in scs], [_t(s) for s in shs],
-        _t(weight), _t(mask))
+        _t(x), _t(y), _t(dy), _t(c0), _t(c1), [_t(g) for g in gps],
+        [_t(wl) for wl in wls], _t(scale), _t(shift), [_t(s) for s in scs],
+        [_t(s) for s in shs], _t(weight), _t(mask))
     _close(gp, from_cm(gp_r, h, w))
     _close(wf_rows(dw.numpy()), dwf_r)
     _close(dsc, np.asarray(dsc_r)[:, 0])
@@ -208,25 +213,6 @@ def test_tensor_core_dgrad_blocks_fill_the_card():
 # the tensor-core K1 and K3a: dispatch rules, chunks, splits and scratch
 # ---------------------------------------------------------------------------
 
-def _fcdensenet67_sites():
-    """(c_j, H, W) of the 55 dense layers and (c, H, W) of the 5
-    TransitionDowns of FCDenseNet67 on 120x160 frames."""
-    res = [(120, 160), (60, 80), (30, 40), (15, 20), (7, 10)]
-    dense, td, c, skips = [], [], 48, []
-    for h, w in res:
-        dense += [(c + 16 * j, h, w) for j in range(5)]
-        c += 80
-        skips.append(c)
-        td.append((c, h, w))
-    dense += [(c + 16 * j, 3, 5) for j in range(5)]
-    for (h, w), skip in zip(reversed(res), reversed(skips)):
-        dense += [(80 + skip + 16 * j, h, w) for j in range(5)]
-    return dense, td
-
-
-DENSE_SITES, TD_SITES = _fcdensenet67_sites()
-
-
 def test_fcdensenet67_site_list():
     assert len(DENSE_SITES) == 55 and len(TD_SITES) == 5
     assert DENSE_SITES[0] == (48, 120, 160) and DENSE_SITES[-1] == (272, 120,
@@ -257,25 +243,6 @@ def test_every_fcdensenet67_site_takes_the_tensor_cores(site):
         # has fewer items than that
         assert chunks * splits <= 264
         assert chunks * splits >= min(132, chunks * items)
-
-
-def _fcdensenet57_sites():
-    """(c, h, w) of FCDenseNet57's 44 dense layers (growth 12, four a
-    block) and 5 TransitionDowns at 120x160, in forward order."""
-    res = [(120, 160), (60, 80), (30, 40), (15, 20), (7, 10)]
-    dense, td, c, skips = [], [], 48, []
-    for h, w in res:
-        dense += [(c + 12 * j, h, w) for j in range(4)]
-        c += 48
-        skips.append(c)
-        td.append((c, h, w))
-    dense += [(c + 12 * j, 3, 5) for j in range(4)]
-    for (h, w), skip in zip(reversed(res), reversed(skips)):
-        dense += [(48 + skip + 12 * j, h, w) for j in range(4)]
-    return dense, td
-
-
-DENSE_SITES_57, TD_SITES_57 = _fcdensenet57_sites()
 
 
 def test_fcdensenet57_site_list():
@@ -352,7 +319,7 @@ def test_stage_results_keep_shapes_and_dtypes_on_cpu(n_later, dtype):
     c, g, h, w = 24, 16, 5, 7
     x, scale, shift, weight, _, mask = _operands(rng, c, g, h, w, 9)
     y = rng.normal(size=(B, g, h, w)).astype(np.float32)
-    ext = rng.normal(size=(B, g, h, w)).astype(np.float32)
+    dy = rng.normal(size=(B, g, h, w)).astype(np.float32)
     gps = [rng.normal(size=(B, g, h, w)).astype(np.float32)
            for _ in range(n_later)]
     wls = [rng.normal(0, 0.3, (g, 9, g)).astype(np.float32)
@@ -360,15 +327,16 @@ def test_stage_results_keep_shapes_and_dtypes_on_cpu(n_later, dtype):
     scs = [rng.uniform(0.5, 1.5, g).astype(np.float32)
            for _ in range(n_later)]
     shs = [rng.normal(0, 0.3, g).astype(np.float32) for _ in range(n_later)]
+    c0, c1 = rng.normal(0, 0.1, (2, g)).astype(np.float32)
 
     def d(a):
         return _t(a).to(dtype)
 
     ktb.reset_launches()
     gp, dw, dsc, dsh, db = ktb.stage(
-        d(x), d(y), _t(ext), [d(v) for v in gps], [d(v) for v in wls],
-        _t(scale), _t(shift), [_t(v) for v in scs], [_t(v) for v in shs],
-        d(weight), _t(mask))
+        d(x), d(y), d(dy), _t(c0), _t(c1), [d(v) for v in gps],
+        [d(v) for v in wls], _t(scale), _t(shift), [_t(v) for v in scs],
+        [_t(v) for v in shs], d(weight), _t(mask))
     assert gp.shape == (B, g, h, w) and gp.dtype == dtype
     assert dw.shape == (c, 9, g) and dw.dtype == torch.float32
     assert dsc.shape == dsh.shape == (c,) and db.shape == (g,)
