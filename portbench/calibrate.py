@@ -14,7 +14,10 @@ cell, at the cell's own size, in one process:
 - ``fault``: on the first ``--faults`` seeds, the program with each fault
   of ``faults.py`` that the cell can have planted.
 
-One JSON line a reading. The benchmark's runs do not run this.
+One JSON line a reading. The benchmark's runs do not run this. The
+limits of ``correct`` are set from these readings, above the program's
+and below the control's or a fault's, and written to
+``reference/limits/<config>.json`` with the readings each came from.
 """
 import argparse
 import json

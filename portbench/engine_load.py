@@ -144,11 +144,17 @@ class ServeCell:
         if self.stretch is not None:
             self.stretch.warm()
         self.batches = []   # (start, end, padded frames)
+        # held by each predictor call and by the profiler's start, so that
+        # no kernel is launched while the profiler starts: one traced fleet
+        # run in about thirty recorded the stretch's copies but none of its
+        # kernels
+        self.launching = threading.Lock()
 
         def recorded(frames):
-            t0 = time.monotonic()
-            out = predict(frames)
-            self.batches.append((t0, time.monotonic(), len(frames)))
+            with self.launching:
+                t0 = time.monotonic()
+                out = predict(frames)
+                self.batches.append((t0, time.monotonic(), len(frames)))
             return out
 
         self.engine = serving.BatchingEngine(
@@ -182,7 +188,8 @@ class ServeCell:
         if st is None or st.t_stop is not None:
             return
         if st.prof is None and now >= self.profile_at[0]:
-            st.start()
+            with self.launching:
+                st.start()
         elif st.on and now >= st.t_start + self.profile_at[1]:
             st.stop()
 

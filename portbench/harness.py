@@ -2,11 +2,13 @@
 context, the driver's life cycle, the per-layer readers, and the result
 line.
 
-A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``)
-and a traffic mix (``traffic/<name>.json``); the mix's ``kind`` names its
-driver (``drivers/<kind>.py``), and each per-layer metric has its reader
-(``metrics/<name>.py``). Adding a cell, a mix, a driver or a metric adds
-files and entries; no file here changes.
+A cell of ``BENCHMARK.json`` names a configuration (its sizes in
+``configs/<name>.json``, the limits of ``correct`` in
+``reference/limits/<name>.json``) and a traffic mix
+(``traffic/<name>.json``); the mix's ``kind`` names its driver
+(``drivers/<kind>.py``), and each per-layer metric has its reader
+(``metrics/<name>.py``). Adding a configuration, a cell, a mix, a driver
+or a metric adds files and entries; no file here changes.
 
 A driver module defines ``Cell(ctx)`` with ``setup()``, ``window(t_open)``
 (returns ``{"metrics", "attempted", "failed", "rec"}``), ``release()``

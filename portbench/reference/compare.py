@@ -27,8 +27,9 @@ every pixel of the sampled replies. Argmax flips where two logits lie
 within rounding read small; a wrong class reads the distance between
 the classes.
 
-``limits.json`` holds each configuration's limits and the readings they
-were set from (``PERF.md`` gives them too).
+``limits/<config>.json`` holds one configuration's limits and the
+readings they were set from (``PERF.md`` gives them too); a new
+configuration brings its own file.
 """
 from __future__ import annotations
 
@@ -43,8 +44,14 @@ GRAD_FLOOR = 1e-3
 
 
 def limits(config: str) -> dict:
-    with open(os.path.join(HERE, "limits.json")) as f:
-        return json.load(f)[config]["limits"]
+    """``limits/<config>.json``'s limits."""
+    path = os.path.join(HERE, "limits", f"{config}.json")
+    try:
+        with open(path) as f:
+            return json.load(f)["limits"]
+    except FileNotFoundError:
+        raise SystemExit(f"no limits for configuration {config!r}: "
+                         f"{path} is missing") from None
 
 
 def leaf_gap(prog: dict, ref: dict, keep=None) -> float:

@@ -6,6 +6,8 @@ import re
 import pytest
 from portbench_tiny import ROOT, harness
 
+from portbench.reference import compare
+
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 PATH = re.compile(r"^[A-Za-z0-9_.\-/]{1,200}$")
@@ -108,7 +110,6 @@ def test_every_cell_resolves_its_files(cell):
         harness.HERE, "traffic", f"{cell['traffic']}.json"))
     assert traffic["name"] == cell["traffic"]
     assert hasattr(harness.driver(traffic["kind"]), "Cell")
-    from portbench.reference import compare
     assert compare.limits(cell["config"])
 
 
@@ -150,3 +151,45 @@ def test_config_files_state_the_published_widths():
         assert c["reduced"] == []
         n = sum(p.numel() for p in FCDenseNet(cfg).parameters())
         assert n == cfg["parameters"]
+
+
+# what ``compare`` computes for each traffic kind's cells
+ONE = {"loss": [1.0], "grad1": {"w": 1.0}, "delta": {"w": 1.0},
+       "stats1": {"w": 1.0}, "stats": {"w": 1.0}}
+COMPUTED = {"train_scan": set(compare.train_numbers(ONE, ONE)),
+            "serve_open": {"mask_gap"}, "serve_closed": {"mask_gap"}}
+LIMITS = os.path.join(harness.HERE, "reference", "limits")
+
+
+def test_every_config_has_its_limits_file_and_every_file_its_config():
+    names = {c["name"] for c in BENCH["configs"]}
+    files = {f[:-len(".json")] for f in os.listdir(LIMITS)}
+    assert all(f.endswith(".json") for f in os.listdir(LIMITS))
+    assert files == names
+
+
+@pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
+def test_limits_are_numbers_that_compare_computes(config):
+    got = harness.read_json(os.path.join(LIMITS, f"{config['name']}.json"))
+    assert set(got) == {"limits", "readings"}
+    kinds = {harness.read_json(os.path.join(
+        harness.HERE, "traffic", f"{w['traffic']}.json"))["kind"]
+        for w in BENCH["workloads"] if w["config"] == config["name"]}
+    computed = set().union(*(COMPUTED[k] for k in kinds))
+    assert got["limits"] and set(got["limits"]) <= computed
+    for name, limit in got["limits"].items():
+        assert type(limit) in (int, float) and 0 <= limit < float("inf")
+        assert name in got["readings"], f"{name}: no readings"
+
+
+def test_no_program_file_names_a_configuration():
+    names = [c["name"] for c in BENCH["configs"]]
+    found = []
+    for d, subdirs, files in os.walk(harness.HERE):
+        subdirs[:] = [s for s in subdirs if s not in ("tests", "__pycache__")]
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(d, f)) as fh:
+                    text = fh.read()
+                found += [(f, n) for n in names if n in text]
+    assert not found

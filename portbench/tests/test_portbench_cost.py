@@ -15,13 +15,20 @@ def config(name):
                                           f"{name}.json"))
 
 
-@pytest.mark.parametrize("name,gflop", [("fcdensenet67", 15.9),
-                                        ("fcdensenet57", 6.77)])
-def test_forward_gflop(name, gflop):
-    cfg = config(name)
-    assert cost.forward_flops(cfg) / 1e9 == pytest.approx(gflop, abs=0.01)
+# GFLOP a 120x160 forward, fixed apart from both the configuration's file
+# and the cost function, so that the two cannot drift together
+ANCHOR_GFLOP = {"fcdensenet67": 15.9, "fcdensenet57": 6.77}
+
+
+@pytest.mark.parametrize("entry", harness.benchmark()["configs"],
+                         ids=lambda c: c["name"])
+def test_forward_gflop(entry):
+    cfg = harness.read_json(os.path.join(ROOT, entry["file"]))
     assert cost.forward_flops(cfg) / 1e9 == pytest.approx(
         cfg["forward_gflop_per_image"], abs=1e-3)
+    if entry["name"] in ANCHOR_GFLOP:
+        assert cost.forward_flops(cfg) / 1e9 == pytest.approx(
+            ANCHOR_GFLOP[entry["name"]], abs=0.01)
 
 
 def test_forward_flops_match_the_reference_convolutions():
