@@ -1241,12 +1241,13 @@ def _as_list(out):
 
 
 def compare_train_kernels(sd, device, dtype_name, card, arch=ARCH,
-                          per_step=TRAIN_LAUNCHES_PER_STEP):
-    """Phase 6 for one dtype: one fused train step at B=4 through the plain
-    versions; at every call, the kernel runs on the same operands and is
-    held against the plain result.  Returns the largest max|err| per
-    kernel.  ``per_step``: ``arch``'s sites a step, every one of them on
-    the tensor cores in bfloat16."""
+                          per_step=TRAIN_LAUNCHES_PER_STEP,
+                          batch=TRAIN_CHECK_BATCH):
+    """Phase 6 for one dtype: one fused train step at ``batch`` (B=4)
+    through the plain versions; at every call, the kernel runs on the same
+    operands and is held against the plain result.  Returns the largest
+    max|err| per kernel.  ``per_step``: ``arch``'s sites a step, every one
+    of them on the tensor cores in bfloat16."""
     import torch
 
     from sim2real_lane_segment_tpu_torch.core.dtypes import (DEFAULT_POLICY,
@@ -1264,8 +1265,8 @@ def compare_train_kernels(sd, device, dtype_name, card, arch=ARCH,
             if isinstance(m, torch.nn.BatchNorm2d):
                 m.bias.zero_()  # dropped planes then give z == 0
     rng = np.random.default_rng(SEED + 4)
-    x, y = train_batch(rng, TRAIN_CHECK_BATCH, device)
-    masks = train_masks(model, TRAIN_CHECK_BATCH, device, SEED + 5)
+    x, y = train_batch(rng, batch, device)
+    masks = train_masks(model, batch, device, SEED + 5)
     errs = {k: 0.0 for k in TRAIN_KERNELS}
     sites = {k: 0 for k in TRAIN_KERNELS}
     tol = TRAIN_REL_TOL[dtype_name]
@@ -1351,12 +1352,13 @@ def dense_sites(arch) -> list:
 def folded_stage_phase(device, card) -> None:
     """Phase 6b: K3a with the cotangent of the BatchNorm statistics folded
     into its load (``dy``, a channel slice of a block cotangent, and
-    ``c0``, ``c1``) at every dense-layer site of FCDenseNet67 and
-    FCDenseNet57, B=8, seeded operands with z == 0 planes and a channel
-    dropped for the whole batch, against its plain version in float32 and
-    bfloat16 (TRAIN_REL_TOL); and K3b, which runs the same sum kernel with
-    no outside cotangent, bit for bit against K3a's rebuild of the same
-    layers' sum from a zero ``dy``, zero ``c0``, ``c1`` and a unit mask."""
+    ``c0``, ``c1``) at every dense-layer site of FCDenseNet67,
+    FCDenseNet57 and FCDenseNet103 (up to 14 later layers), B=8, seeded
+    operands with z == 0 planes and a channel dropped for the whole batch,
+    against its plain version in float32 and bfloat16 (TRAIN_REL_TOL);
+    and K3b, which runs the same sum kernel with no outside cotangent, bit
+    for bit against K3a's rebuild of the same layers' sum from a zero
+    ``dy``, zero ``c0``, ``c1`` and a unit mask."""
     import torch
 
     from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
@@ -1369,7 +1371,7 @@ def folded_stage_phase(device, card) -> None:
     def r(*shape, s=1.0):
         return (torch.randn(*shape, generator=gen) * s).to(device)
 
-    for arch in (ARCH, ARCH57):
+    for arch in (ARCH, ARCH57, ARCH103):
         sites = dense_sites(arch)
         for dtype in (torch.float32, torch.bfloat16):
             dtype_name = str(dtype).split(".")[-1]
@@ -5628,6 +5630,105 @@ def growth12_phase(device, card) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 26: FCDenseNet103 at its published widths
+# ---------------------------------------------------------------------------
+
+ARCH103 = "103"
+# launches of FCDenseNet103: a forward's 91 dense layers, 5 TransitionDowns
+# and 1 classifier; a train step's 91 dense + 5 TD forwards, 5 TD
+# backwards, 91 stages and 11 block inputs
+K4_PER_FORWARD_103 = {"dense_layer": 91, "transition": 5, "classifier": 1}
+TRAIN_PER_STEP_103 = {"consumer_fwd": 96, "consumer_bwd": 5, "stage": 91,
+                      "final": 11}
+# of those, at planes under half a 12x16 tile (15x20, 7x10, 3x5): 59 dense
+# layers' K1 and K3a, 2 TDs' K1 and K2, and 5 blocks' K3b
+SMALL_PLANE_PER_STEP_103 = 59 + 2 + 2 + 59 + 5
+CHECK_BATCH_103 = 8     # the sites against plain, and in bfloat16 again
+                        # at the trained TRAIN_BATCH
+SERVE_BATCH_103 = 64    # the fused forward's masks against plain
+GRAPH_BATCH_103 = 4     # the captured step's launch counts
+
+
+def fcd103_phase(device, card) -> None:
+    """Phase 26: FCDenseNet103 (blocks of 4-12 layers, a 15-layer
+    bottleneck, inputs up to 1,072 channels): (a) K4 against plain on all
+    11 blocks, B=8, f32 and bf16; (b) one fused B=8 train step with every
+    K1-K3b site against plain (K3b over the bottleneck's 15 layers among
+    them), every bf16 site on the tensor cores, and in bf16 once more at
+    the trained B=32, where K3a splits the batch and the tiles
+    (``mma_stage_splits``) otherwise than at B=8 at the four smallest
+    planes; (c) the ``--fused`` forward's masks at B=64 against the plain
+    module's; (d) one captured ``run_scan_chunk`` step's K1-K3b launches,
+    all and at small planes, on its ``train.capture`` span.  Phase 6b
+    holds K3a's folded load at its dense-layer sites and phase 3b its
+    TransitionDowns."""
+    import torch
+
+    from sim2real_lane_segment_tpu_torch.core import tracing
+    from sim2real_lane_segment_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.train.supervised import \
+        SupervisedTrainer
+
+    t0 = time.perf_counter()
+    sd = seeded_state_dict(device, ARCH103)
+    for dtype_name in ("float32", "bfloat16"):
+        compare_blocks(sd, device, dtype_name, card, ARCH103,
+                       K4_PER_FORWARD_103["dense_layer"])
+        compare_train_kernels(sd, device, dtype_name, card, ARCH103,
+                              TRAIN_PER_STEP_103, CHECK_BATCH_103)
+    compare_train_kernels(sd, device, "bfloat16", card, ARCH103,
+                          TRAIN_PER_STEP_103, TRAIN_BATCH)
+    print(f"fcd103: (a), (b) done in {time.perf_counter() - t0:.1f} s  "
+          f"[{card}]", flush=True)
+
+    model = make_model(sd, DEFAULT_POLICY, device, ARCH103)
+    trainer = SupervisedTrainer(num_cls=N_CLS, model=model, height=H,
+                                width=W, device=device)
+    frames = synthetic_frames(np.random.default_rng(SEED + 9),
+                              SERVE_BATCH_103)
+    kdb.reset_launches()
+    fused = trainer.predict_step_fused(frames).cpu()
+    torch.cuda.synchronize()
+    launches = dict(kdb.launches)
+    mma = kdb.mma_launches["dense_layer"]
+    plain = trainer.predict_step(frames).cpu()
+    agreement = (fused == plain).float().mean().item()
+    print(f"fcd103: --fused forward B={SERVE_BATCH_103}: launches "
+          f"{json.dumps(launches)} ({mma} dense layers on the tensor "
+          f"cores), mask agreement with the plain module (bf16) "
+          f"{agreement:.6f}  [{card}]", flush=True)
+    check(launches == K4_PER_FORWARD_103 and mma == 91,
+          f"fcd103 fused forward launches {launches}, tensor cores {mma}")
+    check(agreement >= MIN_PIXEL_AGREEMENT,
+          f"fcd103 fused masks agree on {agreement} < {MIN_PIXEL_AGREEMENT}")
+
+    b = GRAPH_BATCH_103
+    gen = torch.Generator().manual_seed(SEED + 10)
+    arrays = (torch.randint(0, 256, (2 * b, H, W, 3), generator=gen,
+                            dtype=torch.uint8).to(device),
+              torch.randint(0, N_CLS, (2 * b, H, W), generator=gen,
+                            dtype=torch.uint8).to(device))
+    train = SupervisedTrainer(num_cls=N_CLS, model=make_model(
+        sd, DEFAULT_POLICY, device, ARCH103).train(), height=H, width=W,
+        augment=True, pallas_train=True, device=device)
+    logs = train.run_scan_chunk(arrays, np.arange(2 * b).reshape(2, b),
+                                torch.Generator().manual_seed(SEED), 0)
+    loss = logs["tr_loss"].cpu()
+    span = [s for s in tracing.spans() if s.name == "train.capture"][-1]
+    want = {"launches": sum(TRAIN_PER_STEP_103.values()),
+            "small_plane_launches": SMALL_PLANE_PER_STEP_103}
+    counted = train.graph.counted
+    print(f"fcd103: captured B={b} step: losses {loss.tolist()}, K1-K3b "
+          f"launches {json.dumps(counted)} (span "
+          f"{json.dumps(span.attrs)}), expected {json.dumps(want)}; "
+          f"{time.perf_counter() - t0:.1f} s  [{card}]", flush=True)
+    check(bool(torch.isfinite(loss).all()), "fcd103 graphed losses")
+    check(counted == want and {k: span.attrs.get(k) for k in want} == want,
+          f"fcd103 captured step launches {counted}, span {span.attrs}")
+
+
+# ---------------------------------------------------------------------------
 # the TransitionDown sites (phase 3b; per-site lines of phases 5, 9 and 25)
 # ---------------------------------------------------------------------------
 
@@ -5971,8 +6072,8 @@ def main() -> None:
 
     lap(6)
 
-    # phase 6b: K3a's folded load at every dense-layer site of 67 and 57,
-    # and K3b bit for bit, before any timing
+    # phase 6b: K3a's folded load at every dense-layer site of 67, 57 and
+    # 103, and K3b bit for bit, before any timing
     folded_stage_phase(device, card)
 
     lap("6b")
@@ -6112,6 +6213,11 @@ def main() -> None:
     # phase 25: FCDenseNet57, growth 12, on the tensor cores
     kernels += growth12_phase(device, card)
     lap(25)
+
+    # phase 26: FCDenseNet103's sites, its fused forward and its captured
+    # step's launches
+    fcd103_phase(device, card)
+    lap(26)
     print(f"phases: seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} in all  [{card}]", flush=True)
 

@@ -29,7 +29,8 @@ does not fit on the device, or a step that cannot be captured, raises;
 nothing falls back to host reads or eager steps.  ``--profile`` writes a
 ``torch.profiler`` trace of the run to ``<out_dir>/profile/trace.json``
 and logs the graph's captures and replays beside the K3a launches, those
-with the statistics' cotangent folded in (``stage_folded``) among them.
+with the statistics' cotangent folded in (``stage_folded``) among them,
+and the captured step's K1-K3b launches, all and at small planes.
 Training runs on the card unless ``main`` is given ``device="cpu"``.
 Artifacts go to ``<default_root_dir or results>/<model_name>``:
 ``metrics.jsonl``, ``checkpoints/best.pt`` (best val_iou),
@@ -168,21 +169,24 @@ def main(args=None, device=None) -> dict:
             os.makedirs(os.path.dirname(path), exist_ok=True)
             prof.export_chrome_trace(path)
             logging.info("profiler trace written to %s", path)
-            _log_counts()
+            _log_counts(trainer)
         if owned:
             multihost.close_world()
     logging.info("best val_iou %.4f; artifacts in %s", best_iou, out_dir)
     return {"best_iou": best_iou, "out_dir": out_dir}
 
 
-def _log_counts() -> None:
+def _log_counts(trainer) -> None:
     """The process's graph counts and K3a launches (a replay runs no
-    Python: the kernels count at the capture)."""
+    Python: the kernels count at the capture), and the K1-K3b launches of
+    the trainer's captured step, all and at small planes."""
     from ..kernels import train_block
     from ..train import graphs
 
-    logging.info("graphs %s; K3a launches %d, %s", graphs.counts,
-                 train_block.launches["stage"], train_block.folded)
+    captured = trainer.graph.counted if trainer.graph is not None else {}
+    logging.info("graphs %s; K3a launches %d, %s; captured step %s",
+                 graphs.counts, train_block.launches["stage"],
+                 train_block.folded, captured)
 
 
 def _start_profile(device):

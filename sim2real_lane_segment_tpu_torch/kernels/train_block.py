@@ -43,10 +43,13 @@ Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; a failed build or launch raises.  ``launches`` counts wrapper
 calls that launched a kernel (CUDA tensors only), ``mma_launches`` those
 of them that took the tensor-core route, as the C entry reports it through
-its ``route`` argument.  A wrapper called while a CUDA graph is captured
-counts once, at the capture: a replay runs no Python.  The library sets
-its kernels' shared-memory limits when it loads, so a launch records
-kernels only and can be captured.
+its ``route`` argument, and ``small_plane_launches`` those at a plane
+whose pixels fill under half of its 12x16 tensor-core tiles
+(``small_plane``: 15x20, 7x10 and 3x5 on 120x160 frames).  A wrapper
+called while a CUDA graph is captured counts once, at the capture: a
+replay runs no Python.  The library sets its kernels' shared-memory
+limits when it loads, so a launch records kernels only and can be
+captured.
 """
 from __future__ import annotations
 
@@ -72,12 +75,21 @@ MAX_LAYERS = 16  # layers one stage or final launch may read
 
 
 mma_launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0, "final": 0}
+small_plane_launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0,
+                        "final": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, mma_launches, folded):
+    for counts in (launches, mma_launches, folded, small_plane_launches):
         for k in counts:
             counts[k] = 0
+
+
+def step_launches() -> dict:
+    """Launches so far, all and at small planes (``train.graphs.StepGraph``
+    puts what its capture moved on its ``train.capture`` span)."""
+    return {"launches": sum(launches.values()),
+            "small_plane_launches": sum(small_plane_launches.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +336,12 @@ def mma3_tiles(h: int, w: int) -> int:
     return math.ceil(h / MMA3_TILE_H) * math.ceil(w / MMA3_TILE_W)
 
 
+def small_plane(h: int, w: int) -> bool:
+    """Whether an image's H x W pixels fill under half of the 12x16 tiles
+    that cover them: a launch there leaves most tile positions idle."""
+    return 2 * h * w < mma3_tiles(h, w) * MMA3_TILE_H * MMA3_TILE_W
+
+
 def mma_stage_chunks(c: int) -> tuple[int, int]:
     """(chunks, 16-channel units per chunk) of the own-layer kernel: as few
     chunks of at most 64 channels as cover ``c``, evenly sized."""
@@ -388,6 +406,7 @@ def consumer_fwd(x: torch.Tensor, scale, shift, weight, bias, mask,
     _check(lib, err, "consumer_fwd")
     launches["consumer_fwd"] += 1
     mma_launches["consumer_fwd"] += route.value
+    small_plane_launches["consumer_fwd"] += small_plane(h, w)
     return out
 
 
@@ -437,6 +456,7 @@ def consumer_bwd(x: torch.Tensor, scale, shift, weight, mask, dy):
     _check(lib, err, "consumer_bwd")
     launches["consumer_bwd"] += 1
     mma_launches["consumer_bwd"] += route.value
+    small_plane_launches["consumer_bwd"] += small_plane(h, w)
     return dseg, dscale, dshift, dw, dbias
 
 
@@ -523,6 +543,7 @@ def stage(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     _check(lib, err, "stage")
     launches["stage"] += 1
     mma_launches["stage"] += route.value
+    small_plane_launches["stage"] += small_plane(h, w)
     folded["stage_folded"] += 1
     return gp, dw, dscale, dshift, dbias
 
@@ -555,4 +576,5 @@ def final(x: torch.Tensor, gps: Sequence[torch.Tensor],
     _check(lib, err, "final")
     launches["final"] += 1
     mma_launches["final"] += route.value
+    small_plane_launches["final"] += small_plane(h, w)
     return dseg

@@ -20,7 +20,10 @@ there is no quiet retreat to the eager step.
 captures since ``reset_counts``: a replay runs no Python, so the kernel
 wrappers' launch counters move at the capture only.  ``StepGraph``'s
 construction is one ``train.capture`` span (``core.tracing``), its eager
-warm-up steps one ``train.warmup`` inside it.
+warm-up steps one ``train.warmup`` inside it.  ``StepGraph(body, state,
+counters)`` also reads ``counters()``, a dict of counts that the body's
+launches move, before and after the capture: what the captured step
+moved goes on the span as attributes and into ``counted``.
 """
 from __future__ import annotations
 
@@ -44,11 +47,13 @@ class StepGraph:
     """One captured step: ``replay()`` runs it and returns its logs."""
 
     def __init__(self, body: Callable[[], torch.Tensor],
-                 state: Sequence[torch.Tensor]):
-        with span("train.capture"):
-            self._capture(body, state)
+                 state: Sequence[torch.Tensor],
+                 counters: Callable[[], dict] = dict):
+        with span("train.capture") as s:
+            self._capture(body, state, counters)
+            s.attrs.update(self.counted)
 
-    def _capture(self, body, state) -> None:
+    def _capture(self, body, state, counters) -> None:
         with torch.no_grad():
             saved = [t.detach().clone() for t in state]
         side = torch.cuda.Stream()
@@ -67,6 +72,7 @@ class StepGraph:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
+        before = counters()
         try:
             with torch.cuda.graph(self.graph):
                 self.out = body()
@@ -74,6 +80,7 @@ class StepGraph:
             raise RuntimeError(f"capturing the train step as a CUDA graph "
                                f"failed: {e}") from e
         self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.counted = {k: v - before[k] for k, v in counters().items()}
         counts["captures"] += 1
 
     def replay(self) -> torch.Tensor:

@@ -65,6 +65,7 @@ from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ..core.runtime import resolve_device
 from ..core.tracing import span
 from ..data.device_cache import to_device_index
+from ..kernels import train_block
 from ..models.tiramisu import (FCDenseNet, apply_batch_stats,
                                draw_drop_masks, fcdensenet67, grad_reverse,
                                split_masks)
@@ -336,7 +337,7 @@ class SupervisedTrainer:
             static = _to_static(inputs, self.device)
             self.graph = StepGraph(
                 lambda: self._scan_step(arrays, static_idx, static),
-                self._written())
+                self._written(), train_block.step_launches)
             self._static, self._graph_key = (static_idx, static), key
         static_idx, static = self._static
         with span("train.stage", step=step):

@@ -362,7 +362,9 @@ def test_classifier_rejects_a_buffer_too_wide(cuda):
 # ---------------------------------------------------------------------------
 
 from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb  # noqa: E402
-from torch_sites import DENSE_SITES, DENSE_SITES_57  # noqa: E402
+from torch_sites import (DENSE_SITES, DENSE_SITES_57,  # noqa: E402
+                         DENSE_SITES_103, LATER, LATER_57, LATER_103,
+                         TD_SITES_103)
 
 # (B, H, W, c, g): ragged against the 16x16 tiles and 16-channel groups.
 # The g = 4 case must take the CUDA-core route in both dtypes; the g = 16
@@ -511,17 +513,19 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("model", ["67", "57"])
+@pytest.mark.parametrize("model", ["67", "57", "103"])
 def test_folded_stage_at_every_dense_site(cuda, model, dtype):
     """K3a with the statistics' cotangent folded into its load at every
-    dense-layer site of FCDenseNet67 (55) and FCDenseNet57 (44), B=4, with
-    as many later layers as the site has in its block, against its plain
-    version; and K3b, which runs the same sum kernel with no outside
-    cotangent, bit for bit against K3a's sum of the same later layers from
-    a zero ``dy``, zero ``c0``, ``c1`` and a unit mask."""
-    sites, per_block = ((DENSE_SITES, 5) if model == "67"
-                        else (DENSE_SITES_57, 4))
-    g = 16 if model == "67" else 12
+    dense-layer site of FCDenseNet67 (55), FCDenseNet57 (44) and
+    FCDenseNet103 (91: up to 14 later layers, three rounds of the staged
+    sum), B=4, with as many later layers as the site has in its block,
+    against its plain version; and K3b, which runs the same sum kernel
+    with no outside cotangent, bit for bit against K3a's sum of the same
+    later layers from a zero ``dy``, zero ``c0``, ``c1`` and a unit
+    mask."""
+    sites, later, g = {"67": (DENSE_SITES, LATER, 16),
+                       "57": (DENSE_SITES_57, LATER_57, 12),
+                       "103": (DENSE_SITES_103, LATER_103, 16)}[model]
     b = 4
     gen = torch.Generator().manual_seed(int(model))
 
@@ -530,8 +534,7 @@ def test_folded_stage_at_every_dense_site(cuda, model, dtype):
 
     ktb.reset_launches()
     calls = 0
-    for i, (c, h, w) in enumerate(sites):
-        n_later = per_block - 1 - i % per_block
+    for i, ((c, h, w), n_later) in enumerate(zip(sites, later)):
         buf = r(b, c + g, h, w).to(dtype)
         buf[:, 1] = 0        # z == 0 on a plane (zero shift)
         buf[:, c + 2] = 0    # and on a y channel of the later layers
@@ -617,6 +620,8 @@ TD_CASES = [(2, 15, 20, 40, 24, 0), (3, 7, 10, 88, 60, 8),
             (2, 120, 160, 128, 128, 0), (2, 8, 16, 40, 24, 0),
             (3, 30, 40, 208, 208, 0), (2, 60, 80, 96, 96, 8),
             (2, 30, 40, 656, 656, 0)]
+# and every TransitionDown site of FCDenseNet103 at B=8
+TD_CASES += [(8, h, w, c, c, 0) for c, h, w in TD_SITES_103]
 
 
 def _td_operands(case, device, seed):

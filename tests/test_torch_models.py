@@ -81,19 +81,27 @@ def test_bridge_rejects_incomplete_and_mismatched_trees():
 
 def _ladders():
     """(JAX model, port model, input shape): the helpers.tiny_model() shape
-    at 24x32, and the odd 30x40 three-level ladder (30->15->7->3 and
-    back through 2x+1 transposed convs and floor crops)."""
+    at 24x32, the odd 30x40 three-level ladder (30->15->7->3 and
+    back through 2x+1 transposed convs and floor crops), and blocks of
+    uneven length as FCDenseNet103 has them (2, 3 and 4 layers down, a
+    5-layer bottleneck, 4, 3 and 2 up) at 32x48."""
     kw3 = dict(n_classes=4, down_blocks=(2, 2, 2), up_blocks=(2, 2, 2),
                bottleneck_layers=2, growth_rate=4, out_chans_first_conv=8)
     kw2 = dict(kw3, down_blocks=(2, 2), up_blocks=(2, 2))
+    uneven = dict(kw3, down_blocks=(2, 3, 4), up_blocks=(4, 3, 2),
+                  bottleneck_layers=5)
     return {"tiny24x32": (tiny_model(), FCDenseNet(**kw2, policy=F32_POLICY),
                           (2, 24, 32, 3)),
             "odd30x40": (JaxFCDenseNet(**kw3, policy=JAX_F32),
                          FCDenseNet(**kw3, policy=F32_POLICY),
-                         (2, 30, 40, 3))}
+                         (2, 30, 40, 3)),
+            "uneven32x48": (JaxFCDenseNet(**uneven, policy=JAX_F32),
+                            FCDenseNet(**uneven, policy=F32_POLICY),
+                            (2, 32, 48, 3))}
 
 
-@pytest.fixture(scope="module", params=["tiny24x32", "odd30x40"])
+@pytest.fixture(scope="module",
+                params=["tiny24x32", "odd30x40", "uneven32x48"])
 def ladder(request):
     jax_model, port_model, shape = _ladders()[request.param]
     flat = jax_variables(jax_model, shape, seed=11)
