@@ -25,12 +25,27 @@ fresh run too (``cli.tune``'s trials).  ``step`` given a rate writes it into tha
 (``set_lr``/``set_lrs``), so eager and replayed steps run one arithmetic.
 Dividing by a device tensor is a true division on every device (dividing
 a CUDA tensor by a Python number multiplies by its reciprocal).
+
+``AdamW.step`` issues each of its element-wise operations once over all
+parameters of one device and dtype, as a multi-tensor (``torch._foreach_*``)
+call, in the order of the per-tensor arithmetic; so a step issues the same
+few operations however many parameter tensors the model has.
+``counts["optim_ops"]`` counts the operations ``AdamW.step`` issued since
+``reset_counts``, a multi-tensor call as one (``train.graphs.StepGraph``
+puts what its capture moved on its ``train.capture`` span).
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
 import torch
+
+counts = {"optim_ops": 0}
+
+
+def reset_counts() -> None:
+    for k in counts:
+        counts[k] = 0
 
 
 class AdamW:
@@ -41,12 +56,21 @@ class AdamW:
         device = self.params[0].device if self.params else None
         self.weight_decay = torch.tensor(weight_decay, dtype=torch.float32,
                                          device=device)
-        # the count in float64: 1 - b ** count rounds to float32 once, as
-        # the Python arithmetic it replaces did
+        # the count and both betas in float64: 1 - b ** count rounds to
+        # float32 once, as the Python arithmetic it replaces did, and one
+        # pow gives both bias corrections
         self._count = torch.zeros((), dtype=torch.float64, device=device)
+        self._betas = torch.tensor([b1, b2], dtype=torch.float64,
+                                   device=device)
         self.lr = torch.zeros((), dtype=torch.float32, device=device)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        # the parameters' positions, grouped by device and dtype: one
+        # multi-tensor call an operation a group
+        groups: dict = {}
+        for i, p in enumerate(self.params):
+            groups.setdefault((p.device, p.dtype), []).append(i)
+        self._groups = list(groups.values())
 
     @property
     def count(self) -> int:
@@ -72,14 +96,27 @@ class AdamW:
         if lr is not None:
             self.set_lr(lr)
         self._count.add_(1.0)
-        c1 = (1.0 - torch.pow(self.b1, self._count)).to(torch.float32)
-        c2 = (1.0 - torch.pow(self.b2, self._count)).to(torch.float32)
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            u = u + self.weight_decay * p
-            p.sub_(self.lr * u)
+        c1, c2 = (1.0 - torch.pow(self._betas, self._count)).to(
+            torch.float32).unbind()
+        for idx in self._groups:
+            p, g, mu, nu = ([xs[i] for i in idx] for xs in
+                            (self.params, grads, self.mu, self.nu))
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+            torch._foreach_mul_(nu, self.b2)
+            torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+            # u = (mu / c1) / (sqrt(nu / c2) + eps)
+            u = torch._foreach_div(mu, c1)
+            d = torch._foreach_div(nu, c2)
+            torch._foreach_sqrt_(d)
+            torch._foreach_add_(d, self.eps)
+            torch._foreach_div_(u, d)
+            # u = u + wd * p; p = p - lr * u
+            torch._foreach_add_(u, torch._foreach_mul(p, self.weight_decay))
+            torch._foreach_mul_(u, self.lr)
+            torch._foreach_sub_(p, u)
+        # the count's add, pow, subtraction and cast; 13 calls a group
+        counts["optim_ops"] += 4 + 13 * len(self._groups)
 
     def tensors(self) -> list[torch.Tensor]:
         """Every tensor ``step`` writes besides the parameters."""

@@ -77,6 +77,7 @@ from ..ops.augment import (AugmentConfig, AugmentDraws, augment_batch,
 from ..ops.metrics import accuracy, evaluate_outputs
 from ..parallel import dp
 from ..parallel.sharding import gather_rows, rank_rows, replicate_
+from . import optim
 from .graphs import StepGraph
 from .losses import cross_entropy, weighted_cross_entropy
 from .optim import AdamW
@@ -337,7 +338,7 @@ class SupervisedTrainer:
             static = _to_static(inputs, self.device)
             self.graph = StepGraph(
                 lambda: self._scan_step(arrays, static_idx, static),
-                self._written(), train_block.step_launches)
+                self._written(), _step_counts)
             self._static, self._graph_key = (static_idx, static), key
         static_idx, static = self._static
         with span("train.stage", step=step):
@@ -409,6 +410,13 @@ def model_batch(images, labels, cfg: AugmentConfig,
                              with_labels=labels is not None)
     x = x.permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW, once
     return x, (None if y is None else y.to(torch.int64))
+
+
+def _step_counts() -> dict:
+    """What a step's launches move (``StepGraph`` puts what its capture
+    moved on its span): K1-K3b's launches, all and at small planes, and
+    the optimizers' operations."""
+    return {**train_block.step_launches(), **optim.counts}
 
 
 def _to_static(inputs, device) -> tuple:

@@ -1570,3 +1570,94 @@ def test_env_step_on_the_card_matches_the_cpu(cuda):
         assert (og == oc).mean() >= 0.9995
     torch.testing.assert_close(envs[0].scene.meshes.vertices.cpu(),
                                envs[1].scene.meshes.vertices)
+
+
+# ---------------------------------------------------------------------------
+# AdamW's multi-tensor update: captured, and launches a step
+# ---------------------------------------------------------------------------
+
+from test_torch_optim import LRS, per_tensor_step, shapes  # noqa: E402
+
+from sim2real_lane_segment_tpu_torch.train.optim import AdamW  # noqa: E402
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The most units in the last place between two float32 tensors."""
+    if torch.equal(a, b):
+        return 0
+    ia, ib = (t.view(torch.int32).long() for t in (a, b))
+    # one line of integers across zero: negative floats below positive
+    ia, ib = (torch.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ia, ib))
+    return int((ia - ib).abs().max())
+
+
+@pytest.mark.gpu
+def test_adamw_captured_replays_match_the_per_tensor_loop(cuda):
+    """``AdamW.step`` over FCDenseNet103's 398 parameter tensors captured
+    in a CUDA graph and replayed three times, new gradients copied into
+    its static buffers and a new rate set before each replay: parameters
+    and moments within 1 ulp of the eager per-tensor loop (a compiled
+    multi-tensor kernel may contract a multiply-add otherwise).  Prints
+    whether they were bit-equal."""
+    dims = shapes("103")
+    gen = torch.Generator().manual_seed(0)
+
+    def draw():
+        return [torch.randn(s, generator=gen).to(cuda) for s in dims]
+
+    params = draw()
+    ref = [p.clone() for p in params]
+    mu, nu = ([torch.zeros_like(p) for p in params] for _ in range(2))
+    opt = AdamW(params, 1e-4)
+    static = [torch.zeros_like(p) for p in params]
+    # the kernels loaded before the capture, by a throwaway optimizer
+    AdamW([p.clone() for p in params], 1e-4).step(static, 1e-3)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.step(static)
+    for k, lr in enumerate(LRS):
+        grads = draw()
+        for s, g in zip(static, grads):
+            s.copy_(g)
+        opt.set_lr(lr)
+        graph.replay()
+        per_tensor_step(ref, grads, mu, nu, k + 1, lr, 1e-4)
+    torch.cuda.synchronize()
+    assert opt.count == len(LRS)
+    ulps = {name: max(_ulps(a, b) for a, b in zip(got, want, strict=True))
+            for name, got, want in (("params", params, ref),
+                                    ("mu", opt.mu, mu), ("nu", opt.nu, nu))}
+    print(f"\nAdamW, {len(dims)} tensors, {len(LRS)} replays against the "
+          f"per-tensor loop: most ulps apart {ulps}, bit-equal "
+          f"{not any(ulps.values())}")
+    for got, want in ((params, ref), (opt.mu, mu), (opt.nu, nu)):
+        for a, b in zip(got, want, strict=True):
+            torch.testing.assert_close(a, b, rtol=1.2e-7, atol=0)
+
+
+@pytest.mark.gpu
+def test_adamw_eager_step_launches_few_kernels(cuda):
+    """One eager step over FCDenseNet103's 398 parameter tensors launches
+    at most 200 kernels (the per-tensor loop: 13 a tensor, 5,174): every
+    multi-tensor call took the fast route, which mixed dtypes or devices
+    would leave for a per-tensor loop of its own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dims = shapes("103")
+    gen = torch.Generator().manual_seed(1)
+    params, grads = ([torch.randn(s, generator=gen).to(cuda) for s in dims]
+                     for _ in range(2))
+    opt = AdamW(params, 1e-4)
+    opt.step(grads, 1e-3)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.step(grads)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    print(f"\nAdamW, {len(dims)} tensors: {len(kernels)} kernels a step, "
+          f"{sum('multi_tensor' in k for k in kernels)} multi-tensor")
+    # at least one kernel an operation: the profiler saw the card
+    assert 13 <= len(kernels) <= 200
