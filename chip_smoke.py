@@ -72,14 +72,14 @@ Phases:
    consumer sites, 55 stages, 11 block inputs) in float32 and bfloat16,
    with a channel of every dropout site dropped for the whole batch and
    zero BN shifts, so z == 0 planes occur; every bfloat16 site must take
-   the tensor-core route, no float32 one, and every K3a launch the folded
-   form (the statistics' cotangent as ``c0``, ``c1``);
+   the tensor-core route, no float32 one, and K3a launch once a dense
+   layer, each with the statistics' cotangent as ``c0``, ``c1``;
 6b. K3a's folded load at every dense-layer site of FCDenseNet67 and 57
    (B=8, seeded operands) against plain in float32 and bfloat16, and K3b
    bit-equal to K3a's sum with no outside cotangent (``folded_stage_phase``);
-7. gradients: plain autograd and ``fused_apply_train`` (both backward
-   routes) in float32 against the plain train forward plus autograd in
-   float64, whole model, B=4, with the bfloat16 fused step as a control;
+7. gradients: plain autograd and ``fused_apply_train`` in float32
+   against the plain train forward plus autograd in float64, whole model,
+   B=4, with the bfloat16 fused step as a control;
 8. train: two epochs of ``cli.train.main --pallas_train -b 32`` on a
    synthetic PNG tree written from the seed (96/32/32 frames); checks the
    losses, the launch counts per step, that no plain version ran, serves
@@ -1313,13 +1313,12 @@ def compare_train_kernels(sd, device, dtype_name, card, arch=ARCH,
     expect = {k: v * (dtype_name == "bfloat16") for k, v in per_step.items()}
     print(f"  {dtype_name} sites on the tensor-core route "
           f"{json.dumps(ktb.mma_launches)}, expected {json.dumps(expect)}; "
-          f"K3a with the statistics' cotangent folded in "
-          f"{json.dumps(ktb.folded)}")
+          f"K3a launches {ktb.launches['stage']}")
     check(ktb.mma_launches == expect,
           f"{dtype_name}: tensor-core route taken at {ktb.mma_launches}")
-    check(ktb.folded["stage_folded"] == per_step["stage"],
-          f"{dtype_name}: {ktb.folded} of {per_step['stage']} K3a launches "
-          f"took the folded form")
+    check(ktb.launches["stage"] == per_step["stage"],
+          f"{dtype_name}: {ktb.launches['stage']} of {per_step['stage']} "
+          f"K3a launches")
     check(sites == dict(per_step),
           f"{dtype_name}: compared sites {sites}, expected {per_step}")
     print(f"  {dtype_name} train kernels max|err|: {json.dumps(errs)}  "
@@ -1376,7 +1375,7 @@ def folded_stage_phase(device, card) -> None:
         for dtype in (torch.float32, torch.bfloat16):
             dtype_name = str(dtype).split(".")[-1]
 
-            def rows(w):  # as conv_weight_rows lays them out
+            def rows(w):  # as ktb.weight_rows lays them out
                 if ktb.takes_mma_stage(dtype, w.shape[2]):
                     return pad_growth(w, dtype)
                 return w.to(dtype).contiguous()
@@ -1430,21 +1429,19 @@ def folded_stage_phase(device, card) -> None:
                   f"max|err|/max|ref| {worst:.2e}; K3b bit-equal at "
                   f"{calls - len(sites)} sites; launches "
                   f"{json.dumps(ktb.launches)}, tensor cores "
-                  f"{json.dumps(ktb.mma_launches)}, "
-                  f"{json.dumps(ktb.folded)}  [{card}]")
+                  f"{json.dumps(ktb.mma_launches)}  [{card}]")
             check(ktb.launches["stage"] == calls
-                  and ktb.folded["stage_folded"] == calls
                   and ktb.mma_launches["stage"] == mma,
                   f"{arch} {dtype_name}: K3a launches {ktb.launches}, "
-                  f"{ktb.mma_launches}, {ktb.folded}")
+                  f"{ktb.mma_launches}")
 
 
 def check_model_grads(sd, device, card):
     """Phase 7: whole-model outputs, batch statistics and gradients, B=4,
     against the plain train forward plus autograd in float64.  The float32
-    routes (plain autograd, ``fused_apply_train`` with the fused block sweep
-    and with the per-consumer route) are held to GRAD_RTOL; the bfloat16
-    fused step is the control reading that the limit must stay below."""
+    routes (plain autograd and ``fused_apply_train``) are held to
+    GRAD_RTOL; the bfloat16 fused step is the control reading that the
+    limit must stay below."""
     import torch
 
     from sim2real_lane_segment_tpu_torch.core.dtypes import (DEFAULT_POLICY,
@@ -1463,8 +1460,6 @@ def check_model_grads(sd, device, card):
         "plain autograd": (F32_POLICY, lambda m, mk: m(x, train=True,
                                                        masks=mk)),
         "fused block": (F32_POLICY, lambda m, mk: fused_apply_train(m, x, mk)),
-        "per consumer": (F32_POLICY, lambda m, mk: fused_apply_train(
-            m, x, mk, fused_block_bwd=False)),
         "fused block bf16": (DEFAULT_POLICY, lambda m, mk: fused_apply_train(
             m, x, mk))}
     res = {}
@@ -1511,13 +1506,9 @@ def check_model_grads(sd, device, card):
         check(worst[name] <= GRAD_RTOL, f"{name}: gradient of {rel[-1][1]} "
               f"differs from float64 by {worst[name]} of its scale")
     e_fp = grad_errs(res["fused block"][2], res["plain autograd"][2])[-1]
-    e_routes = grad_errs(res["fused block"][2], res["per consumer"][2])[-1]
     print(f"grads: fused block vs float32 plain autograd, worst {e_fp[0]:.2e} "
-          f"({e_fp[1]}); fused block vs per consumer, worst {e_routes[0]:.2e}"
-          f" ({e_routes[1]}); limit {GRAD_RTOL:.1e}, bf16 control "
+          f"({e_fp[1]}); limit {GRAD_RTOL:.1e}, bf16 control "
           f"{worst['fused block bf16']:.2e}  [{card}]")
-    check(e_routes[0] <= GRAD_RTOL, f"the two backward routes differ: "
-          f"{e_routes}")
     check(worst["fused block bf16"] > GRAD_RTOL, "the gradient limit does "
           "not separate float32 rounding from the bfloat16 control")
 
@@ -2666,7 +2657,7 @@ def cache_equivalence(card, sim_weights):
                     wall = time.perf_counter() - t0
                     runs[cache] = (res["out_dir"], wall, dict(ktb.launches),
                                    dict(ktb.mma_launches),
-                                   dict(graphs.counts), dict(ktb.folded))
+                                   dict(graphs.counts))
             rows = {}
             for cache, (out, *_) in runs.items():
                 with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -2697,7 +2688,7 @@ def cache_equivalence(card, sim_weights):
                   f"{runs[True][1]:.1f} s with it (validation, test and "
                   f"checkpoints included); {counts['replays']} graph "
                   f"replays, {counts['captures']} capture(s), K3a "
-                  f"{json.dumps(runs[True][5])} at capture; logged "
+                  f"{runs[True][2]['stage']} at capture; logged "
                   f"{', '.join(k[6:] for k in keys)} equal: {same_rows}; "
                   f"final state bit-equal: {bit_equal} (max rel err "
                   f"{json.dumps(errs)})  [{card}]")
@@ -2714,9 +2705,6 @@ def cache_equivalence(card, sim_weights):
                   f"{regime}: launches at capture differ")
             check(runs[True][3] == mma_at_capture,
                   f"{regime}: a launch left the tensor-core route")
-            check(runs[True][5]["stage_folded"] == at_capture["stage"],
-                  f"{regime}: a K3a launch at capture took a summed outside "
-                  f"cotangent ({runs[True][5]})")
             check(runs[False][2] == {k: v * steps
                                      for k, v in per_step.items()},
                   f"{regime}: eager launch counts differ")
@@ -5659,7 +5647,8 @@ def fcd103_phase(device, card) -> None:
     (``mma_stage_splits``) otherwise than at B=8 at the four smallest
     planes; (c) the ``--fused`` forward's masks at B=64 against the plain
     module's; (d) one captured ``run_scan_chunk`` step's K1-K3b launches,
-    all and at small planes, on its ``train.capture`` span.  Phase 6b
+    all and at small planes, and its optimizer operations, on its
+    ``train.capture`` span.  Phase 6b
     holds K3a's folded load at its dense-layer sites and phase 3b its
     TransitionDowns."""
     import torch
@@ -5716,8 +5705,10 @@ def fcd103_phase(device, card) -> None:
                                 torch.Generator().manual_seed(SEED), 0)
     loss = logs["tr_loss"].cpu()
     span = [s for s in tracing.spans() if s.name == "train.capture"][-1]
+    # optim_ops: AdamW's multi-tensor update, 4 + 13 for one dtype group
     want = {"launches": sum(TRAIN_PER_STEP_103.values()),
-            "small_plane_launches": SMALL_PLANE_PER_STEP_103}
+            "small_plane_launches": SMALL_PLANE_PER_STEP_103,
+            "optim_ops": 17}
     counted = train.graph.counted
     print(f"fcd103: captured B={b} step: losses {loss.tolist()}, K1-K3b "
           f"launches {json.dumps(counted)} (span "

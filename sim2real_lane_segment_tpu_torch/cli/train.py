@@ -28,9 +28,8 @@ same batches, draws and logged values as without the flag.  A split that
 does not fit on the device, or a step that cannot be captured, raises;
 nothing falls back to host reads or eager steps.  ``--profile`` writes a
 ``torch.profiler`` trace of the run to ``<out_dir>/profile/trace.json``
-and logs the graph's captures and replays beside the K3a launches, those
-with the statistics' cotangent folded in (``stage_folded``) among them,
-and the captured step's K1-K3b launches, all and at small planes.
+and logs the graph's captures and replays beside the K3a launches and
+the captured step's K1-K3b launches, all and at small planes.
 Training runs on the card unless ``main`` is given ``device="cpu"``.
 Artifacts go to ``<default_root_dir or results>/<model_name>``:
 ``metrics.jsonl``, ``checkpoints/best.pt`` (best val_iou),
@@ -185,9 +184,8 @@ def _log_counts(trainer) -> None:
     from ..train import graphs
 
     captured = trainer.graph.counted if trainer.graph is not None else {}
-    logging.info("graphs %s; K3a launches %d, %s; captured step %s",
-                 graphs.counts, train_block.launches["stage"],
-                 train_block.folded, captured)
+    logging.info("graphs %s; K3a launches %d; captured step %s",
+                 graphs.counts, train_block.launches["stage"], captured)
 
 
 def _start_profile(device):

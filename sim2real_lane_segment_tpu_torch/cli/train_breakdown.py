@@ -7,9 +7,8 @@ Counterpart of the JAX package's ``cli/train_breakdown.py``:
 
 Method (the harness of ``cli/serve_breakdown``): one real
 ``fused_apply_train`` forward records every ``Consumer.apply`` call
-through its ``consumer_fn`` hook; under
-the default fused block backward those are the five TransitionDown sites
-(one tap), since the dense layers run inside ``FusedBlock``.  Each
+through its ``consumer_fn`` hook: the five TransitionDown sites (one
+tap), since the dense layers run inside ``FusedBlock``.  Each
 recorded call is re-timed alone, its forward (K1) and a standalone
 vector-Jacobian product of ``sum(out**2)`` with respect to every
 differentiable input (K1 then K2).  Then the full forward, the full

@@ -231,14 +231,19 @@ struct RangeEncoder {
     }
     // Ends the coded bytes; ``with_marker`` first codes a 0 with state 129,
     // which a version-3 decoder reads before the Golomb-Rice bits or at the
-    // end of a range-coded slice.  Returns the byte count.
-    size_t terminate(bool with_marker) {
+    // end of a range-coded slice.  The decoder reads one byte past the last
+    // one written; ``next`` (0-255) is that byte where the caller knows it:
+    // the end is then placed so that the coded bits decode right followed by
+    // it, which a range of at least 0x100 always allows.  Without a marker
+    // to absorb the error, FFmpeg's end (``low + 0xFF``) can misdecode the
+    // last bits when the following byte is large.  Returns the byte count.
+    size_t terminate(bool with_marker, int next = -1) {
         if (with_marker) {
             uint8_t s = 129;
             bit(&s, 0);
         }
         range = 0xFF;
-        low += 0xFF;
+        low += next < 0 ? 0xFF : (next - low) & 0xFF;
         renorm();
         range = 0xFF;
         renorm();
@@ -1144,12 +1149,21 @@ struct Encoder {
             c.symbol(state, 1, false);
         }
         if (f.coder == 0) {
-            if (f.version > 2 || i == 0) c.terminate(f.version > 2);
-            out = std::move(c.out);
-            BitWriter bw(&out);
+            // version 2 ends slice 0's range-coded frame header without a
+            // marker, so its end is placed once the first Golomb-Rice byte
+            // is known
+            const bool header = f.version == 2 && i == 0;
+            if (f.version > 2) c.terminate(true);
+            std::vector<uint8_t> bits;
+            BitWriter bw(header ? &bits : &c.out);
             LineEncoder line{nullptr, &bw, true};
             code_slice_planes<false>(f, s, line, nullptr, src, width, alpha_value);
             bw.flush();
+            if (header) {
+                c.terminate(false, bits[0]);
+                c.out.insert(c.out.end(), bits.begin(), bits.end());
+            }
+            out = std::move(c.out);
         } else {
             LineEncoder line{&c, nullptr, false};
             code_slice_planes<false>(f, s, line, nullptr, src, width, alpha_value);

@@ -21,11 +21,13 @@ tensor cores; float32 and other growth rates (the test-only tiny net's 4)
 on the CUDA cores.  The tensor-core dense layer reads its weight as
 ``[c_j, 9, 16]`` rows of 288 bytes: at growth 12 the folded weight is the
 ``[c_j, 9, 12]`` view of such a buffer whose columns 12-15 are zero
-(``pad_growth``, made once at fold time), and the wrapper refuses any
-other layout there (``mma_layout``).  The classifier stages all channels
-of ``CLS_PIXELS`` pixels in shared memory (``classifier_smem`` bytes a
-block) and reads each feature once.  At small planes the tensor-core dense
-layer splits its channel loop across a cluster of ``dense_splits`` blocks.
+(``pad_growth``, made once at fold time by ``fold_rows``), and the wrapper
+refuses any other layout there (``mma_layout``); the train kernels'
+tensor-core 3x3 routes read the same layout by the same rule.  The
+classifier stages all channels of ``CLS_PIXELS`` pixels in shared memory
+(``classifier_smem`` bytes a block) and reads each feature once.  At
+small planes the tensor-core dense layer splits its channel loop across a
+cluster of ``dense_splits`` blocks.
 The C library chooses the route and the split and reports both with each
 launch; ``takes_mma_dense`` and ``dense_splits`` state its rules for the
 CPU tests.  Each wrapper takes a CPU tensor to its plain version and a CUDA
@@ -86,8 +88,10 @@ def reset_launches() -> None:
 
 
 def takes_mma_dense(dtype: torch.dtype, g: int) -> bool:
-    """Whether ``dense_layer`` takes the tensor-core kernel: the C
-    library's rule, stated for the CPU tests."""
+    """Whether a 3x3 dense layer of growth ``g`` takes the tensor-core
+    kernels, which read its weight in the ``pad_growth`` layout: the C
+    libraries' rule for ``dense_layer`` here and for K1, K3a and K3b
+    (``train_block``), stated once for both and for the CPU tests."""
     return dtype == torch.bfloat16 and g in MMA_GROWTHS
 
 
@@ -113,6 +117,18 @@ def mma_layout(weight: torch.Tensor) -> bool:
     rows ``taps * MMA_WIDTH`` elements apart, a tap ``MMA_WIDTH``."""
     return (weight.dim() == 3 and weight.shape[2] <= MMA_WIDTH
             and weight.stride() == (weight.shape[1] * MMA_WIDTH, MMA_WIDTH, 1))
+
+
+@torch.no_grad()
+def fold_rows(conv_weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A DenseLayer's OIHW 3x3 conv weight [g, c_j, 3, 3] -> the [c_j, 9,
+    g] rows ``dense_layer`` reads (tap = ky*3+kx) in ``dtype``: in the
+    ``pad_growth`` layout where ``takes_mma_dense``, else contiguous."""
+    g, c, kh, kw = conv_weight.shape
+    rows = conv_weight.permute(1, 2, 3, 0).reshape(c, kh * kw, g)
+    if takes_mma_dense(dtype, g):
+        return pad_growth(rows, dtype)
+    return rows.to(dtype).contiguous()
 
 
 def dense_splits(b: int, h: int, w: int, c: int, sms: int) -> int:

@@ -30,15 +30,16 @@ BN ``scale``/``shift`` and ``bias`` f32, dropout ``mask`` f32 ``[B, n]``
 ``relu'(z) = (z > 0) + 0.5 (z == 0)``: the tie rule of ``jnp.maximum``.
 In bfloat16, K1 (3x3 with 12 or 16 outputs, or one tap), K2 with one tap
 (any width) and K3a and K3b with 12 or 16 outputs run on the tensor cores
-(``takes_mma_fwd``, ``takes_mma_bwd``, ``takes_mma_stage``): every site of
+(``takes_mma_fwd``, ``takes_mma_bwd``, ``takes_mma_stage``; at 3x3 the
+serving kernel's rule, ``dense_block.takes_mma_dense``): every site of
 FCDenseNet57, 67 and 103.  Float32 and the other shapes run on the CUDA
 cores.  The tensor-core 3x3 kernels read their weights (K1's ``weight``,
 K3a's ``weight`` and ``w_slices``, K3b's ``w_slices``) in the layout of
 ``dense_block.pad_growth``: [c, 9, g] views of rows padded to 16 columns
-with zeros, which ``models/tiramisu_train_fused.conv_weight_rows`` makes
-in the per-step re-layout; their wrappers refuse any other layout there.
-The plain versions take either layout and read the [c, 9, g] view; K2
-takes contiguous weights.
+with zeros, which ``weight_rows`` makes from the conv weight in the
+per-step re-layout; their wrappers refuse any other layout there.  The
+plain versions take either layout and read the [c, 9, g] view; K2 takes
+contiguous weights.
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel; a failed build or launch raises.  ``launches`` counts wrapper
 calls that launched a kernel (CUDA tensors only), ``mma_launches`` those
@@ -62,13 +63,9 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .dense_block import MMA_WIDTH, mma_layout
+from .dense_block import MMA_WIDTH, mma_layout, pad_growth, takes_mma_dense
 
 launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0, "final": 0}
-# K3a launches that took the folded form (the statistics' cotangent as
-# ``c0``, ``c1``, not summed into the outside cotangent first): every one,
-# since ``stage`` takes no other; counted to show the form in use
-folded = {"stage_folded": 0}
 
 TILE = 16        # the kernels' pixel tile and channel group
 MAX_LAYERS = 16  # layers one stage or final launch may read
@@ -80,7 +77,7 @@ small_plane_launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0,
 
 
 def reset_launches() -> None:
-    for counts in (launches, mma_launches, folded, small_plane_launches):
+    for counts in (launches, mma_launches, small_plane_launches):
         for k in counts:
             counts[k] = 0
 
@@ -310,26 +307,52 @@ def mma_wgrad_splits(c: int, n: int, b: int, h: int, w: int) -> int:
 
 # K1, K3a and K3b in bf16 run on the tensor cores (fwd3x3_mma_kernel,
 # sum_dgrad_mma_kernel, stage_own_mma_kernel in csrc/train_block.cu; K1
-# with one tap through csrc/td_fwd_mma.cuh): 12x16 pixel tiles, growth 12
-# or 16 (FCDenseNet57's; 67's and 103's), own-layer chunks of up to 64
-# channels
+# with one tap through csrc/td_fwd_mma.cuh): 12x16 pixel tiles, at 3x3 the
+# growths of ``takes_mma_dense``, own-layer chunks of up to 64 channels
 MMA3_TILE_H, MMA3_TILE_W, MMA3_CHUNK = 12, 16, 64
-MMA3_GROWTHS = (12, 16)
 MMA_FWD1_MAX_C = 768   # one tap: the x tile must fit in shared memory
 
 
 def takes_mma_fwd(dtype: torch.dtype, taps: int, c: int, n: int) -> bool:
     """Whether ``consumer_fwd`` launches a tensor-core kernel (the C side
     dispatches by the same rule)."""
-    if dtype != torch.bfloat16:
-        return False
-    return n in MMA3_GROWTHS if taps == 9 else c <= MMA_FWD1_MAX_C
+    if taps == 9:
+        return takes_mma_dense(dtype, n)
+    return dtype == torch.bfloat16 and c <= MMA_FWD1_MAX_C
 
 
 def takes_mma_stage(dtype: torch.dtype, g: int) -> bool:
     """Whether ``stage`` and ``final`` launch the tensor-core kernels (the
     C side dispatches by the same rule)."""
-    return dtype == torch.bfloat16 and g in MMA3_GROWTHS
+    return takes_mma_dense(dtype, g)
+
+
+class _PadGrowth(torch.autograd.Function):
+    """``pad_growth(rows, dtype)``, whose backward hands the [c, taps, g]
+    cotangent back cast to the rows' dtype: one launch, as the cast of the
+    copy it replaces (autograd's own would also scatter it into a padded
+    buffer and slice it out again)."""
+
+    @staticmethod
+    def forward(ctx, rows, dtype):
+        ctx.rows_dtype = rows.dtype
+        return pad_growth(rows, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.rows_dtype), None
+
+
+def weight_rows(conv_weight: torch.Tensor, dtype) -> torch.Tensor:
+    """OIHW conv weight [n, c, k, k] -> the [c, taps, n] rows K1, K3a and
+    K3b read, in ``dtype`` and differentiable: at 3x3 where
+    ``takes_mma_dense``, in the padded layout the tensor cores read
+    (``pad_growth``; growth 16 is contiguous already), else contiguous."""
+    o, c, kh, kw = conv_weight.shape
+    rows = conv_weight.permute(1, 2, 3, 0).reshape(c, kh * kw, o)
+    if kh * kw == 9 and o < MMA_WIDTH and takes_mma_dense(dtype, o):
+        return _PadGrowth.apply(rows, dtype)
+    return rows.to(dtype).contiguous()
 
 
 def mma3_tiles(h: int, w: int) -> int:
@@ -544,7 +567,6 @@ def stage(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     launches["stage"] += 1
     mma_launches["stage"] += route.value
     small_plane_launches["stage"] += small_plane(h, w)
-    folded["stage_folded"] += 1
     return gp, dw, dscale, dshift, dbias
 
 

@@ -8,23 +8,24 @@ and ReLU.  Every consumer layer (a DenseLayer's BN -> ReLU -> 3x3 conv ->
 kernel over the virtual concat of its input segments:
 
 - ``Consumer``: one layer as an autograd Function, K1 forward and K2
-  backward.  TransitionDown always takes it; with
-  ``fused_block_bwd=False`` every DenseLayer does too.
+  backward: each TransitionDown.
 - ``FusedBlock``: a whole dense block as one autograd Function.  The
   forward runs K1 per layer into one feature buffer ``[B, c_in + n*g, H,
   W]`` (layer j reads channels [0, c_j) and writes [c_j, c_j + g)); the
   backward is the fused reverse sweep: K3a per layer (each stage rebuilds
   its dy_j from the later layers' stored g_pre), then K3b for the block
-  input.
+  input.  It is the one route by which a dense block trains.
 
-The BatchNorm statistics stay differentiable glue outside the kernels, as
-in JAX: batch statistics (``tiramisu.batch_stats``, over the global
-batch in a data-parallel step), the fold to a per-channel affine
-(``fold_affine``) and their gradients are PyTorch autograd.  Inside
-``FusedBlock.backward`` the fold's vector-Jacobian product comes from
-``torch.autograd.grad``; the statistics' is a per-channel affine map of
-each layer's output (``tiramisu.stats_cotangent``), which K3a adds to the
-layer's outside cotangent as it loads it.  Dropout masks are operands
+The kernels' weight rows come from ``kernels.train_block.weight_rows``,
+which decides their layout.  The BatchNorm statistics stay differentiable
+glue outside the kernels, as in JAX: batch statistics
+(``tiramisu.batch_stats``, over the global batch in a data-parallel step),
+the fold to a per-channel affine (``fold_affine``) and their gradients are
+PyTorch autograd.  Inside ``FusedBlock.backward`` the fold's
+vector-Jacobian product comes from ``torch.autograd.grad``; the
+statistics' is a per-channel affine map of each layer's output
+(``tiramisu.stats_cotangent``), which K3a adds to the layer's outside
+cotangent as it loads it.  Dropout masks are operands
 (``tiramisu.drop_masks``).
 Other glue stays plain PyTorch, as XLA ran it outside the Pallas kernels:
 the first conv, the 2x2 max-pool (``tiramisu.max_pool2``), the
@@ -36,7 +37,6 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import train_block as ktb
-from ..kernels.dense_block import MMA_WIDTH, pad_growth
 from ..parallel import dp
 from .tiramisu import (EPS, DenseBlock, FCDenseNet, batch_moments,
                        batch_stats, dropout_sites, grad_reverse, max_pool2,
@@ -51,35 +51,6 @@ def fold_affine(gamma, beta, mu, var) -> tuple[torch.Tensor, torch.Tensor]:
     """BatchNorm with batch statistics as a per-channel f32 affine."""
     scale = gamma * torch.rsqrt(var + EPS)
     return scale, beta - mu * scale
-
-
-class _PadGrowth(torch.autograd.Function):
-    """``pad_growth(rows, dtype)``, whose backward hands the [c, taps, g]
-    cotangent back cast to the rows' dtype: one launch, as the cast of the
-    copy it replaces (autograd's own would also scatter it into a padded
-    buffer and slice it out again)."""
-
-    @staticmethod
-    def forward(ctx, rows, dtype):
-        ctx.rows_dtype = rows.dtype
-        return pad_growth(rows, dtype)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad.to(ctx.rows_dtype), None
-
-
-def conv_weight_rows(conv: torch.nn.Conv2d, dtype) -> torch.Tensor:
-    """OIHW conv weight -> the kernels' [c_in, taps, c_out] in ``dtype``:
-    contiguous, or where the consumer takes a tensor-core 3x3 kernel
-    (``ktb.takes_mma_fwd``) in the padded layout those read
-    (``pad_growth``; growth 16 is contiguous already)."""
-    w = conv.weight
-    o, c, kh, kw = w.shape
-    rows = w.permute(1, 2, 3, 0).reshape(c, kh * kw, o)
-    if kh * kw == 9 and o < MMA_WIDTH and ktb.takes_mma_fwd(dtype, 9, c, o):
-        return _PadGrowth.apply(rows, dtype)
-    return rows.to(dtype).contiguous()
 
 
 def head(model: FCDenseNet, feats: torch.Tensor,
@@ -97,12 +68,13 @@ def head(model: FCDenseNet, feats: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# one consumer: K1 forward, K2 backward
+# one consumer (a TransitionDown): K1 forward, K2 backward
 # ---------------------------------------------------------------------------
 
 class Consumer(torch.autograd.Function):
     """``T((conv(T(relu(x*scale + shift)), W) + bias) * mask)`` over all
-    channels of ``x``; ``weight`` is [c, taps, n] in ``x``'s dtype."""
+    channels of ``x``; ``weight`` is [c, taps, n] in ``x``'s dtype,
+    contiguous."""
 
     @staticmethod
     def forward(ctx, x, scale, shift, weight, bias, mask):
@@ -112,9 +84,8 @@ class Consumer(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale, shift, weight, mask = ctx.saved_tensors
-        # K2's 3x3 kernels read contiguous rows, not the padded layout
         dseg, dscale, dshift, dw, dbias = ktb.consumer_bwd(
-            x, scale, shift, weight.contiguous(), mask, dy.contiguous())
+            x, scale, shift, weight, mask, dy.contiguous())
         return dseg, dscale, dshift, dw.to(weight.dtype), dbias, None
 
 
@@ -253,12 +224,7 @@ class FusedBlock(torch.autograd.Function):
 # the model
 # ---------------------------------------------------------------------------
 
-def _cat(ts):
-    return ts[0] if len(ts) == 1 else torch.cat(ts, dim=1)
-
-
-def _block_train(block: DenseBlock, segs, stats, masks, updates, prefix,
-                 fused_block_bwd, consumer_fn):
+def _block_train(block: DenseBlock, segs, stats, masks, updates, prefix):
     """A train-mode dense block over the segments ``segs`` with per-segment
     batch ``stats``.  Returns (concat, its (mu, var), new features, their
     (mu, var))."""
@@ -270,30 +236,13 @@ def _block_train(block: DenseBlock, segs, stats, masks, updates, prefix,
     var_in = torch.cat([s[1] for s in stats])
     c_in = mu_in.shape[0]
     g = layers[0].Conv_0.out_channels
-    weights = [conv_weight_rows(lay.Conv_0, dtype) for lay in layers]
-    if fused_block_bwd:
-        buf, mu_new, var_new = FusedBlock.apply(
-            len(segs), n, *segs, mu_in, var_in,
-            *[lay.BatchNorm_0.weight for lay in layers],
-            *[lay.BatchNorm_0.bias for lay in layers], *weights,
-            *[lay.Conv_0.bias for lay in layers], *lmasks)
-        mu_all, var_all = torch.cat([mu_in, mu_new]), torch.cat([var_in,
-                                                                 var_new])
-    else:
-        cur = list(segs)
-        mus, vars_ = [mu_in], [var_in]
-        for j, lay in enumerate(layers):
-            scale, shift = fold_affine(lay.BatchNorm_0.weight,
-                                       lay.BatchNorm_0.bias, torch.cat(mus),
-                                       torch.cat(vars_))
-            y = consumer_fn(_cat(cur), scale, shift, weights[j],
-                            lay.Conv_0.bias, lmasks[j])
-            cur.append(y)
-            mu, var = batch_stats(y)
-            mus.append(mu)
-            vars_.append(var)
-        buf = torch.cat(cur, dim=1)
-        mu_all, var_all = torch.cat(mus), torch.cat(vars_)
+    weights = [ktb.weight_rows(lay.Conv_0.weight, dtype) for lay in layers]
+    buf, mu_new, var_new = FusedBlock.apply(
+        len(segs), n, *segs, mu_in, var_in,
+        *[lay.BatchNorm_0.weight for lay in layers],
+        *[lay.BatchNorm_0.bias for lay in layers], *weights,
+        *[lay.Conv_0.bias for lay in layers], *lmasks)
+    mu_all, var_all = torch.cat([mu_in, mu_new]), torch.cat([var_in, var_new])
     for j, lay in enumerate(layers):
         c_j = c_in + j * g
         updates[f"{prefix}.DenseLayer_{j}.BatchNorm_0"] = running_update(
@@ -304,7 +253,6 @@ def _block_train(block: DenseBlock, segs, stats, masks, updates, prefix,
 
 def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
                       use_softmax: bool = True,
-                      fused_block_bwd: bool = True,
                       reverse_features: bool = False,
                       consumer_fn=Consumer.apply):
     """Train-mode forward of an ``FCDenseNet`` through the fused consumer
@@ -312,14 +260,13 @@ def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
 
     x: (N, 3, H, W) float32.  ``masks``: the Dropout2d masks in site order
     (``tiramisu.drop_masks``; None: no dropout).  Returns ``(output,
-    new_batch_stats)`` like ``model(x, train=True, masks=masks)``.
-    ``fused_block_bwd=False`` runs every dense layer as its own
-    ``Consumer`` (K2 backward) instead of the fused block sweep.
-    ``reverse_features`` puts MME's ``grad_reverse`` on the features that
-    enter the head: the JAX path reverses each segment of that concat,
-    which is the same.  ``consumer_fn`` runs each ``Consumer`` site (a
-    TransitionDown, and each dense layer without ``fused_block_bwd``), as
-    ``Consumer.apply`` does; ``cli/train_breakdown`` records them so.
+    new_batch_stats)`` like ``model(x, train=True, masks=masks)``.  Each
+    dense block runs as one ``FusedBlock``.  ``reverse_features`` puts
+    MME's ``grad_reverse`` on the features that enter the head: the JAX
+    path reverses each segment of that concat, which is the same.
+    ``consumer_fn`` runs each ``Consumer`` site, which is a TransitionDown
+    and nothing else, as ``Consumer.apply`` does; ``cli/train_breakdown``
+    records them so.
     """
     if model.kernel_size != 1:
         raise NotImplementedError("the fused train head takes a 1x1 "
@@ -340,8 +287,7 @@ def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
 
     def block(name, segs, stats):
         return _block_train(getattr(fe, name), segs, stats, masks, updates,
-                            f"featureExtractor.{name}", fused_block_bwd,
-                            consumer_fn)
+                            f"featureExtractor.{name}")
 
     skips = []
     for i in range(len(model.down_blocks)):
@@ -352,7 +298,8 @@ def fused_apply_train(model: FCDenseNet, x: torch.Tensor, masks=None, *,
         scale, shift = fold_affine(bn.weight, bn.bias, *cat_st)
         updates[f"featureExtractor.transDown{i}.BatchNorm_0"] = \
             running_update(bn, *cat_st)
-        t = consumer_fn(cat, scale, shift, conv_weight_rows(td.Conv_0, dtype),
+        t = consumer_fn(cat, scale, shift,
+                        ktb.weight_rows(td.Conv_0.weight, dtype),
                         td.Conv_0.bias, next(masks))
         t = max_pool2(t)
         segs, stats = [t], [batch_stats(t)]

@@ -6,7 +6,9 @@ K3a and K3b over the bottleneck's 15 layers against autograd; and the
 small-plane rule at FCDenseNet67's and 103's layouts.  Imports neither
 JAX nor the JAX package."""
 import importlib
+import itertools
 import os
+from collections import deque
 
 import numpy as np
 import pytest
@@ -239,11 +241,16 @@ def test_step_graph_counts_the_capture_alone(monkeypatch):
             if s.name == "train.capture"][-1].attrs == {}
 
 
-def test_the_small_plane_metric_reads_the_capture_span():
+def test_the_small_plane_metric_reads_the_capture_span(monkeypatch):
     """``ktrain.small_plane_launches`` reads the attribute of the last
     ``train.capture`` span before the window, and nothing where the span
     lacks it (a program without the counter)."""
     tracing = importlib.import_module(f"{harness.PORT}.core.tracing")
+    # a ring of its own: spans that earlier tests of this process closed
+    # may have overflowed the shared one, and nothing is read from a
+    # ring that dropped spans
+    monkeypatch.setattr(tracing, "_ring", deque(maxlen=tracing.RING))
+    monkeypatch.setattr(tracing, "_closed", itertools.count(1))
     metric = harness.reader("ktrain.small_plane_launches")
     with tracing.span("train.capture", launches=203,
                       small_plane_launches=127):

@@ -5,10 +5,13 @@
   rows whose columns 12-15 are zero) through the plain versions of K4,
   K1, K3a and K3b equals the unpadded weights exactly, dW included
   (float32: the same products in the same order).
-- Where the layout copies make it: ``fold_block_params`` once at fold
-  time, ``conv_weight_rows`` in the per-step re-layout, whose backward
-  hands the unpadded cotangent back; a bf16 FCDenseNet57 step on padded
-  weights equals one on contiguous weights bit for bit.
+- Where the layout copies make it, both in ``kernels/``:
+  ``kernels.dense_block.fold_rows`` once at fold time
+  (``fold_block_params``), ``kernels.train_block.weight_rows`` in the
+  per-step re-layout, whose backward hands the unpadded cotangent back; a
+  bf16 FCDenseNet57 step on padded weights equals one on contiguous
+  weights bit for bit; no module under ``models/`` names the layout or the
+  rule that picks it.
 - FCDenseNet57 itself against the JAX package, F32 policy, weights carried
   across, on 32x32 frames (its five pools): the fused forward
   (``fused_apply``) against the Flax forward, and the ``--pallas_train``
@@ -19,6 +22,9 @@
   from its own generator; the masks' own gates are in
   ``test_torch_train_model.py``.
 """
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,17 +127,21 @@ def test_padded_weights_through_the_plain_versions_are_exact():
 # ---------------------------------------------------------------------------
 
 def test_fold_pads_where_the_tensor_cores_read():
-    """``fold_block_params``: FCDenseNet57's bf16 layers in the padded
-    layout, its float32 ones (the CUDA-core parity control) contiguous;
-    the values are the conv's either way."""
+    """``fold_rows``, which ``fold_block_params`` folds with: FCDenseNet57's
+    bf16 layers in the padded layout, its float32 ones (the CUDA-core
+    parity control) contiguous; the values are the conv's either way."""
     block = fcdensenet57(4).featureExtractor.denseDown0
     for dtype, padded in ((torch.bfloat16, True), (torch.float32, False)):
         for lay, mod in zip(fold_block_params(block, dtype), block.layers()):
             w = mod.Conv_0.weight.detach()
             ref = w.permute(1, 2, 3, 0).reshape(w.shape[1], 9, 12)
+            rows = kdb.fold_rows(mod.Conv_0.weight, dtype)
+            assert not rows.requires_grad
+            assert torch.equal(rows, ref.to(dtype))
+            assert rows.stride() == lay.weight.stride()
             assert torch.equal(lay.weight, ref.to(dtype))
-            assert kdb.mma_layout(lay.weight) is padded
-            assert lay.weight.is_contiguous() is not padded
+            assert kdb.mma_layout(rows) is padded
+            assert rows.is_contiguous() is not padded
 
 
 @pytest.mark.parametrize("dtype,growth,padded", [
@@ -142,7 +152,7 @@ def test_conv_weight_rows_layout_and_gradient(dtype, growth, padded):
     tensor cores with growth 12 (16 is padded by nature), and its
     gradient reaches the OIHW weight as the contiguous layout's does."""
     conv = torch.nn.Conv2d(36, growth, 3, padding=1)
-    rows = tf.conv_weight_rows(conv, dtype)
+    rows = ktb.weight_rows(conv.weight, dtype)
     assert rows.shape == (36, 9, growth) and rows.dtype == dtype
     assert (not rows.is_contiguous()) is padded
     assert kdb.mma_layout(rows) is (dtype == torch.bfloat16
@@ -170,20 +180,34 @@ def test_bf16_57_step_on_padded_weights_equals_contiguous(monkeypatch):
         return out.detach(), [p.grad.clone() for p in model.parameters()]
 
     calls = []
-    real = tf._PadGrowth.apply
+    real = ktb._PadGrowth.apply
 
     def counting(*a):
         calls.append(a[0].shape)
         return real(*a)
 
-    monkeypatch.setattr(tf._PadGrowth, "apply", counting)
+    monkeypatch.setattr(ktb._PadGrowth, "apply", counting)
     out_p, grads_p = run()
     assert len(calls) == 44 and {s[2] for s in calls} == {12}
-    monkeypatch.setattr(tf._PadGrowth, "apply",
+    monkeypatch.setattr(ktb._PadGrowth, "apply",
                         lambda rows, dtype: rows.to(dtype).contiguous())
     out_c, grads_c = run()
     assert torch.equal(out_p, out_c)
     assert all(torch.equal(a, b) for a, b in zip(grads_p, grads_c))
+
+
+def test_models_leave_the_layout_to_the_kernels():
+    """The tensor-core weight layout and the rule that picks it are
+    ``kernels/``'s: no module under ``models/`` names ``pad_growth``,
+    ``mma_layout``, ``MMA_WIDTH``, the growths or a ``takes_mma_*`` rule;
+    they take their rows from ``fold_rows`` and ``weight_rows``."""
+    names = re.compile(r"pad_growth|mma_layout|MMA_WIDTH|MMA\d*_GROWTHS|"
+                       r"takes_mma_")
+    models = pathlib.Path(tf.__file__).parent
+    found = {p.name: names.findall(p.read_text())
+             for p in sorted(models.glob("*.py"))}
+    assert len(found) > 1
+    assert not {k: v for k, v in found.items() if v}
 
 
 # ---------------------------------------------------------------------------

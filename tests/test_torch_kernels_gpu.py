@@ -410,7 +410,7 @@ def _train_operands(case, dtype, device, seed, taps=9, n=None):
     shift[1] = 0
     weight = r(c, taps, n, s=0.3).to(dtype)
     if taps == 9 and n < 16 and ktb.takes_mma_fwd(dtype, taps, c, n):
-        weight = kdb.pad_growth(weight)  # as conv_weight_rows lays it out
+        weight = kdb.pad_growth(weight)  # as ktb.weight_rows lays it out
     bias = r(n, s=0.1)
     mask = ((torch.rand(b, n, generator=gen) > 0.3).float() / 0.8).to(device)
     mask[:, 0] = 0                   # dropped for the whole batch
@@ -443,7 +443,7 @@ def test_consumer_kernels_match_plain(cuda, case, taps, dtype):
     dy = torch.randn(b, n, h, w, device=cuda).to(dtype)
     ktb.reset_launches()
     y = ktb.consumer_fwd(x, scale, shift, weight, bias, mask)
-    # K2's 3x3 kernels take contiguous rows (Consumer.backward's copy)
+    # K2's 3x3 kernels take contiguous rows
     outs = ktb.consumer_bwd(x, scale, shift, weight.contiguous(), mask, dy)
     torch.cuda.synchronize()
     assert ktb.launches["consumer_fwd"] == 1
@@ -488,7 +488,7 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
     torch.cuda.synchronize()
     assert ktb.mma_launches["stage"] == int(dtype == torch.bfloat16
                                             and g in (12, 16))
-    assert ktb.folded == {"stage_folded": 1}
+    assert ktb.launches["stage"] == 1
     _close_all(outs, ktb.stage_plain(*args), dtype, "K3a")
     again = ktb.stage(*args)  # fixed-order sums: the same bits
     torch.cuda.synchronize()
@@ -569,7 +569,7 @@ def test_folded_stage_at_every_dense_site(cuda, model, dtype):
             assert torch.equal(k3a, ktb.final(y, gps, wls, scs, shs)), i
             calls += 1
     torch.cuda.synchronize()
-    assert ktb.launches["stage"] == ktb.folded["stage_folded"] == calls
+    assert ktb.launches["stage"] == calls
     assert ktb.mma_launches["stage"] == calls * (dtype == torch.bfloat16)
 
 
@@ -1130,13 +1130,12 @@ def _check_graphed_vs_eager(cuda, regime, graphed, eager):
         2), 1)
     assert graphs.counts == {"captures": 1, "replays": 3}
     # the kernels launch at the capture only (its warm-up steps and the
-    # captured one): one K3a a dense layer a pass, each with the
-    # statistics' cotangent folded in
+    # captured one): one K3a a dense layer a pass
     dense = sum(isinstance(m, DenseLayer) for m in graphed.model.modules())
     passes = 2 if regime == "mme" else 1
     k3a = (dense * passes * (graphs.WARMUP_STEPS + 1)
            if graphed.pallas_train else 0)
-    assert ktb.launches["stage"] == ktb.folded["stage_folded"] == k3a
+    assert ktb.launches["stage"] == k3a
     gen = torch.Generator().manual_seed(2)
     ref = []
     for row in idx:

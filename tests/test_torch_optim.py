@@ -6,6 +6,8 @@ reset and round trip; and the benchmark's ``train.optim_ops`` reader.
 Imports neither JAX nor the JAX package, so the card's tests reuse the
 reference."""
 import importlib
+import itertools
+from collections import deque
 
 import pytest
 import torch
@@ -167,11 +169,16 @@ def test_reset_and_state_dict_round_trip():
     assert_bit_equal(opt.tensors(), fresh.tensors())
 
 
-def test_the_optim_ops_metric_reads_the_capture_span():
+def test_the_optim_ops_metric_reads_the_capture_span(monkeypatch):
     """``train.optim_ops`` reads the attribute of the last
     ``train.capture`` span before the window, and nothing where the span
     lacks it (a program without the counter)."""
     tracing = importlib.import_module(f"{harness.PORT}.core.tracing")
+    # a ring of its own: spans that earlier tests of this process closed
+    # may have overflowed the shared one, and nothing is read from a
+    # ring that dropped spans
+    monkeypatch.setattr(tracing, "_ring", deque(maxlen=tracing.RING))
+    monkeypatch.setattr(tracing, "_closed", itertools.count(1))
     metric = harness.reader("train.optim_ops")
     with tracing.span("train.capture", launches=203, optim_ops=17):
         pass

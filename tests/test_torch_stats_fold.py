@@ -14,8 +14,8 @@ of ``kernels.train_block.stage``.
   rank half the batch, in its own process, torchrun's environment)
   against one process's, growth 12 and 16;
 - every ``stage`` call of a fused train step takes the folded form, and
-  the CPU wrappers count no launch (``stage_folded`` counts launches on
-  a card only).
+  the CPU wrappers count no launch (``launches["stage"]`` counts launches
+  on a card only).
 """
 import os
 import subprocess
@@ -254,7 +254,7 @@ def test_every_stage_of_a_fused_step_takes_the_folded_form(policy):
     """One ``stage`` call per dense layer, each with ``c0`` and ``c1`` and
     the block cotangent's own channels in y's dtype (no f32 sum is made
     first); on the CPU the plain versions run, so no launch is counted,
-    ``stage_folded`` included."""
+    ``launches["stage"]`` included."""
     model = FCDenseNet(n_classes=4, down_blocks=(2, 2), up_blocks=(2, 2),
                        bottleneck_layers=2, growth_rate=12,
                        out_chans_first_conv=8, policy=policy)
@@ -276,5 +276,5 @@ def test_every_stage_of_a_fused_step_takes_the_folded_form(policy):
         assert dy.shape == y.shape and dy._base is not None  # a slice
         assert c0.dtype == c1.dtype == torch.float32
         assert c0.shape == c1.shape == (y.shape[1],)
-    assert ktb.folded == {"stage_folded": 0}
+    assert ktb.launches["stage"] == 0
     assert not any(ktb.launches.values())

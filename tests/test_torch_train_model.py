@@ -2,7 +2,8 @@
 
 - ``Consumer`` and ``FusedBlock`` gradients against ``jax.vjp`` of the JAX
   custom-VJP primitives ``_consumer`` and ``_fused_block`` (interpret mode).
-- ``fused_apply_train`` (both backward routes) and the plain train forward
+- ``fused_apply_train`` (one ``FusedBlock`` per dense block) and the plain
+  train forward
   ``model(x, train=True)`` against ``pallas_apply_train(interpret=True)``
   and ``fast_apply_train``, with the JAX path's own dropout masks: outputs,
   new batch statistics and every parameter gradient, at atol 5e-4 and rtol
@@ -210,8 +211,6 @@ FORWARDS = {
                                    use_softmax=False),
     "fused": lambda m, x, masks: fused_apply_train(m, x, masks,
                                                    use_softmax=False),
-    "per_consumer": lambda m, x, masks: fused_apply_train(
-        m, x, masks, use_softmax=False, fused_block_bwd=False),
 }
 
 

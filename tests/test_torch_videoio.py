@@ -29,7 +29,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
-from hypothesis import HealthCheck, given, settings
+from hypothesis import HealthCheck, example, given, settings
 from hypothesis import strategies as st
 
 from sim2real_lane_segment_tpu.data import videoio as jvideo
@@ -205,6 +205,10 @@ def test_ffv1_variants_read_by_cv2_and_port(tmp_path, variant, color):
        color=st.booleans(), coder=st.sampled_from([0, 1, 2]),
        version=st.sampled_from([2, 3]), nh=st.integers(1, 4),
        nv=st.integers(1, 4), flat=st.floats(0, 1), seed=st.integers(0, 999))
+# a version-2 Golomb-Rice frame whose first slice's data starts with a byte
+# that FFmpeg's end of the range-coded frame header does not decode right
+@example(h=4, w=4, n=1, color=False, coder=0, version=2, nh=1, nv=3, flat=0.0,
+         seed=1)
 def test_random_frames_round_trip(tmp_path, h, w, n, color, coder, version,
                                   nh, nv, flat, seed):
     """Random frames, partly flat (runs) and partly noise, at random sizes,
