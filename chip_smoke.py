@@ -93,7 +93,10 @@ Phases:
    (``_held_ms``: CUDA events around calls queued behind a spin kernel)
    on a line of its own with its plane, C, N, cuDNN's time on the same
    operands, its bound and bytes, and the kernels line's entry lists the
-   sites; fails if K3a or K1 exceeds MAX_STEP_MS;
+   sites; K3a's own-layer kernel (``stage_own_ring_kernel``) is timed
+   alone over the step's K3a calls by torch.profiler (``own_layer_ms``;
+   phase 25 does the same at growth 12); fails if K3a or K1 exceeds
+   MAX_STEP_MS;
 10. K6 against plain: the student's int8 body at full width, B=8 and
     B=64 (more (image, tile) items than persistent blocks), calibrated as
     ``cli.serve --int8`` does; every conv site's int8 codes equal, logits
@@ -394,7 +397,7 @@ MIN_PAINTED_SHARE = 0.01
 # dense-layer kernels have one instance per growth (12: FCDenseNet57; 16:
 # 67 and 103).
 GROWTH_KERNELS = ("dense3x3_mma_kernel", "fwd3x3_mma_kernel",
-                  "sum_dgrad_mma_kernel", "stage_own_mma_kernel",
+                  "sum_dgrad_mma_kernel", "stage_own_ring_kernel",
                   "dense3x3_no_taps_kernel", "dense3x3_no_prep_kernel")
 MMA_KERNELS = (("td_fwd_kernel", "td_fwd_tma_kernel", "bwd1x1_dgrad_mma_kernel",
                 "bwd1x1_wgrad_mma_kernel", "bwd1x1_dgrad_tma_kernel",
@@ -969,6 +972,34 @@ def _device_rows(fn, reps=1) -> list:
              / 1e3)
             for e in prof.key_averages()
             if e.device_type != torch.autograd.DeviceType.CPU]
+
+
+OWN_LAYER_KERNEL = "stage_own_ring_kernel"
+
+
+def own_layer_ms(stage, stage_calls, reps=5) -> tuple:
+    """K3a's own-layer kernel alone: (device ms, launches) per pass over
+    ``stage_calls`` ([(args, kwargs)] of one step's K3a calls through
+    ``stage``), by torch.profiler over ``reps`` passes.  Its launches run
+    one at a time on the stream, so their device times add up to its time
+    alone at the step's shapes.  The profiler's trace may lack a launch
+    now and then: the launches a pass are the nearest whole number, and
+    the time is the mean launch's over the launches seen, times those.
+    The rows are matched by the prefix ``stage_own``, so that
+    ``scripts/torch_growth_timing.py --root`` times an older tree's
+    own-layer kernel too."""
+    import torch
+
+    def run():
+        with torch.no_grad():
+            for a, kw in stage_calls:
+                stage(*a, **kw)
+    rows = [(n, ms) for k, n, ms in _device_rows(run, reps)
+            if "stage_own" in k]
+    seen = sum(n for n, _ in rows)
+    launches = round(seen / reps)
+    return (sum(ms for _, ms in rows) / seen * launches if seen else 0.0,
+            launches)
 
 
 def port_kernel_names() -> set:
@@ -1835,6 +1866,14 @@ def train_timing(sd, device, card, launches, errs):
                     cell[0] += 1
                     cell[1] += ms
                     cell[2] += lib_ms
+    own_ms, own_n = own_layer_ms(
+        real["stage"], [(a, kw) for n, a, kw, _ in calls if n == "stage"])
+    e["stage"]["own_layer_ms"] = own_ms
+    print(f"timing: k3a_stage's own-layer kernel ({OWN_LAYER_KERNEL}) alone "
+          f"per B={TRAIN_BATCH} train step: {own_ms:.3f} ms of device time in "
+          f"{own_n} launches (torch.profiler)  [{card}]")
+    check(own_n == TRAIN_LAUNCHES_PER_STEP["stage"],
+          f"{own_n} own-layer launches in one step's K3a calls")
     kernels = []
     for name, d in e.items():
         check(d["calls"] == TRAIN_LAUNCHES_PER_STEP[name],
@@ -1850,6 +1889,8 @@ def train_timing(sd, device, card, launches, errs):
                  "library_ms": d["library_ms"]}
         if "sites" in d:
             entry["sites"] = d["sites"]
+        if "own_layer_ms" in d:
+            entry["own_layer_ms"] = d["own_layer_ms"]
         kernels.append(entry)
         lib = ("n/a" if d["library_ms"] is None
                else f"{d['library_ms']:.3f} ms")
@@ -5453,6 +5494,15 @@ def growth_timing(sd, device, card, arch=ARCH57):
                                    else c["library_ms"] + lib_ms)
                 c["calls"] += c is k1_3x3
     torch.cuda.synchronize()
+    own_ms, own_n = own_layer_ms(
+        real["stage"], [(a, kw) for n, a, kw, _ in calls if n == "stage"])
+    out["stage"]["own_layer_ms"] = own_ms
+    print(f"timing: FCDenseNet{arch} k3a_stage's own-layer kernel "
+          f"({OWN_LAYER_KERNEL}<12>) alone per B={TRAIN_BATCH} train step: "
+          f"{own_ms:.3f} ms of device time in {own_n} launches "
+          f"(torch.profiler)  [{card}]")
+    check(own_n == out["stage"]["calls"],
+          f"FCDenseNet{arch}: {own_n} own-layer launches in one step")
     for name, e in out.items():
         lib = ("n/a" if e["library_ms"] is None
                else f"{e['library_ms']:.3f} ms")
@@ -5612,6 +5662,8 @@ def growth12_phase(device, card) -> list:
                               launches[name], max(errs[name], d["err"]), d))
         if "sites" in d:
             entries[-1]["sites"] = d["sites"]
+        if "own_layer_ms" in d:
+            entries[-1]["own_layer_ms"] = d["own_layer_ms"]
     print(f"growth 12: phase 25 done in {time.perf_counter() - t0:.1f} s  "
           f"[{card}]", flush=True)
     return entries
@@ -5647,8 +5699,9 @@ def fcd103_phase(device, card) -> None:
     (``mma_stage_splits``) otherwise than at B=8 at the four smallest
     planes; (c) the ``--fused`` forward's masks at B=64 against the plain
     module's; (d) one captured ``run_scan_chunk`` step's K1-K3b launches,
-    all and at small planes, and its optimizer operations, on its
-    ``train.capture`` span.  Phase 6b
+    all and at small planes, K3a's own-layer items, all and prefetched
+    (``train_block.stage_item_counts``), and its optimizer operations, on
+    its ``train.capture`` span.  Phase 6b
     holds K3a's folded load at its dense-layer sites and phase 3b its
     TransitionDowns."""
     import torch
@@ -5656,6 +5709,7 @@ def fcd103_phase(device, card) -> None:
     from sim2real_lane_segment_tpu_torch.core import tracing
     from sim2real_lane_segment_tpu_torch.core.dtypes import DEFAULT_POLICY
     from sim2real_lane_segment_tpu_torch.kernels import dense_block as kdb
+    from sim2real_lane_segment_tpu_torch.kernels import train_block as ktb
     from sim2real_lane_segment_tpu_torch.train.supervised import \
         SupervisedTrainer
 
@@ -5706,8 +5760,12 @@ def fcd103_phase(device, card) -> None:
     loss = logs["tr_loss"].cpu()
     span = [s for s in tracing.spans() if s.name == "train.capture"][-1]
     # optim_ops: AdamW's multi-tensor update, 4 + 13 for one dtype group
+    items = [ktb.stage_item_counts(c, b, h, w)
+             for c, _, h, w, _ in dense_sites(ARCH103)]
     want = {"launches": sum(TRAIN_PER_STEP_103.values()),
             "small_plane_launches": SMALL_PLANE_PER_STEP_103,
+            "stage_items": sum(i for i, _ in items),
+            "stage_prefetched": sum(p for _, p in items),
             "optim_ops": 17}
     counted = train.graph.counted
     print(f"fcd103: captured B={b} step: losses {loss.tolist()}, K1-K3b "

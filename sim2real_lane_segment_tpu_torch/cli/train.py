@@ -178,8 +178,9 @@ def main(args=None, device=None) -> dict:
 def _log_counts(trainer) -> None:
     """The process's graph counts and K3a launches (a replay runs no
     Python: the kernels count at the capture), and the K1-K3b launches of
-    the trainer's captured step, all and at small planes, and its
-    optimizers' operations (``optim_ops``)."""
+    the trainer's captured step, all and at small planes, its K3a
+    own-layer items, all and prefetched, and its optimizers' operations
+    (``optim_ops``)."""
     from ..kernels import train_block
     from ..train import graphs
 

@@ -9,9 +9,9 @@
 // the 3x3 dense-layer forward of csrc/dense3x3_mma.cuh (serving's
 // dense3x3_mma_kernel and K1's fwd3x3_mma_kernel), by K2's
 // bwd1x1_{dgrad,wgrad}_{tma,mma}_kernel (wgmma) and by sum_dgrad_mma_kernel
-// and stage_own_mma_kernel (mma.sync) in csrc/train_block.cu.  The TMA,
+// and stage_own_ring_kernel (mma.sync) in csrc/train_block.cu.  The TMA,
 // mbarrier, stmatrix and register-A wgmma helpers serve the *_tma_kernel
-// pipelines.
+// pipelines and the own-layer kernel's ring.
 //
 // Row-major shared-memory tiles for ldmatrix have a row stride (ld) of a
 // multiple of 64 elements plus 8: a row then starts 16 bytes further along
@@ -529,6 +529,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
       : "memory");
 }
 // TMA store of a box from shared memory (read through the async proxy:

@@ -53,7 +53,7 @@
 // bwd1x1_reduce_kernel, noted below.  So do
 // K1, K3a and K3b in bfloat16 with 12 or 16 outputs (every dense layer of
 // FCDenseNet57, 67 and 103): fwd3x3_mma_kernel, sum_dgrad_mma_kernel and
-// stage_own_mma_kernel, templates on the growth G, noted below, and K1 with one tap, through the
+// stage_own_ring_kernel, templates on the growth G, noted below, and K1 with one tap, through the
 // TransitionDown product of td_fwd_mma.cuh.  The kernels above them stay
 // for float32 and for the shapes the tensor-core kernels do not take.
 
@@ -61,6 +61,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstring>
 
 #include "bnrelu_mma.cuh"
 #include "dense3x3_mma.cuh"
@@ -1502,16 +1503,16 @@ cudaError_t bwd1x1_mma(const void* X, ll x_bstride, int B, int C, int H, int W,
 //   dy, c0, c1 and the y_j value already in registers (Outer).  K3b: the block's
 //   c_in input channels in groups of 16 inside the block (weight rows
 //   stream through two cp.async buffers), T(tot) stored.
-// - stage_own_mma_kernel (K3a, own layer): a block owns a chunk of up to 64
-//   input channels and a range of (image, tile) items; the chunk's weights
-//   stay in shared memory.  Per item it stages x once with its halo (raw
-//   and as a = T(relu(BN(x)))) and the G tile, and computes both products
-//   from them: the input cotangent dA[q, k] (same product as above; its
-//   epilogue takes relu'(z) and sums dz x and dz, nothing is stored) and
-//   the weight cotangent dW[k, t, o] += a[q + off_t, k] G[q, o] (pixels
-//   contracted, 16 pixels a step), whose sums stay in registers across
-//   the block's items.  g_pre must be complete before this kernel reads
-//   its halo: that is the launch boundary between the two kernels.
+// - stage_own_ring_kernel (K3a, own layer): a block owns a chunk of up to
+//   64 input channels and a range of (image, tile) items, and computes per
+//   item the input cotangent dA[q, k] (same product as above; its epilogue
+//   takes relu'(z) and sums dz x and dz, nothing is stored) and the weight
+//   cotangent dW[k, t, o] += a[q + off_t, k] G[q, o] (pixels contracted,
+//   16 pixels a step), whose sums stay in registers across the block's
+//   items; the next item's x and G boxes load while the current item's
+//   products run (noted in full with its code below).  g_pre must be
+//   complete before this kernel reads its halo: that is the launch
+//   boundary between the two kernels.
 // - Sums over the batch are per-block partials (one row per split, in item
 //   order) and per-tile partials for dbias, added by stage_reduce_kernel
 //   in a fixed order: deterministic, no atomics; one reduce launch a stage.
@@ -1540,9 +1541,25 @@ int gp_smem(int ns) {  // for ns layers staged at once
 constexpr int OW_KC = 64;                             // channels per own-layer chunk
 constexpr int OW_LD = OW_KC + 8;
 constexpr int OW_SX = mma::C3_HPX * OW_LD;
-constexpr int OW_SW = OW_KC * mma::C3_WLD;
-constexpr int OW_UPW = (OW_KC / 16) * 3 / mma::C3_WARPS;  // (16 channels, ky) units per warp
-constexpr int OW_SMEM = 2 * (2 * OW_SX + GP_SG + OW_SW) + 4 * mma::C3_WARPS * OW_KC * 2;
+constexpr int OR_STAGES = 2;                          // the own-layer kernel's ring
+constexpr int OR_BW = 32;                             // box columns: 64-byte rows
+constexpr int OR_X0 = 8;                              // the box column of image column tx0
+constexpr int OR_BH = mma::C3_TH + 2;                 // box rows: the halo tile's
+constexpr int OR_PLANE = OR_BH * OR_BW;               // one channel of a box
+constexpr int OR_X = OW_KC * OR_PLANE;                // a stage: the x box,
+constexpr int OR_STAGE = OR_X + mma::C3_N * OR_PLANE; // then the G box
+constexpr int OR_WARPS = 8;
+constexpr int OR_THREADS = 32 * OR_WARPS;
+constexpr int OR_ROWS = mma::C3_TH / 2;               // a warp's output rows
+constexpr int OR_SXI = mma::C3_TH * mma::C3_TW * OW_LD;  // x raw, the tile's own pixels
+constexpr int OR_SMEM = 2 * (OR_STAGES * OR_STAGE + OW_SX + GP_SG + OR_SXI) +
+                        4 * (OR_WARPS * 32 + 2 * OW_KC) + 8 * OR_STAGES + 1024;
+static_assert(4 * (OW_KC / 16) * 72 * 32 <= 2 * OR_STAGES * OR_STAGE,
+              "the row halves' dW sums fit the ring");
+static_assert(OR_SMEM <= 232448, "an H100 block's shared memory");
+// how a stage is filled: TMA boxes, 4-byte cp.async of pixel
+// pairs, or plain loads and stores
+enum RingLoad { kRingTma = 0, kRingPairs = 1, kRingPlain = 2 };
 
 // the own-layer kernel's channel chunks: 16-channel units per chunk
 int ow_units(int C) {
@@ -1729,21 +1746,204 @@ sum_dgrad_mma_kernel(const mma::u16* X, ll x_bstride, int C, int H, int W,
   }
 }
 
+// stage_own_ring_kernel: K3a's own layer, bf16, G outputs.
+//
+// What bounds it on an H100: an item (a 12 x 16 tile of one image and a
+// chunk of 64 channels) is 1,728 mma.sync m16n8k16 (dA and dW, 4 x 9 x 16
+// multiply-adds a channel and pixel) on 64 channels of the 14 x 18 halo
+// tile and its 16 G channels.  The halo columns straddle 32-byte sectors,
+// so an item reads three sectors a tile row and channel from L2 (3.5 times
+// its own pixels): at the B=32 120x160 sites the loads alone take about
+// half of the kernel's time, and the conversion of x into the a operand
+// and the products with their epilogue each about as much again.  Loads
+// that a block waits for before its products would add the first to the
+// others.
+//
+// What the design does about it:
+// - A ring of OR_STAGES stages in shared memory, each the raw x box
+//   [channel][14][32] and G box [16][14][32] of one item (box column c at
+//   image column tx0 - 8 + c, row r at ty0 - 1 + r), its arrival tracked by
+//   a "full" mbarrier.  An item's loads are issued while the products of
+//   the item two before it run, once that item's conversion has released
+//   the stage, so they are in flight through the next item's conversion
+//   and products.  The load engine follows the plane: where a plane row is
+//   a multiple of 16 bytes (120x160, 60x80, 30x40) one thread issues two
+//   TMA loads through tensor maps over the NCHW planes, (W, H, C, B) with
+//   x's batch stride (x is a channel slice), elements past the tensor's
+//   ends (the halo outside the image, channels past C or G) zero-filled;
+//   a TMA box must start on a 16-byte column, hence 32 columns from
+//   tx0 - 8.  Elsewhere the block's threads copy the in-image pixel pairs
+//   with 4-byte cp.async (W even: 15x20, 7x10), or with plain loads and
+//   stores (W odd: 3x5), each thread arriving on the stage's barrier.
+// - The block builds the operands from the stage, shared memory to shared
+//   memory: a = T(relu(x scale + shift)) as [halo pixel][channel] (zero
+//   outside the image: the conv pads a, not x), G as [halo pixel][o], and x
+//   itself over the tile's own pixels as [pixel][channel] for the dA
+//   epilogue (conflict-free 4-byte reads of a lane's channel pair, where
+//   the box's 896-byte channel planes put a lane's channels in one bank);
+//   the conversion masks what lies outside the image or past the
+//   channels, so a stage needs no zeros written.
+// - Warp w takes the chunk's channels 16 (w / 2) .. + 15 and output rows 6
+//   (w % 2) .. + 5 of every item.  It holds its weight fragments in
+//   registers for the whole kernel, and reads each G fragment (halo row,
+//   column shift) of the dA product and each a fragment of the dW product
+//   once for up to three taps: 432 ldmatrix.x4 an item for its 1,728
+//   products (1,440 with a read a tap).
+// - Blocks (one an SM, 256 threads, so that a thread may hold 255
+//   registers) walk their item range with the chunk's weights resident.
+//   Its sums are deterministic: per-split partial rows over
+//   the items in order, each channel's dz sums and each dW sum carried in
+//   one lane's registers across the items, the two row halves added in a
+//   fixed order at the end, the splits by stage_reduce_kernel; no atomics,
+//   the same bits on every run.
+
+// Fills a stage without TMA, by the block's threads: channel planes
+// [0, nux) of x (from xsrc, plane stride hw) into the x box and [0, 16) of
+// G (gsrc) into the G box, at the pixel pairs from image column tx0 - 2
+// and the halo rows that lie in the image; a thread keeps one (row, pair)
+// position and walks the channels.  Positions outside the image and
+// channels past nvalid (x) or G are not written: the conversion masks
+// them.  kRingPairs: 4-byte cp.async (W even, pair loads aligned); else
+// plain loads and stores, pixel by pixel.
+__device__ __forceinline__ void ring_fill(mma::u16* box, const mma::u16* xsrc,
+                                          const mma::u16* gsrc, int nux, int nvalid, int G,
+                                          int hw, int H, int W, int ty0, int tx0, int mode) {
+  const int hy0 = max(0, 1 - ty0);
+  const int nh = min(OR_BH, H - ty0 + 1) - hy0;
+  const int p0 = tx0 == 0 ? 1 : 0;  // pair p holds image columns tx0 - 2 + 2p and + 1
+  const int np = min(mma::C3_PAIRS, (W - tx0 + 3) / 2) - p0;
+  const int P = nh * np;
+  const int groups = OR_THREADS / P;
+  if ((int)threadIdx.x >= groups * P) return;
+  const int hy = hy0 + (int)threadIdx.x % P / np;
+  const int p = p0 + (int)threadIdx.x % P % np;
+  const int gx = tx0 - 2 + 2 * p;
+  const ll off = (ll)(ty0 - 1 + hy) * W + gx;
+  mma::u16* d0 = box + hy * OR_BW + OR_X0 - 2 + 2 * p;
+  for (int r = threadIdx.x / P; r < nux + mma::C3_N; r += groups) {
+    const bool isx = r < nux;
+    const int ch = isx ? r : r - nux;
+    if (ch >= (isx ? nvalid : G)) continue;
+    const mma::u16* sp = (isx ? xsrc : gsrc) + (ll)ch * hw + off;
+    mma::u16* d = d0 + (isx ? r : OW_KC + ch) * OR_PLANE;
+    if (mode == kRingPairs) {
+      mma::cp_async4(d, sp, 4);
+    } else {
+      const uint32_t b = gx + 1 < W ? sp[1] : 0u;
+      *reinterpret_cast<uint32_t*>(d) = sp[0] | (b << 16);
+    }
+  }
+}
+
+// Warp w's share of turning a stage's x box into operands: its
+// eight channels 8w .. 8w + 7 of the chunk (w < 2 nu) over the halo tile,
+// two halo rows a round, a lane a pixel pair (image columns tx0 - 2 + 2j
+// and the next: halo columns 2j - 1, 2j; j < C3_PAIRS of 16 slots, so that
+// a round's 4-byte reads of one channel fall in distinct banks).  It
+// writes a = T(relu(x * scale + shift)) to sA ([halo pixel][channel], zero
+// outside the image and for channels >= nvalid) and, for the tile's own
+// pixels, x as it is (zero there too) to sX ([pixel][channel]).
+__device__ __forceinline__ void ring_x_to_px(mma::u16* sA, mma::u16* sX, const mma::u16* box,
+                                             int H, int W, int ty0, int tx0, int nvalid,
+                                             const float* ssc, const float* ssh) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int j = lane % 16;
+  const int c8 = 8 * warp;
+  float sc[8], sh[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    sc[e] = ssc[c8 + e];
+    sh[e] = ssh[c8 + e];
+  }
+  if (j >= mma::C3_PAIRS) return;
+  const int gx = tx0 - 2 + 2 * j;
+  const bool inA = gx >= 0 && gx < W;
+  const bool inB = gx + 1 >= 0 && gx + 1 < W;
+  const mma::u16* col = box + c8 * OR_PLANE + OR_X0 - 2 + 2 * j;
+#pragma unroll
+  for (int r = 0; r < OR_BH / 2; ++r) {
+    const int hy = 2 * r + lane / 16;
+    const int gy = ty0 - 1 + hy;
+    const bool row = gy >= 0 && gy < H;
+    const uint32_t keep = (row && inA ? 0x0000ffffu : 0u) | (row && inB ? 0xffff0000u : 0u);
+    uint32_t v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = *reinterpret_cast<const uint32_t*>(col + e * OR_PLANE + hy * OR_BW) &
+             (c8 + e < nvalid ? keep : 0u);
+    if (hy >= 1 && hy <= mma::C3_TH && j >= 1 && j <= mma::C3_TW / 2) {
+      const int px = ((hy - 1) * mma::C3_TW + 2 * j - 2) * OW_LD + c8;
+      *reinterpret_cast<uint4*>(sX + px) = mma::c3_gather<0x5410>(v);
+      *reinterpret_cast<uint4*>(sX + px + OW_LD) = mma::c3_gather<0x7632>(v);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = mma::pack_bf16x2_relu(affine(mma::lo_f(v[e]), sc[e], sh[e]),
+                                   affine(mma::hi_f(v[e]), sc[e], sh[e])) &
+             (c8 + e < nvalid ? keep : 0u);
+    const int pa = (hy * mma::C3_HW + 2 * j - 1) * OW_LD + c8;
+    if (j >= 1) *reinterpret_cast<uint4*>(sA + pa) = mma::c3_gather<0x5410>(v);
+    if (j < mma::C3_PAIRS - 1)
+      *reinterpret_cast<uint4*>(sA + pa + OW_LD) = mma::c3_gather<0x7632>(v);
+  }
+}
+
+// A stage's G box into sG ([halo pixel][o]) by the block's warps: warp w
+// takes channel group w % 2 over halo row pairs w / 2 and w / 2 + 4 (the
+// seven pairs of the 14 rows), a lane a pixel pair as in ring_x_to_px,
+// zero outside the image and past G.
+__device__ __forceinline__ void ring_g_to_px(mma::u16* sG, const mma::u16* box, int G,
+                                             int H, int W, int ty0, int tx0) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int j = lane % 16;
+  if (j >= mma::C3_PAIRS) return;
+  const int c8 = 8 * (warp % 2);
+  const int gx = tx0 - 2 + 2 * j;
+  const bool inA = gx >= 0 && gx < W;
+  const bool inB = gx + 1 >= 0 && gx + 1 < W;
+  const mma::u16* col = box + c8 * OR_PLANE + OR_X0 - 2 + 2 * j;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int hy = 2 * (warp / 2 + 4 * q) + lane / 16;
+    if (hy >= OR_BH) break;
+    const int gy = ty0 - 1 + hy;
+    const bool row = gy >= 0 && gy < H;
+    const uint32_t keep = (row && inA ? 0x0000ffffu : 0u) | (row && inB ? 0xffff0000u : 0u);
+    uint32_t v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = *reinterpret_cast<const uint32_t*>(col + e * OR_PLANE + hy * OR_BW) &
+             (c8 + e < G ? keep : 0u);
+    const int pa = (hy * mma::C3_HW + 2 * j - 1) * GP_LD + c8;
+    if (j >= 1) *reinterpret_cast<uint4*>(sG + pa) = mma::c3_gather<0x5410>(v);
+    if (j < mma::C3_PAIRS - 1)
+      *reinterpret_cast<uint4*>(sG + pa + GP_LD) = mma::c3_gather<0x7632>(v);
+  }
+}
+
 template <int G>
-__global__ void __launch_bounds__(mma::C3_THREADS, 2)
-stage_own_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int H, int W,
-                     const float* __restrict__ scale, const float* __restrict__ shift,
-                     const mma::u16* __restrict__ wt, const mma::u16* __restrict__ gp,
-                     int nu, int S, float* __restrict__ part, int pair_x, int pair_g) {
+__global__ void __launch_bounds__(OR_THREADS, 1)
+stage_own_ring_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_g, const mma::u16* X,
+                      ll x_bstride, int C, int B, int H, int W,
+                      const float* __restrict__ scale, const float* __restrict__ shift,
+                      const mma::u16* __restrict__ wt, const mma::u16* gp, int nu, int S,
+                      float* __restrict__ part, int mode) {
   extern __shared__ __align__(128) unsigned char smem[];
-  mma::u16* sX = reinterpret_cast<mma::u16*>(smem);   // x:  [halo px][OW_LD]
-  mma::u16* sA = sX + OW_SX;                           // a:  [halo px][OW_LD]
-  mma::u16* sG = sA + OW_SX;                           // G:  [halo px][GP_LD]
-  mma::u16* sW = sG + GP_SG;                           // W:  [OW_KC][C3_WLD]
-  float* red = reinterpret_cast<float*>(sW + OW_SW);   // [warps][OW_KC][2]
+  mma::u16* ring = reinterpret_cast<mma::u16*>(
+      smem + ((1024 - (mma::smem_u32(smem) & 1023)) & 1023));  // [stage][x box | G box]
+  mma::u16* sA = ring + OR_STAGES * OR_STAGE;                  // a: [halo px][OW_LD]
+  mma::u16* sG = sA + OW_SX;                                   // G: [halo px][GP_LD]
+  mma::u16* sX = sG + GP_SG;                                   // x: [tile px][OW_LD]
+  float* red = reinterpret_cast<float*>(sX + OR_SXI);          // [warp][16][2]
+  float* ssc = red + OR_WARPS * 32;                            // the chunk's BN scale
+  float* ssh = ssc + OW_KC;                                    // and shift
+  uint64_t* full = reinterpret_cast<uint64_t*>(ssh + OW_KC);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const mma::C3Lane ln(tid % 32);
+  const int lane = tid % 32;
   const int k0 = blockIdx.x * nu * 16;
   const int split = blockIdx.y;
   const int hw = H * W;
@@ -1752,163 +1952,254 @@ stage_own_mma_kernel(const mma::u16* X, ll x_bstride, int C, int B, int H, int W
   const int items = B * tiles;
   const int per = (items + S - 1) / S;
   const int i_begin = min(items, split * per);
-  const int i_end = min(items, i_begin + per);
-  const ll MW = (ll)C * (9 * G + 2);                   // a partial row: dW, dscale, dshift
+  const int n_items = min(items, i_begin + per) - i_begin;
+  const ll MW = (ll)C * (9 * G + 2);                           // a partial row: dW, dscale, dshift
 
-  mma::load_w3_rows<mma::C3_THREADS>(sW, wt, C, k0, nu * 16);
-  mma::cp_async_commit();
-  for (int i = tid; i < mma::C3_WARPS * OW_KC * 2; i += mma::C3_THREADS) red[i] = 0.f;
+  if (tid == 0) {
+    for (int i = 0; i < OR_STAGES; ++i)
+      mma::mbar_init(full + i, mode == kRingTma ? 1 : OR_THREADS);  // else each copier
+    mma::mbar_fence_init();
+  }
+  for (int i = tid; i < OW_KC; i += OR_THREADS) {
+    ssc[i] = k0 + i < C ? scale[k0 + i] : 0.f;
+    ssh[i] = k0 + i < C ? shift[k0 + i] : 0.f;
+  }
+  __syncthreads();
 
-  float accw[OW_UPW][3][2][4];  // dW of this warp's (16 channels, ky) units
+  // item k of this block: its image and tile origin
+  auto item_at = [&](int k, int& b, int& ty0, int& tx0) {
+    const int item = i_begin + k;
+    b = item / tiles;
+    const int tile = item - b * tiles;
+    ty0 = (tile / tiles_x) * mma::C3_TH;
+    tx0 = (tile % tiles_x) * mma::C3_TW;
+  };
+
+  // Loads item k into its stage: two TMA boxes issued by thread 0, or the
+  // block's copies, each thread arriving on the stage's barrier once its
+  // copies have landed.  The stage's last reader is the conversion of item
+  // k - OR_STAGES, which every warp has finished at the barrier before
+  // that item's products.
+  auto load = [&](int k) {
+    if (k >= n_items) return;
+    const int st = k % OR_STAGES;
+    int b, ty0, tx0;
+    item_at(k, b, ty0, tx0);
+    mma::u16* box = ring + st * OR_STAGE;
+    if (mode == kRingTma) {
+      if (tid == 0) {
+        mma::fence_async_smem();  // the conversion's reads before the TMA's writes
+        mma::mbar_expect_tx(full + st, (nu + 1) * 16 * OR_PLANE * 2);
+        mma::tma_load_4d(box, &map_x, full + st, tx0 - OR_X0, ty0 - 1, k0, b);
+        mma::tma_load_4d(box + OR_X, &map_g, full + st, tx0 - OR_X0, ty0 - 1, 0, b);
+      }
+      return;
+    }
+    ring_fill(box, X + b * x_bstride + (ll)k0 * hw, gp + (ll)b * G * hw, 16 * nu, C - k0, G,
+              hw, H, W, ty0, tx0, mode);
+    if (mode == kRingPairs) mma::cp_async_arrive(full + st);
+    else mma::mbar_arrive(full + st);
+  };
+  for (int k = 0; k < OR_STAGES; ++k) load(k);
+
+  // warp (u, h): channels 16 u .. 16 u + 15 of the chunk, output rows
+  // OR_ROWS h .. of every item
+  const int u = warp / 2;
+  const int h = warp % 2;
+  const bool busy = u < nu;  // warp-uniform
+  const mma::C3Lane ln(lane);
+  // W[k, t, o] as the dA product's B fragments (o the depth), per tap
+  uint32_t wf[9][4];
 #pragma unroll
-  for (int q = 0; q < OW_UPW; ++q)
+  for (int t = 0; t < 9; ++t)
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int k = k0 + 16 * u + 8 * (m / 2) + ln.g;
+      wf[t][m] = busy && k < C
+                     ? __ldg(reinterpret_cast<const uint32_t*>(
+                           wt + (ll)k * mma::C3_WROW + t * mma::C3_N + 8 * (m % 2) + 2 * ln.t))
+                     : 0u;
+    }
+  // this lane's accumulator channels 16 u + 8 nt + 2 t + j
+  float scv[2][2], shv[2][2];
+  bool live[2][2];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = k0 + 16 * u + 8 * nt + 2 * ln.t + j;
+      live[nt][j] = busy && k < C;
+      scv[nt][j] = scale[min(k, C - 1)];
+      shv[nt][j] = shift[min(k, C - 1)];
+    }
+  float sd[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // sums of dz x and dz over the items
+  float sz[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float accw[3][3][2][4];                     // dW[k, (ky, kx), o] of this warp's rows
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky)
 #pragma unroll
     for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) accw[q][kx][nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) accw[ky][kx][nt][e] = 0.f;
 
   const uint32_t a_sm = mma::smem_u32(sA);
   const uint32_t g_sm = mma::smem_u32(sG);
-  const uint32_t w_sm = mma::smem_u32(sW);
-  for (int item = i_begin; item < i_end; ++item) {
-    const int b = item / tiles;
-    const int tile = item - b * tiles;
-    const int ty0 = (tile / tiles_x) * mma::C3_TH;
-    const int tx0 = (tile % tiles_x) * mma::C3_TW;
-    mma::stage_px_tile<true, true, 3, mma::C3_THREADS>(
-        sA, sX, OW_LD, 2 * nu, X + b * x_bstride + (ll)k0 * hw, hw, H, W, ty0, tx0,
-        C - k0, scale + k0, shift + k0, pair_x);
-    mma::stage_px_tile<false, false, 2, mma::C3_THREADS>(
-        sG, nullptr, GP_LD, mma::C3_N / 8, gp + (ll)b * G * hw, hw, H, W, ty0, tx0, G,
-        nullptr, nullptr, pair_g);
-    mma::cp_async_wait<0>();
-    __syncthreads();
+  const int y0 = OR_ROWS * h;
+  for (int k = 0; k < n_items; ++k) {
+    const int st = k % OR_STAGES;
+    int b, ty0, tx0;
+    item_at(k, b, ty0, tx0);
+    const mma::u16* box = ring + st * OR_STAGE;
+    mma::mbar_wait(full + st, (k / OR_STAGES) & 1);
+    __syncthreads();  // the last item's products are done with sA, sG, sX
+    if (warp < 2 * nu) ring_x_to_px(sA, sX, box, H, W, ty0, tx0, C - k0, ssc, ssh);
+    ring_g_to_px(sG, box + OR_X, G, H, W, ty0, tx0);
+    __syncthreads();  // the operands are complete, and the stage is read
 
-    // input cotangent: dA[q, k] = sum_{t,o} G[q - off_t, o] W[k, t, o];
-    // dz = dA relu'(z); sums of dz x and dz per channel
-    for (int u = 0; u < nu; ++u) {
-      float scv[2][2], shv[2][2];
-      bool live[2][2];
+    if (busy) {
+      // input cotangent: dA[q, k] = sum_{t,o} G[q - off_t, o] W[k, t, o];
+      // the G fragment of halo row y0 + hl, column shift s serves output
+      // row y = hl - 2 + ky of the warp through tap (ky, 2 - s)
+      float acc[OR_ROWS][2][4];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int k = k0 + 16 * u + 8 * nt + 2 * ln.t + j;
-          live[nt][j] = k < C;
-          scv[nt][j] = scale[min(k, C - 1)];
-          shv[nt][j] = shift[min(k, C - 1)];
-        }
-      float sd[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      float sz[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-      for (int m = 0; m < C3_MT; ++m) {
-        const int y = warp + m * mma::C3_WARPS;
-        float acc[2][4];
+      for (int y = 0; y < OR_ROWS; ++y)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+          for (int e = 0; e < 4; ++e) acc[y][nt][e] = 0.f;
 #pragma unroll
-        for (int t = 0; t < 9; ++t) {
-          uint32_t bq[4], af[4];
-          mma::ldsm_x4(bq, w_sm + 2u * (uint32_t)((16 * u + ln.r8 + 8 * ln.j1) * mma::C3_WLD +
-                                                  t * mma::C3_N + 8 * ln.j0));
-          mma::ldsm_x4(af, g_sm + 2u * (uint32_t)(mma::c3_tap_t(y, ln.r8 + 8 * ln.j0, t / 3, t % 3) *
-                                                      GP_LD + 8 * ln.j1));
-          mma::mma_16816(acc[0], af, bq[0], bq[1]);
-          mma::mma_16816(acc[1], af, bq[2], bq[3]);
+      for (int hl = 0; hl < OR_ROWS + 2; ++hl)
+#pragma unroll
+        for (int s = 0; s < 3; ++s) {
+          uint32_t af[4];  // G[q - off_t, o]: stored [pixel][o]
+          mma::ldsm_x4(af, g_sm + 2u * (uint32_t)(((y0 + hl) * mma::C3_HW + ln.r8 +
+                                                   8 * ln.j0 + s) * GP_LD + 8 * ln.j1));
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky) {
+            const int y = hl - 2 + ky;
+            if (y < 0 || y >= OR_ROWS) continue;
+            const int t = ky * 3 + 2 - s;
+            mma::mma_16816(acc[y][0], af, wf[t][0], wf[t][1]);
+            mma::mma_16816(acc[y][1], af, wf[t][2], wf[t][3]);
+          }
         }
-        const int gy = ty0 + y;
+      // dz = dA relu'(z), z from x raw (sX: a 4-byte read holds both of a
+      // lane's channels); sums of dz x and dz
+#pragma unroll
+      for (int y = 0; y < OR_ROWS; ++y) {
+        const int gy = ty0 + y0 + y;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int eh = 0; eh < 2; ++eh) {
+            const int px = ln.g + 8 * eh;
+            const uint32_t xw2 = *reinterpret_cast<const uint32_t*>(
+                sX + ((y0 + y) * mma::C3_TW + px) * OW_LD + 16 * u + 8 * nt + 2 * ln.t);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int e = 2 * eh + j;
+              const float xf = j ? mma::hi_f(xw2) : mma::lo_f(xw2);
+              const bool in = gy < H && tx0 + px < W && live[nt][j];
+              const float dz = in ? __fmul_rn(acc[y][nt][e],
+                                              relu_d(affine(xf, scv[nt][j], shv[nt][j])))
+                                  : 0.f;
+              sd[nt][j] += __fmul_rn(dz, xf);
+              sz[nt][j] += dz;
+            }
+          }
+      }
+    }
+    // the item after next into the stage this item was converted from,
+    // while this item's products run
+    load(k + OR_STAGES);
+
+    if (busy) {
+      // weight cotangent: dW[k, t, o] += sum_q a[q + off_t, k] G[q, o], one
+      // row of 16 pixels a step; the a fragment of halo row y0 + hl,
+      // column kx serves output row y = y0 + hl - ky, whose G fragments
+      // stay in a window of three
+      uint32_t gq[3][4];
+#pragma unroll
+      for (int hl = 0; hl < OR_ROWS + 2; ++hl) {
+        if (hl < OR_ROWS)  // G[q, o]: stored [pixel][o], pixels are the depth
+          mma::ldsm_x4_t(gq[hl % 3], g_sm + 2u * (uint32_t)(((y0 + hl + 1) * mma::C3_HW +
+                                                             ln.r8 + 8 * ln.j0 + 1) * GP_LD +
+                                                            8 * ln.j1));
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          uint32_t af[4];  // a[q + off_t, k]: stored [pixel][k]
+          mma::ldsm_x4_t(af, a_sm + 2u * (uint32_t)(((y0 + hl) * mma::C3_HW + ln.r8 +
+                                                     8 * ln.j1 + kx) * OW_LD + 16 * u +
+                                                    8 * ln.j0));
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky) {
+            const int y = hl - ky;
+            if (y < 0 || y >= OR_ROWS) continue;
+            mma::mma_16816(accw[ky][kx][0], af, gq[y % 3][0], gq[y % 3][1]);
+            mma::mma_16816(accw[ky][kx][1], af, gq[y % 3][2], gq[y % 3][3]);
+          }
+        }
+      }
+    }
+  }
+
+  // the partial row: dW of each unit as half 0's sum plus half 1's (passed
+  // through the ring, free now), dscale and dshift over both halves
+  __syncthreads();  // every item is done: no load is in flight
+  float* xw = reinterpret_cast<float*>(ring);  // [unit][72][32 lanes]
+  if (busy && h == 1) {
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            xw[(u * 72 + ((ky * 3 + kx) * 2 + nt) * 4 + e) * 32 + lane] = accw[ky][kx][nt][e];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float v = sd[nt][j];
+      float z = sz[nt][j];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+        z += __shfl_xor_sync(0xffffffffu, z, off);
+      }
+      if (ln.g == 0) {
+        float* r = red + (warp * 16 + 8 * nt + 2 * ln.t + j) * 2;
+        r[0] = v;
+        r[1] = z;
+      }
+    }
+  __syncthreads();
+  float* prow = part + (ll)split * MW;
+  if (busy && h == 0) {
+#pragma unroll
+    for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int px = ln.g + 8 * (e / 2);
-            const int j = e & 1;
-            const int ch = 16 * u + 8 * nt + 2 * ln.t + j;
-            const float xf = mma::bf(sX[((y + 1) * mma::C3_HW + px + 1) * OW_LD + ch]);
-            const bool in = gy < H && tx0 + px < W && live[nt][j];
-            const float dz =
-                in ? __fmul_rn(acc[nt][e], relu_d(affine(xf, scv[nt][j], shv[nt][j]))) : 0.f;
-            sd[nt][j] += __fmul_rn(dz, xf);
-            sz[nt][j] += dz;
+            const int k = k0 + 16 * u + ln.g + 8 * (e / 2);
+            const int o = 8 * nt + 2 * ln.t + (e & 1);
+            const float v = accw[ky][kx][nt][e] +
+                            xw[(u * 72 + ((ky * 3 + kx) * 2 + nt) * 4 + e) * 32 + lane];
+            if (k < C && (G == mma::C3_N || o < G))
+              prow[((ll)k * 9 + ky * 3 + kx) * G + o] = v;
           }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float v = sd[nt][j];
-          float z = sz[nt][j];
-#pragma unroll
-          for (int off = 4; off < 32; off <<= 1) {
-            v += __shfl_xor_sync(0xffffffffu, v, off);
-            z += __shfl_xor_sync(0xffffffffu, z, off);
-          }
-          if (ln.g == 0) {  // this lane's own slots: a running sum over the items
-            float* r = red + (warp * OW_KC + 16 * u + 8 * nt + 2 * ln.t + j) * 2;
-            r[0] += v;
-            r[1] += z;
-          }
-        }
-    }
-
-    // weight cotangent: dW[k, t, o] += sum_q a[q + off_t, k] G[q, o], one
-    // row of 16 pixels a step
-#pragma unroll
-    for (int q = 0; q < OW_UPW; ++q) {
-      const int idx = warp + q * mma::C3_WARPS;  // (16-channel unit, ky)
-      if (idx < 3 * nu) {                        // warp-uniform
-        const int mt = idx / 3;
-        const int ky = idx % 3;
-        for (int y = 0; y < mma::C3_TH; ++y) {
-          uint32_t bq[4];  // G[q, o]: stored [pixel][o], pixels are the depth
-          mma::ldsm_x4_t(bq, g_sm + 2u * (uint32_t)(mma::c3_tap(y, ln.r8 + 8 * ln.j0, 1, 1) *
-                                                        GP_LD + 8 * ln.j1));
-#pragma unroll
-          for (int kx = 0; kx < 3; ++kx) {
-            uint32_t af[4];  // a[q + off_t, k]: stored [pixel][k]
-            mma::ldsm_x4_t(af, a_sm + 2u * (uint32_t)(mma::c3_tap(y, ln.r8 + 8 * ln.j1, ky, kx) *
-                                                          OW_LD + 16 * mt + 8 * ln.j0));
-            mma::mma_16816(accw[q][kx][0], af, bq[0], bq[1]);
-            mma::mma_16816(accw[q][kx][1], af, bq[2], bq[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next item overwrites the tiles
   }
-
-  float* prow = part + (ll)split * MW;
-#pragma unroll
-  for (int q = 0; q < OW_UPW; ++q) {
-    const int idx = warp + q * mma::C3_WARPS;
-    if (idx >= 3 * nu) continue;
-    const int mt = idx / 3;
-    const int ky = idx % 3;
-#pragma unroll
-    for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = k0 + 16 * mt + ln.g + 8 * (e / 2);
-          const int o = 8 * nt + 2 * ln.t + (e & 1);
-          if (k < C && (G == mma::C3_N || o < G))
-            prow[((ll)k * 9 + ky * 3 + kx) * G + o] = accw[q][kx][nt][e];
-        }
-  }
-  __syncthreads();  // red is complete (and zeroed, for a block without items)
   if (tid < nu * 16 && k0 + tid < C) {
-    float v = 0.f, z = 0.f;
-    for (int w = 0; w < mma::C3_WARPS; ++w) {
-      v += red[(w * OW_KC + tid) * 2];
-      z += red[(w * OW_KC + tid) * 2 + 1];
-    }
-    prow[(ll)C * 9 * G + k0 + tid] = v;
-    prow[(ll)C * 9 * G + C + k0 + tid] = z;
+    const float* r0 = red + ((tid / 16) * 32 + tid % 16) * 2;  // warps 2u, 2u + 1
+    prow[(ll)C * 9 * G + k0 + tid] = r0[0] + r0[32];
+    prow[(ll)C * 9 * G + C + k0 + tid] = r0[1] + r0[33];
   }
 }
 
@@ -1931,8 +2222,8 @@ cudaError_t setup_growth() {
                                cudaFuncAttributeMaxDynamicSharedMemorySize, s2r_d3::SMEM));
   S2R_TRY(cudaFuncSetAttribute(sum_dgrad_mma_kernel<G>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, GP_SMEM));
-  return cudaFuncSetAttribute(stage_own_mma_kernel<G>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, OW_SMEM);
+  return cudaFuncSetAttribute(stage_own_ring_kernel<G>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, OR_SMEM);
 }
 
 // The shared-memory limits of every tensor-core kernel, set once when the
@@ -1991,6 +2282,25 @@ cudaError_t sum_dgrad_mma(const void* X, ll x_bstride, int B, int C, int H, int 
   return cudaGetLastError();
 }
 
+// A bf16 tensor map over NCHW planes, dims (W, H, C, B) with a batch
+// stride of bstride elements, and boxes of OR_BW x OR_BH pixels and box_c
+// channels without swizzle: a box lands as [channel][row][column], zeros
+// for its elements past the tensor's ends.
+static bool ring_map(CUtensorMap* m, const void* base, int W, int H, int C, int B,
+                     ll bstride, int box_c) {
+  const s2r_td::EncodeTiled enc = s2r_td::td_encoder();
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)C, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)W * 2, (cuuint64_t)H * W * 2,
+                                 (cuuint64_t)bstride * 2};
+  const cuuint32_t box[4] = {OR_BW, OR_BH, (cuuint32_t)box_c, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc != nullptr &&
+         enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // K3a, bf16, G outputs.  res: [K * 9G dW | K dscale | K dshift | G dbias];
 // scratch part_gp [G][B * tiles] (tiles of 12 x 16 pixels), part_w
 // [S][K * (9G + 2)].
@@ -2007,10 +2317,22 @@ cudaError_t stage_mma(const void* X, ll x_bstride, int B, int K, int H, int W,
                            s));
   const int nu = ow_units(K);
   const int chunks = (K + 16 * nu - 1) / (16 * nu);
-  stage_own_mma_kernel<G><<<dim3(chunks, S), mma::C3_THREADS, OW_SMEM, s>>>(
-      static_cast<const mma::u16*>(X), x_bstride, K, B, H, W, scale, shift,
+  // the ring's load engine, by what the planes allow
+  CUtensorMap mx, mg;
+  memset(&mx, 0, sizeof mx);
+  mg = mx;
+  int mode = mma::c3_pair_loads(W, x_bstride, X) && mma::c3_pair_loads(W, 0, gp_out)
+                 ? kRingPairs : kRingPlain;
+  if (W % 8 == 0 && x_bstride % 8 == 0 && mma::aligned16(X) && mma::aligned16(gp_out)) {
+    if (!ring_map(&mx, X, W, H, K, B, x_bstride, 16 * nu) ||
+        !ring_map(&mg, gp_out, W, H, G, B, (ll)G * H * W, mma::C3_N))
+      return cudaErrorInvalidValue;
+    mode = kRingTma;
+  }
+  stage_own_ring_kernel<G><<<dim3(chunks, S), OR_THREADS, OR_SMEM, s>>>(
+      mx, mg, static_cast<const mma::u16*>(X), x_bstride, K, B, H, W, scale, shift,
       static_cast<const mma::u16*>(wt), static_cast<const mma::u16*>(gp_out), nu, S,
-      part_w, mma::c3_pair_loads(W, x_bstride, X), mma::c3_pair_loads(W, 0, gp_out));
+      part_w, mode);
   S2R_TRY(cudaGetLastError());
   const ll M = (ll)K * (9 * G + 2);
   const int row_blocks = (int)((M + 31) / 32);

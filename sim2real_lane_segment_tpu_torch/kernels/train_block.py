@@ -46,7 +46,9 @@ calls that launched a kernel (CUDA tensors only), ``mma_launches`` those
 of them that took the tensor-core route, as the C entry reports it through
 its ``route`` argument, and ``small_plane_launches`` those at a plane
 whose pixels fill under half of its 12x16 tensor-core tiles
-(``small_plane``: 15x20, 7x10 and 3x5 on 120x160 frames).  A wrapper
+(``small_plane``: 15x20, 7x10 and 3x5 on 120x160 frames);
+``stage_items`` counts the tensor-core K3a's own-layer items and those
+prefetched (``stage_item_counts``, from the launch's grid).  A wrapper
 called while a CUDA graph is captured counts once, at the capture: a
 replay runs no Python.  The library sets its kernels' shared-memory
 limits when it loads, so a launch records kernels only and can be
@@ -74,19 +76,26 @@ MAX_LAYERS = 16  # layers one stage or final launch may read
 mma_launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0, "final": 0}
 small_plane_launches = {"consumer_fwd": 0, "consumer_bwd": 0, "stage": 0,
                         "final": 0}
+# K3a's own-layer kernel: its items (an image's 12x16 tile and a chunk of
+# channels) and those whose loads were issued while an earlier item's
+# products ran in the same block (``stage_item_counts``)
+stage_items = {"items": 0, "prefetched": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, mma_launches, small_plane_launches):
+    for counts in (launches, mma_launches, small_plane_launches, stage_items):
         for k in counts:
             counts[k] = 0
 
 
 def step_launches() -> dict:
-    """Launches so far, all and at small planes (``train.graphs.StepGraph``
-    puts what its capture moved on its ``train.capture`` span)."""
+    """Launches so far, all and at small planes, and K3a's own-layer items,
+    all and prefetched (``train.graphs.StepGraph`` puts what its capture
+    moved on its ``train.capture`` span)."""
     return {"launches": sum(launches.values()),
-            "small_plane_launches": sum(small_plane_launches.values())}
+            "small_plane_launches": sum(small_plane_launches.values()),
+            "stage_items": stage_items["items"],
+            "stage_prefetched": stage_items["prefetched"]}
 
 
 # ---------------------------------------------------------------------------
@@ -306,10 +315,13 @@ def mma_wgrad_splits(c: int, n: int, b: int, h: int, w: int) -> int:
 
 
 # K1, K3a and K3b in bf16 run on the tensor cores (fwd3x3_mma_kernel,
-# sum_dgrad_mma_kernel, stage_own_mma_kernel in csrc/train_block.cu; K1
+# sum_dgrad_mma_kernel, stage_own_ring_kernel in csrc/train_block.cu; K1
 # with one tap through csrc/td_fwd_mma.cuh): 12x16 pixel tiles, at 3x3 the
-# growths of ``takes_mma_dense``, own-layer chunks of up to 64 channels
+# growths of ``takes_mma_dense``, own-layer chunks of up to 64 channels;
+# the own-layer kernel runs one block per SM of an H100 (132), each with a
+# ring of two stages (OR_STAGES)
 MMA3_TILE_H, MMA3_TILE_W, MMA3_CHUNK = 12, 16, 64
+MMA3_SMS, MMA3_RING = 132, 2
 MMA_FWD1_MAX_C = 768   # one tap: the x tile must fit in shared memory
 
 
@@ -375,11 +387,27 @@ def mma_stage_chunks(c: int) -> tuple[int, int]:
 
 
 def mma_stage_splits(c: int, b: int, h: int, w: int) -> int:
-    """Item-range splits of the own-layer kernel: two blocks per SM of an
-    H100 (264) over its channel chunks, at most one split per (image,
+    """Item-range splits of the own-layer kernel: one block per SM of an
+    H100 (MMA3_SMS) over its channel chunks, at most one split per (image,
     tile) item."""
     chunks, _ = mma_stage_chunks(c)
-    return max(1, min(b * mma3_tiles(h, w), 264 // chunks))
+    return max(1, min(b * mma3_tiles(h, w), MMA3_SMS // chunks))
+
+
+def stage_item_counts(c: int, b: int, h: int, w: int) -> tuple[int, int]:
+    """(items, prefetched) of one own-layer launch: every chunk's blocks
+    walk ranges of the b * tiles items (``mma_stage_splits``), and a
+    block's producer issues the loads of its first MMA3_RING items before
+    any product runs and each later item's once an earlier item's products
+    have released its ring stage."""
+    chunks, _ = mma_stage_chunks(c)
+    items = b * mma3_tiles(h, w)
+    splits = mma_stage_splits(c, b, h, w)
+    per = math.ceil(items / splits)
+    walked = [min(items, (s + 1) * per) - min(items, s * per)
+              for s in range(splits)]
+    return (chunks * items,
+            chunks * sum(max(0, n - MMA3_RING) for n in walked))
 
 
 def _stream() -> int:
@@ -567,6 +595,10 @@ def stage(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor,
     launches["stage"] += 1
     mma_launches["stage"] += route.value
     small_plane_launches["stage"] += small_plane(h, w)
+    if route.value:
+        items, prefetched = stage_item_counts(c, b, h, w)
+        stage_items["items"] += items
+        stage_items["prefetched"] += prefetched
     return gp, dw, dscale, dshift, dbias
 
 

@@ -414,8 +414,8 @@ def model_batch(images, labels, cfg: AugmentConfig,
 
 def _step_counts() -> dict:
     """What a step's launches move (``StepGraph`` puts what its capture
-    moved on its span): K1-K3b's launches, all and at small planes, and
-    the optimizers' operations."""
+    moved on its span): K1-K3b's launches, all and at small planes, K3a's
+    own-layer items, all and prefetched, and the optimizers' operations."""
     return {**train_block.step_launches(), **optim.counts}
 
 

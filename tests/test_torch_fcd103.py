@@ -189,10 +189,12 @@ def test_small_planes_by_the_rule(arch, dense, later, td, want):
 def test_small_plane_launches_reset_with_the_others():
     ktb.launches.update(stage=4, final=1)
     ktb.small_plane_launches["stage"] = 3
-    assert ktb.step_launches() == {"launches": 5, "small_plane_launches": 3}
+    assert ktb.step_launches() == {"launches": 5, "small_plane_launches": 3,
+                                   "stage_items": 0, "stage_prefetched": 0}
     ktb.reset_launches()
     assert ktb.small_plane_launches == dict.fromkeys(ktb.launches, 0)
-    assert ktb.step_launches() == {"launches": 0, "small_plane_launches": 0}
+    assert ktb.step_launches() == {"launches": 0, "small_plane_launches": 0,
+                                   "stage_items": 0, "stage_prefetched": 0}
 
 
 def test_step_graph_counts_the_capture_alone(monkeypatch):
@@ -287,4 +289,4 @@ def test_every_fcdensenet103_site_takes_the_tensor_cores(site):
     assert chunks * units * 16 >= c
     splits = ktb.mma_stage_splits(c, 32, h, w)
     assert 1 <= splits <= 32 * ktb.mma3_tiles(h, w)
-    assert chunks * splits <= 264
+    assert chunks * splits <= 132

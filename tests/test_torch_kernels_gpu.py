@@ -511,6 +511,37 @@ def test_stage_and_final_kernels_match_plain(cuda, case, n_later, dtype):
                "K3b")
 
 
+def _stage_site_args(c, g, b, h, w, n_later, device, gen,
+                     dtype=torch.bfloat16):
+    """K3a's operands at one dense-layer site, seeded from ``gen``: the
+    layer's input as channels [0, c) of its block buffer, z == 0 planes
+    (a zero shift, and a y channel of the later layers), a channel
+    dropped for the whole batch, ``n_later`` later layers."""
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(device)
+
+    buf = r(b, c + g, h, w).to(dtype)
+    buf[:, 1] = 0
+    buf[:, c + 2] = 0
+    dy = r(b, c + g, h, w).to(dtype)[:, c:]
+    c0, c1 = r(2, g, s=0.5)
+    scale = (torch.rand(c, generator=gen) + 0.5).to(device)
+    shift = r(c, s=0.3)
+    shift[1] = 0
+    weight = _rows(r(c, 9, g, s=0.3), dtype)
+    mask = ((torch.rand(b, g, generator=gen) > 0.3).float() / 0.8).to(device)
+    mask[:, 0] = 0
+    gps = [r(b, g, h, w).to(dtype) for _ in range(n_later)]
+    wls = [_rows(r(c + g, 9, g, s=0.3), dtype)[c:] for _ in range(n_later)]
+    scs = [(torch.rand(g, generator=gen) + 0.5).to(device)
+           for _ in range(n_later)]
+    shs = [r(g, s=0.3) for _ in range(n_later)]
+    for sh in shs:
+        sh[2] = 0
+    return (buf, buf[:, c:], dy, c0, c1, gps, wls, scale, shift, scs, shs,
+            weight, mask)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("model", ["67", "57", "103"])
@@ -528,36 +559,11 @@ def test_folded_stage_at_every_dense_site(cuda, model, dtype):
                        "103": (DENSE_SITES_103, LATER_103, 16)}[model]
     b = 4
     gen = torch.Generator().manual_seed(int(model))
-
-    def r(*shape, s=1.0):
-        return (torch.randn(*shape, generator=gen) * s).to(cuda)
-
     ktb.reset_launches()
     calls = 0
     for i, ((c, h, w), n_later) in enumerate(zip(sites, later)):
-        buf = r(b, c + g, h, w).to(dtype)
-        buf[:, 1] = 0        # z == 0 on a plane (zero shift)
-        buf[:, c + 2] = 0    # and on a y channel of the later layers
-        y = buf[:, c:]
-        dy = r(b, c + g, h, w).to(dtype)[:, c:]
-        c0, c1 = r(2, g, s=0.5)
-        scale = (torch.rand(c, generator=gen) + 0.5).to(cuda)
-        shift = r(c, s=0.3)
-        shift[1] = 0
-        weight = _rows(r(c, 9, g, s=0.3), dtype)
-        mask = ((torch.rand(b, g, generator=gen) > 0.3).float()
-                / 0.8).to(cuda)
-        mask[:, 0] = 0
-        gps = [r(b, g, h, w).to(dtype) for _ in range(n_later)]
-        wls = [_rows(r(c + g, 9, g, s=0.3), dtype)[c:]
-               for _ in range(n_later)]
-        scs = [(torch.rand(g, generator=gen) + 0.5).to(cuda)
-               for _ in range(n_later)]
-        shs = [r(g, s=0.3) for _ in range(n_later)]
-        for sh in shs:
-            sh[2] = 0
-        args = (buf, y, dy, c0, c1, gps, wls, scale, shift, scs, shs, weight,
-                mask)
+        args = _stage_site_args(c, g, b, h, w, n_later, cuda, gen, dtype)
+        buf, y, dy, _, _, gps, wls, scale, shift, scs, shs, weight, _ = args
         _close_all(ktb.stage(*args), ktb.stage_plain(*args), dtype,
                    f"K3a site {i} c{c} {h}x{w}")
         calls += 1
@@ -571,6 +577,83 @@ def test_folded_stage_at_every_dense_site(cuda, model, dtype):
     torch.cuda.synchronize()
     assert ktb.launches["stage"] == calls
     assert ktb.mma_launches["stage"] == calls * (dtype == torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["67", "57", "103"])
+def test_own_layer_ring_at_every_site_at_the_trained_batch(cuda, model):
+    """K3a in bf16 at every dense-layer site of FCDenseNet67 (55), 57 (44)
+    and 103 (91) at the trained batch, B=32, with the site's later layers,
+    against its plain version: the own-layer kernel's ring over TMA boxes
+    at 120x160-30x40 and over the producer warp's copies at 15x20-3x5,
+    inputs up to 1,072 channels; and its items on ``stage_items``."""
+    sites, later, g = {"67": (DENSE_SITES, LATER, 16),
+                       "57": (DENSE_SITES_57, LATER_57, 12),
+                       "103": (DENSE_SITES_103, LATER_103, 16)}[model]
+    b = 32
+    gen = torch.Generator().manual_seed(100 + int(model))
+    ktb.reset_launches()
+    items = prefetched = 0
+    for i, ((c, h, w), n_later) in enumerate(zip(sites, later)):
+        args = _stage_site_args(c, g, b, h, w, n_later, cuda, gen)
+        _close_all(ktb.stage(*args), ktb.stage_plain(*args), torch.bfloat16,
+                   f"K3a site {i} c{c} {h}x{w}")
+        n, p = ktb.stage_item_counts(c, b, h, w)
+        items += n
+        prefetched += p
+    torch.cuda.synchronize()
+    assert ktb.mma_launches["stage"] == len(sites)
+    assert ktb.stage_items == {"items": items, "prefetched": prefetched}
+    assert prefetched >= 0.8 * items
+
+
+# (c, B, H, W) of the own-layer kernel: one item a block (one 3x5 image),
+# two (1,072 channels: 17 chunks over 7 splits of 14 images), many (25 a
+# block at 120x160); channels no multiple of 64 (48, 200) or of 16 (40,
+# 100) on the TMA planes (30x40, 60x80) and on the producer warp's 4-byte
+# pairs (15x20, 7x10) and plain copies (3x5, 9x13: odd widths)
+RING_CASES = [(48, 1, 3, 5), (1072, 14, 3, 5), (48, 32, 120, 160),
+              (40, 3, 30, 40), (200, 4, 60, 80), (100, 5, 15, 20),
+              (1072, 6, 7, 10), (24, 2, 9, 13)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [16, 12])
+@pytest.mark.parametrize("case", RING_CASES, ids=lambda s: "c%d_b%d_%dx%d" % s)
+def test_own_layer_ring_blocks_and_graph(cuda, case, g):
+    """K3a in bf16 against its plain version where the own-layer kernel's
+    blocks walk one, two or many items; the same bits on a second call
+    (fixed-order sums); its items on ``stage_items``; and a CUDA-graph
+    capture of the call, replayed three times, equal to the eager call."""
+    c, b, h, w = case
+    gen = torch.Generator().manual_seed(c + b)
+    args = _stage_site_args(c, g, b, h, w, 2, cuda, gen)
+    ktb.reset_launches()
+    eager = ktb.stage(*args)
+    torch.cuda.synchronize()
+    assert ktb.mma_launches["stage"] == 1
+    items, prefetched = ktb.stage_item_counts(c, b, h, w)
+    assert ktb.stage_items == {"items": items, "prefetched": prefetched}
+    _close_all(eager, ktb.stage_plain(*args), torch.bfloat16,
+               f"K3a c{c} B={b} {h}x{w}")
+    again = ktb.stage(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, e) for a, e in zip(again, eager))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ktb.stage(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ktb.stage(*args)
+    for _ in range(3):
+        for o in captured:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, e) for a, e in zip(captured, eager))
 
 
 @pytest.mark.gpu

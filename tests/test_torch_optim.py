@@ -196,14 +196,17 @@ def test_the_optim_ops_metric_reads_the_capture_span(monkeypatch):
 
 def test_the_trainers_step_counts_carry_the_optimizers():
     """What ``StepGraph`` reads around a capture (the trainer's
-    counters): K1-K3b's launches and the optimizer's operations."""
+    counters): K1-K3b's launches, K3a's own-layer items and the
+    optimizer's operations."""
     from sim2real_lane_segment_tpu_torch.train import supervised
 
     dims = shapes("57")[:5]
     opt = AdamW(random_params(dims, 0), 1e-4)
     before = supervised._step_counts()
-    assert set(before) == {"launches", "small_plane_launches", "optim_ops"}
+    assert set(before) == {"launches", "small_plane_launches", "stage_items",
+                           "stage_prefetched", "optim_ops"}
     opt.step(random_params(dims, 1), 1e-3)
     after = supervised._step_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "launches": 0, "small_plane_launches": 0, "optim_ops": 17}
+        "launches": 0, "small_plane_launches": 0, "stage_items": 0,
+        "stage_prefetched": 0, "optim_ops": 17}

@@ -239,10 +239,11 @@ def test_every_fcdensenet67_site_takes_the_tensor_cores(site):
         splits = ktb.mma_stage_splits(c, 32, h, w)
         items = 32 * ktb.mma3_tiles(h, w)
         assert 1 <= splits <= items
-        # the grid fills the 132 SMs (two blocks each) unless the plane
-        # has fewer items than that
-        assert chunks * splits <= 264
-        assert chunks * splits >= min(132, chunks * items)
+        # the grid fills the 132 SMs (one block each, short of the
+        # remainder of 132 over the chunks) unless the plane has fewer
+        # items than that
+        assert chunks * splits <= 132
+        assert chunks * splits >= min(132 - chunks + 1, chunks * items)
 
 
 def test_fcdensenet57_site_list():
@@ -275,7 +276,7 @@ def test_every_fcdensenet57_site_takes_the_tensor_cores(site):
         chunks, units = ktb.mma_stage_chunks(c)
         assert 1 <= units <= 4 and (chunks - 1) * units * 16 < c
         assert chunks * units * 16 >= c
-        assert chunks * ktb.mma_stage_splits(c, 32, h, w) <= 264
+        assert chunks * ktb.mma_stage_splits(c, 32, h, w) <= 132
 
 
 @pytest.mark.parametrize("dtype,taps,c,n,expect", [
@@ -306,9 +307,10 @@ def test_own_layer_chunks(c, expect):
 def test_own_layer_splits_and_tiles():
     assert ktb.mma3_tiles(120, 160) == 100 and ktb.mma3_tiles(3, 5) == 1
     assert ktb.mma3_tiles(15, 20) == 4
-    assert ktb.mma_stage_splits(48, 32, 120, 160) == 264
-    assert ktb.mma_stage_splits(592, 32, 7, 10) == 26
-    assert ktb.mma_stage_splits(512, 32, 3, 5) == 32   # one item a split
+    assert ktb.mma_stage_splits(48, 32, 120, 160) == 132
+    assert ktb.mma_stage_splits(592, 32, 7, 10) == 13
+    assert ktb.mma_stage_splits(512, 32, 3, 5) == 16   # two items a split
+    assert ktb.mma_stage_splits(1072, 32, 3, 5) == 7
     assert ktb.mma_stage_splits(48, 1, 3, 5) == 1
 
 
